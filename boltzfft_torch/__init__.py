@@ -1,0 +1,61 @@
+"""boltzfft_torch: the fast Fourier spectral Boltzmann collision operator in
+PyTorch, with its main kernel (K1, the whole collision eval) hand-written in
+CUDA for Hopper.
+
+The PyTorch counterpart of ``boltzfft`` (JAX), which stays the reference.
+Imports torch and NumPy only, never jax::
+
+    import boltzfft_torch as bt
+    cfg = bt.CollisionConfig(nv=32, ns=12, impl="fused")
+    collide, pre = bt.make_collision_operator(cfg, device="cuda")
+    g = cfg.velocity_grid
+    f = torch.as_tensor(bt.bkw_f(g.r_squared(), 6.5), device="cuda")
+    q = collide(f, pre)
+"""
+
+from .bkw import bkw_dfdt, bkw_f, bkw_k, maxwellian
+from .grid import VelocityGrid, domain_from_support
+from .operator import collide, gain_spectrum, make_collision_operator
+from .quadrature import (
+    SPHERICAL_DESIGN_FILES,
+    Quadrature1D,
+    SphericalQuadrature,
+    antipodal_reduce,
+    gauss_legendre,
+    spherical_design,
+)
+from .stats import RunStats, error_norms, error_norms_device, time_fn
+from .weights import (
+    CollisionConfig,
+    Precomp,
+    build_precomp,
+    precomp_from_numpy,
+    sincc,
+)
+
+__all__ = [
+    "CollisionConfig",
+    "Precomp",
+    "Quadrature1D",
+    "RunStats",
+    "SPHERICAL_DESIGN_FILES",
+    "SphericalQuadrature",
+    "VelocityGrid",
+    "antipodal_reduce",
+    "bkw_dfdt",
+    "bkw_f",
+    "bkw_k",
+    "build_precomp",
+    "collide",
+    "domain_from_support",
+    "error_norms",
+    "error_norms_device",
+    "gain_spectrum",
+    "gauss_legendre",
+    "make_collision_operator",
+    "maxwellian",
+    "precomp_from_numpy",
+    "sincc",
+    "spherical_design",
+    "time_fn",
+]

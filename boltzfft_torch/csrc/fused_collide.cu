@@ -1,0 +1,392 @@
+// K1 for Hopper: the whole collision eval Q(f, f) of the fast Fourier spectral
+// method, for float and double, any even grid (Nx, Ny, Nz) and a leading batch
+// of E distributions.
+//
+// Replaces boltzfft/pallas_kernels.py::_fused_ct_kernel (io mode), reached
+// through fused_collide -> _fused_gain_ct.  Same math, in natural FFT order:
+//
+//   f_hat   = Fx (x) Fy (x) Fz f                         (forward, unnormalised)
+//   loss    = Re IDFT(beta2 f_hat)
+//   per node b:  g1 = (Vx diag ax_b) (x) (Vy diag ay_b) (x) (Vz diag az_b) f_hat
+//                g2 = the same with conj(a*_b)
+//   per radial group r:  s_r = sum_{b in r} w_b Re(g1 g2)   (Im dropped exactly:
+//                beta1 is real and even in l, so FFT(i Im h) only feeds the
+//                imaginary part that the final Re removes)
+//   Q_gain_hat = sum_r beta1(rho_r, |l|) DFT(s_r),
+//                beta1 = 4 pi b_gamma sin(a)/a,  a = pi rho_r |l| / (2L) + eps
+//   Q       = Re IDFT(Q_gain_hat) - loss * f
+//
+// V* are the inverse DFT matrices (1/N per axis), F* the forward ones, both
+// from weights.build_precomp.
+//
+// What bounds it on this card: arithmetic.  Every transform is a dense N-term
+// DFT along one axis, O(N) FLOPs per point per axis; per node two streams of
+// three axes at 8 real FLOPs per complex multiply-add give 48 N^4 FLOPs, so an
+// eval costs about 10 GFLOP at 32^3 and 310 GFLOP at 64^3 (Ns = 12, 192 and
+// 384 nodes).  The node streams make three round trips through device memory,
+// about 6 * 2B * N^3 complex words: 19 GB at 64^3 in double, 17 FLOP per byte
+// against a ridge of 10 for the card's double-precision CUDA cores (35 against
+// 20 in float).  The TPU kernel's single-resident layout (~14 N^3 planes in
+// VMEM) cannot carry over to 227 KB of shared memory, and neither do its
+// Cooley-Tukey split and lane permutations, which exist for the TPU's
+// 128-lane tiles.
+//
+// What the design does about it:
+//  * One generic axis-DFT kernel.  A block stages the N x N complex matrix and
+//    a tile of 32 lines (each an N-vector along the axis) in shared memory,
+//    folding the per-node phase into the tile as it loads.  Each lane owns a
+//    line, each warp a run of kRows outputs of it, so every matrix read is a
+//    warp broadcast and every input value is reused kRows times from a
+//    register.  All arithmetic is IEEE float/double fma on the CUDA cores.
+//  * Nodes go in chunks of whole radial groups, sized by the caller from the
+//    free device memory; launches per eval are 8 + 8 * chunks, not O(nodes).
+//  * No float atomics: the group sum walks its nodes in order inside one
+//    thread, and beta1 accumulation walks the groups in order, chunk after
+//    chunk, so an eval is bitwise reproducible and a batched eval is bitwise
+//    equal to per-item evals.  Padded nodes carry gain_w = 0 and add 0.
+//
+// Each entry point returns cudaGetLastError() of the first launch that fails,
+// or 0; it launches on the given stream, does not synchronise and allocates
+// nothing (the caller passes every buffer).
+
+#include <cuda_runtime.h>
+
+#include <algorithm>
+
+namespace {
+
+constexpr int kTile = 32;    // lines per block: one per lane
+constexpr int kRows = 8;     // outputs per thread per pass
+constexpr int kThreads = 256;
+
+template <typename T> struct Cplx;
+template <> struct Cplx<float> { using type = float2; };
+template <> struct Cplx<double> { using type = double2; };
+
+__device__ __forceinline__ float dev_sin(float x) { return sinf(x); }
+__device__ __forceinline__ double dev_sin(double x) { return sin(x); }
+__device__ __forceinline__ float dev_fma(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ double dev_fma(double a, double b, double c) {
+  return fma(a, b, c);
+}
+
+template <typename C2>
+__device__ __forceinline__ C2 cmul(C2 a, C2 b) {
+  C2 r;
+  r.x = a.x * b.x - a.y * b.y;
+  r.y = a.x * b.y + a.y * b.x;
+  return r;
+}
+
+// out[j][a, i, c] = sum_m mat[i, m] * ph_j[m] * in[j / in_div][a, m, c]
+//
+// The grid is (A, n, C) row-major around the transformed axis; a "line" is one
+// (a, c) pair, n_lines = A * C.  blockIdx.x picks a tile of kTile lines,
+// blockIdx.y the batch entry j.  With a phase table, entry j uses row
+// (j >> 1) % phase_rows, conjugated for odd j (the g1/g2 stream pair).
+template <typename T, bool kRealIn>
+__global__ void __launch_bounds__(kThreads) axis_dft_kernel(
+    const void* __restrict__ in_raw, long long in_grid, int in_div,
+    typename Cplx<T>::type* __restrict__ out, int n_lines, int n, int c,
+    const typename Cplx<T>::type* __restrict__ mat,
+    const typename Cplx<T>::type* __restrict__ phase, int phase_rows) {
+  using C2 = typename Cplx<T>::type;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  C2* sm_mat = reinterpret_cast<C2*>(smem_raw);
+  C2* sm_x = sm_mat + n * n;
+  constexpr int ld = kTile + 1;  // padded row: conflict-free column stores
+
+  const int j = blockIdx.y;
+  const int l0 = blockIdx.x * kTile;
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+
+  for (int k = tid; k < n * n; k += nthreads) sm_mat[k] = mat[k];
+
+  const C2* ph = nullptr;
+  bool conj = false;
+  if (phase != nullptr) {
+    ph = phase + (long long)((j >> 1) % phase_rows) * n;
+    conj = (j & 1) != 0;
+  }
+  const long long in_base = (long long)(j / in_div) * in_grid;
+  for (int k = tid; k < kTile * n; k += nthreads) {
+    // consecutive k -> consecutive addresses: along m when c == 1 (the
+    // contiguous axis), along the lines otherwise
+    int lt, m;
+    if (c == 1) {
+      lt = k / n;
+      m = k % n;
+    } else {
+      m = k / kTile;
+      lt = k % kTile;
+    }
+    const int l = l0 + lt;
+    C2 v;
+    v.x = 0;
+    v.y = 0;
+    if (l < n_lines) {
+      const long long off =
+          in_base + (long long)(l / c) * n * c + (long long)m * c + (l % c);
+      if (kRealIn) {
+        v.x = reinterpret_cast<const T*>(in_raw)[off];
+      } else {
+        v = reinterpret_cast<const C2*>(in_raw)[off];
+      }
+      if (ph != nullptr) {
+        C2 p = ph[m];
+        if (conj) p.y = -p.y;
+        v = cmul(p, v);
+      }
+    }
+    sm_x[m * ld + lt] = v;
+  }
+  __syncthreads();
+
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = nthreads >> 5;
+  const int l = l0 + lane;
+  const bool valid = l < n_lines;
+  const long long grid_elems = (long long)n_lines * n;
+  const long long out_base =
+      (long long)j * grid_elems + (long long)(l / c) * n * c + (l % c);
+
+  for (int i0 = warp * kRows; i0 < n; i0 += nwarps * kRows) {
+    C2 acc[kRows];
+    int row[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      acc[r].x = 0;
+      acc[r].y = 0;
+      row[r] = min(i0 + r, n - 1) * n;
+    }
+    for (int m = 0; m < n; ++m) {
+      const C2 x = sm_x[m * ld + lane];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const C2 a = sm_mat[row[r] + m];
+        acc[r].x = dev_fma(a.x, x.x, acc[r].x);
+        acc[r].x = dev_fma(-a.y, x.y, acc[r].x);
+        acc[r].y = dev_fma(a.x, x.y, acc[r].y);
+        acc[r].y = dev_fma(a.y, x.x, acc[r].y);
+      }
+    }
+    if (valid) {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        if (i0 + r < n) out[out_base + (long long)(i0 + r) * c] = acc[r];
+      }
+    }
+  }
+}
+
+// y[e, 0] = 0, y[e, 1] = beta2 * f_hat[e]
+template <typename T>
+__global__ void init_kernel(const typename Cplx<T>::type* __restrict__ fh,
+                            const T* __restrict__ beta2,
+                            typename Cplx<T>::type* __restrict__ y,
+                            long long n3) {
+  using C2 = typename Cplx<T>::type;
+  const long long p = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (p >= n3) return;
+  const int e = blockIdx.y;
+  const C2 v = fh[e * n3 + p];
+  const T b = beta2[p];
+  C2 z;
+  z.x = 0;
+  z.y = 0;
+  C2 bv;
+  bv.x = b * v.x;
+  bv.y = b * v.y;
+  y[(2LL * e) * n3 + p] = z;
+  y[(2LL * e + 1) * n3 + p] = bv;
+}
+
+// s[e, g] = sum_{b in group g} w_b (Re g1_b Re g2_b - Im g1_b Im g2_b), nodes
+// in order; the streams are laid out j = ((e * n_nodes) + b) * 2 + {0, 1}.
+template <typename T>
+__global__ void group_sum_kernel(const typename Cplx<T>::type* __restrict__ g,
+                                 const T* __restrict__ w, T* __restrict__ s,
+                                 long long n3, int n_nodes, int gs,
+                                 int n_groups) {
+  using C2 = typename Cplx<T>::type;
+  const long long p = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (p >= n3) return;
+  const int eg = blockIdx.y;
+  const int e = eg / n_groups;
+  const int b0 = (eg % n_groups) * gs;
+  const int b1 = min(b0 + gs, n_nodes);
+  T acc = 0;
+  for (int b = b0; b < b1; ++b) {
+    const long long jj = ((long long)e * n_nodes + b) * 2;
+    const C2 g1 = g[jj * n3 + p];
+    const C2 g2 = g[(jj + 1) * n3 + p];
+    acc = acc + w[b] * (g1.x * g2.x - g1.y * g2.y);
+  }
+  s[eg * n3 + p] = acc;
+}
+
+// y[e, 0] += sum_g beta1(rho_g, |l|) sh[e, g], groups in order
+template <typename T>
+__global__ void beta1_acc_kernel(const typename Cplx<T>::type* __restrict__ sh,
+                                 const T* __restrict__ rho,
+                                 const T* __restrict__ norm_l,
+                                 typename Cplx<T>::type* __restrict__ y,
+                                 long long n3, int n_groups, int gs, T coef,
+                                 T amp, T eps) {
+  using C2 = typename Cplx<T>::type;
+  const long long p = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (p >= n3) return;
+  const int e = blockIdx.y;
+  C2 acc = y[(2LL * e) * n3 + p];
+  const T nl = norm_l[p];
+  for (int g = 0; g < n_groups; ++g) {
+    const T arg = (coef * rho[g * gs]) * nl + eps;
+    const T b1 = amp * dev_sin(arg) / arg;
+    const C2 v = sh[((long long)e * n_groups + g) * n3 + p];
+    acc.x = acc.x + b1 * v.x;
+    acc.y = acc.y + b1 * v.y;
+  }
+  y[(2LL * e) * n3 + p] = acc;
+}
+
+// q[e] = Re yi[e, 0] - Re yi[e, 1] * f[e]
+template <typename T>
+__global__ void assemble_kernel(const typename Cplx<T>::type* __restrict__ yi,
+                                const T* __restrict__ f, T* __restrict__ q,
+                                long long n3) {
+  const long long p = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (p >= n3) return;
+  const int e = blockIdx.y;
+  q[e * n3 + p] =
+      yi[(2LL * e) * n3 + p].x - yi[(2LL * e + 1) * n3 + p].x * f[e * n3 + p];
+}
+
+// One axis-DFT launch over nbatch grids of shape (A, n, c).
+template <typename T, bool kRealIn>
+cudaError_t axis_dft(const void* in, long long in_grid, int in_div,
+                     typename Cplx<T>::type* out, int nbatch, int a, int n,
+                     int c, const typename Cplx<T>::type* mat,
+                     const typename Cplx<T>::type* phase, int phase_rows,
+                     cudaStream_t st) {
+  using C2 = typename Cplx<T>::type;
+  const int n_lines = a * c;
+  const int nwarps = std::min(kThreads / 32, (n + kRows - 1) / kRows);
+  const size_t smem = (size_t)n * n * sizeof(C2) +
+                      (size_t)n * (kTile + 1) * sizeof(C2);
+  cudaError_t err = cudaFuncSetAttribute(
+      axis_dft_kernel<T, kRealIn>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n_lines + kTile - 1) / kTile, nbatch);
+  axis_dft_kernel<T, kRealIn><<<grid, nwarps * 32, smem, st>>>(
+      in, in_grid, in_div, out, n_lines, n, c, mat, phase, phase_rows);
+  return cudaGetLastError();
+}
+
+// Three axis DFTs x, y, z: in -> t -> u -> out, phases optional.
+template <typename T, bool kRealIn>
+cudaError_t dft3(const void* in, int in_div, typename Cplx<T>::type* t,
+                 typename Cplx<T>::type* u, typename Cplx<T>::type* out,
+                 int nbatch, int nx, int ny, int nz,
+                 const typename Cplx<T>::type* mx,
+                 const typename Cplx<T>::type* my,
+                 const typename Cplx<T>::type* mz,
+                 const typename Cplx<T>::type* px,
+                 const typename Cplx<T>::type* py,
+                 const typename Cplx<T>::type* pz, int phase_rows,
+                 cudaStream_t st) {
+  const long long n3 = (long long)nx * ny * nz;
+  cudaError_t err = axis_dft<T, kRealIn>(in, n3, in_div, t, nbatch, 1, nx,
+                                         ny * nz, mx, px, phase_rows, st);
+  if (err != cudaSuccess) return err;
+  err = axis_dft<T, false>(t, n3, 1, u, nbatch, nx, ny, nz, my, py,
+                           phase_rows, st);
+  if (err != cudaSuccess) return err;
+  return axis_dft<T, false>(u, n3, 1, out, nbatch, nx * ny, nz, 1, mz, pz,
+                            phase_rows, st);
+}
+
+template <typename T>
+int fused_collide(const T* f, const T* beta2, const T* norm_l, const T* rho,
+                  const T* gain_w, const typename Cplx<T>::type* ax,
+                  const typename Cplx<T>::type* ay,
+                  const typename Cplx<T>::type* az,
+                  const typename Cplx<T>::type* vx,
+                  const typename Cplx<T>::type* vy,
+                  const typename Cplx<T>::type* vz,
+                  const typename Cplx<T>::type* fx,
+                  const typename Cplx<T>::type* fy,
+                  const typename Cplx<T>::type* fz,
+                  typename Cplx<T>::type* fh, typename Cplx<T>::type* y,
+                  typename Cplx<T>::type* t1, typename Cplx<T>::type* t2,
+                  T* q, int ne, int nx, int ny, int nz, int n_nodes, int gs,
+                  int chunk, double coef, double amp, double eps,
+                  cudaStream_t st) {
+  using C2 = typename Cplx<T>::type;
+  const long long n3 = (long long)nx * ny * nz;
+  const int pt = 256;
+  const int pblocks = (int)((n3 + pt - 1) / pt);
+  cudaError_t err;
+
+  // f_hat = F f (real input), then y = [0, beta2 f_hat]
+  err = dft3<T, true>(f, 1, t1, t2, fh, ne, nx, ny, nz, fx, fy, fz, nullptr,
+                      nullptr, nullptr, 1, st);
+  if (err != cudaSuccess) return err;
+  init_kernel<T><<<dim3(pblocks, ne), pt, 0, st>>>(fh, beta2, y, n3);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  for (int n0 = 0; n0 < n_nodes; n0 += chunk) {
+    const int cn = std::min(chunk, n_nodes - n0);
+    const int ng = (cn + gs - 1) / gs;
+    // both phased inverse streams of every node of the chunk: t1
+    err = dft3<T, false>(fh, 2 * cn, t1, t2, t1, 2 * ne * cn, nx, ny, nz, vx,
+                         vy, vz, ax + (long long)n0 * nx,
+                         ay + (long long)n0 * ny, az + (long long)n0 * nz, cn,
+                         st);
+    if (err != cudaSuccess) return err;
+    // real group sums into t2, forward-transformed back into t1
+    T* s = reinterpret_cast<T*>(t2);
+    group_sum_kernel<T><<<dim3(pblocks, ne * ng), pt, 0, st>>>(
+        t1, gain_w + n0, s, n3, cn, gs, ng);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    err = dft3<T, true>(s, 1, t1, t2, t1, ne * ng, nx, ny, nz, fx, fy, fz,
+                        nullptr, nullptr, nullptr, 1, st);
+    if (err != cudaSuccess) return err;
+    beta1_acc_kernel<T><<<dim3(pblocks, ne), pt, 0, st>>>(
+        t1, rho + n0, norm_l, y, n3, ng, gs, (T)coef, (T)amp, (T)eps);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+
+  // both final inverses (gain spectrum and beta2 f_hat), then the assembly
+  err = dft3<T, false>(y, 1, t1, t2, t1, 2 * ne, nx, ny, nz, vx, vy, vz,
+                       nullptr, nullptr, nullptr, 1, st);
+  if (err != cudaSuccess) return err;
+  assemble_kernel<T><<<dim3(pblocks, ne), pt, 0, st>>>(t1, f, q, n3);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+#define BFFT_ENTRY(NAME, T, C2)                                                \
+  extern "C" int NAME(                                                         \
+      const void* f, const void* beta2, const void* norm_l, const void* rho,   \
+      const void* gain_w, const void* ax, const void* ay, const void* az,      \
+      const void* vx, const void* vy, const void* vz, const void* fx,          \
+      const void* fy, const void* fz, void* fh, void* y, void* t1, void* t2,   \
+      void* q, int ne, int nx, int ny, int nz, int n_nodes, int gs, int chunk, \
+      double coef, double amp, double eps, void* stream) {                     \
+    return fused_collide<T>(                                                   \
+        (const T*)f, (const T*)beta2, (const T*)norm_l, (const T*)rho,         \
+        (const T*)gain_w, (const C2*)ax, (const C2*)ay, (const C2*)az,         \
+        (const C2*)vx, (const C2*)vy, (const C2*)vz, (const C2*)fx,            \
+        (const C2*)fy, (const C2*)fz, (C2*)fh, (C2*)y, (C2*)t1, (C2*)t2,       \
+        (T*)q, ne, nx, ny, nz, n_nodes, gs, chunk, coef, amp, eps,             \
+        (cudaStream_t)stream);                                                 \
+  }
+
+BFFT_ENTRY(bfft_fused_collide_f32, float, float2)
+BFFT_ENTRY(bfft_fused_collide_f64, double, double2)

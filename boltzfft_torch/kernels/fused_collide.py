@@ -1,0 +1,246 @@
+"""K1: the whole collision eval Q(f, f) in one hand-written CUDA kernel, and
+its plain PyTorch version.
+
+Counterpart of the K1 part of ``boltzfft/pallas_kernels.py``
+(``fused_collide`` -> ``_fused_gain_ct`` -> ``_fused_ct_kernel`` in io mode).
+:func:`fused_collide` dispatches on the device of ``f``: a CUDA tensor runs
+the kernel of ``csrc/fused_collide.cu`` (or raises), a CPU tensor runs
+:func:`fused_collide_reference`.  Any other device raises.
+
+Both compute, per distribution f (Nx, Ny, Nz), with per-axis DFT matrices:
+
+* f_hat = DFT(f) and the loss convolution Re IDFT(beta2 f_hat);
+* per node b, g1 = IDFT(alpha1 f_hat) and g2 = IDFT(conj(alpha1) f_hat) with
+  the separable phases alpha1 = ax (x) ay (x) az folded in per axis;
+* per radial group of ``radial_group`` consecutive nodes, the real sum
+  s = sum_b w_b Re(g1 g2) (Im is dropped exactly: beta1 is real and even in
+  l, so the imaginary part of the Hadamard product only reaches the Im of the
+  final inverse, which Re removes);
+* Q_gain_hat = sum over groups, in order, of beta1(rho_group, |l|) DFT(s),
+  beta1 = 4 pi b_gamma sin(a)/a with a = pi rho |l| / (2L) + eps;
+* Q = Re IDFT(Q_gain_hat) - Re IDFT(beta2 f_hat) f.
+
+Every transform runs the axes in the order x, y, z.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+#: Launches of the CUDA kernel (one per :func:`fused_collide` call on CUDA).
+LAUNCHES = 0
+#: Calls of the plain PyTorch version.
+REFERENCE_CALLS = 0
+
+# Shared memory an H100 block may use (bytes), and the kernel's line tile.
+_SMEM_LIMIT = 232_448
+_TILE = 32
+
+
+def _cplx(stack: torch.Tensor) -> torch.Tensor:
+    """(2, N, N) [re, im] planes -> complex (N, N)."""
+    return torch.complex(stack[0], stack[1])
+
+
+def _kernel_smem_bytes(n: int, dtype: torch.dtype) -> int:
+    """Shared memory of one axis-DFT block along an axis of length ``n``:
+    the (n, n) complex matrix and an (n, 33) complex line tile."""
+    csize = 16 if dtype == torch.float64 else 8
+    return n * n * csize + n * (_TILE + 1) * csize
+
+
+def check_grid(shape, dtype: torch.dtype) -> None:
+    """Raise if the CUDA kernel cannot take a grid of this shape and dtype."""
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"fused_collide: float32/float64 only, got {dtype}")
+    for n in shape:
+        if n % 2:
+            raise ValueError(f"fused_collide: grid axes must be even, got {tuple(shape)}")
+        if _kernel_smem_bytes(n, dtype) > _SMEM_LIMIT:
+            raise ValueError(
+                f"fused_collide: an axis of {n} points needs "
+                f"{_kernel_smem_bytes(n, dtype)} B of shared memory for its DFT "
+                f"matrix tile (limit {_SMEM_LIMIT} B); use impl='rfft' or 'c2c'"
+            )
+
+
+def fused_collide(
+    rho, gain_w, ax, ay, az, f, beta2, dft_inv, dft_fwd, norm_l,
+    *, length: float, b_gamma: float, radial_group: int,
+) -> torch.Tensor:
+    """Q(f, f) for f of shape (Nx, Ny, Nz) or (E, Nx, Ny, Nz).
+
+    ``rho``, ``gain_w``: (B,) node tables; ``ax``/``ay``/``az``: (B, N_axis)
+    complex phase factors; ``beta2``, ``norm_l``: (Nx, Ny, Nz);
+    ``dft_inv``/``dft_fwd``: (x, y, z) triples of (2, N, N) [re, im] stacks.
+    """
+    args = (rho, gain_w, ax, ay, az, f, beta2, dft_inv, dft_fwd, norm_l)
+    kw = dict(length=length, b_gamma=b_gamma, radial_group=radial_group)
+    if f.device.type == "cuda":
+        return _fused_collide_cuda(*args, **kw)
+    if f.device.type == "cpu":
+        return fused_collide_reference(*args, **kw)
+    raise ValueError(f"fused_collide: no kernel for device {f.device}")
+
+
+# --------------------------------------------------------------------------
+# plain PyTorch version
+# --------------------------------------------------------------------------
+
+
+def _apply(m: torch.Tensor, t: torch.Tensor, axis: int) -> torch.Tensor:
+    """Contract ``m`` — (N, N), or (C, N, N) one per entry — with grid axis
+    ``axis`` of ``t`` — (Nx, Ny, Nz), or (C, Nx, Ny, Nz)."""
+    grid = "xyz"
+    a = grid[axis]
+    t_spec = ("c" if t.dim() == 4 else "") + grid.replace(a, "n")
+    m_spec = ("c" if m.dim() == 3 else "") + a + "n"
+    out = ("c" if t.dim() == 4 or m.dim() == 3 else "") + grid
+    return torch.einsum(f"{m_spec},{t_spec}->{out}", m, t)
+
+
+def _dft3(mats, t: torch.Tensor) -> torch.Tensor:
+    for axis, m in enumerate(mats):
+        t = _apply(m, t, axis)
+    return t
+
+
+def _reference_one(rho, gain_w, ax, ay, az, f, beta2, inv, fwd, norm_l,
+                   *, length, b_gamma, radial_group):
+    cd = ax.dtype
+    coef = math.pi / (2.0 * length)
+    amp = 4.0 * math.pi * b_gamma
+    eps = float(torch.finfo(f.dtype).eps)
+
+    f_hat = _dft3(fwd, f.to(cd))
+    loss = _dft3(inv, beta2 * f_hat).real
+    acc = torch.zeros_like(f_hat)
+    n_nodes = rho.shape[0]
+    for g0 in range(0, n_nodes, radial_group):
+        sl = slice(g0, min(g0 + radial_group, n_nodes))
+        # per-node inverse matrices with the phase folded in: V diag(a)
+        m1 = [v[None] * a[sl, None, :] for v, a in zip(inv, (ax, ay, az))]
+        m2 = [v[None] * a[sl, None, :].conj() for v, a in zip(inv, (ax, ay, az))]
+        g1 = _dft3(m1, f_hat)
+        g2 = _dft3(m2, f_hat)
+        s = torch.zeros_like(f)
+        for k in range(g1.shape[0]):
+            s = s + gain_w[g0 + k] * (
+                g1[k].real * g2[k].real - g1[k].imag * g2[k].imag
+            )
+        s_hat = _dft3(fwd, s.to(cd))
+        arg = (coef * rho[g0]) * norm_l + eps
+        beta1 = amp * torch.sin(arg) / arg
+        acc = acc + beta1 * s_hat
+    return _dft3(inv, acc).real - loss * f
+
+
+def fused_collide_reference(
+    rho, gain_w, ax, ay, az, f, beta2, dft_inv, dft_fwd, norm_l,
+    *, length: float, b_gamma: float, radial_group: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: per-axis einsums against the DFT
+    matrices, the same order of axes, nodes and groups.  A batch is evaluated
+    item by item, so a batched result equals the per-item results bitwise."""
+    global REFERENCE_CALLS
+    REFERENCE_CALLS += 1
+    rd = f.dtype
+    inv = [_cplx(m.to(rd)) for m in dft_inv]
+    fwd = [_cplx(m.to(rd)) for m in dft_fwd]
+    tabs = (rho.to(rd), gain_w.to(rd), ax, ay, az)
+    kw = dict(length=length, b_gamma=b_gamma, radial_group=radial_group)
+    b2, nl = beta2.to(rd), norm_l.to(rd)
+    if f.dim() == 4:
+        return torch.stack(
+            [_reference_one(*tabs, fi, b2, inv, fwd, nl, **kw) for fi in f]
+        )
+    return _reference_one(*tabs, f, b2, inv, fwd, nl, **kw)
+
+
+# --------------------------------------------------------------------------
+# CUDA kernel wrapper
+# --------------------------------------------------------------------------
+
+
+def _chunk_nodes(n_nodes: int, group: int, n_batch: int, n3: int,
+                 csize: int, device) -> int:
+    """Nodes per kernel chunk: whole radial groups whose two stream buffers
+    (2 buffers x E x 2 streams x N^3 complex per node) fit half the free
+    device memory, with at most 65535 stream grids per launch."""
+    free, _total = torch.cuda.mem_get_info(device)
+    per_node = 2 * n_batch * 2 * n3 * csize
+    cap = min(n_nodes, (free // 2) // per_node, 65535 // (2 * n_batch))
+    return max(group, (cap // group) * group)
+
+
+def _fused_collide_cuda(
+    rho, gain_w, ax, ay, az, f, beta2, dft_inv, dft_fwd, norm_l,
+    *, length: float, b_gamma: float, radial_group: int,
+) -> torch.Tensor:
+    global LAUNCHES
+    from .._build import load_library
+
+    if f.dim() not in (3, 4):
+        raise ValueError(f"fused_collide: f must be (Nx,Ny,Nz) or (E,Nx,Ny,Nz), got {tuple(f.shape)}")
+    rd = f.dtype
+    check_grid(f.shape[-3:], rd)
+    dev = f.device
+    nx, ny, nz = f.shape[-3:]
+    fb = f.reshape(-1, nx, ny, nz).contiguous()
+    n_batch = fb.shape[0]
+    if 2 * n_batch * radial_group > 65535:
+        raise ValueError(
+            f"fused_collide: batch of {n_batch} with radial groups of "
+            f"{radial_group} exceeds one launch (2*E*group <= 65535); split the batch"
+        )
+    cd = torch.complex64 if rd == torch.float32 else torch.complex128
+    n_nodes = rho.shape[0]
+    n3 = nx * ny * nz
+
+    def arg(t, shape, dtype):
+        if tuple(t.shape) != tuple(shape) or t.device != dev:
+            raise ValueError(
+                f"fused_collide: expected {tuple(shape)} on {dev}, "
+                f"got {tuple(t.shape)} on {t.device}"
+            )
+        return t.to(dtype).contiguous()
+
+    ins = [
+        fb,
+        arg(beta2, (nx, ny, nz), rd),
+        arg(norm_l, (nx, ny, nz), rd),
+        arg(rho, (n_nodes,), rd),
+        arg(gain_w, (n_nodes,), rd),
+        arg(ax, (n_nodes, nx), cd),
+        arg(ay, (n_nodes, ny), cd),
+        arg(az, (n_nodes, nz), cd),
+    ]
+    for mats in (dft_inv, dft_fwd):
+        for m, n in zip(mats, (nx, ny, nz)):
+            ins.append(_cplx(arg(m, (2, n, n), rd)).contiguous())
+
+    csize = 16 if rd == torch.float64 else 8
+    chunk = _chunk_nodes(n_nodes, radial_group, n_batch, n3, csize, dev)
+    fh = torch.empty((n_batch, n3), dtype=cd, device=dev)
+    y = torch.empty((n_batch, 2, n3), dtype=cd, device=dev)
+    t1 = torch.empty((2 * n_batch * chunk, n3), dtype=cd, device=dev)
+    t2 = torch.empty_like(t1)
+    q = torch.empty_like(fb)
+
+    lib = load_library()
+    entry = lib.bfft_fused_collide_f64 if rd == torch.float64 else lib.bfft_fused_collide_f32
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = entry(
+            *[t.data_ptr() for t in ins],
+            fh.data_ptr(), y.data_ptr(), t1.data_ptr(), t2.data_ptr(), q.data_ptr(),
+            n_batch, nx, ny, nz, n_nodes, radial_group, chunk,
+            math.pi / (2.0 * length), 4.0 * math.pi * b_gamma,
+            float(torch.finfo(rd).eps), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"fused_collide: CUDA kernel failed with cudaError {rc}")
+    LAUNCHES += 1
+    return q.reshape(f.shape)
