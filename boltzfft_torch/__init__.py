@@ -1,6 +1,7 @@
 """boltzfft_torch: the fast Fourier spectral Boltzmann collision operator in
-PyTorch, with its main kernel (K1, the whole collision eval) hand-written in
-CUDA for Hopper.
+PyTorch, with its kernels hand-written in CUDA for Hopper (K1, the whole
+collision eval; K3, the Kronecker-scheme gain spectrum), and the spatially
+inhomogeneous solver around it.
 
 The PyTorch counterpart of ``boltzfft`` (JAX), which stays the reference.
 Imports torch and NumPy only, never jax::
@@ -13,9 +14,12 @@ Imports torch and NumPy only, never jax::
     q = collide(f, pre)
 """
 
+from . import transport
 from .bkw import bkw_dfdt, bkw_f, bkw_k, maxwellian
+from .conserve import ConservePrecomp, build_conserve_precomp, conservative, project
 from .grid import VelocityGrid, domain_from_support
-from .operator import collide, gain_spectrum, make_collision_operator
+from .moments import Moments, entropy, moments
+from .operator import collide, gain_spectrum, make_collision_operator, pick_scheme
 from .quadrature import (
     SPHERICAL_DESIGN_FILES,
     Quadrature1D,
@@ -35,6 +39,8 @@ from .weights import (
 
 __all__ = [
     "CollisionConfig",
+    "ConservePrecomp",
+    "Moments",
     "Precomp",
     "Quadrature1D",
     "RunStats",
@@ -45,17 +51,24 @@ __all__ = [
     "bkw_dfdt",
     "bkw_f",
     "bkw_k",
+    "build_conserve_precomp",
     "build_precomp",
     "collide",
+    "conservative",
     "domain_from_support",
+    "entropy",
     "error_norms",
     "error_norms_device",
     "gain_spectrum",
     "gauss_legendre",
     "make_collision_operator",
     "maxwellian",
+    "moments",
+    "pick_scheme",
     "precomp_from_numpy",
+    "project",
     "sincc",
     "spherical_design",
     "time_fn",
+    "transport",
 ]

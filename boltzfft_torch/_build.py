@@ -1,15 +1,18 @@
 """Build and load the port's CUDA kernels (nvcc into a plain C library).
 
-At first use, ``load_library()`` compiles every ``csrc/*.cu`` with
+At first use, ``load_library()`` compiles every ``csrc/*.cu`` to an object,
+one ``nvcc`` per source, all started together,
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o build/boltzfft_torch/libboltzfft_torch.so
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -Xptxas -v -c -o build/boltzfft_torch/<name>.o <name>.cu
 
-into ``build/boltzfft_torch/`` at the repository root, and rebuilds when the
-hash of the sources (and flags) changes.  The library is bound with ``ctypes``:
-every pointer and the stream are ``c_void_p``, every int ``c_int``, every real
-scalar ``c_double``; each entry returns ``cudaGetLastError()``.  A missing
-``nvcc`` or a failed build raises: there is no fallback.
+and links them with ``nvcc -shared`` into
+``build/boltzfft_torch/libboltzfft_torch.so`` at the repository root.  It
+rebuilds when the hash of the sources (``*.cu``, ``*.cuh``) and flags changes.
+The library is bound with ``ctypes``: every pointer and the stream are
+``c_void_p``, every int ``c_int``, every real scalar ``c_double``; each entry
+returns ``cudaGetLastError()``.  A missing ``nvcc`` or a failed build raises:
+there is no fallback.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG_DIR = Path(__file__).resolve().parent
@@ -32,15 +37,19 @@ _HASH_PATH = BUILD_DIR / "sources.sha256"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
-#: argtypes of bfft_fused_collide_{f32,f64}: 14 inputs, 5 buffers, 7 ints,
-#: 3 reals and the stream.
-_FUSED_COLLIDE_ARGS = [_P] * 14 + [_P] * 5 + [_I] * 7 + [_D] * 3 + [_P]
+#: argtypes of each entry point (the f32 and f64 ones alike).
+_ENTRY_ARGS = {
+    # 14 inputs, 5 buffers, 7 ints, 3 reals and the stream
+    "bfft_fused_collide": [_P] * 14 + [_P] * 5 + [_I] * 7 + [_D] * 3 + [_P],
+    # 10 inputs, 3 buffers, 6 ints, 3 reals and the stream
+    "bfft_fused_gain_kron": [_P] * 10 + [_P] * 3 + [_I] * 6 + [_D] * 3 + [_P],
+}
 
 _lib = None
 
@@ -77,18 +86,39 @@ def build() -> Path:
     if LIB_PATH.exists() and _HASH_PATH.exists() and _HASH_PATH.read_text() == digest:
         return LIB_PATH
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIB_PATH.with_suffix(f".so.{os.getpid()}")
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOG.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
+    nvcc = _nvcc()
+    pid = os.getpid()
+    srcs = [p for p in _sources() if p.suffix == ".cu"]
+    objs = [BUILD_DIR / f"{p.stem}.{pid}.o" for p in srcs]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)] for s, o in zip(srcs, objs)]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(compiles)) as pool:
+        results = list(pool.map(_run, compiles))
+    tmp = LIB_PATH.with_suffix(f".so.{pid}")
+    if all(rc == 0 for rc, _out, _s in results):
+        results.append(_run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)]))
+    wall = time.perf_counter() - t0
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    # Each step's seconds, and the build's wall time: the compiles run
+    # together, so one nvcc over all sources would take about their sum.
+    BUILD_LOG.write_text("\n".join(out for _rc, out, _s in results)
+                         + "\n# build seconds: " + " ".join(f"{s:.2f}" for _rc, _o, s in results)
+                         + f"; wall {wall:.2f}\n")
+    failed = [out for rc, out, _s in results if rc != 0]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, LIB_PATH)
     _HASH_PATH.write_text(digest)
     return LIB_PATH
+
+
+def _run(cmd: list[str]) -> tuple[int, str, float]:
+    """(exit code, the command and its output, seconds) of one nvcc call."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    out = " ".join(cmd) + f"\n{proc.stdout}" + (f"(exit {proc.returncode})\n" if proc.returncode else "")
+    return proc.returncode, out, time.perf_counter() - t0
 
 
 def load_library() -> ctypes.CDLL:
@@ -96,9 +126,10 @@ def load_library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        for name in ("bfft_fused_collide_f32", "bfft_fused_collide_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = _FUSED_COLLIDE_ARGS
-            fn.restype = ctypes.c_int
+        for stem, argtypes in _ENTRY_ARGS.items():
+            for suffix in ("_f32", "_f64"):
+                fn = getattr(lib, stem + suffix)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
         _lib = lib
     return _lib

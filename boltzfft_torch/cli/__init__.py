@@ -1,6 +1,9 @@
 """Command-line drivers of the port (argparse, flags of the reference drivers).
 
     python -m boltzfft_torch.cli.maxwell_bkw --Nv 32 --Ns 12 --impl fused --trials 10
+    python -m boltzfft_torch.cli.sod_1d3v --Nv 16 --nx 32 --steps 20
+    python -m boltzfft_torch.cli.taylor_green_2d3v --cells 16 --steps 20
+    python -m boltzfft_torch.cli.taylor_green_3d3v --cells 8 --steps 10
 """
 
 from __future__ import annotations
@@ -22,10 +25,11 @@ def standard_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--dtype", choices=["float32", "float64"], default="float64",
                    help="compute dtype")
     p.add_argument(
-        "--impl", choices=["rfft", "c2c", "fused"], default="rfft",
+        "--impl", choices=["auto", "rfft", "c2c", "fused"], default="rfft",
         help="pipeline: rfft (real transforms), c2c (complex transforms), "
-             "fused (the whole eval in the K1 CUDA kernel; its plain PyTorch "
-             "version on --device cpu)",
+             "fused (the hand-written CUDA kernels, K1 or K3 by grid; their "
+             "plain PyTorch versions on --device cpu); auto = fused on a "
+             "CUDA device, rfft on the CPU",
     )
     p.add_argument(
         "--device", default="cuda",
@@ -51,3 +55,51 @@ def vhs_kwargs(args) -> dict:
     """CollisionConfig kwargs for the VHS kernel flags."""
     b_gamma = args.b_gamma if args.b_gamma is not None else 1.0 / (4.0 * math.pi)
     return {"gamma": args.gamma, "b_gamma": b_gamma, "antipodal": args.antipodal}
+
+
+def resolve_impl(impl: str, device) -> str:
+    """Resolve ``--impl auto``: the fused kernels on a CUDA device, the staged
+    rfft pipeline on the CPU (where the kernels' plain versions are a
+    checking path, not a speed path)."""
+    if impl != "auto":
+        return impl
+    import torch
+
+    return "fused" if torch.device(device).type == "cuda" else "rfft"
+
+
+def open_device(name: str):
+    """``--device`` as a torch device; raises when CUDA is asked for and
+    there is no card."""
+    import torch
+
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: torch.cuda.is_available() is False")
+    return device
+
+
+def no_mesh(flag: str) -> None:
+    """The spatially decomposed CLIs wait for the multi-device port."""
+    raise NotImplementedError(
+        f"{flag}: the sharded transport steps are not ported yet "
+        "(ROADMAP Queue 1, step 9); run on one device"
+    )
+
+
+def report_h(h0: float, h_trace, steps: int) -> tuple:
+    """Print the spatial CLIs' H-trace lines (total Boltzmann H after each
+    step); returns ``(dissipated, worst per-step rise)``."""
+    import numpy as np
+
+    trace = np.concatenate(([h0], np.asarray(h_trace, np.float64)))
+    stride = max(1, steps // 8)
+    samples = " ".join(
+        f"{h:.6f}" for h in trace[:: stride][: (steps // stride) + 1]
+    )
+    print(f"H trace (every {stride} steps): {samples} -> {trace[-1]:.6f}")
+    worst_rise = float(np.diff(trace).max())
+    dissipated = h0 - float(trace[-1])
+    print(f"H: {h0:.6f} -> {trace[-1]:.6f} (dissipated {dissipated:.3e}; "
+          f"worst per-step rise {worst_rise:.3e})")
+    return dissipated, worst_rise

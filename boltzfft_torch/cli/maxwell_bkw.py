@@ -12,28 +12,26 @@ import time
 
 
 def main(argv=None):
-    from boltzfft_torch.cli import standard_parser, vhs_kwargs
+    from boltzfft_torch.cli import open_device, resolve_impl, standard_parser, vhs_kwargs
 
     args = standard_parser(__doc__).parse_args(argv)
+    device = open_device(args.device)
 
     import torch
 
     import boltzfft_torch as bt
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: torch.cuda.is_available() is False")
-
     print("\nRun arguments:")
     print(f"Nv = {args.Nv}")
     print(f"Ns = {args.Ns}")
     print(f"trials = {args.trials}")
-    print(f"dtype = {args.dtype}, impl = {args.impl}, device = {device}")
+    impl = resolve_impl(args.impl, device)
+    print(f"dtype = {args.dtype}, impl = {impl}, device = {device}")
     if device.type == "cuda":
         print(f"card = {torch.cuda.get_device_name(device)}")
 
     cfg = bt.CollisionConfig(
-        nv=args.Nv, nvy=args.Nvy, nvz=args.Nvz, ns=args.Ns, impl=args.impl,
+        nv=args.Nv, nvy=args.Nvy, nvz=args.Nvz, ns=args.Ns, impl=impl,
         dtype=args.dtype, node_chunk=args.node_chunk, n_radial=args.n_radial,
         **vhs_kwargs(args),
     )
@@ -54,7 +52,7 @@ def main(argv=None):
         stats, q = bt.time_fn(
             collide, f, pre, device=device, trials=args.trials, warmup=1
         )
-        print(stats.summary(f"boltzfft_torch/{args.impl}"))
+        print(stats.summary(f"boltzfft_torch/{impl}"))
 
     err = bt.error_norms_device(q, bt.bkw_dfdt(rsq, 6.5), cell_volume=g.cell_volume)
     print("Approximation errors:")

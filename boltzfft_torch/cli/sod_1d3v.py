@@ -1,0 +1,109 @@
+"""Space-inhomogeneous 1D×3V demo: a Sod-type kinetic shock tube.
+
+Solves ``df/dt + v_x df/dx = Q(f,f)/Kn`` with Strang splitting (periodic
+MUSCL/MC transport by default, first-order upwind via --scheme; collisions on
+all cells in one operator call), printing density profiles and conservation
+diagnostics.
+
+    python -m boltzfft_torch.cli.sod_1d3v --Nv 16 --Ns 12 --nx 32 --steps 20
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+
+import numpy as np
+
+
+def main(argv=None):
+    from boltzfft_torch.cli import standard_parser
+
+    p = standard_parser(__doc__)
+    p.set_defaults(impl="auto")
+    p.add_argument("--nx", type=int, default=32, help="spatial cells (periodic)")
+    p.add_argument("--x-length", type=float, default=1.0)
+    p.add_argument("--steps", type=int, default=20)
+    p.add_argument("--knudsen", type=float, default=0.5)
+    p.add_argument("--dt", type=float, default=None,
+                   help="time step (default: CFL-limited for the transport)")
+    p.add_argument("--mesh-cells", type=int, default=None,
+                   help="shard cells over this many devices (not ported yet)")
+    p.add_argument("--scheme", choices=["muscl", "upwind"], default="muscl",
+                   help="advection scheme (muscl = 2nd-order TVD, default)")
+    p.add_argument("--conserve", action="store_true",
+                   help="project every Q onto vanishing invariant moments\n(conservative): exact per-step conservation")
+    p.add_argument("--h-tol", type=float, default=0.01,
+                   help="H-theorem gate: max allowed per-step H increase as "
+                        "a fraction of the total dissipation |H_end - H_0|")
+    args = p.parse_args(argv)
+
+    from boltzfft_torch.cli import no_mesh, open_device, report_h, resolve_impl
+
+    if args.mesh_cells and args.mesh_cells > 1:
+        no_mesh("--mesh-cells")
+    device = open_device(args.device)
+
+    import torch
+
+    import boltzfft_torch as bt
+    from boltzfft_torch import transport
+
+    cfg = bt.CollisionConfig(nv=args.Nv, ns=args.Ns,
+                             impl=resolve_impl(args.impl, device),
+                             dtype=args.dtype, node_chunk=args.node_chunk,
+                             n_radial=args.n_radial or args.Nv)
+    g = cfg.velocity_grid
+    dx = args.x_length / args.nx
+    dt = args.dt or transport.cfl_dt(float(np.abs(np.asarray(g.v)).max()), dx)
+
+    collide_fn, pre = bt.make_collision_operator(cfg, device)
+    if args.conserve:
+        collide_fn = bt.conservative(
+            collide_fn, bt.build_conserve_precomp(cfg, temperature=1.0, device=device)
+        )
+    step = transport.make_inhomogeneous_step(
+        cfg, collide_fn, dx=dx, dt=dt, knudsen=args.knudsen, scheme=args.scheme,
+    )
+
+    f = transport.sod_initial_condition(cfg, args.nx, device=device)
+    print(f"\nSod 1D×3V: nx={args.nx} dx={dx:.4f} dt={dt:.4f} "
+          f"Kn={args.knudsen} Nv={args.Nv} Ns={args.Ns} impl={cfg.impl} "
+          f"scheme={args.scheme}")
+
+    def h_total(f):
+        # total Boltzmann H = sum_cells H(f_cell) dx, non-increasing along
+        # the kinetic evolution
+        return torch.sum(bt.entropy(f, g.dv)) * dx
+
+    mass0 = float(transport.density_profile(f, g.dv).sum())
+    h0 = float(h_total(f))
+    t0 = time.perf_counter()
+    h_tr = []
+    for _ in range(args.steps):
+        f = step(f, pre)
+        h_tr.append(h_total(f))
+    rho = transport.density_profile(f, g.dv).cpu().numpy()
+    h_trace = torch.stack(h_tr).cpu().numpy() if h_tr else np.zeros(0)
+    wall = time.perf_counter() - t0
+    mass1 = float(rho.sum())
+
+    print(f"{args.steps} steps in {wall:.2f}s "
+          f"({args.steps * args.nx * 2 / wall:.1f} collision evals/s aggregate)")
+    print(f"total mass: {mass0:.6f} -> {mass1:.6f} "
+          f"(rel drift {abs(mass1 - mass0) / mass0:.2e})")
+    dissipated, worst_rise = report_h(h0, h_trace, args.steps)
+    edges = np.linspace(0, args.x_length, 9)[:-1]
+    sampled = rho[:: max(1, args.nx // 8)][:8]
+    print("density profile (8 samples):")
+    for x, r in zip(edges, sampled):
+        print(f"  x={x:.3f}: rho={r:.5f}")
+    if not (dissipated > 0.0) or worst_rise > args.h_tol * dissipated:
+        print("FAIL: H-theorem gate (entropy must dissipate monotonically "
+              f"within --h-tol {args.h_tol})", file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -49,139 +49,14 @@
 // or 0; it launches on the given stream, does not synchronise and allocates
 // nothing (the caller passes every buffer).
 
-#include <cuda_runtime.h>
-
-#include <algorithm>
+#include "spectral_common.cuh"
 
 namespace {
 
-constexpr int kTile = 32;    // lines per block: one per lane
-constexpr int kRows = 8;     // outputs per thread per pass
-constexpr int kThreads = 256;
-
-template <typename T> struct Cplx;
-template <> struct Cplx<float> { using type = float2; };
-template <> struct Cplx<double> { using type = double2; };
-
-__device__ __forceinline__ float dev_sin(float x) { return sinf(x); }
-__device__ __forceinline__ double dev_sin(double x) { return sin(x); }
-__device__ __forceinline__ float dev_fma(float a, float b, float c) {
-  return fmaf(a, b, c);
-}
-__device__ __forceinline__ double dev_fma(double a, double b, double c) {
-  return fma(a, b, c);
-}
-
-template <typename C2>
-__device__ __forceinline__ C2 cmul(C2 a, C2 b) {
-  C2 r;
-  r.x = a.x * b.x - a.y * b.y;
-  r.y = a.x * b.y + a.y * b.x;
-  return r;
-}
-
-// out[j][a, i, c] = sum_m mat[i, m] * ph_j[m] * in[j / in_div][a, m, c]
-//
-// The grid is (A, n, C) row-major around the transformed axis; a "line" is one
-// (a, c) pair, n_lines = A * C.  blockIdx.x picks a tile of kTile lines,
-// blockIdx.y the batch entry j.  With a phase table, entry j uses row
-// (j >> 1) % phase_rows, conjugated for odd j (the g1/g2 stream pair).
-template <typename T, bool kRealIn>
-__global__ void __launch_bounds__(kThreads) axis_dft_kernel(
-    const void* __restrict__ in_raw, long long in_grid, int in_div,
-    typename Cplx<T>::type* __restrict__ out, int n_lines, int n, int c,
-    const typename Cplx<T>::type* __restrict__ mat,
-    const typename Cplx<T>::type* __restrict__ phase, int phase_rows) {
-  using C2 = typename Cplx<T>::type;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  C2* sm_mat = reinterpret_cast<C2*>(smem_raw);
-  C2* sm_x = sm_mat + n * n;
-  constexpr int ld = kTile + 1;  // padded row: conflict-free column stores
-
-  const int j = blockIdx.y;
-  const int l0 = blockIdx.x * kTile;
-  const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-
-  for (int k = tid; k < n * n; k += nthreads) sm_mat[k] = mat[k];
-
-  const C2* ph = nullptr;
-  bool conj = false;
-  if (phase != nullptr) {
-    ph = phase + (long long)((j >> 1) % phase_rows) * n;
-    conj = (j & 1) != 0;
-  }
-  const long long in_base = (long long)(j / in_div) * in_grid;
-  for (int k = tid; k < kTile * n; k += nthreads) {
-    // consecutive k -> consecutive addresses: along m when c == 1 (the
-    // contiguous axis), along the lines otherwise
-    int lt, m;
-    if (c == 1) {
-      lt = k / n;
-      m = k % n;
-    } else {
-      m = k / kTile;
-      lt = k % kTile;
-    }
-    const int l = l0 + lt;
-    C2 v;
-    v.x = 0;
-    v.y = 0;
-    if (l < n_lines) {
-      const long long off =
-          in_base + (long long)(l / c) * n * c + (long long)m * c + (l % c);
-      if (kRealIn) {
-        v.x = reinterpret_cast<const T*>(in_raw)[off];
-      } else {
-        v = reinterpret_cast<const C2*>(in_raw)[off];
-      }
-      if (ph != nullptr) {
-        C2 p = ph[m];
-        if (conj) p.y = -p.y;
-        v = cmul(p, v);
-      }
-    }
-    sm_x[m * ld + lt] = v;
-  }
-  __syncthreads();
-
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = nthreads >> 5;
-  const int l = l0 + lane;
-  const bool valid = l < n_lines;
-  const long long grid_elems = (long long)n_lines * n;
-  const long long out_base =
-      (long long)j * grid_elems + (long long)(l / c) * n * c + (l % c);
-
-  for (int i0 = warp * kRows; i0 < n; i0 += nwarps * kRows) {
-    C2 acc[kRows];
-    int row[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      acc[r].x = 0;
-      acc[r].y = 0;
-      row[r] = min(i0 + r, n - 1) * n;
-    }
-    for (int m = 0; m < n; ++m) {
-      const C2 x = sm_x[m * ld + lane];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const C2 a = sm_mat[row[r] + m];
-        acc[r].x = dev_fma(a.x, x.x, acc[r].x);
-        acc[r].x = dev_fma(-a.y, x.y, acc[r].x);
-        acc[r].y = dev_fma(a.x, x.y, acc[r].y);
-        acc[r].y = dev_fma(a.y, x.x, acc[r].y);
-      }
-    }
-    if (valid) {
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        if (i0 + r < n) out[out_base + (long long)(i0 + r) * c] = acc[r];
-      }
-    }
-  }
-}
+using bfft::Cplx;
+using bfft::axis_dft;
+using bfft::beta1_acc_kernel;
+using bfft::group_sum_kernel;
 
 // y[e, 0] = 0, y[e, 1] = beta2 * f_hat[e]
 template <typename T>
@@ -205,54 +80,6 @@ __global__ void init_kernel(const typename Cplx<T>::type* __restrict__ fh,
   y[(2LL * e + 1) * n3 + p] = bv;
 }
 
-// s[e, g] = sum_{b in group g} w_b (Re g1_b Re g2_b - Im g1_b Im g2_b), nodes
-// in order; the streams are laid out j = ((e * n_nodes) + b) * 2 + {0, 1}.
-template <typename T>
-__global__ void group_sum_kernel(const typename Cplx<T>::type* __restrict__ g,
-                                 const T* __restrict__ w, T* __restrict__ s,
-                                 long long n3, int n_nodes, int gs,
-                                 int n_groups) {
-  using C2 = typename Cplx<T>::type;
-  const long long p = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (p >= n3) return;
-  const int eg = blockIdx.y;
-  const int e = eg / n_groups;
-  const int b0 = (eg % n_groups) * gs;
-  const int b1 = min(b0 + gs, n_nodes);
-  T acc = 0;
-  for (int b = b0; b < b1; ++b) {
-    const long long jj = ((long long)e * n_nodes + b) * 2;
-    const C2 g1 = g[jj * n3 + p];
-    const C2 g2 = g[(jj + 1) * n3 + p];
-    acc = acc + w[b] * (g1.x * g2.x - g1.y * g2.y);
-  }
-  s[eg * n3 + p] = acc;
-}
-
-// y[e, 0] += sum_g beta1(rho_g, |l|) sh[e, g], groups in order
-template <typename T>
-__global__ void beta1_acc_kernel(const typename Cplx<T>::type* __restrict__ sh,
-                                 const T* __restrict__ rho,
-                                 const T* __restrict__ norm_l,
-                                 typename Cplx<T>::type* __restrict__ y,
-                                 long long n3, int n_groups, int gs, T coef,
-                                 T amp, T eps) {
-  using C2 = typename Cplx<T>::type;
-  const long long p = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (p >= n3) return;
-  const int e = blockIdx.y;
-  C2 acc = y[(2LL * e) * n3 + p];
-  const T nl = norm_l[p];
-  for (int g = 0; g < n_groups; ++g) {
-    const T arg = (coef * rho[g * gs]) * nl + eps;
-    const T b1 = amp * dev_sin(arg) / arg;
-    const C2 v = sh[((long long)e * n_groups + g) * n3 + p];
-    acc.x = acc.x + b1 * v.x;
-    acc.y = acc.y + b1 * v.y;
-  }
-  y[(2LL * e) * n3 + p] = acc;
-}
-
 // q[e] = Re yi[e, 0] - Re yi[e, 1] * f[e]
 template <typename T>
 __global__ void assemble_kernel(const typename Cplx<T>::type* __restrict__ yi,
@@ -263,28 +90,6 @@ __global__ void assemble_kernel(const typename Cplx<T>::type* __restrict__ yi,
   const int e = blockIdx.y;
   q[e * n3 + p] =
       yi[(2LL * e) * n3 + p].x - yi[(2LL * e + 1) * n3 + p].x * f[e * n3 + p];
-}
-
-// One axis-DFT launch over nbatch grids of shape (A, n, c).
-template <typename T, bool kRealIn>
-cudaError_t axis_dft(const void* in, long long in_grid, int in_div,
-                     typename Cplx<T>::type* out, int nbatch, int a, int n,
-                     int c, const typename Cplx<T>::type* mat,
-                     const typename Cplx<T>::type* phase, int phase_rows,
-                     cudaStream_t st) {
-  using C2 = typename Cplx<T>::type;
-  const int n_lines = a * c;
-  const int nwarps = std::min(kThreads / 32, (n + kRows - 1) / kRows);
-  const size_t smem = (size_t)n * n * sizeof(C2) +
-                      (size_t)n * (kTile + 1) * sizeof(C2);
-  cudaError_t err = cudaFuncSetAttribute(
-      axis_dft_kernel<T, kRealIn>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((n_lines + kTile - 1) / kTile, nbatch);
-  axis_dft_kernel<T, kRealIn><<<grid, nwarps * 32, smem, st>>>(
-      in, in_grid, in_div, out, n_lines, n, c, mat, phase, phase_rows);
-  return cudaGetLastError();
 }
 
 // Three axis DFTs x, y, z: in -> t -> u -> out, phases optional.
@@ -357,7 +162,8 @@ int fused_collide(const T* f, const T* beta2, const T* norm_l, const T* rho,
                         nullptr, nullptr, nullptr, 1, st);
     if (err != cudaSuccess) return err;
     beta1_acc_kernel<T><<<dim3(pblocks, ne), pt, 0, st>>>(
-        t1, rho + n0, norm_l, y, n3, ng, gs, (T)coef, (T)amp, (T)eps);
+        t1, rho + n0, norm_l, y, 2 * n3, n3, ng, gs, (T)coef, (T)amp,
+        (T)eps);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
 

@@ -168,10 +168,11 @@ def _chunk_nodes(n_nodes: int, group: int, n_batch: int, n3: int,
                  csize: int, device) -> int:
     """Nodes per kernel chunk: whole radial groups whose two stream buffers
     (2 buffers x E x 2 streams x N^3 complex per node) fit half the free
-    device memory, with at most 65535 stream grids per launch."""
+    device memory, with at most 65535 (entry, group) pairs per launch (the
+    group-sum kernel's gridDim.y)."""
     free, _total = torch.cuda.mem_get_info(device)
     per_node = 2 * n_batch * 2 * n3 * csize
-    cap = min(n_nodes, (free // 2) // per_node, 65535 // (2 * n_batch))
+    cap = min(n_nodes, (free // 2) // per_node, (65535 // n_batch) * group)
     return max(group, (cap // group) * group)
 
 
@@ -190,10 +191,10 @@ def _fused_collide_cuda(
     nx, ny, nz = f.shape[-3:]
     fb = f.reshape(-1, nx, ny, nz).contiguous()
     n_batch = fb.shape[0]
-    if 2 * n_batch * radial_group > 65535:
+    if n_batch > 65535:
         raise ValueError(
-            f"fused_collide: batch of {n_batch} with radial groups of "
-            f"{radial_group} exceeds one launch (2*E*group <= 65535); split the batch"
+            f"fused_collide: batch of {n_batch} exceeds one launch "
+            "(E <= 65535, gridDim.y); split the batch"
         )
     cd = torch.complex64 if rd == torch.float32 else torch.complex128
     n_nodes = rho.shape[0]

@@ -1,0 +1,218 @@
+"""K3: the gain spectrum Q_gain_hat by the Kronecker ("kron") scheme in one
+hand-written CUDA kernel, and its plain PyTorch version.
+
+Counterpart of ``boltzfft/pallas_kernels.py``'s ``fused_gain(scheme="kron")``
+-> ``_fused_gain_kron_kernel``.  :func:`fused_gain_kron` dispatches on the
+device of ``f_hat``: a CUDA tensor runs the kernel of
+``csrc/fused_gain_kron.cu`` (or raises), a CPU tensor runs
+:func:`fused_gain_kron_reference`.  Any other device raises.
+
+Both compute, per spectrum f_hat (Nx, Ny, Nz) viewed as (Nx, Ny*Nz), with
+K = kron(Vy, Vz) and per node b, stream s in {+, -} (conjugated phases):
+
+* t = (ayz_b^s * f_hat) K, one (Ny*Nz)-deep contraction for the y/z axes;
+* g_s = Vx diag(ax_b^s) t, the x axis with its phase folded in;
+* per radial group of ``radial_group`` consecutive nodes, the real sum
+  s = sum_b w_b Re(g_+ g_-), nodes in order (Im is dropped exactly, as in K1);
+* Q_gain_hat = sum over groups, in order, of beta1(rho_group, |l|)
+  (Fx s)(Ny Nz conj K), beta1 = 4 pi b_gamma sin(a)/a with
+  a = pi rho |l| / (2L) + eps.
+
+The JAX kernel sums the groups of one grid step from zero and adds that
+partial sum to its output; here every group is added to one running sum, so
+the two agree to rounding (the tests hold them to 1e-12 max|Q_gain_hat| in
+float64), not bitwise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from .fused_collide import _chunk_nodes, _cplx
+
+#: Launches of the CUDA kernel (one per :func:`fused_gain_kron` call on CUDA).
+LAUNCHES = 0
+#: Calls of the plain PyTorch version.
+REFERENCE_CALLS = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class KronTables:
+    """The kron scheme's operands, complex, built once per ``Precomp``."""
+
+    ax: torch.Tensor  # (B, Nx) x phase per node
+    ayz: torch.Tensor  # (B, Ny*Nz) combined y/z phase ay (x) az per node
+    vx: torch.Tensor  # (Nx, Nx) inverse DFT matrix (1/Nx)
+    fx: torch.Tensor  # (Nx, Nx) forward DFT matrix
+    kinv: torch.Tensor  # (NyNz, NyNz) kron(Vy, Vz)
+    kfwd: torch.Tensor  # (NyNz, NyNz) Ny Nz conj(kron(Vy, Vz)) = kron(Fy, Fz)
+
+
+def kron_tables(ax, ay, az, dft_inv, dft_fwd) -> KronTables:
+    """The scheme's tables from the separable phases (B, N_axis) and the
+    (x, y, z) triples of (2, N, N) [re, im] DFT matrix stacks."""
+    vy, vz = _cplx(dft_inv[1]), _cplx(dft_inv[2])
+    kinv = torch.kron(vy, vz)
+    nyz = kinv.shape[0]
+    ayz = (ay[:, :, None] * az[:, None, :]).reshape(ay.shape[0], nyz)
+    return KronTables(
+        ax=ax.contiguous(), ayz=ayz.contiguous(),
+        vx=_cplx(dft_inv[0]).contiguous(), fx=_cplx(dft_fwd[0]).contiguous(),
+        kinv=kinv.contiguous(), kfwd=(nyz * kinv.conj()).resolve_conj().contiguous(),
+    )
+
+
+def fused_gain_kron(
+    rho, gain_w, tables: KronTables, f_hat, norm_l,
+    *, length: float, b_gamma: float, radial_group: int,
+) -> torch.Tensor:
+    """Q_gain_hat for f_hat of shape (Nx, Ny, Nz) or (E, Nx, Ny, Nz), complex.
+
+    ``rho``, ``gain_w``: (B,) node tables; ``tables``: :func:`kron_tables`;
+    ``norm_l``: (Nx, Ny, Nz) mode norms.  Returns a complex tensor shaped like
+    ``f_hat``.
+    """
+    args = (rho, gain_w, tables, f_hat, norm_l)
+    kw = dict(length=length, b_gamma=b_gamma, radial_group=radial_group)
+    if f_hat.device.type == "cuda":
+        return _fused_gain_kron_cuda(*args, **kw)
+    if f_hat.device.type == "cpu":
+        return fused_gain_kron_reference(*args, **kw)
+    raise ValueError(f"fused_gain_kron: no kernel for device {f_hat.device}")
+
+
+# --------------------------------------------------------------------------
+# plain PyTorch version
+# --------------------------------------------------------------------------
+
+
+def _reference_one(rho, gain_w, t: KronTables, fh, norm_l,
+                   *, length, b_gamma, radial_group):
+    """One spectrum fh (Nx, NyNz): every node at once, then the group sums
+    node by node and the beta1 sum group by group, in order."""
+    coef = math.pi / (2.0 * length)
+    amp = 4.0 * math.pi * b_gamma
+    eps = float(torch.finfo(rho.dtype).eps)
+    n_nodes = rho.shape[0]
+    gs = radial_group
+    n_groups = -(-n_nodes // gs)
+
+    def stream(ayz, ax):
+        yz = (ayz[:, None, :] * fh[None]) @ t.kinv  # (B, Nx, NyNz)
+        return torch.einsum("xm,bmk->bxk", t.vx, ax[:, :, None] * yz)
+
+    g1 = stream(t.ayz, t.ax)
+    g2 = stream(t.ayz.conj(), t.ax.conj())
+    h = g1.real * g2.real - g1.imag * g2.imag
+    pad = n_groups * gs - n_nodes  # zero-weight filler of a short last group
+    w = torch.cat([gain_w, gain_w.new_zeros(pad)]).reshape(n_groups, gs)
+    h = torch.cat([h, h.new_zeros((pad,) + h.shape[1:])]).reshape(
+        (n_groups, gs) + h.shape[1:])
+    s = torch.zeros_like(h[:, 0])
+    for k in range(gs):
+        s = s + w[:, k, None, None] * h[:, k]
+    sh = torch.einsum("xm,gmk->gxk", t.fx, s.to(fh.dtype)) @ t.kfwd
+    arg = (coef * rho[::gs])[:, None, None] * norm_l + eps
+    beta1 = amp * torch.sin(arg) / arg
+    acc = torch.zeros_like(fh)
+    for g in range(n_groups):
+        acc = acc + beta1[g] * sh[g]
+    return acc
+
+
+def fused_gain_kron_reference(
+    rho, gain_w, tables: KronTables, f_hat, norm_l,
+    *, length: float, b_gamma: float, radial_group: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: matmuls and einsums in the same
+    order of stages, nodes and groups.  A batch is evaluated item by item, so
+    a batched result equals the per-item results bitwise."""
+    global REFERENCE_CALLS
+    REFERENCE_CALLS += 1
+    nx, ny, nz = f_hat.shape[-3:]
+    rd = torch.float64 if f_hat.dtype == torch.complex128 else torch.float32
+    kw = dict(length=length, b_gamma=b_gamma, radial_group=radial_group)
+    one = lambda fh: _reference_one(  # noqa: E731
+        rho.to(rd), gain_w.to(rd), tables, fh.reshape(nx, ny * nz),
+        norm_l.to(rd).reshape(nx, ny * nz), **kw,
+    ).reshape(nx, ny, nz)
+    if f_hat.dim() == 4:
+        return torch.stack([one(fh) for fh in f_hat])
+    return one(f_hat)
+
+
+# --------------------------------------------------------------------------
+# CUDA kernel wrapper
+# --------------------------------------------------------------------------
+
+
+def _fused_gain_kron_cuda(
+    rho, gain_w, tables: KronTables, f_hat, norm_l,
+    *, length: float, b_gamma: float, radial_group: int,
+) -> torch.Tensor:
+    global LAUNCHES
+    from .._build import load_library
+
+    if f_hat.dim() not in (3, 4):
+        raise ValueError(
+            f"fused_gain_kron: f_hat must be (Nx,Ny,Nz) or (E,Nx,Ny,Nz), got {tuple(f_hat.shape)}")
+    if f_hat.dtype not in (torch.complex64, torch.complex128):
+        raise TypeError(f"fused_gain_kron: complex64/complex128 only, got {f_hat.dtype}")
+    cd = f_hat.dtype
+    rd = torch.float64 if cd == torch.complex128 else torch.float32
+    dev = f_hat.device
+    nx, ny, nz = f_hat.shape[-3:]
+    nyz = ny * nz
+    fb = f_hat.reshape(-1, nx, nyz).contiguous()
+    n_batch = fb.shape[0]
+    if n_batch > 65535:
+        raise ValueError(
+            f"fused_gain_kron: batch of {n_batch} exceeds one launch "
+            "(E <= 65535, gridDim.y); split the batch")
+    n_nodes = rho.shape[0]
+
+    def arg(t, shape, dtype):
+        if tuple(t.shape) != tuple(shape) or t.device != dev:
+            raise ValueError(
+                f"fused_gain_kron: expected {tuple(shape)} on {dev}, "
+                f"got {tuple(t.shape)} on {t.device}")
+        return t.to(dtype).contiguous()
+
+    ins = [
+        fb,
+        arg(rho, (n_nodes,), rd),
+        arg(gain_w, (n_nodes,), rd),
+        arg(tables.ax, (n_nodes, nx), cd),
+        arg(tables.ayz, (n_nodes, nyz), cd),
+        arg(tables.vx, (nx, nx), cd),
+        arg(tables.fx, (nx, nx), cd),
+        arg(tables.kinv, (nyz, nyz), cd),
+        arg(tables.kfwd, (nyz, nyz), cd),
+        arg(norm_l, (nx, ny, nz), rd),
+    ]
+    n3 = nx * nyz
+    csize = 16 if rd == torch.float64 else 8
+    # the same two stream buffers per node as K1's, sized by K1's rule
+    chunk = _chunk_nodes(n_nodes, radial_group, n_batch, n3, csize, dev)
+    t1 = torch.empty((2 * n_batch * chunk, n3), dtype=cd, device=dev)
+    t2 = torch.empty_like(t1)
+    out = torch.empty_like(fb)
+
+    lib = load_library()
+    entry = lib.bfft_fused_gain_kron_f64 if rd == torch.float64 else lib.bfft_fused_gain_kron_f32
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = entry(
+            *[t.data_ptr() for t in ins],
+            t1.data_ptr(), t2.data_ptr(), out.data_ptr(),
+            n_batch, nx, nyz, n_nodes, radial_group, chunk,
+            math.pi / (2.0 * length), 4.0 * math.pi * b_gamma,
+            float(torch.finfo(rd).eps), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"fused_gain_kron: CUDA kernel failed with cudaError {rc}")
+    LAUNCHES += 1
+    return out.reshape(f_hat.shape)

@@ -11,9 +11,14 @@ Boltzmann equation with a VHS kernel by the fast Fourier spectral method:
 
 ``impl="c2c"`` and ``"rfft"`` are the staged pipelines on ``torch.fft``
 (cuFFT on the card; c2c in float64 is the port's independent oracle there).
-``impl="fused"`` runs the whole eval in the K1 kernel
-(``kernels.fused_collide``) and is differentiable through
-:class:`_FusedCollide`, whose backward is the staged c2c pipeline.
+``impl="fused"`` takes one of two routes (:func:`pick_scheme`):
+
+* ``"ct"``: the whole eval in the K1 kernel (``kernels.fused_collide``),
+  differentiable through :class:`_FusedCollide`, whose backward is the staged
+  c2c pipeline;
+* ``"kron"``: the gain spectrum of the whole batch in one K3 call
+  (``kernels.fused_gain``) inside the staged c2c finale, as ``boltzfft``
+  runs its kron scheme.  Like ``boltzfft``'s, this route has no gradient.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import numpy as np
 import torch
 
 from .kernels import fused_collide as _k1
+from .kernels import fused_gain as _k3
 from .weights import CollisionConfig, Precomp, build_precomp
 
 _FFT_AXES = (-3, -2, -1)
@@ -75,17 +81,58 @@ def _gain_chunk(cfg: CollisionConfig, pre: Precomp, f_hat, rho, sigma, gain_w):
     return torch.sum(w.to(h_hat.dtype) * h_hat, dim=0)
 
 
-def gain_spectrum(cfg: CollisionConfig, pre: Precomp, f_hat) -> torch.Tensor:
-    """Full gain spectrum Q_gain_hat of the staged pipelines, chunked over the
-    node batch and summed chunk after chunk in order.
+def pick_scheme(nx: int, ny: int, nz: int) -> str:
+    """The port's ``fused_scheme="auto"`` rule: ``"kron"`` (K3) when the
+    (Ny*Nz)^2 Kronecker table is small and a lane axis is short, i.e.
+    Ny*Nz <= 1024 and min(Ny, Nz) < 32; ``"ct"`` (K1, which takes any even
+    grid) otherwise.  Independent of the device.  On every grid with
+    Ny*Nz <= 1024 this is ``boltzfft``'s choice on a TPU; ``boltzfft``'s
+    transpose scheme and its large anisotropic kron grids go to K1 here."""
+    if ny * nz <= 1024 and min(ny, nz) < 32:
+        return "kron"
+    return "ct"
 
-    The chunking follows the node tables in ``pre`` (not ``cfg.n_nodes``), so
-    a device-local shard of the node axis works the same way.
+
+def fused_scheme(cfg: CollisionConfig) -> str:
+    """The configuration's fused route: ``cfg.fused_scheme`` or, for
+    ``"auto"``, :func:`pick_scheme` of its grid."""
+    if cfg.fused_scheme == "auto":
+        return pick_scheme(*cfg.grid_shape)
+    return cfg.fused_scheme
+
+
+def _kron_tables(cfg: CollisionConfig, pre: Precomp) -> _k3.KronTables:
+    """K3's tables for ``pre``, built at the first call and kept in
+    ``pre.derived``."""
+    key = ("kron", cfg.domain_length, cfg.dtype)
+    if key not in pre.derived:
+        ax, ay, az = _alpha_factors(cfg, pre, pre.rho, pre.sigma)
+        pre.derived[key] = _k3.kron_tables(
+            ax, ay, az, pre.dft_inv_axes(), pre.dft_fwd_axes())
+    return pre.derived[key]
+
+
+def gain_spectrum(cfg: CollisionConfig, pre: Precomp, f_hat) -> torch.Tensor:
+    """Full gain spectrum Q_gain_hat.
+
+    ``impl="fused"`` on the kron route: one K3 call on f_hat of shape
+    (Nx, Ny, Nz) or (E, Nx, Ny, Nz).  The staged pipelines: one spectrum,
+    chunked over the node batch and summed chunk after chunk in order; the
+    chunking follows the node tables in ``pre`` (not ``cfg.n_nodes``), so a
+    device-local shard of the node axis works the same way.
     """
     if cfg.impl == "fused":
-        raise NotImplementedError(
-            "the fused gain-only spectrum (the multi-device step) is not "
-            "ported yet; use impl='c2c' or 'rfft' with a gain_reduce hook"
+        if fused_scheme(cfg) != "kron":
+            raise NotImplementedError(
+                "the fused gain-only spectrum of the ct scheme (K2, the "
+                "multi-device step) is not ported yet; use fused_scheme='kron', "
+                "or impl='c2c' or 'rfft' with a gain_reduce hook"
+            )
+        return _k3.fused_gain_kron(
+            pre.rho, pre.gain_w, _kron_tables(cfg, pre),
+            f_hat.to(cfg.complex_dtype), pre.norm_l,
+            length=cfg.domain_length, b_gamma=cfg.b_gamma,
+            radial_group=cfg.ns_eff,
         )
     b = pre.rho.shape[0]
     c = min(cfg.chunk(pre.device), b)
@@ -145,12 +192,19 @@ def collide(
 
     ``gain_reduce`` is an optional hook applied to the gain spectrum before
     the final inverse transform (the node-sharded operator's all-reduce).
-    ``impl="fused"`` without a hook runs the whole eval in K1.
+    ``impl="fused"`` without a hook runs the whole eval in K1 on the ct
+    route; on the kron route the whole batch goes through one K3 call.
     """
     f = f.to(cfg.real_dtype)
-    if cfg.impl == "fused" and gain_reduce is None:
+    kron = cfg.impl == "fused" and fused_scheme(cfg) == "kron"
+    if cfg.impl == "fused" and not kron and gain_reduce is None:
         return _FusedCollide.apply(cfg, pre, f)
-    if f.dim() == 4:
+    if kron and torch.is_grad_enabled() and f.requires_grad:
+        raise NotImplementedError(
+            "impl='fused' on the kron route (K3) has no gradient, as in "
+            "boltzfft; use fused_scheme='ct' or impl='c2c'"
+        )
+    if f.dim() == 4 and not kron:
         return torch.stack([collide(cfg, pre, fi, gain_reduce) for fi in f])
     shape = cfg.grid_shape
     if cfg.impl == "rfft":
@@ -162,7 +216,7 @@ def collide(
         loss_conv = torch.fft.irfftn(
             pre.beta2.to(f_hat.dtype) * f_hat, s=shape, dim=_FFT_AXES
         )
-    else:  # "c2c": full complex spectrum pipeline
+    else:  # "c2c" and the kron route: full complex spectrum pipeline
         f_hat = torch.fft.fftn(f.to(cfg.complex_dtype), dim=_FFT_AXES)
         q_gain_hat = gain_spectrum(cfg, pre, f_hat)
         if gain_reduce is not None:
@@ -179,8 +233,9 @@ def make_collision_operator(
 ) -> Tuple[Callable[[torch.Tensor, Precomp], torch.Tensor], Precomp]:
     """Build ``(collide_fn, precomp)`` for a configuration on ``device``.
 
-    ``collide_fn(f, precomp) -> Q``.  ``impl="fused"`` on CUDA raises here if
-    the kernel cannot take the grid.
+    ``collide_fn(f, precomp) -> Q`` for f of shape (Nx, Ny, Nz) or
+    (E, Nx, Ny, Nz).  ``impl="fused"`` on CUDA raises here if the kernels
+    cannot take the grid.
     """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():

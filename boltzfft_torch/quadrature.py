@@ -2,27 +2,25 @@
 
 Mirror of ``boltzfft/quadrature.py``: an ``n``-point Gauss-Legendre rule on
 ``[0, R]`` in the radial direction and a symmetric spherical t-design on the
-unit sphere.  The design tables are read from ``boltzfft/data/`` by path (they
-are not copied), and the Gauss-Legendre nodes come from the same native
-library the JAX package uses when it has been built (``make -C native``), with
-the same ``numpy.polynomial.legendre.leggauss`` fallback, so both packages
-compute bitwise the same tables.
+unit sphere.  The design tables are the package's own copies under
+``boltzfft_torch/data/``.  The Gauss-Legendre rule is the port's own: a NumPy
+``longdouble`` copy of the Newton iteration of ``native/boltzfft_native.cpp``
+(same initial guess, recurrence and stopping rule), so its nodes and weights
+are bitwise those of the JAX package's native library, and do not depend on
+whether that library was built.
 """
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 from pathlib import Path
 from typing import Optional
 
 import numpy as np
 
-_JAX_PKG_DIR = Path(__file__).resolve().parents[1] / "boltzfft"
-_DATA_DIR = _JAX_PKG_DIR / "data"
-_NATIVE_LIB = _JAX_PKG_DIR / "_lib" / "libboltzfft_native.so"
+_DATA_DIR = Path(__file__).resolve().parent / "data"
 
-#: Available spherical design sizes -> node-table file under ``boltzfft/data``.
+#: Available spherical design sizes -> node-table file under ``data/``.
 SPHERICAL_DESIGN_FILES = {
     6: "ss003.006.txt",
     12: "ss005.012.txt",
@@ -60,28 +58,43 @@ class SphericalQuadrature:
         return self.points.shape[0]
 
 
-def _native_leggauss(n: int) -> Optional[tuple[np.ndarray, np.ndarray]]:
-    """Nodes/weights from the native long-double Newton iteration, or None
-    when the library has not been built."""
-    if not _NATIVE_LIB.exists():
-        return None
-    lib = ctypes.CDLL(str(_NATIVE_LIB))
-    dp = ctypes.POINTER(ctypes.c_double)
-    lib.bz_leggauss.restype = ctypes.c_int
-    lib.bz_leggauss.argtypes = [ctypes.c_int, dp, dp]
-    nodes = np.empty(n, dtype=np.float64)
-    weights = np.empty(n, dtype=np.float64)
-    if lib.bz_leggauss(n, nodes.ctypes.data_as(dp), weights.ctypes.data_as(dp)):
-        raise ValueError(f"bz_leggauss failed for n={n}")
-    return nodes, weights
+_LD = np.longdouble
+# long double constants of the native iteration (80-bit x87 on x86-64)
+_PI_LD = _LD("3.14159265358979323846264338327950288")
+_NEWTON_TOL = _LD("1e-19")
 
 
 def _leggauss_unit(n: int) -> tuple[np.ndarray, np.ndarray]:
-    """Gauss-Legendre nodes/weights on [-1, 1]."""
-    native = _native_leggauss(n)
-    if native is not None:
-        return native
-    return np.polynomial.legendre.leggauss(n)
+    """Gauss-Legendre nodes/weights on [-1, 1]: Newton's iteration on P_n
+    (three-term recurrence) in long double for the upper half of the roots,
+    each root stopping on its own once ``|dx| < 1e-19 (1 + |x|)``, rounded
+    once to float64.  Operation for operation the native ``bz_leggauss``."""
+    half = (n + 1) // 2
+    k = np.arange(half)
+    x = np.cos(_PI_LD * (k.astype(_LD) + _LD("0.75")) / (_LD(n) + _LD("0.5")))
+    pp = np.zeros(half, _LD)  # P_n'(x) of each root's last iteration
+    active = np.ones(half, bool)
+    for _ in range(100):
+        idx = np.flatnonzero(active)
+        if idx.size == 0:
+            break
+        xa = x[idx]
+        p0, p1 = np.ones_like(xa), xa.copy()
+        for j in range(1, n):
+            p0, p1 = p1, (_LD(2 * j + 1) * xa * p1 - _LD(j) * p0) / _LD(j + 1)
+        ppa = _LD(n) * (xa * p1 - p0) / (xa * xa - _LD(1))
+        dx = p1 / ppa
+        xa = xa - dx
+        x[idx], pp[idx] = xa, ppa
+        active[idx[np.abs(dx) < _NEWTON_TOL * (_LD(1) + np.abs(xa))]] = False
+    w = _LD(2) / ((_LD(1) - x * x) * pp * pp)
+    nodes = np.empty(n, np.float64)
+    weights = np.empty(n, np.float64)
+    nodes[k], nodes[n - 1 - k] = (-x).astype(np.float64), x.astype(np.float64)
+    weights[k] = weights[n - 1 - k] = w.astype(np.float64)
+    if n % 2:
+        nodes[n // 2] = 0.0  # exact centre root
+    return nodes, weights
 
 
 def gauss_legendre(n: int, a: float, b: float) -> Quadrature1D:

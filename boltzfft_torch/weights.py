@@ -8,13 +8,14 @@ ever built; ``beta1`` is recomputed from ``|l|`` and the loss multiplier
 the JAX package builds them, then turned into tensors on an explicit device.
 
 Left out of ``CollisionConfig`` until the kernels that read them are ported:
-``fused_nodes_per_step``, ``fused_scheme``, ``fused_radix``,
-``fused_sub_batch``, ``fused_precision``, ``use_pallas`` and ``oz_cmax``.
+``fused_nodes_per_step``, ``fused_radix``, ``fused_sub_batch``,
+``fused_precision``, ``use_pallas`` and ``oz_cmax``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Mapping, Optional
 
@@ -68,8 +69,12 @@ class CollisionConfig:
     dtype: str = "float64"  # "float32" | "float64"
     # "rfft": real half-spectrum transforms (torch.fft);
     # "c2c":  complex transforms (torch.fft), the f64 oracle on the card;
-    # "fused": the whole eval in the hand-written K1 kernel on CUDA.
+    # "fused": the hand-written kernels on CUDA (K1 or K3, see fused_scheme).
     impl: str = "rfft"
+    # impl="fused": "ct" runs the whole eval in K1; "kron" the gain spectrum in
+    # K3 inside the staged c2c finale; "auto" picks by grid
+    # (operator.pick_scheme).  "transpose" (K4) is not ported yet.
+    fused_scheme: str = "auto"
     node_chunk: Optional[int] = None  # nodes per staged chunk; None = auto
     antipodal: bool = True  # exact antipodal-pair reduction (ns/2 nodes, 2x weights)
 
@@ -77,6 +82,16 @@ class CollisionConfig:
         if self.impl not in ("rfft", "c2c", "fused"):
             raise ValueError(
                 f"impl must be 'rfft', 'c2c' or 'fused', got {self.impl!r}"
+            )
+        if self.fused_scheme not in ("auto", "kron", "ct", "transpose"):
+            raise ValueError(
+                f"fused_scheme must be auto/kron/ct/transpose, got "
+                f"{self.fused_scheme!r}"
+            )
+        if self.fused_scheme == "transpose":
+            raise NotImplementedError(
+                "fused_scheme='transpose' runs K4 (_fused_gain_kernel), which "
+                "is not ported yet (ROADMAP Queue 2); use 'auto', 'kron' or 'ct'"
             )
         if self.dtype not in ("float32", "float64"):
             raise ValueError(f"dtype must be float32/float64, got {self.dtype!r}")
@@ -221,6 +236,13 @@ class Precomp:
     @property
     def device(self) -> torch.device:
         return self.rho.device
+
+    @functools.cached_property
+    def derived(self) -> dict:
+        """Tables derived from these fields, built once per ``Precomp`` and
+        kept here (not a field: ``to`` and ``precomp_from_numpy`` start a
+        fresh one).  ``operator`` keys them by what built them."""
+        return {}
 
 
 def sincc(x, eps: float):

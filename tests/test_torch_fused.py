@@ -1,5 +1,6 @@
-"""K1 (``impl="fused"``) of the PyTorch port: its plain PyTorch version and
-``collide`` on the CPU against boltzfft's fused Pallas path (interpret mode),
+"""K1 (``impl="fused"``, ``fused_scheme="ct"``) of the PyTorch port: its plain
+PyTorch version and ``collide`` on the CPU against boltzfft's fused Pallas
+path (interpret mode),
 batching, the autograd backward against ``jax.grad``, dispatch, and — on a
 card only — the CUDA kernel against its plain version.
 
@@ -64,7 +65,7 @@ def test_fused_matches_boltzfft(kw, tol):
     q_j = np.asarray(collide_j(jnp.asarray(f.astype(np.float64)), pre_j))
     scale = np.abs(q_j).max()
 
-    cfg = bt.CollisionConfig(impl="fused", **kw)
+    cfg = bt.CollisionConfig(impl="fused", fused_scheme="ct", **kw)
     collide, pre = bt.make_collision_operator(cfg, "cpu")
     ft = torch.as_tensor(f)
     q = collide(ft, pre)
@@ -77,7 +78,7 @@ def test_fused_matches_boltzfft(kw, tol):
 
 
 def test_fused_matches_staged_c2c():
-    cfg = bt.CollisionConfig(nv=16, ns=12, impl="fused")
+    cfg = bt.CollisionConfig(nv=16, ns=12, impl="fused", fused_scheme="ct")
     cfg_c = bt.CollisionConfig(nv=16, ns=12, impl="c2c")
     f = torch.as_tensor(_bkw_f(cfg))
     q = bt.make_collision_operator(cfg, "cpu")[0](f, bt.build_precomp(cfg, "cpu"))
@@ -87,7 +88,7 @@ def test_fused_matches_staged_c2c():
 
 
 def test_fused_batch_equals_per_item():
-    cfg = bt.CollisionConfig(nv=8, nvy=10, nvz=12, ns=6, impl="fused")
+    cfg = bt.CollisionConfig(nv=8, nvy=10, nvz=12, ns=6, impl="fused", fused_scheme="ct")
     collide, pre = bt.make_collision_operator(cfg, "cpu")
     f = torch.as_tensor(_bkw_f(cfg))
     fs = torch.stack([f, 0.8 * f])
@@ -107,7 +108,7 @@ def test_fused_gradient_matches_jax():
         lambda x: jnp.sum(bz.collide(cfg_j, pre_j, x) * jnp.asarray(r))
     )(jnp.asarray(f)))
 
-    cfg = bt.CollisionConfig(**kw)
+    cfg = bt.CollisionConfig(fused_scheme="ct", **kw)
     collide, pre = bt.make_collision_operator(cfg, "cpu")
     x = torch.as_tensor(f).requires_grad_(True)
     (collide(x, pre) * torch.as_tensor(r)).sum().backward()
@@ -115,7 +116,7 @@ def test_fused_gradient_matches_jax():
 
 
 def test_dispatch_on_device():
-    cfg = bt.CollisionConfig(nv=8, ns=6, impl="fused")
+    cfg = bt.CollisionConfig(nv=8, ns=6, impl="fused", fused_scheme="ct")
     collide, pre = bt.make_collision_operator(cfg, "cpu")
     f = torch.as_tensor(_bkw_f(cfg))
     launches, ref_calls = k1.LAUNCHES, k1.REFERENCE_CALLS
@@ -191,7 +192,7 @@ def test_kernel_matches_plain_on_card(cuda_device, kw, batch, tol):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_kernel_bitwise_reproducible_on_card(cuda_device, dtype):
-    cfg = bt.CollisionConfig(nv=16, ns=12, impl="fused", dtype=dtype)
+    cfg = bt.CollisionConfig(nv=16, ns=12, impl="fused", fused_scheme="ct", dtype=dtype)
     collide, pre = bt.make_collision_operator(cfg, cuda_device)
     f = torch.as_tensor(_bkw_f(cfg), dtype=cfg.real_dtype, device=cuda_device)
     fs = torch.stack([f, 0.8 * f])
@@ -203,7 +204,7 @@ def test_kernel_bitwise_reproducible_on_card(cuda_device, dtype):
 def test_kernel_chunking_is_bitwise_invariant_on_card(cuda_device, monkeypatch):
     # one radial group per chunk (many launches) against the default single
     # chunk: the group order of the beta1 sum is the same, so bitwise equal
-    cfg = bt.CollisionConfig(nv=16, ns=12, node_chunk=7, impl="fused")
+    cfg = bt.CollisionConfig(nv=16, ns=12, node_chunk=7, impl="fused", fused_scheme="ct")
     collide, pre = bt.make_collision_operator(cfg, cuda_device)
     f = torch.as_tensor(_bkw_f(cfg), device=cuda_device)
     fs = torch.stack([f, 0.8 * f])
