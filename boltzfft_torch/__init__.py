@@ -1,7 +1,9 @@
 """boltzfft_torch: the fast Fourier spectral Boltzmann collision operator in
 PyTorch, with its kernels hand-written in CUDA for Hopper (K1, the whole
-collision eval; K3, the Kronecker-scheme gain spectrum), and the spatially
-inhomogeneous solver around it.
+collision eval; K2/K4, the gain spectrum by per-axis DFTs; K3, by the
+Kronecker scheme; K5/K6, the node reduction and phase multiply of the rfft
+route), the RK relaxation loop, and the spatially inhomogeneous solver
+around it.
 
 The PyTorch counterpart of ``boltzfft`` (JAX), which stays the reference.
 Imports torch and NumPy only, never jax::
@@ -29,6 +31,14 @@ from .quadrature import (
     spherical_design,
 )
 from .stats import RunStats, error_norms, error_norms_device, time_fn
+from .timestepper import (
+    Trajectory,
+    euler_step,
+    make_relaxation,
+    relax,
+    rk2_step,
+    rk4_step,
+)
 from .weights import (
     CollisionConfig,
     Precomp,
@@ -46,6 +56,7 @@ __all__ = [
     "RunStats",
     "SPHERICAL_DESIGN_FILES",
     "SphericalQuadrature",
+    "Trajectory",
     "VelocityGrid",
     "antipodal_reduce",
     "bkw_dfdt",
@@ -59,14 +70,19 @@ __all__ = [
     "entropy",
     "error_norms",
     "error_norms_device",
+    "euler_step",
     "gain_spectrum",
     "gauss_legendre",
     "make_collision_operator",
+    "make_relaxation",
     "maxwellian",
     "moments",
     "pick_scheme",
     "precomp_from_numpy",
     "project",
+    "relax",
+    "rk2_step",
+    "rk4_step",
     "sincc",
     "spherical_design",
     "time_fn",

@@ -49,6 +49,12 @@ _ENTRY_ARGS = {
     "bfft_fused_collide": [_P] * 14 + [_P] * 5 + [_I] * 7 + [_D] * 3 + [_P],
     # 10 inputs, 3 buffers, 6 ints, 3 reals and the stream
     "bfft_fused_gain_kron": [_P] * 10 + [_P] * 3 + [_I] * 6 + [_D] * 3 + [_P],
+    # 13 inputs, 3 buffers, 7 ints, 3 reals and the stream
+    "bfft_fused_gain": [_P] * 13 + [_P] * 3 + [_I] * 7 + [_D] * 3 + [_P],
+    # 3 inputs, 2 outputs, 3 ints and the stream
+    "bfft_alpha_multiply": [_P] * 3 + [_P] * 2 + [_I] * 3 + [_P],
+    # 4 inputs, 1 output, 3 ints, 3 reals and the stream
+    "bfft_gain_reduce": [_P] * 4 + [_P] + [_I] * 3 + [_D] * 3 + [_P],
 }
 
 _lib = None

@@ -1,6 +1,9 @@
 """Command-line drivers of the port (argparse, flags of the reference drivers).
 
     python -m boltzfft_torch.cli.maxwell_bkw --Nv 32 --Ns 12 --impl fused --trials 10
+    python -m boltzfft_torch.cli.maxwell_bkw --Nv 32 --Ns 12 --impl fused --steps 10
+    python -m boltzfft_torch.cli.fft_benchmark --Nv 32 --Ns 12
+    python -m boltzfft_torch.cli.loop_benchmark --Nv 32 --Ns 12 --tile-size 4 8 16
     python -m boltzfft_torch.cli.sod_1d3v --Nv 16 --nx 32 --steps 20
     python -m boltzfft_torch.cli.taylor_green_2d3v --cells 16 --steps 20
     python -m boltzfft_torch.cli.taylor_green_3d3v --cells 8 --steps 10
@@ -25,11 +28,12 @@ def standard_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--dtype", choices=["float32", "float64"], default="float64",
                    help="compute dtype")
     p.add_argument(
-        "--impl", choices=["auto", "rfft", "c2c", "fused"], default="rfft",
+        "--impl", choices=["auto", "rfft", "c2c", "dft", "fused"], default="rfft",
         help="pipeline: rfft (real transforms), c2c (complex transforms), "
-             "fused (the hand-written CUDA kernels, K1 or K3 by grid; their "
-             "plain PyTorch versions on --device cpu); auto = fused on a "
-             "CUDA device, rfft on the CPU",
+             "dft (per-axis DFT einsums), fused (the hand-written CUDA "
+             "kernels: the whole eval in K1, or K3 with its cuFFT finale "
+             "where Nvy*Nvz <= 64; their plain PyTorch versions on --device "
+             "cpu); auto = fused on a CUDA device, rfft on the CPU",
     )
     p.add_argument(
         "--device", default="cuda",

@@ -19,6 +19,19 @@
 // V* are the inverse DFT matrices (1/N per axis), F* the forward ones, both
 // from weights.build_precomp.
 //
+// The second entry, bfft_fused_gain_*, is K2 and K4: it replaces
+// _fused_ct_kernel in gain-only mode (launch via _fused_gain_ct, reached by
+// fused_gain(scheme="ct")) and _fused_gain_kernel (fused_gain(scheme=
+// "transpose")).  It takes f_hat and returns Q_gain_hat: K1's node-chunk loop
+// (gain_loop below) without the forward transform of f, the loss, the final
+// inverses and the assembly.  On the TPU the two differ only in how Mosaic's
+// 128-lane tiles are fed (a Cooley-Tukey split of the lane axes against
+// per-axis transforms with vector transposes, _dft3).  Here every transform
+// is a dense per-axis DFT with the node phase folded in, which is _dft3's
+// algorithm, so one entry serves both; the wrappers keep JAX's grid checks
+// (any even grid for ct, cubic for transpose).  Its bound is the same
+// arithmetic as K1's, less the four transforms it skips.
+//
 // What bounds it on this card: arithmetic.  Every transform is a dense N-term
 // DFT along one axis, O(N) FLOPs per point per axis; per node two streams of
 // three axes at 8 real FLOPs per complex multiply-add give 48 N^4 FLOPs, so an
@@ -115,35 +128,30 @@ cudaError_t dft3(const void* in, int in_div, typename Cplx<T>::type* t,
                             phase_rows, st);
 }
 
+// The node-chunk loop shared by K1 and the gain-only entry (K2/K4): for every
+// chunk of whole radial groups, both phased inverse streams of each node, the
+// real group sums, their forward transform, and the beta1 accumulation into
+// y[e * y_stride + p], groups in order.
 template <typename T>
-int fused_collide(const T* f, const T* beta2, const T* norm_l, const T* rho,
-                  const T* gain_w, const typename Cplx<T>::type* ax,
-                  const typename Cplx<T>::type* ay,
-                  const typename Cplx<T>::type* az,
-                  const typename Cplx<T>::type* vx,
-                  const typename Cplx<T>::type* vy,
-                  const typename Cplx<T>::type* vz,
-                  const typename Cplx<T>::type* fx,
-                  const typename Cplx<T>::type* fy,
-                  const typename Cplx<T>::type* fz,
-                  typename Cplx<T>::type* fh, typename Cplx<T>::type* y,
-                  typename Cplx<T>::type* t1, typename Cplx<T>::type* t2,
-                  T* q, int ne, int nx, int ny, int nz, int n_nodes, int gs,
-                  int chunk, double coef, double amp, double eps,
-                  cudaStream_t st) {
-  using C2 = typename Cplx<T>::type;
+cudaError_t gain_loop(const typename Cplx<T>::type* fh, const T* norm_l,
+                      const T* rho, const T* gain_w,
+                      const typename Cplx<T>::type* ax,
+                      const typename Cplx<T>::type* ay,
+                      const typename Cplx<T>::type* az,
+                      const typename Cplx<T>::type* vx,
+                      const typename Cplx<T>::type* vy,
+                      const typename Cplx<T>::type* vz,
+                      const typename Cplx<T>::type* fx,
+                      const typename Cplx<T>::type* fy,
+                      const typename Cplx<T>::type* fz,
+                      typename Cplx<T>::type* t1, typename Cplx<T>::type* t2,
+                      typename Cplx<T>::type* y, long long y_stride, int ne,
+                      int nx, int ny, int nz, int n_nodes, int gs, int chunk,
+                      double coef, double amp, double eps, cudaStream_t st) {
   const long long n3 = (long long)nx * ny * nz;
   const int pt = 256;
   const int pblocks = (int)((n3 + pt - 1) / pt);
   cudaError_t err;
-
-  // f_hat = F f (real input), then y = [0, beta2 f_hat]
-  err = dft3<T, true>(f, 1, t1, t2, fh, ne, nx, ny, nz, fx, fy, fz, nullptr,
-                      nullptr, nullptr, 1, st);
-  if (err != cudaSuccess) return err;
-  init_kernel<T><<<dim3(pblocks, ne), pt, 0, st>>>(fh, beta2, y, n3);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
   for (int n0 = 0; n0 < n_nodes; n0 += chunk) {
     const int cn = std::min(chunk, n_nodes - n0);
     const int ng = (cn + gs - 1) / gs;
@@ -162,10 +170,45 @@ int fused_collide(const T* f, const T* beta2, const T* norm_l, const T* rho,
                         nullptr, nullptr, nullptr, 1, st);
     if (err != cudaSuccess) return err;
     beta1_acc_kernel<T><<<dim3(pblocks, ne), pt, 0, st>>>(
-        t1, rho + n0, norm_l, y, 2 * n3, n3, ng, gs, (T)coef, (T)amp,
+        t1, rho + n0, norm_l, y, y_stride, n3, ng, gs, (T)coef, (T)amp,
         (T)eps);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
+  return cudaSuccess;
+}
+
+template <typename T>
+int fused_collide(const T* f, const T* beta2, const T* norm_l, const T* rho,
+                  const T* gain_w, const typename Cplx<T>::type* ax,
+                  const typename Cplx<T>::type* ay,
+                  const typename Cplx<T>::type* az,
+                  const typename Cplx<T>::type* vx,
+                  const typename Cplx<T>::type* vy,
+                  const typename Cplx<T>::type* vz,
+                  const typename Cplx<T>::type* fx,
+                  const typename Cplx<T>::type* fy,
+                  const typename Cplx<T>::type* fz,
+                  typename Cplx<T>::type* fh, typename Cplx<T>::type* y,
+                  typename Cplx<T>::type* t1, typename Cplx<T>::type* t2,
+                  T* q, int ne, int nx, int ny, int nz, int n_nodes, int gs,
+                  int chunk, double coef, double amp, double eps,
+                  cudaStream_t st) {
+  const long long n3 = (long long)nx * ny * nz;
+  const int pt = 256;
+  const int pblocks = (int)((n3 + pt - 1) / pt);
+  cudaError_t err;
+
+  // f_hat = F f (real input), then y = [0, beta2 f_hat]
+  err = dft3<T, true>(f, 1, t1, t2, fh, ne, nx, ny, nz, fx, fy, fz, nullptr,
+                      nullptr, nullptr, 1, st);
+  if (err != cudaSuccess) return err;
+  init_kernel<T><<<dim3(pblocks, ne), pt, 0, st>>>(fh, beta2, y, n3);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  err = gain_loop<T>(fh, norm_l, rho, gain_w, ax, ay, az, vx, vy, vz, fx, fy,
+                     fz, t1, t2, y, 2 * n3, ne, nx, ny, nz, n_nodes, gs, chunk,
+                     coef, amp, eps, st);
+  if (err != cudaSuccess) return err;
 
   // both final inverses (gain spectrum and beta2 f_hat), then the assembly
   err = dft3<T, false>(y, 1, t1, t2, t1, 2 * ne, nx, ny, nz, vx, vy, vz,
@@ -173,6 +216,30 @@ int fused_collide(const T* f, const T* beta2, const T* norm_l, const T* rho,
   if (err != cudaSuccess) return err;
   assemble_kernel<T><<<dim3(pblocks, ne), pt, 0, st>>>(t1, f, q, n3);
   return cudaGetLastError();
+}
+
+// K2/K4: Q_gain_hat of E full spectra f_hat, out = sum_r beta1 DFT(s_r)
+template <typename T>
+int fused_gain(const typename Cplx<T>::type* fh, const T* norm_l,
+               const T* rho, const T* gain_w, const typename Cplx<T>::type* ax,
+               const typename Cplx<T>::type* ay,
+               const typename Cplx<T>::type* az,
+               const typename Cplx<T>::type* vx,
+               const typename Cplx<T>::type* vy,
+               const typename Cplx<T>::type* vz,
+               const typename Cplx<T>::type* fx,
+               const typename Cplx<T>::type* fy,
+               const typename Cplx<T>::type* fz, typename Cplx<T>::type* t1,
+               typename Cplx<T>::type* t2, typename Cplx<T>::type* out,
+               int ne, int nx, int ny, int nz, int n_nodes, int gs, int chunk,
+               double coef, double amp, double eps, cudaStream_t st) {
+  using C2 = typename Cplx<T>::type;
+  const long long n3 = (long long)nx * ny * nz;
+  cudaError_t err = cudaMemsetAsync(out, 0, (size_t)ne * n3 * sizeof(C2), st);
+  if (err != cudaSuccess) return err;
+  return gain_loop<T>(fh, norm_l, rho, gain_w, ax, ay, az, vx, vy, vz, fx, fy,
+                      fz, t1, t2, out, n3, ne, nx, ny, nz, n_nodes, gs, chunk,
+                      coef, amp, eps, st);
 }
 
 }  // namespace
@@ -196,3 +263,22 @@ int fused_collide(const T* f, const T* beta2, const T* norm_l, const T* rho,
 
 BFFT_ENTRY(bfft_fused_collide_f32, float, float2)
 BFFT_ENTRY(bfft_fused_collide_f64, double, double2)
+
+#define BFFT_GAIN_ENTRY(NAME, T, C2)                                           \
+  extern "C" int NAME(                                                         \
+      const void* fh, const void* norm_l, const void* rho, const void* gain_w, \
+      const void* ax, const void* ay, const void* az, const void* vx,          \
+      const void* vy, const void* vz, const void* fx, const void* fy,          \
+      const void* fz, void* t1, void* t2, void* out, int ne, int nx, int ny,   \
+      int nz, int n_nodes, int gs, int chunk, double coef, double amp,         \
+      double eps, void* stream) {                                              \
+    return fused_gain<T>(                                                      \
+        (const C2*)fh, (const T*)norm_l, (const T*)rho, (const T*)gain_w,      \
+        (const C2*)ax, (const C2*)ay, (const C2*)az, (const C2*)vx,            \
+        (const C2*)vy, (const C2*)vz, (const C2*)fx, (const C2*)fy,            \
+        (const C2*)fz, (C2*)t1, (C2*)t2, (C2*)out, ne, nx, ny, nz, n_nodes,    \
+        gs, chunk, coef, amp, eps, (cudaStream_t)stream);                      \
+  }
+
+BFFT_GAIN_ENTRY(bfft_fused_gain_f32, float, float2)
+BFFT_GAIN_ENTRY(bfft_fused_gain_f64, double, double2)

@@ -1,0 +1,96 @@
+"""Known-answer self-check (mirror of ``boltzfft/health.py``): evaluate the
+collision operator on a small BKW problem on a chosen device and compare it
+with the analytic ``bkw_dfdt``, or with a second pipeline on the same device,
+as a callable probe with a pass/fail verdict.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Optional
+
+import torch
+
+# Relative-Linf threshold (max|Q - Q_bkw| / max|Q_bkw|) for the probe config
+# nv=24, ns=6, n_radial=12, t=6.5, the JAX package's calibration: its method
+# error there is 4.12e-2 in float64, and float32 roundoff sits orders of
+# magnitude below it, so one threshold (3x that) covers every impl.  A
+# wrong-but-bounded Q, e.g. a mis-scaled loss term, lands at O(1).
+_REL_TOL = 0.12
+_PROBE_TIME = 6.5
+
+
+def selfcheck(
+    nv: int = 24,
+    ns: int = 6,
+    n_radial: Optional[int] = None,
+    dtype: Optional[str] = None,
+    impl: Optional[str] = None,
+    rel_tol: float = _REL_TOL,
+    pre_transform: Optional[Callable] = None,
+    cfg_kwargs: Optional[dict] = None,
+    compare_impl: Optional[str] = None,
+    device=None,
+) -> dict:
+    """Run a small end-to-end collision eval and compare it with the BKW
+    oracle.
+
+    Returns a dict with ``ok`` (bool), the relative Linf deviation, timing
+    and the device.  ``device`` defaults to CUDA when a card is present, else
+    the CPU; ``impl`` to ``"fused"`` on CUDA and ``"rfft"`` on the CPU;
+    ``dtype`` to float64.  ``pre_transform`` is a fault-injection hook: it
+    receives the ``Precomp`` before the eval and returns the one to use.
+    ``cfg_kwargs`` passes extra ``CollisionConfig`` fields (``fused_scheme``,
+    ``use_pallas``, ``nvy``/``nvz``...).  ``compare_impl`` replaces the
+    analytic oracle by a second pipeline evaluated on the same device (pass a
+    matching ``rel_tol``).
+    """
+    import boltzfft_torch as bt
+
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = torch.device(device)
+    if dtype is None:
+        dtype = "float64"
+    if impl is None:
+        impl = "fused" if device.type == "cuda" else "rfft"
+
+    cfg = bt.CollisionConfig(
+        nv=nv, ns=ns, n_radial=n_radial if n_radial is not None else nv // 2,
+        dtype=dtype, impl=impl, **(cfg_kwargs or {}),
+    )
+    collide, pre = bt.make_collision_operator(cfg, device)
+    if pre_transform is not None:
+        pre = pre_transform(pre)
+    g = cfg.velocity_grid
+    rsq = g.r_squared()
+    f = torch.as_tensor(bt.bkw_f(rsq, _PROBE_TIME), dtype=cfg.real_dtype, device=device)
+
+    t0 = time.perf_counter()
+    q = collide(f, pre)
+    if compare_impl is not None:
+        cfg_ref = dataclasses.replace(cfg, impl=compare_impl, use_pallas=False)
+        collide_ref, pre_ref = bt.make_collision_operator(cfg_ref, device)
+        q_exact = collide_ref(f, pre_ref)
+    else:
+        q_exact = torch.as_tensor(bt.bkw_dfdt(rsq, _PROBE_TIME), dtype=cfg.real_dtype,
+                                  device=device)
+    q_max = float(torch.max(torch.abs(q_exact)))
+    rel_linf = float(torch.max(torch.abs(q - q_exact))) / q_max
+    q_mass = float(torch.sum(q)) * g.cell_volume
+    finite = bool(torch.all(torch.isfinite(q)))
+    elapsed = time.perf_counter() - t0
+
+    ok = finite and rel_linf < rel_tol
+    return {
+        "ok": ok,
+        "finite": finite,
+        "rel_linf": rel_linf,
+        "rel_tol": rel_tol,
+        "q_mass": q_mass,
+        "elapsed_s": elapsed,
+        "backend": device.type,
+        "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+        "config": {"nv": nv, "ns": ns, "dtype": dtype, "impl": impl},
+    }

@@ -107,15 +107,15 @@ def _dft3(mats, t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def _reference_one(rho, gain_w, ax, ay, az, f, beta2, inv, fwd, norm_l,
-                   *, length, b_gamma, radial_group):
-    cd = ax.dtype
+def gain_one_reference(rho, gain_w, ax, ay, az, f_hat, inv, fwd, norm_l,
+                       *, length, b_gamma, radial_group):
+    """Q_gain_hat of one full spectrum f_hat (Nx, Ny, Nz): the node and group
+    loop of the kernels, with complex (N, N) matrices ``inv``/``fwd`` per
+    axis (shared by K1's plain version and the gain-only one, K2/K4)."""
     coef = math.pi / (2.0 * length)
     amp = 4.0 * math.pi * b_gamma
-    eps = float(torch.finfo(f.dtype).eps)
-
-    f_hat = _dft3(fwd, f.to(cd))
-    loss = _dft3(inv, beta2 * f_hat).real
+    rd = f_hat.real.dtype
+    eps = float(torch.finfo(rd).eps)
     acc = torch.zeros_like(f_hat)
     n_nodes = rho.shape[0]
     for g0 in range(0, n_nodes, radial_group):
@@ -125,15 +125,24 @@ def _reference_one(rho, gain_w, ax, ay, az, f, beta2, inv, fwd, norm_l,
         m2 = [v[None] * a[sl, None, :].conj() for v, a in zip(inv, (ax, ay, az))]
         g1 = _dft3(m1, f_hat)
         g2 = _dft3(m2, f_hat)
-        s = torch.zeros_like(f)
+        s = torch.zeros(f_hat.shape, dtype=rd, device=f_hat.device)
         for k in range(g1.shape[0]):
             s = s + gain_w[g0 + k] * (
                 g1[k].real * g2[k].real - g1[k].imag * g2[k].imag
             )
-        s_hat = _dft3(fwd, s.to(cd))
+        s_hat = _dft3(fwd, s.to(f_hat.dtype))
         arg = (coef * rho[g0]) * norm_l + eps
         beta1 = amp * torch.sin(arg) / arg
         acc = acc + beta1 * s_hat
+    return acc
+
+
+def _reference_one(rho, gain_w, ax, ay, az, f, beta2, inv, fwd, norm_l,
+                   *, length, b_gamma, radial_group):
+    f_hat = _dft3(fwd, f.to(ax.dtype))
+    loss = _dft3(inv, beta2 * f_hat).real
+    acc = gain_one_reference(rho, gain_w, ax, ay, az, f_hat, inv, fwd, norm_l,
+                             length=length, b_gamma=b_gamma, radial_group=radial_group)
     return _dft3(inv, acc).real - loss * f
 
 

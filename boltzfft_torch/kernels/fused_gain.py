@@ -1,5 +1,7 @@
 """K3: the gain spectrum Q_gain_hat by the Kronecker ("kron") scheme in one
-hand-written CUDA kernel, and its plain PyTorch version.
+hand-written CUDA kernel, and its plain PyTorch version; and
+:func:`fused_gain`, the gain-only dispatcher over the fused schemes (K2, K3,
+K4) with the ``"auto"`` rule :func:`pick_scheme`.
 
 Counterpart of ``boltzfft/pallas_kernels.py``'s ``fused_gain(scheme="kron")``
 -> ``_fused_gain_kron_kernel``.  :func:`fused_gain_kron` dispatches on the
@@ -32,6 +34,7 @@ import math
 import torch
 
 from .fused_collide import _chunk_nodes, _cplx
+from .fused_gain_dft import fused_gain_dft
 
 #: Launches of the CUDA kernel (one per :func:`fused_gain_kron` call on CUDA).
 LAUNCHES = 0
@@ -63,6 +66,71 @@ def kron_tables(ax, ay, az, dft_inv, dft_fwd) -> KronTables:
         vx=_cplx(dft_inv[0]).contiguous(), fx=_cplx(dft_fwd[0]).contiguous(),
         kinv=kinv.contiguous(), kfwd=(nyz * kinv.conj()).resolve_conj().contiguous(),
     )
+
+
+#: The largest y/z plane (Ny * Nz) on which ``fused_scheme="auto"`` takes K3.
+KRON_MAX_NYZ = 64
+
+
+def pick_scheme(nx: int, ny: int, nz: int) -> str:
+    """The port's ``fused_scheme="auto"`` rule: ``"kron"`` (K3) when the
+    y/z plane has at most ``KRON_MAX_NYZ`` points, ``"ct"`` on every other
+    grid, so ``collide`` runs the whole eval in K1 and a ``gain_reduce`` hook
+    gets K2.  Independent of the device and of ``nx``.
+
+    It follows the whole Q of E BKW distributions at Ns=12 through K1
+    against the kron route (K3 plus its cuFFT finale), ``chip_smoke.py``
+    phase 4, NVIDIA H100 80GB HBM3 at 700 W, medians of 20 trials in ms
+    (f64 / f32), one run:
+
+    ====  =====  ===============  ===============
+    grid  E      K1               kron route
+    ====  =====  ===============  ===============
+    8^3   1      1.727 / 1.060    1.749 / 0.746
+    8^3   32     1.725 / 0.928    1.623 / 0.612
+    8^3   256    2.477 / 1.454    3.628 / 0.929
+    8^3   512    3.010 / 2.128    2.588 / 1.491
+    12^3  1      1.073 / 0.992    0.611 / 0.748
+    12^3  32     1.487 / 1.355    1.788 / 1.224
+    12^3  256    5.982 / 4.674    10.89 / 6.111
+    12^3  512    10.96 / 8.556    20.83 / 15.41
+    16^3  1      1.046 / 2.288    0.670 / 1.300
+    16^3  32     2.975 / 2.810    5.977 / 3.504
+    16^3  256    14.79 / 11.30    40.24 / 20.94
+    16^3  512    27.95 / 20.93    79.21 / 40.53
+    ====  =====  ===============  ===============
+
+    At 8^3 every eval is a few ms of launches and host glue; the kron route
+    was faster in 22 of the 24 (dtype, E) pairs over three runs (in the two
+    others at every E in both dtypes), so the rule keeps it there.  From 12^3
+    on it wins only for one or a few distributions, by under 0.5 ms (1 ms
+    once); K1 is 1.3-2.8x faster on the 256- and 512-cell solver stacks,
+    where the time goes, so the rule takes K1 there.
+    """
+    del nx
+    return "kron" if ny * nz <= KRON_MAX_NYZ else "ct"
+
+
+def fused_gain(
+    rho, gain_w, ax, ay, az, f_hat, dft_inv, dft_fwd, norm_l,
+    *, length: float, b_gamma: float, radial_group: int, scheme: str = "auto",
+    tables: KronTables | None = None,
+) -> torch.Tensor:
+    """Q_gain_hat of f_hat (Nx, Ny, Nz) or (E, Nx, Ny, Nz), complex, by
+    ``scheme``, as ``boltzfft``'s ``fused_gain`` dispatches: ``"ct"`` -> K2,
+    ``"transpose"`` -> K4 (cubic only; both
+    ``fused_gain_dft.fused_gain_dft``), ``"kron"`` -> K3
+    (:func:`fused_gain_kron`, on ``tables`` when given, else built here),
+    ``"auto"`` -> :func:`pick_scheme`."""
+    if scheme == "auto":
+        scheme = pick_scheme(*f_hat.shape[-3:])
+    kw = dict(length=length, b_gamma=b_gamma, radial_group=radial_group)
+    if scheme == "kron":
+        if tables is None:
+            tables = kron_tables(ax, ay, az, dft_inv, dft_fwd)
+        return fused_gain_kron(rho, gain_w, tables, f_hat, norm_l, **kw)
+    return fused_gain_dft(rho, gain_w, ax, ay, az, f_hat, dft_inv, dft_fwd, norm_l,
+                          scheme=scheme, **kw)
 
 
 def fused_gain_kron(

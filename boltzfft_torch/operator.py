@@ -11,14 +11,25 @@ Boltzmann equation with a VHS kernel by the fast Fourier spectral method:
 
 ``impl="c2c"`` and ``"rfft"`` are the staged pipelines on ``torch.fft``
 (cuFFT on the card; c2c in float64 is the port's independent oracle there).
-``impl="fused"`` takes one of two routes (:func:`pick_scheme`):
+``impl="rfft", use_pallas=True`` runs each node chunk's phase multiply in K6
+(``kernels.alpha_multiply``) and its node reduction in K5
+(``kernels.gain_reduce``) around the same transforms.  ``impl="dft"`` writes
+every transform of a chunk as per-axis einsums against DFT matrices, with
+the node phases folded into the inverse matrices (no kernel).
 
-* ``"ct"``: the whole eval in the K1 kernel (``kernels.fused_collide``),
-  differentiable through :class:`_FusedCollide`, whose backward is the staged
-  c2c pipeline;
-* ``"kron"``: the gain spectrum of the whole batch in one K3 call
-  (``kernels.fused_gain``) inside the staged c2c finale, as ``boltzfft``
-  runs its kron scheme.  Like ``boltzfft``'s, this route has no gradient.
+``impl="fused"`` takes one of these routes (``fused_scheme``; ``"auto"`` is
+:func:`pick_scheme`: ``"kron"`` on y/z planes of at most 64 points, such as
+8^3, and ``"ct"`` on every other grid):
+
+* ``"ct"`` without a ``gain_reduce`` hook: the whole eval in the K1 kernel
+  (``kernels.fused_collide``), differentiable through :class:`_FusedCollide`,
+  whose backward is the staged c2c pipeline;
+* ``"ct"`` with a hook: the gain spectrum of the whole batch in one K2 call
+  (``kernels.fused_gain_dft``), then the hook, then the staged c2c finale;
+* ``"transpose"``: the same with K4 (cubic grids), hook or not;
+* ``"kron"``: the same with K3 (``kernels.fused_gain``), hook or not.
+
+As in ``boltzfft``, only the first has a gradient.
 """
 
 from __future__ import annotations
@@ -30,8 +41,11 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from .kernels import alpha_multiply as _k6
 from .kernels import fused_collide as _k1
 from .kernels import fused_gain as _k3
+from .kernels import gain_reduce as _k5
+from .kernels.fused_gain import pick_scheme
 from .weights import CollisionConfig, Precomp, build_precomp
 
 _FFT_AXES = (-3, -2, -1)
@@ -62,6 +76,10 @@ def _beta1(cfg: CollisionConfig, pre: Precomp, rho):
 def _gain_chunk(cfg: CollisionConfig, pre: Precomp, f_hat, rho, sigma, gain_w):
     """Partial gain spectrum of one chunk of nodes:
     sum_b gain_w[b] * beta1[b, l] * FFT(g1_b * g2_b)[l]."""
+    if cfg.impl == "dft":
+        return _gain_chunk_dft(cfg, pre, f_hat, rho, sigma, gain_w)
+    if cfg.impl == "rfft" and cfg.use_pallas:
+        return _gain_chunk_pallas(cfg, pre, f_hat, rho, sigma, gain_w)
     ax, ay, az = _alpha_factors(cfg, pre, rho, sigma)
     a1 = ax[:, :, None, None] * ay[:, None, :, None] * az[:, None, None, :]
     a1f = a1 * f_hat[None]
@@ -81,16 +99,61 @@ def _gain_chunk(cfg: CollisionConfig, pre: Precomp, f_hat, rho, sigma, gain_w):
     return torch.sum(w.to(h_hat.dtype) * h_hat, dim=0)
 
 
-def pick_scheme(nx: int, ny: int, nz: int) -> str:
-    """The port's ``fused_scheme="auto"`` rule: ``"kron"`` (K3) when the
-    (Ny*Nz)^2 Kronecker table is small and a lane axis is short, i.e.
-    Ny*Nz <= 1024 and min(Ny, Nz) < 32; ``"ct"`` (K1, which takes any even
-    grid) otherwise.  Independent of the device.  On every grid with
-    Ny*Nz <= 1024 this is ``boltzfft``'s choice on a TPU; ``boltzfft``'s
-    transpose scheme and its large anisotropic kron grids go to K1 here."""
-    if ny * nz <= 1024 and min(ny, nz) < 32:
-        return "kron"
-    return "ct"
+def _gain_chunk_pallas(cfg: CollisionConfig, pre: Precomp, f_hat, rho, sigma, gain_w):
+    """The rfft chunk with its phase multiply in K6 and its node reduction in
+    K5; the transforms stay on ``torch.fft``.  Cubic grids only (checked by
+    ``CollisionConfig``)."""
+    n = cfg.nv
+    nh = pre.lz.shape[0]
+    m2 = n * nh
+    ax, ay, az = _alpha_factors(cfg, pre, rho, sigma)
+    ayz = (ay[:, :, None] * az[:, None, :]).reshape(-1, m2)  # (C, N * Nh)
+    a1f, a2f = _k6.alpha_multiply(ax, ayz, f_hat.reshape(n, m2))
+    shape4 = (-1, n, n, nh)
+    g1 = torch.fft.irfftn(a1f.reshape(shape4), s=(n, n, n), dim=_FFT_AXES)
+    g2 = torch.fft.irfftn(a2f.reshape(shape4), s=(n, n, n), dim=_FFT_AXES)
+    h_hat = torch.fft.rfftn(g1 * g2, dim=_FFT_AXES)
+    q = _k5.gain_reduce(
+        h_hat.reshape(rho.shape[0], -1), rho, gain_w, pre.norm_l.reshape(-1),
+        length=cfg.domain_length, b_gamma=cfg.b_gamma,
+    )
+    return q.reshape(n, n, nh)
+
+
+def _gain_chunk_dft(cfg: CollisionConfig, pre: Precomp, f_hat, rho, sigma, gain_w):
+    """The chunk with every transform as per-axis einsums on (re, im) planes.
+    Each complex contraction is three real ones (p1 = Mr Tr, p2 = Mi Ti,
+    p3 = (Mr + Mi)(Tr + Ti); re = p1 - p2, im = p3 - p1 - p2), and the
+    inverse of node b contracts with V diag(a_b) per axis, its phase folded
+    into the matrix, so the phased spectra are never formed."""
+    ax, ay, az = _alpha_factors(cfg, pre, rho, sigma)
+
+    def cmatmul(spec, mr, mi, tr, ti):
+        p1 = torch.einsum(spec, mr, tr)
+        p2 = torch.einsum(spec, mi, ti)
+        p3 = torch.einsum(spec, mr + mi, tr + ti)
+        return p1 - p2, p3 - p1 - p2
+
+    def inverse(conj: bool):
+        mats = []
+        for v, a in zip(pre.dft_inv_axes(), (ax, ay, az)):
+            m = torch.complex(v[0], v[1])[None] * (a.conj() if conj else a)[:, None, :]
+            mats.append((m.real, m.imag))
+        (xr, xi), (yr, yi), (zr, zi) = mats
+        sr, si = cmatmul("cxm,mjk->cxjk", xr, xi, f_hat.real, f_hat.imag)
+        sr, si = cmatmul("cyn,cxnk->cxyk", yr, yi, sr, si)
+        return cmatmul("czp,cxyp->cxyz", zr, zi, sr, si)
+
+    g1r, g1i = inverse(False)
+    g2r, g2i = inverse(True)
+    hr = g1r * g2r - g1i * g2i
+    hi = g1r * g2i + g1i * g2r
+    (xr, xi), (yr, yi), (zr, zi) = pre.dft_fwd_axes()
+    hr, hi = cmatmul("xm,cmjk->cxjk", xr, xi, hr, hi)
+    hr, hi = cmatmul("yn,cxnk->cxyk", yr, yi, hr, hi)
+    hr, hi = cmatmul("zp,cxyp->cxyz", zr, zi, hr, hi)
+    w = gain_w[:, None, None, None] * _beta1(cfg, pre, rho)
+    return torch.complex(torch.sum(w * hr, dim=0), torch.sum(w * hi, dim=0))
 
 
 def fused_scheme(cfg: CollisionConfig) -> str:
@@ -115,24 +178,26 @@ def _kron_tables(cfg: CollisionConfig, pre: Precomp) -> _k3.KronTables:
 def gain_spectrum(cfg: CollisionConfig, pre: Precomp, f_hat) -> torch.Tensor:
     """Full gain spectrum Q_gain_hat.
 
-    ``impl="fused"`` on the kron route: one K3 call on f_hat of shape
-    (Nx, Ny, Nz) or (E, Nx, Ny, Nz).  The staged pipelines: one spectrum,
-    chunked over the node batch and summed chunk after chunk in order; the
-    chunking follows the node tables in ``pre`` (not ``cfg.n_nodes``), so a
-    device-local shard of the node axis works the same way.
+    ``impl="fused"``: one gain-only kernel call (K2, K4 or K3 by
+    ``fused_scheme``) on f_hat of shape (Nx, Ny, Nz) or (E, Nx, Ny, Nz).  The
+    staged pipelines: one spectrum, chunked over the node batch and summed
+    chunk after chunk in order; the chunking follows the node tables in
+    ``pre`` (not ``cfg.n_nodes``), so a device-local shard of the node axis
+    works the same way.
     """
     if cfg.impl == "fused":
-        if fused_scheme(cfg) != "kron":
-            raise NotImplementedError(
-                "the fused gain-only spectrum of the ct scheme (K2, the "
-                "multi-device step) is not ported yet; use fused_scheme='kron', "
-                "or impl='c2c' or 'rfft' with a gain_reduce hook"
-            )
-        return _k3.fused_gain_kron(
-            pre.rho, pre.gain_w, _kron_tables(cfg, pre),
-            f_hat.to(cfg.complex_dtype), pre.norm_l,
+        scheme = fused_scheme(cfg)
+        if scheme == "kron":
+            ax = ay = az = None
+            tables = _kron_tables(cfg, pre)
+        else:
+            ax, ay, az = _alpha_factors(cfg, pre, pre.rho, pre.sigma)
+            tables = None
+        return _k3.fused_gain(
+            pre.rho, pre.gain_w, ax, ay, az, f_hat.to(cfg.complex_dtype),
+            pre.dft_inv_axes(), pre.dft_fwd_axes(), pre.norm_l,
             length=cfg.domain_length, b_gamma=cfg.b_gamma,
-            radial_group=cfg.ns_eff,
+            radial_group=cfg.ns_eff, scheme=scheme, tables=tables,
         )
     b = pre.rho.shape[0]
     c = min(cfg.chunk(pre.device), b)
@@ -192,19 +257,21 @@ def collide(
 
     ``gain_reduce`` is an optional hook applied to the gain spectrum before
     the final inverse transform (the node-sharded operator's all-reduce).
-    ``impl="fused"`` without a hook runs the whole eval in K1 on the ct
-    route; on the kron route the whole batch goes through one K3 call.
+    ``impl="fused"`` on the ct scheme without a hook runs the whole eval in
+    K1; every other fused route sends the whole batch through one gain-only
+    kernel call (K2, K4 or K3), then the hook, then the staged c2c finale.
     """
     f = f.to(cfg.real_dtype)
-    kron = cfg.impl == "fused" and fused_scheme(cfg) == "kron"
-    if cfg.impl == "fused" and not kron and gain_reduce is None:
+    scheme = fused_scheme(cfg) if cfg.impl == "fused" else None
+    if scheme == "ct" and gain_reduce is None:
         return _FusedCollide.apply(cfg, pre, f)
-    if kron and torch.is_grad_enabled() and f.requires_grad:
+    if scheme is not None and torch.is_grad_enabled() and f.requires_grad:
+        hook = " with a gain_reduce hook" if gain_reduce is not None else ""
         raise NotImplementedError(
-            "impl='fused' on the kron route (K3) has no gradient, as in "
-            "boltzfft; use fused_scheme='ct' or impl='c2c'"
+            f"impl='fused' with fused_scheme={scheme!r}{hook} has no gradient, "
+            "as in boltzfft; use fused_scheme='ct' without a hook, or impl='c2c'"
         )
-    if f.dim() == 4 and not kron:
+    if f.dim() == 4 and scheme is None:
         return torch.stack([collide(cfg, pre, fi, gain_reduce) for fi in f])
     shape = cfg.grid_shape
     if cfg.impl == "rfft":
@@ -216,7 +283,7 @@ def collide(
         loss_conv = torch.fft.irfftn(
             pre.beta2.to(f_hat.dtype) * f_hat, s=shape, dim=_FFT_AXES
         )
-    else:  # "c2c" and the kron route: full complex spectrum pipeline
+    else:  # "c2c", "dft" and the gain-only fused routes: full complex spectra
         f_hat = torch.fft.fftn(f.to(cfg.complex_dtype), dim=_FFT_AXES)
         q_gain_hat = gain_spectrum(cfg, pre, f_hat)
         if gain_reduce is not None:

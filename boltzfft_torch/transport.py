@@ -8,7 +8,8 @@ upwind as the fallback scheme), and the homogeneous collision operator on
 every cell.  Cells are independent during the collision substep, so it is
 one call of the operator on the flattened ``(cells, Nvx, Nvy, Nvz)`` stack
 (where ``boltzfft`` vmaps a single-cell operator); with
-``impl="fused"`` on a kron-route grid that is one K3 launch per substep.
+``impl="fused"`` that is one K1 launch per substep (one K3 launch on the
+kron route, ``operator.pick_scheme``).
 
 The node- and cell-sharded steps (``make_sharded_step_2d``/``_3d`` and their
 halo exchange) are not ported yet (ROADMAP Queue 1, step 9).

@@ -7,9 +7,9 @@ ever built; ``beta1`` is recomputed from ``|l|`` and the loss multiplier
 ``beta2`` is precomputed.  Tables are built in host float64 NumPy exactly as
 the JAX package builds them, then turned into tensors on an explicit device.
 
-Left out of ``CollisionConfig`` until the kernels that read them are ported:
-``fused_nodes_per_step``, ``fused_radix``, ``fused_sub_batch``,
-``fused_precision``, ``use_pallas`` and ``oz_cmax``.
+Left out of ``CollisionConfig``: ``fused_nodes_per_step``, ``fused_radix``
+and ``fused_sub_batch`` (the TPU kernels' VMEM tiling, which the port's
+kernels do not have), and ``oz_cmax`` (the ds engine, not ported yet).
 """
 
 from __future__ import annotations
@@ -69,35 +69,59 @@ class CollisionConfig:
     dtype: str = "float64"  # "float32" | "float64"
     # "rfft": real half-spectrum transforms (torch.fft);
     # "c2c":  complex transforms (torch.fft), the f64 oracle on the card;
-    # "fused": the hand-written kernels on CUDA (K1 or K3, see fused_scheme).
+    # "dft":  every transform as per-axis einsums against DFT matrices;
+    # "fused": the hand-written kernels on CUDA (see fused_scheme).
     impl: str = "rfft"
-    # impl="fused": "ct" runs the whole eval in K1; "kron" the gain spectrum in
-    # K3 inside the staged c2c finale; "auto" picks by grid
-    # (operator.pick_scheme).  "transpose" (K4) is not ported yet.
-    fused_scheme: str = "auto"
     node_chunk: Optional[int] = None  # nodes per staged chunk; None = auto
+    # impl="rfft": the phase multiply and the node reduction of each chunk in
+    # the hand-written kernels K6 and K5 (cubic grids only)
+    use_pallas: bool = False
+    # Matmul precision of impl="fused" and impl="dft", named as in boltzfft,
+    # where "default" takes the TPU's bf16-pass matmuls.  Both tiers run IEEE
+    # float32/float64 arithmetic here: the kernels use the CUDA cores, and the
+    # dft einsums PyTorch's float32 matmuls, which are full float32 unless
+    # the caller turns on torch.backends.cuda.matmul.allow_tf32.
+    fused_precision: str = "default"
+    # impl="fused": "ct" runs the whole eval in K1 (the gain spectrum in K2
+    # under a gain_reduce hook); "transpose" the gain spectrum in K4 and
+    # "kron" in K3, each inside the staged c2c finale; "auto" is
+    # operator.pick_scheme (kron on Ny*Nz <= 64, such as 8^3; ct elsewhere).
+    fused_scheme: str = "auto"
     antipodal: bool = True  # exact antipodal-pair reduction (ns/2 nodes, 2x weights)
 
     def __post_init__(self):
-        if self.impl not in ("rfft", "c2c", "fused"):
+        if self.impl not in ("rfft", "c2c", "dft", "fused"):
             raise ValueError(
-                f"impl must be 'rfft', 'c2c' or 'fused', got {self.impl!r}"
+                f"impl must be 'rfft', 'c2c', 'dft' or 'fused', got {self.impl!r}"
+            )
+        if self.use_pallas and self.impl != "rfft":
+            raise ValueError("use_pallas requires impl='rfft'")
+        if self.use_pallas and not self.is_isotropic:
+            raise ValueError("use_pallas requires a cubic grid")
+        if self.fused_precision not in ("default", "highest"):
+            raise ValueError(
+                f"fused_precision must be 'default' or 'highest', got "
+                f"{self.fused_precision!r}"
             )
         if self.fused_scheme not in ("auto", "kron", "ct", "transpose"):
             raise ValueError(
                 f"fused_scheme must be auto/kron/ct/transpose, got "
                 f"{self.fused_scheme!r}"
             )
-        if self.fused_scheme == "transpose":
-            raise NotImplementedError(
-                "fused_scheme='transpose' runs K4 (_fused_gain_kernel), which "
-                "is not ported yet (ROADMAP Queue 2); use 'auto', 'kron' or 'ct'"
-            )
         if self.dtype not in ("float32", "float64"):
             raise ValueError(f"dtype must be float32/float64, got {self.dtype!r}")
         for name, n in (("nv", self.nv), ("nvy", self.nvy), ("nvz", self.nvz)):
             if n is not None and n % 2 != 0:
                 raise ValueError(f"{name} must be even (FFT mode ordering)")
+        if (
+            not self.is_isotropic
+            and self.impl == "fused"
+            and self.fused_scheme == "transpose"
+        ):
+            raise ValueError(
+                "fused_scheme='transpose' requires a cubic grid; use "
+                "'auto'/'kron'/'ct' for anisotropic resolutions"
+            )
         if self.ns not in _quad.SPHERICAL_DESIGN_FILES:
             raise ValueError(
                 f"No spherical design with {self.ns} points; available: "
@@ -201,7 +225,7 @@ class Precomp:
     lz: torch.Tensor  # (Nz,) for c2c/fused | (Nz/2+1,) for rfft
     norm_l: torch.Tensor  # |l| on the (possibly half) mode grid
     beta2: torch.Tensor  # loss multiplier on the (possibly half) mode grid
-    # DFT matrices for impl="fused" as stacked real planes [re, im] (2, N, N);
+    # DFT matrices for impl="dft"/"fused" as stacked real planes [re, im] (2, N, N);
     # the y/z fields are None on cubic grids (all axes share the x matrix).
     dft_fwd: Optional[torch.Tensor] = None  # exp(-2 pi i m x / N)
     dft_inv: Optional[torch.Tensor] = None  # exp(+2 pi i m x / N) / N
@@ -309,10 +333,10 @@ def build_precomp(cfg: CollisionConfig, device) -> Precomp:
     lz = _modes.rfft_modes(nz) if cfg.impl == "rfft" else _modes.fft_modes(nz)
     norm_l = _modes.mode_norm_grid(lx, ly, lz)
 
-    # DFT matrices (impl="fused"): F[m, x] = exp(-2 pi i m x / N),
+    # DFT matrices (impl="dft"/"fused"): F[m, x] = exp(-2 pi i m x / N),
     # Vinv[x, m] = exp(+2 pi i m x / N) / N, one pair per axis when anisotropic.
     mats = {}
-    if cfg.impl == "fused":
+    if cfg.impl in ("dft", "fused"):
         def dft_pair(n_axis):
             m = np.arange(n_axis)
             ph = 2.0 * np.pi * np.outer(m, m) / n_axis

@@ -6,30 +6,50 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: a CUDA card must be present; prints its name and power limit;
 2. build: compiles the port's CUDA kernels from ``boltzfft_torch/csrc``;
-3. each kernel against its plain PyTorch version on the card: K1
-   (``fused_collide``; float64 within 1e-12 max|Q|, float32 within 1e-5,
-   4e-5 at 16^3, see ``TOL``) and K3 (``fused_gain_kron``; float64 within
-   1e-12 max|Q_gain_hat|, float32 within 1e-5), and K3's route of ``collide``
-   against the staged cuFFT c2c in float64 (1e-12 max|Q|);
-4. the homogeneous main path, ``make_collision_operator(CollisionConfig(
-   nv=32|64, ns=12, impl="fused"))`` on the BKW distribution at t = 6.5 (K1),
-   against the reference's error norms and the port's staged float64 c2c;
-5. the inhomogeneous main path at its CLIs' default size (16^3
-   velocities, Ns=12, ``impl="fused"``: K3): Taylor-Green 2D on 16x16 cells
+3. each kernel against its plain PyTorch version on the card (float64 within
+   1e-12 of the plain result's max, float32 within 1e-5, 4e-5 below 32^3,
+   see ``TOL``): K1 (``fused_collide``), K3 (``fused_gain_kron``), K2 and K4
+   (``fused_gain_dft``; K2 at 16^3, 32^3, (32,16,48), 64^3, K4 at 16^3,
+   32^3, 40^3, 64^3), K6 (``alpha_multiply``) and K5 (``gain_reduce``, at three
+   node blocks that must agree bitwise) at the shapes the rfft + use_pallas
+   route gives them at 32^3 and 64^3; every new kernel bitwise equal to
+   itself run to run; K3's route of ``collide`` against the staged cuFFT
+   c2c in float64 (1e-12 max|Q|);
+4. the scheme measurement: the whole Q through K1 against the kron route
+   (K3 plus its cuFFT finale) at 8^3, 12^3 and 16^3, Ns=12, on E = 1, 32, 256
+   and 512 distributions, float32 and float64, medians of 10 trials;
+5. the homogeneous main paths, ``make_collision_operator`` or ``collide``
+   at 32^3 and 64^3, Ns=12, on the BKW distribution at t = 6.5: K1
+   (``impl="fused"``), rfft + use_pallas (K6, K5), fused + a ``gain_reduce``
+   hook (K2), ``fused_scheme="transpose"`` (K4), and dft (32^3), each held
+   to the reference's float64 error norms and to the staged float64 c2c
+   (1e-12 max|Q|), float32 to L_inf <= 4.5e-5 at 32^3 and to 2e-5 max|Q|
+   of float64 at 64^3; counts reset around each route;
+6. the inhomogeneous main path at its CLIs' default size (16^3
+   velocities, Ns=12, ``impl="fused"``: K1): Taylor-Green 2D on 16x16 cells
    (10 steps), Taylor-Green 3D on 8^3 cells (2 steps), Sod on 32 cells
-   (5 steps), in float64 and float32, each held to the CLIs' mass-drift
-   and H-theorem gates, and one float64 TG-2D step against the same step on
-   the staged c2c pipeline (1e-12 relative);
-6. determinism (bitwise run to run and batched against per item, for K1,
-   for the TG-2D step, and for the collides of the TG-2D, TG-3D and Sod cell
-   stacks), K3 against its plain version on the TG-3D (512 cells) and Sod
-   (32 cells) stacks, and dispatch (each main path launched its kernel and
-   never a plain version; K1 is not launched on K3's route);
-7. times (CUDA events, 2 warm-ups, 10 trials): K1 and its plain version at
-   32^3 and 64^3; K3 (first held to its plain version there), its plain
-   version and K1 on the 256-cell TG-2D batch;
-   the TG-2D step; and a ``torch.profiler`` window over TG-2D steps (device
-   time by kernel family and the card's idle share).
+   (5 steps), and TG-2D on K3 (``fused_scheme="kron"``, 3 steps), in float64
+   and float32, each held to the CLIs' mass-drift and H-theorem gates, and
+   one float64 TG-2D step against the same step on the staged c2c pipeline
+   (1e-12 relative);
+7. determinism (bitwise run to run and batched against per item, for K1,
+   for the TG-2D step, and for the K1 and K3 collides of the TG-2D, TG-3D
+   and Sod cell stacks), K1 and K3 against their plain versions on the
+   TG-3D (512 cells) and Sod (32 cells) stacks, and dispatch (each main path
+   launched its kernels and never a plain version);
+8. ``maxwell_bkw --steps 10 --Nv 32 --Ns 12`` (RK4 relaxation through K1,
+   float64) and the same relaxation through c2c (1e-12 relative);
+9. ``health.selfcheck`` on the card for fused, rfft + use_pallas and dft,
+   and with a corrupted ``Precomp`` (must fail);
+10. ``fft_benchmark`` and ``loop_benchmark`` at 32^3, Ns=12, float64;
+11. times (CUDA events, 2 warm-ups, 10 trials; median and mean): K1 at 32^3
+    and 64^3; K2, K4, K5, K6 at the main paths' shapes with their bounds,
+    plain versions and K5's library yardstick; ``collide`` through each route
+    (K1, staged rfft and c2c, rfft + use_pallas, K2 + hook, K4, dft at
+    32^3) at 32^3 and 64^3; K3 (first held to its plain
+    version there), its plain version and K1 on the 256-cell TG-2D batch;
+    the TG-2D step; and a ``torch.profiler`` window over TG-2D steps (device
+    time by kernel family and the card's idle share).
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
@@ -37,6 +57,9 @@ The last two lines are a JSON summary of the kernels and
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import io
 import json
 import statistics
 import subprocess
@@ -58,10 +81,25 @@ SHAPES_K3 = [  # (grid, ns, batch)
     ((8, 12, 16), 6, 1),
     ((16, 16, 48), 12, 1),
 ]
-# |kernel - plain| in units of max|Q| (K1) or max|Q_gain_hat| (K3).  float32
-# Q at 16^3: the gain and loss terms are ~30x max|Q| there and cancel, so
-# each float32 version lies 1.5-1.7e-5 max|Q| from the float64 result and two
-# of them can differ by the sum of that; from 32^3 on, 1e-5.
+SHAPES_K24 = [  # (scheme, grid, ns, batch)
+    ("ct", (16, 16, 16), 12, 1),
+    ("ct", (16, 16, 16), 12, 2),
+    ("ct", (32, 32, 32), 12, 1),
+    ("ct", (32, 16, 48), 12, 1),
+    ("ct", (64, 64, 64), 12, 1),
+    ("transpose", (16, 16, 16), 12, 1),
+    ("transpose", (32, 32, 32), 12, 1),
+    ("transpose", (40, 40, 40), 12, 1),  # the TPU's transpose regime (> 32)
+    ("transpose", (64, 64, 64), 12, 1),
+]
+NODE_BLOCKS = (1, 8, 96)  # K5 staging sizes that must agree bitwise
+SCHEME_GRIDS = (8, 12, 16)
+SCHEME_BATCHES = (1, 32, 256, 512)  # a BKW eval, Sod, TG-2D and TG-3D stacks
+# |kernel - plain| in units of max|Q| (K1) or max|Q_gain_hat| (K2-K4) or the
+# plain result's max (K5, K6).  float32 Q at 16^3: the gain and loss terms
+# are ~30x max|Q| there and cancel, so each float32 version lies 1.5-1.7e-5
+# max|Q| from the float64 result and two of them can differ by the sum of
+# that; from 32^3 on, 1e-5.
 TOL = {"float64": 1e-12, "float32": 1e-5}
 TOL_F32_16 = 4e-5
 BKW_DIGITS = {  # reference f64 L1, L2, Linf at Ns=12 and the rtol they hold to
@@ -77,6 +115,23 @@ H_TOL = 0.01
 # float32 and float64 (the kernels use no tensor cores), device memory bytes/s.
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 PEAK_BYTES = 3.35e12
+# The homogeneous main paths: (label, CollisionConfig kwargs, hook, grids,
+# the counts that must be > 0).  The hook is the single-device stand-in for
+# the node-sharded operator's all-reduce.
+ROUTES = [
+    ("rfft + use_pallas (K6, K5)", dict(impl="rfft", use_pallas=True), False, (32, 64), ("k5", "k6")),
+    ("fused + gain_reduce hook (K2)", dict(impl="fused", fused_scheme="ct"), True, (32, 64), ("k2",)),
+    ("fused_scheme='transpose' (K4)", dict(impl="fused", fused_scheme="transpose"), False, (32, 64), ("k4",)),
+    ("dft (no kernel)", dict(impl="dft"), False, (32,), ()),
+]
+KERNEL_SOURCES = {  # name -> (source, the TPU kernel it replaces)
+    "fused_collide": ("boltzfft_torch/csrc/fused_collide.cu", "boltzfft/pallas_kernels.py:515"),
+    "fused_gain_ct": ("boltzfft_torch/csrc/fused_collide.cu", "boltzfft/pallas_kernels.py:877"),
+    "fused_gain_kron": ("boltzfft_torch/csrc/fused_gain_kron.cu", "boltzfft/pallas_kernels.py:221"),
+    "fused_gain_transpose": ("boltzfft_torch/csrc/fused_collide.cu", "boltzfft/pallas_kernels.py:913"),
+    "gain_reduce": ("boltzfft_torch/csrc/gain_reduce.cu", "boltzfft/pallas_kernels.py:54"),
+    "alpha_multiply": ("boltzfft_torch/csrc/alpha_multiply.cu", "boltzfft/pallas_kernels.py:1141"),
+}
 
 
 def check(cond: bool, what: str) -> None:
@@ -114,6 +169,39 @@ def k3_inputs(op, cfg, pre, f):
     return args, kw
 
 
+def k24_inputs(op, cfg, pre, f):
+    """K2/K4's inputs: the full spectrum of f and the separable phases."""
+    f_hat = torch.fft.fftn(f.to(cfg.complex_dtype), dim=(-3, -2, -1))
+    ax, ay, az = op._alpha_factors(cfg, pre, pre.rho, pre.sigma)
+    args = (pre.rho, pre.gain_w, ax, ay, az, f_hat,
+            pre.dft_inv_axes(), pre.dft_fwd_axes(), pre.norm_l)
+    kw = dict(length=cfg.domain_length, b_gamma=cfg.b_gamma, radial_group=cfg.ns_eff)
+    return args, kw
+
+
+def k56_inputs(op, k6, cfg, pre, f):
+    """K6's and K5's inputs for the first node chunk of the rfft + use_pallas
+    route, as ``operator._gain_chunk_pallas`` forms them; h is that chunk's
+    real h_hat (K6's plain version, then the transforms)."""
+    n = cfg.nv
+    nh = n // 2 + 1
+    b = pre.rho.shape[0]
+    c = min(cfg.chunk(pre.device), b)
+    while b % c:
+        c -= 1
+    rho, sigma, gw = pre.rho[:c], pre.sigma[:c], pre.gain_w[:c]
+    fh = torch.fft.rfftn(f, dim=(-3, -2, -1))
+    ax, ay, az = op._alpha_factors(cfg, pre, rho, sigma)
+    k6_args = (ax, (ay[:, :, None] * az[:, None, :]).reshape(c, -1), fh.reshape(n, -1))
+    a1f, a2f = k6.alpha_multiply_reference(*k6_args)
+    g1 = torch.fft.irfftn(a1f.reshape(-1, n, n, nh), s=(n, n, n), dim=(-3, -2, -1))
+    g2 = torch.fft.irfftn(a2f.reshape(-1, n, n, nh), s=(n, n, n), dim=(-3, -2, -1))
+    h = torch.fft.rfftn(g1 * g2, dim=(-3, -2, -1)).reshape(c, -1)
+    k5_args = (h, rho, gw, pre.norm_l.reshape(-1))
+    k5_kw = dict(length=cfg.domain_length, b_gamma=cfg.b_gamma)
+    return k6_args, k5_args, k5_kw
+
+
 def k1_flops(shape, n_nodes, n_groups, batch=1):
     """K1's arithmetic: every transform is a dense DFT along one axis,
     n3 * N_axis complex multiply-adds per axis, 8 FLOPs each; per eval the
@@ -124,9 +212,10 @@ def k1_flops(shape, n_nodes, n_groups, batch=1):
 
 
 def k3_flops(shape, n_nodes, n_groups, batch=1):
-    """The least arithmetic of Q_gain_hat from f_hat, K3's bound: every
-    transform as separable dense DFTs along each axis (as ``k1_flops``
-    counts them), 2 streams per node and one forward per group."""
+    """The least arithmetic of Q_gain_hat from f_hat, the bound of K2, K3 and
+    K4: every transform as separable dense DFTs along each axis (as
+    ``k1_flops`` counts them), 2 streams per node and one forward per group.
+    K2 and K4 do exactly this."""
     n3 = shape[0] * shape[1] * shape[2]
     return batch * 8.0 * n3 * sum(shape) * (2 * n_nodes + n_groups)
 
@@ -182,18 +271,45 @@ def k3_batch_parity(op, k3, cfg, pre, cells, label):
     return err, (args, kw)
 
 
+def k1_batch_parity(op, k1, cfg, pre, cells, label):
+    """K1 against its plain version on a main-path cell stack; returns the
+    max |kernel - plain|."""
+    dtype = cfg.dtype
+    args, kw = k1_inputs(op, cfg, pre, cells)
+    q = k1.fused_collide(*args, **kw)
+    q_ref = k1.fused_collide_reference(*args, **kw)
+    err = float((q - q_ref).abs().max())
+    d = err / float(q_ref.abs().max())
+    tol = TOL_F32_16 if dtype == "float32" else TOL[dtype]  # 16^3 cells
+    ok = bool(torch.isfinite(q).all()) and d <= tol
+    print(f"  K1 {dtype} {label} batch {tuple(cells.shape)}: max|dQ| {err:.3e} = {d:.3e}"
+          f" max|Q| (tol {tol:g}) {'ok' if ok else 'FAIL'}")
+    check(ok, f"K1 != plain version on the {label} batch ({dtype})")
+    return err
+
+
 def max_rel(a, b):
     return float((a - b).abs().max()) / float(b.abs().max())
 
 
-def reset_counts(k1, k3):
-    k1.LAUNCHES = k1.REFERENCE_CALLS = 0
-    k3.LAUNCHES = k3.REFERENCE_CALLS = 0
+def reset_counts(ks):
+    for k in (ks.k1, ks.k3, ks.k5, ks.k6):
+        k.LAUNCHES = k.REFERENCE_CALLS = 0
+    for s in ("ct", "transpose"):
+        ks.k24.LAUNCHES[s] = ks.k24.REFERENCE_CALLS[s] = 0
 
 
-def counts(k1, k3):
-    return dict(k1=k1.LAUNCHES, k1_plain=k1.REFERENCE_CALLS,
-                k3=k3.LAUNCHES, k3_plain=k3.REFERENCE_CALLS)
+def counts(ks):
+    return dict(k1=ks.k1.LAUNCHES, k1_plain=ks.k1.REFERENCE_CALLS,
+                k2=ks.k24.LAUNCHES["ct"], k2_plain=ks.k24.REFERENCE_CALLS["ct"],
+                k3=ks.k3.LAUNCHES, k3_plain=ks.k3.REFERENCE_CALLS,
+                k4=ks.k24.LAUNCHES["transpose"], k4_plain=ks.k24.REFERENCE_CALLS["transpose"],
+                k5=ks.k5.LAUNCHES, k5_plain=ks.k5.REFERENCE_CALLS,
+                k6=ks.k6.LAUNCHES, k6_plain=ks.k6.REFERENCE_CALLS)
+
+
+def plain_calls(c):
+    return sum(v for k, v in c.items() if k.endswith("_plain"))
 
 
 def run_cells(step, pre, f, steps, dv3, cell_vol):
@@ -222,6 +338,15 @@ def gates(name, f, mass, h):
     check(ok, f"{name}: mass or H-theorem gate")
 
 
+def run_driver(main, argv):
+    """Run a CLI's ``main`` with its standard output captured; returns
+    (exit code, lines)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, [line for line in buf.getvalue().splitlines() if line.strip()]
+
+
 def main() -> int:
     # ---- 1. device -----------------------------------------------------
     if not torch.cuda.is_available():
@@ -230,15 +355,24 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     dev = torch.device("cuda", 0)
     print(f"[1 device] {card} | torch {torch.__version__} cuda {torch.version.cuda}")
+    t_start = time.perf_counter()
+
+    from types import SimpleNamespace
 
     import boltzfft_torch as bt
-    from boltzfft_torch import _build
+    from boltzfft_torch import _build, health
     from boltzfft_torch import operator as op
     from boltzfft_torch import transport
+    from boltzfft_torch.cli import fft_benchmark, loop_benchmark, maxwell_bkw
     from boltzfft_torch.cli.taylor_green_2d3v import taylor_green_f0
     from boltzfft_torch.cli.taylor_green_3d3v import taylor_green_f0_3d
+    from boltzfft_torch.kernels import alpha_multiply as k6
     from boltzfft_torch.kernels import fused_collide as k1
     from boltzfft_torch.kernels import fused_gain as k3
+    from boltzfft_torch.kernels import fused_gain_dft as k24
+    from boltzfft_torch.kernels import gain_reduce as k5
+
+    ks = SimpleNamespace(k1=k1, k3=k3, k24=k24, k5=k5, k6=k6)
 
     # ---- 2. build ------------------------------------------------------
     t0 = time.perf_counter()
@@ -294,6 +428,63 @@ def main() -> int:
             print(f"  K3 {dtype} grid {shape} ns {ns} E {batch}: max|dQg| {err:.3e}"
                   f" = {err / scale:.3e} max|Q_gain_hat| (tol {TOL[dtype]:g}) {'ok' if ok else 'FAIL'}")
             check(ok, f"K3 != plain version at {dtype} {shape} ns={ns} E={batch}")
+        for scheme, shape, ns, batch in SHAPES_K24:
+            label = "K2" if scheme == "ct" else "K4"
+            cfg = bt.CollisionConfig(nv=shape[0], nvy=shape[1], nvz=shape[2], ns=ns,
+                                     impl="fused", fused_scheme=scheme, dtype=dtype)
+            pre = bt.build_precomp(cfg, dev)
+            _, _, f = bkw(bt, cfg, dev)
+            if batch == 2:
+                f = torch.stack([f, 0.8 * f])
+            args, kw = k24_inputs(op, cfg, pre, f)
+            q = k24.fused_gain_dft(*args, scheme=scheme, **kw)
+            q2 = k24.fused_gain_dft(*args, scheme=scheme, **kw)
+            q_ref = k24.fused_gain_dft_reference(*args, **kw)
+            torch.cuda.synchronize()
+            err = float((q - q_ref).abs().max())
+            scale = float(q_ref.abs().max())
+            tol = TOL_F32_16 if dtype == "float32" and max(shape) < 32 else TOL[dtype]
+            ok = (bool(torch.isfinite(torch.view_as_real(q)).all()) and err <= tol * scale
+                  and torch.equal(q, q2))
+            print(f"  {label} {dtype} grid {shape} ns {ns} E {batch}: max|dQg| {err:.3e}"
+                  f" = {err / scale:.3e} max|Q_gain_hat| (tol {tol:g}); run to run bitwise"
+                  f" {torch.equal(q, q2)} {'ok' if ok else 'FAIL'}")
+            check(ok, f"{label} != plain version at {dtype} {shape} ns={ns} E={batch}")
+            if batch == 1 and shape[0] == shape[1] == shape[2] and shape[0] in (32, 64):
+                max_err[(label.lower(), dtype, shape[0])] = err
+        for n in (32, 64):
+            cfg = bt.CollisionConfig(nv=n, ns=12, impl="rfft", use_pallas=True, dtype=dtype)
+            pre = bt.build_precomp(cfg, dev)
+            _, _, f = bkw(bt, cfg, dev)
+            k6_args, k5_args, k5_kw = k56_inputs(op, k6, cfg, pre, f)
+            a = k6.alpha_multiply(*k6_args)
+            a2 = k6.alpha_multiply(*k6_args)
+            a_ref = k6.alpha_multiply_reference(*k6_args)
+            torch.cuda.synchronize()
+            err = max(float((x - y).abs().max()) for x, y in zip(a, a_ref))
+            scale = max(float(y.abs().max()) for y in a_ref)
+            same = all(torch.equal(x, y) for x, y in zip(a, a_ref))
+            rerun = all(torch.equal(x, y) for x, y in zip(a, a2))
+            ok = err <= TOL[dtype] * scale and rerun
+            print(f"  K6 {dtype} {n}^3 chunk {tuple(a[0].shape)}: max|d| {err:.3e} = {err / scale:.3e}"
+                  f" of max (tol {TOL[dtype]:g}); bitwise equal to plain {same}; run to run"
+                  f" bitwise {rerun} {'ok' if ok else 'FAIL'}")
+            check(ok, f"K6 != plain version at {dtype} {n}^3")
+            max_err[("k6", dtype, n)] = err
+            outs = [k5.gain_reduce(*k5_args, node_block=nb, **k5_kw) for nb in NODE_BLOCKS]
+            again = k5.gain_reduce(*k5_args, **k5_kw)
+            ref = k5.gain_reduce_reference(*k5_args, **k5_kw)
+            torch.cuda.synchronize()
+            err = float((outs[1] - ref).abs().max())
+            scale = float(ref.abs().max())
+            nb_same = all(torch.equal(outs[0], o) for o in outs[1:])
+            rerun = torch.equal(outs[1], again)
+            ok = err <= TOL[dtype] * scale and nb_same and rerun
+            print(f"  K5 {dtype} {n}^3 h {tuple(k5_args[0].shape)}: max|d| {err:.3e} = {err / scale:.3e}"
+                  f" of max (tol {TOL[dtype]:g}); node_block {NODE_BLOCKS} bitwise equal {nb_same};"
+                  f" run to run bitwise {rerun} {'ok' if ok else 'FAIL'}")
+            check(ok, f"K5 != plain version or not node_block-invariant at {dtype} {n}^3")
+            max_err[("k5", dtype, n)] = err
     # K3's route of collide: against the staged cuFFT c2c (float64), and its
     # float32 Q against its float64 Q at 16^3 (the cancellation rule)
     for shape, ns, _ in SHAPES_K3[:1] + SHAPES_K3[2:]:
@@ -313,8 +504,33 @@ def main() -> int:
             print(f"  K3 route collide 16^3 float32 vs float64: {d32:.3e} max|Q| (tol {TOL_F32_16:g})")
             check(d32 <= TOL_F32_16, f"K3 route float32 at 16^3: {d32:.3e}")
 
-    # ---- 4. homogeneous main path (K1) ---------------------------------
-    reset_counts(k1, k3)
+    # ---- 4. the scheme measurement: K1 against the kron route ----------
+    print("[4 scheme] the whole Q, K1 (fused_scheme='ct') vs K3 + cuFFT finale"
+          f" (fused_scheme='kron'), Ns=12, median of {TRIALS} trials | {card}")
+    scheme_ms = {}
+    for dtype in ("float64", "float32"):
+        for n in SCHEME_GRIDS:
+            cfgs = {s: bt.CollisionConfig(nv=n, ns=12, impl="fused", fused_scheme=s, dtype=dtype)
+                    for s in ("ct", "kron")}
+            pres = {s: bt.build_precomp(c, dev) for s, c in cfgs.items()}
+            _, _, f = bkw(bt, cfgs["ct"], dev)
+            for e in SCHEME_BATCHES:
+                cells = torch.stack([f * (1.0 - 0.5 * i / e) for i in range(e)])
+                row = {}
+                for s in ("ct", "kron", "kron", "ct"):  # in turns
+                    ms = time_ms(lambda: bt.collide(cfgs[s], pres[s], cells))
+                    row.setdefault(s, []).extend(ms)
+                med = {s: statistics.median(v) for s, v in row.items()}
+                scheme_ms[(dtype, n, e)] = med
+                win = min(med, key=med.get)
+                print(f"  {dtype} {n}^3 E {e:3d}: K1 {med['ct']:.4f} ms, kron route"
+                      f" {med['kron']:.4f} ms (medians of {len(row['ct'])}); faster: {win}"
+                      f" ({max(med.values()) / min(med.values()):.2f}x)")
+    print("  pick_scheme: " + ", ".join(f"{n}^3 -> {bt.pick_scheme(n, n, n)!r}"
+                                        for n in SCHEME_GRIDS))
+
+    # ---- 5. homogeneous main paths -------------------------------------
+    reset_counts(ks)
     launches = {}
     main_q = {}
     for dtype in ("float64", "float32"):
@@ -326,9 +542,10 @@ def main() -> int:
             main_q[(dtype, n)] = collide(f, pre)
             torch.cuda.synchronize()
             launches[("k1", dtype, n)] = k1.LAUNCHES - before
-    c4 = counts(k1, k3)
-    print(f"[4 homogeneous main path] counts {c4}")
+    c4 = counts(ks)
+    print(f"[5 homogeneous main path] K1: counts {c4}")
 
+    q_c2c = {}
     for n in (32, 64):
         cfg = bt.CollisionConfig(nv=n, ns=12, impl="fused")
         g, rsq, _ = bkw(bt, cfg, dev)
@@ -356,12 +573,64 @@ def main() -> int:
         coll_c, pre_c = bt.make_collision_operator(cfg_c, device="cuda")
         _, _, f64 = bkw(bt, cfg_c, dev)
         qc = coll_c(f64, pre_c)
+        q_c2c[n] = qc
         dc = float((q64 - qc).abs().max())
         print(f"  {n}^3 float64 fused vs staged c2c (cuFFT): {dc / scale:.3e} max|Q| (tol 1e-12)")
         check(dc <= 1e-12 * scale, f"{n}^3 fused vs c2c {dc / scale:.3e} max|Q|")
-        del qc, coll_c, pre_c
+        del coll_c, pre_c
 
-    # ---- 5. inhomogeneous main path (K3) -------------------------------
+    route_counts = {}  # (route, dtype, n) -> counts of its main-path run
+    for label, kw, hook, grids, needed in ROUTES:
+        for dtype in ("float64", "float32"):
+            for n in grids:
+                reset_counts(ks)
+                cfg = bt.CollisionConfig(nv=n, ns=12, dtype=dtype, **kw)
+                if hook:
+                    pre = bt.build_precomp(cfg, dev)
+                    _, _, f = bkw(bt, cfg, dev)
+                    q = bt.collide(cfg, pre, f, gain_reduce=lambda x: x)
+                else:
+                    collide, pre = bt.make_collision_operator(cfg, device="cuda")
+                    _, _, f = bkw(bt, cfg, dev)
+                    q = collide(f, pre)
+                torch.cuda.synchronize()
+                c = counts(ks)
+                route_counts[(label, dtype, n)] = c
+                check(all(c[k] > 0 for k in needed) and plain_calls(c) == 0,
+                      f"{label} {dtype} {n}^3: dispatch {c}")
+                main_q[(label, dtype, n)] = q
+                del pre
+            for n in grids:
+                g, rsq, _ = bkw(bt, bt.CollisionConfig(nv=n, ns=12), dev)
+                q_exact = bt.bkw_dfdt(rsq, 6.5)
+                q = main_q[(label, dtype, n)]
+                check(tuple(q.shape) == (n, n, n) and bool(torch.isfinite(q).all()),
+                      f"{label} {dtype} Q at {n}^3 not finite of shape {(n, n, n)}")
+                e = bt.error_norms_device(q, q_exact, g.dv)
+                scale = float(q_c2c[n].abs().max())
+                if dtype == "float64":
+                    ref, rtol = BKW_DIGITS[n]
+                    dc = float((q - q_c2c[n]).abs().max()) / scale
+                    print(f"  {label} {n}^3 float64: L1 {e['L1']:.5e} L2 {e['L2']:.5e}"
+                          f" Linf {e['Linf']:.5e} (rtol {rtol:g}); vs staged c2c {dc:.3e} max|Q|"
+                          f" (tol 1e-12); counts {route_counts[(label, dtype, n)]}")
+                    for got, want, lab in zip((e["L1"], e["L2"], e["Linf"]), ref, ("L1", "L2", "Linf")):
+                        check(abs(got - want) <= rtol * want,
+                              f"{label} {n}^3 float64 {lab} {got:.5e} vs {want:.4e}")
+                    check(dc <= 1e-12, f"{label} {n}^3 vs c2c {dc:.3e} max|Q|")
+                else:
+                    d32 = float((q.double() - main_q[(label, "float64", n)]).abs().max()) / scale
+                    print(f"  {label} {n}^3 float32: Linf {e['Linf']:.5e}; |Q32 - Q64| {d32:.3e}"
+                          f" max|Q|; counts {route_counts[(label, dtype, n)]}")
+                    if n == 32:
+                        check(e["Linf"] <= 4.5e-5, f"{label} 32^3 float32 Linf {e['Linf']:.4e}")
+                    else:
+                        check(d32 <= 2e-5, f"{label} 64^3 |Q32 - Q64| {d32:.3e} max|Q|")
+    for key in list(main_q):
+        if len(key) == 3:
+            del main_q[key]
+
+    # ---- 6. inhomogeneous main path (K1; K3 by name) -------------------
     # The CLIs' defaults: 16^3 velocities, Ns=12, CFL time step, MUSCL.
     tg = dict(u0=0.8, temperature=3.0, length=1.0)
     solvers = {}
@@ -369,12 +638,16 @@ def main() -> int:
     c5 = {}
     for dtype in ("float64", "float32"):
         cfg = bt.CollisionConfig(nv=16, ns=12, impl="fused", dtype=dtype)
+        cfg_k = dataclasses.replace(cfg, fused_scheme="kron")
         collide, pre = bt.make_collision_operator(cfg, device="cuda")
+        collide_k, pre_k = bt.make_collision_operator(cfg_k, device="cuda")
         g = cfg.velocity_grid
         vmax = float(abs(g.v).max())
         d2, d3, dsod = 1.0 / 16, 1.0 / 8, 1.0 / 32
         step2 = transport.make_inhomogeneous_step_2d(
             cfg, collide, dx=d2, dy=d2, dt=transport.cfl_dt(vmax, d2), knudsen=0.2)
+        step2k = transport.make_inhomogeneous_step_2d(
+            cfg_k, collide_k, dx=d2, dy=d2, dt=transport.cfl_dt(vmax, d2), knudsen=0.2)
         step3 = transport.make_inhomogeneous_step_3d(
             cfg, collide, dx=d3, dy=d3, dz=d3, dt=transport.cfl_dt(vmax, d3), knudsen=0.2)
         step1 = transport.make_inhomogeneous_step(
@@ -384,20 +657,21 @@ def main() -> int:
         f1 = transport.sod_initial_condition(cfg, 32, device=dev)
         dv3 = g.cell_volume
         solvers[dtype] = (cfg, collide, pre, step2, f2)
-        runs = [("TG-2D 16x16 cells, 10 steps", step2, f2, 10, d2 * d2),
-                ("TG-3D 8^3 cells, 2 steps", step3, f3, 2, d3 ** 3),
-                ("Sod 32 cells, 5 steps", step1, f1, 5, dsod)]
-        for label, step, f0, steps, cell_vol in runs:
-            reset_counts(k1, k3)
-            f, mass, h = run_cells(step, pre, f0, steps, dv3, cell_vol)
-            c = counts(k1, k3)
+        runs = [("TG-2D 16x16 cells, 10 steps", step2, pre, f2, 10, d2 * d2, "k1"),
+                ("TG-3D 8^3 cells, 2 steps", step3, pre, f3, 2, d3 ** 3, "k1"),
+                ("Sod 32 cells, 5 steps", step1, pre, f1, 5, dsod, "k1"),
+                ("TG-2D 16x16 cells on K3, 3 steps", step2k, pre_k, f2, 3, d2 * d2, "k3")]
+        for label, step, p, f0, steps, cell_vol, kern in runs:
+            reset_counts(ks)
+            f, mass, h = run_cells(step, p, f0, steps, dv3, cell_vol)
+            c = counts(ks)
             c5[(dtype, label)] = c
             finals[(dtype, label.split(",")[0])] = f
             check(tuple(f.shape) == tuple(f0.shape), f"{label}: shape {tuple(f.shape)}")
             gates(f"{dtype} {label}", f, mass, h)
             print(f"    counts {c}")
-            check(c["k3"] == 2 * steps and c["k3_plain"] == 0 and c["k1"] == 0
-                  and c["k1_plain"] == 0, f"{dtype} {label}: dispatch {c}")
+            others = sum(v for k, v in c.items() if k != kern)
+            check(c[kern] == 2 * steps and others == 0, f"{dtype} {label}: dispatch {c}")
     cfg, collide, pre, step2, f2 = solvers["float64"]
     cfg_c = bt.CollisionConfig(nv=16, ns=12, impl="c2c")
     coll_c, pre_c = bt.make_collision_operator(cfg_c, device="cuda")
@@ -407,11 +681,11 @@ def main() -> int:
         knudsen=0.2)
     a, b = step2(f2, pre), step_c(f2, pre_c)
     d = max_rel(a, b)
-    print(f"  float64 TG-2D step, K3 route vs staged c2c (cuFFT): {d:.3e} relative (tol 1e-12)")
+    print(f"  float64 TG-2D step, K1 route vs staged c2c (cuFFT): {d:.3e} relative (tol 1e-12)")
     check(d <= 1e-12, f"TG-2D step vs c2c {d:.3e}")
     del coll_c, pre_c, step_c
 
-    # ---- 6. determinism and dispatch -----------------------------------
+    # ---- 7. determinism and dispatch -----------------------------------
     for dtype in ("float64", "float32"):
         cfg = bt.CollisionConfig(nv=32, ns=12, impl="fused", dtype=dtype)
         collide, pre = bt.make_collision_operator(cfg, device="cuda")
@@ -423,42 +697,108 @@ def main() -> int:
         torch.cuda.synchronize()
         check(torch.equal(a, b), f"{dtype}: two evals differ")
         check(torch.equal(qs, one), f"{dtype}: batched eval != per-item evals")
-        print(f"[6 determinism] K1 {dtype} 32^3: run-to-run bitwise equal, batched == per-item bitwise")
+        print(f"[7 determinism] K1 {dtype} 32^3: run-to-run bitwise equal, batched == per-item bitwise")
         cfg, collide, pre, step2, f2 = solvers[dtype]
+        cfg_k = dataclasses.replace(cfg, fused_scheme="kron")
         check(torch.equal(step2(f2, pre), step2(f2, pre)), f"{dtype}: two TG-2D steps differ")
         cells = f2.reshape(-1, *f2.shape[2:])
-        qb = collide(cells, pre)
-        one = torch.stack([collide(x, pre) for x in cells])
-        check(torch.equal(qb, one), f"{dtype}: 256-cell collide != per-cell collides")
-        print(f"[6 determinism] K3 {dtype}: two TG-2D steps bitwise equal;"
-              f" 256-cell collide == {len(cells)} per-cell collides bitwise")
+        for route, c in (("K1", cfg), ("K3", cfg_k)):
+            qb = bt.collide(c, pre, cells)
+            one = torch.stack([bt.collide(c, pre, x) for x in cells])
+            check(torch.equal(qb, one), f"{dtype}: {route} 256-cell collide != per-cell collides")
+        print(f"[7 determinism] {dtype}: two TG-2D steps (K1) bitwise equal; the K1 and K3"
+              f" 256-cell collides == {len(cells)} per-cell collides bitwise")
         # the other main-path batches: TG-3D's 512 cells (98,304 stream
         # grids, past the 65,535 gridDim.y/z limit) and Sod's 32
         for run in ("TG-3D 8^3 cells", "Sod 32 cells"):
             cells = finals[(dtype, run)].reshape(-1, *f2.shape[2:])
+            err = k1_batch_parity(op, k1, cfg, pre, cells, run)
+            max_err[("k1cells", dtype)] = max(max_err.get(("k1cells", dtype), 0.0), err)
             err, _ = k3_batch_parity(op, k3, cfg, pre, cells, run)
             max_err[("k3", dtype)] = max(max_err.get(("k3", dtype), 0.0), err)
-            qb = collide(cells, pre)
-            one = torch.stack([collide(x, pre) for x in cells])
-            check(torch.equal(qb, one), f"{dtype}: {run} collide != per-cell collides")
-            print(f"[6 determinism] K3 {dtype}: {run}: {len(cells)}-cell collide =="
+            for route, c in (("K1", cfg), ("K3", cfg_k)):
+                qb = bt.collide(c, pre, cells)
+                one = torch.stack([bt.collide(c, pre, x) for x in cells])
+                check(torch.equal(qb, one), f"{dtype}: {route} {run} collide != per-cell collides")
+            print(f"[7 determinism] {dtype}: {run}: the K1 and K3 {len(cells)}-cell collides =="
                   f" {len(cells)} per-cell collides bitwise")
     check(c4["k1"] > 0 and all(launches[k] > 0 for k in launches),
           f"homogeneous main path launched K1 {launches}")
-    check(c4["k1_plain"] == 0 and c4["k3_plain"] == 0,
-          f"homogeneous main path called a plain version {c4}")
-    print(f"[6 dispatch] homogeneous path {c4}; inhomogeneous paths: K3 launched 2 per step,"
-          " K1 and both plain versions 0 times")
+    check(plain_calls(c4) == 0, f"homogeneous main path called a plain version {c4}")
+    print(f"[7 dispatch] homogeneous K1 path {c4}; every route launched its kernels with 0"
+          " plain calls; inhomogeneous paths: K1 (or K3 by name) launched 2 per step, nothing else")
 
-    # ---- 7. times ------------------------------------------------------
+    # ---- 8. RK4 relaxation (maxwell_bkw --steps) -----------------------
+    reset_counts(ks)
+    argv = ["--Nv", "32", "--Ns", "12", "--impl", "fused", "--dtype", "float64",
+            "--steps", "10", "--device", "cuda"]
+    rc, lines = run_driver(maxwell_bkw.main, argv)
+    c8 = counts(ks)
+    print(f"[8 relaxation] maxwell_bkw {' '.join(argv)}: exit {rc}, counts {c8}")
+    for line in lines[-7:]:
+        print(f"  | {line}")
+    check(rc == 0 and c8["k1"] == 40 and plain_calls(c8) == 0, f"maxwell_bkw --steps: rc {rc} {c8}")
+    trajs = {}
+    for impl in ("fused", "c2c"):
+        cfg = bt.CollisionConfig(nv=32, ns=12, impl=impl)
+        collide, pre = bt.make_collision_operator(cfg, device="cuda")
+        g, rsq, _ = bkw(bt, cfg, dev)
+        f0 = torch.as_tensor(bt.bkw_f(rsq, 5.5), dtype=cfg.real_dtype, device=dev)
+        trajs[impl] = bt.make_relaxation(collide, pre, dt=0.125, n_steps=10, method="rk4",
+                                         record=lambda x: bt.moments(x, g.v, g.dv))(f0)
+    d = max_rel(trajs["fused"].f, trajs["c2c"].f)
+    dm = max_rel(trajs["fused"].recorded.mass, trajs["c2c"].recorded.mass)
+    print(f"  10 RK4 steps through K1 vs through c2c (cuFFT), float64: f {d:.3e}, mass trace"
+          f" {dm:.3e} relative (tol 1e-12)")
+    check(d <= 1e-12 and dm <= 1e-12, f"relaxation K1 vs c2c {d:.3e} {dm:.3e}")
+
+    # ---- 9. health.selfcheck on the card --------------------------------
+    for impl, kw, needed in (("fused", {}, "k1"), ("rfft", dict(use_pallas=True), "k5"),
+                             ("dft", {}, None)):
+        reset_counts(ks)
+        r = health.selfcheck(impl=impl, cfg_kwargs=kw, device=dev)
+        c = counts(ks)
+        print(f"[9 selfcheck] impl={impl} {kw}: ok {r['ok']}, rel_linf {r['rel_linf']:.4e}"
+              f" (tol {r['rel_tol']}), counts {c}")
+        check(r["ok"] and plain_calls(c) == 0 and (needed is None or c[needed] > 0),
+              f"selfcheck {impl} {kw}: {r} {c}")
+    r = health.selfcheck(impl="fused", device=dev,
+                         pre_transform=lambda p: dataclasses.replace(p, beta2=2.0 * p.beta2))
+    print(f"[9 selfcheck] fused with beta2 doubled: ok {r['ok']}, rel_linf {r['rel_linf']:.4e}")
+    check(not r["ok"], "selfcheck passed a corrupted Precomp")
+
+    # ---- 10. the benchmark drivers -------------------------------------
+    for mod, extra in ((fft_benchmark, []), (loop_benchmark, ["--tile-size", "4", "8", "16"])):
+        argv = ["--Nv", "32", "--Ns", "12", "--dtype", "float64", "--device", "cuda", *extra]
+        reset_counts(ks)
+        rc, lines = run_driver(mod.main, argv)
+        c = counts(ks)
+        print(f"[10 drivers] {mod.__name__} {' '.join(argv)}: exit {rc} | {card}")
+        for line in lines:
+            print(f"  | {line}")
+        check(rc == 0 and not any("FAILED" in line for line in lines), f"{mod.__name__} failed")
+        if mod is loop_benchmark:
+            check(c["k5"] > 0 and c["k5_plain"] == 0, f"loop_benchmark dispatch {c}")
+
+    # ---- 11. times -----------------------------------------------------
     times = {}
     kernels = []
 
     def report(label, ms, unit="eval"):
         rates = [1e3 / t for t in ms]
-        print(f"[7 time] {label}: mean {statistics.mean(ms):.4f} ms/{unit}"
-              f" (mean {statistics.mean(rates):.4f} min {min(rates):.4f}"
-              f" stdev {statistics.stdev(rates):.4f} {unit}s/s, {TRIALS} trials) | {card}")
+        print(f"[11 time] {label}: median {statistics.median(ms):.4f} mean {statistics.mean(ms):.4f}"
+              f" ms/{unit} (mean {statistics.mean(rates):.4f} min {min(rates):.4f}"
+              f" stdev {statistics.stdev(rates):.4f} {unit}s/s, {len(ms)} trials) | {card}")
+
+    def entry(name, key, dtype, launches_, plain_, err, ms, plain_ms, b_ms, b_by, lib_ms=None):
+        source, replaces = KERNEL_SOURCES[key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches_, "plain_calls": plain_, "max_abs_err": err,
+            "ms": statistics.median(ms), "ms_mean": statistics.mean(ms),
+            "plain_ms": statistics.median(plain_ms), "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None if lib_ms is None else statistics.median(lib_ms),
+        })
 
     for n in (32, 64):
         for dtype in ("float32", "float64"):
@@ -470,26 +810,91 @@ def main() -> int:
                 ms = time_ms(lambda: fn(*args, **kw))
                 times[("k1", n, dtype, label)] = ms
                 report(f"K1 {n}^3 Ns=12 {dtype} {label}", ms)
+            # K2 and K4 at the same shape, on this f's spectrum
+            args, kw = k24_inputs(op, cfg, pre, f)
+            for key, scheme in (("k2", "ct"), ("k4", "transpose")):
+                for label, fn in (("kernel", lambda: k24.fused_gain_dft(*args, scheme=scheme, **kw)),
+                                  ("plain", lambda: k24.fused_gain_dft_reference(*args, **kw))):
+                    ms = time_ms(fn)
+                    times[(key, n, dtype, label)] = ms
+                    report(f"{key.upper()} {n}^3 Ns=12 {dtype} {label}", ms, "call")
+            # K6 and K5 on the first node chunk of the rfft + use_pallas route
+            cfg_p = bt.CollisionConfig(nv=n, ns=12, impl="rfft", use_pallas=True, dtype=dtype)
+            pre_p = bt.build_precomp(cfg_p, dev)
+            k6_args, k5_args, k5_kw = k56_inputs(op, k6, cfg_p, pre_p, f)
+            w = k5.node_weights(*k5_args[1:], dtype=cfg.real_dtype, **k5_kw).to(cfg.complex_dtype)
+            for key, label, fn in (
+                ("k6", "kernel", lambda: k6.alpha_multiply(*k6_args)),
+                ("k6", "plain", lambda: k6.alpha_multiply_reference(*k6_args)),
+                ("k5", "kernel", lambda: k5.gain_reduce(*k5_args, **k5_kw)),
+                ("k5", "plain", lambda: k5.gain_reduce_reference(*k5_args, **k5_kw)),
+                ("k5", "library", lambda: torch.einsum("bm,bm->m", w, k5_args[0])),
+            ):
+                ms = time_ms(fn)
+                times[(key, n, dtype, label)] = ms
+                tag = "torch.einsum('bm,bm->m') on precomputed weights (library yardstick)" \
+                    if label == "library" else label
+                report(f"{key.upper()} {n}^3 Ns=12 {dtype} chunk of {k6_args[0].shape[0]} nodes {tag}",
+                       ms, "call")
+            csize = 8 if dtype == "float64" else 4
+            b, n3, m2 = pre.rho.shape[0], n ** 3, n * (n // 2 + 1)
+            c6 = k6_args[0].shape[0]
+            b_k6 = bound(24.0 * c6 * n * m2,
+                         csize * 2 * (c6 * n + c6 * m2 + n * m2 + 2 * c6 * n * m2), dtype)
+            m = n * m2
+            b_k5 = bound(10.0 * c6 * m, csize * (2 * c6 * m + m + 2 * c6 + 2 * m), dtype)
+            b_k24 = bound(k3_flops((n, n, n), b, cfg.n_gl),
+                          csize * (2 * n3 * 2 + n3 + 2 * b + 2 * 3 * b * n + 6 * 2 * n * n), dtype)
+            print(f"[11 bound] {n}^3 {dtype}: K2/K4 {b_k24[0]:.4f} ms ({b_k24[1]}), K6"
+                  f" {b_k6[0]:.4f} ms ({b_k6[1]}), K5 {b_k5[0]:.4f} ms ({b_k5[1]})")
+            for key, kname, b_ms, route_label in (
+                ("k2", "fused_gain_ct", b_k24, ROUTES[1][0]),
+                ("k4", "fused_gain_transpose", b_k24, ROUTES[2][0]),
+                ("k6", "alpha_multiply", b_k6, ROUTES[0][0]),
+                ("k5", "gain_reduce", b_k5, ROUTES[0][0]),
+            ):
+                rc_ = route_counts[(route_label, dtype, n)]
+                entry(f"{kname}[{dtype},{n}^3,Ns=12]", kname, dtype, rc_[key], rc_[key + "_plain"],
+                      max_err[(key, dtype, n)], times[(key, n, dtype, "kernel")],
+                      times[(key, n, dtype, "plain")], b_ms[0], b_ms[1],
+                      times.get((key, n, dtype, "library")))
+    # the whole eval through each route, as a user calls it
+    route_cfgs = [("K1 (fused)", dict(impl="fused"), False),
+                  ("staged rfft", dict(impl="rfft"), False),
+                  ("staged c2c", dict(impl="c2c"), False)] + [
+        (label, kw, hook) for label, kw, hook, _, _ in ROUTES]
+    for n in (32, 64):
+        for dtype in ("float32", "float64"):
+            for label, kw, hook in route_cfgs:
+                if kw.get("impl") == "dft" and n == 64:
+                    continue
+                cfg = bt.CollisionConfig(nv=n, ns=12, dtype=dtype, **kw)
+                pre = bt.build_precomp(cfg, dev)
+                _, _, f = bkw(bt, cfg, dev)
+                red = (lambda x: x) if hook else None
+                ms = time_ms(lambda: bt.collide(cfg, pre, f, red))
+                report(f"route {label}, collide at {n}^3 Ns=12 {dtype}", ms)
+                del pre
     tg2d = {}
     for dtype in ("float32", "float64"):
         cfg, collide, pre, step2, f2 = solvers[dtype]
+        cfg_k = dataclasses.replace(cfg, fused_scheme="kron")
         cells = f2.reshape(-1, *f2.shape[2:])
-        err, (args, kw) = k3_batch_parity(op, k3, cfg, pre, cells, "TG-2D")
+        err, (args, kw) = k3_batch_parity(op, k3, cfg_k, pre, cells, "TG-2D")
         max_err[("k3", dtype)] = max(max_err[("k3", dtype)], err)
         ms_k3 = time_ms(lambda: k3.fused_gain_kron(*args, **kw))
         ms_plain = time_ms(lambda: k3.fused_gain_kron_reference(*args, **kw))
-        cfg1 = bt.CollisionConfig(nv=16, ns=12, impl="fused", fused_scheme="ct", dtype=dtype)
-        args1, kw1 = k1_inputs(op, cfg1, bt.build_precomp(cfg1, dev), cells)
+        args1, kw1 = k1_inputs(op, cfg, pre, cells)
         ms_k1 = time_ms(lambda: k1.fused_collide(*args1, **kw1))
         ms_step = time_ms(lambda: step2(f2, pre))
         for label, ms, unit in (("K3 kernel", ms_k3, "call"), ("K3 plain", ms_plain, "call"),
-                                ("K1 kernel (whole Q)", ms_k1, "call"), ("TG-2D step", ms_step, "step")):
+                                ("K1 kernel (whole Q)", ms_k1, "call"), ("TG-2D step (K1)", ms_step, "step")):
             report(f"{label} on the TG-2D batch, 256 x 16^3 Ns=12 {dtype}", ms, unit)
         tg2d[dtype] = dict(k3=ms_k3, plain=ms_plain, k1=ms_k1, step=ms_step,
                            batch=cells.shape[0], nodes=pre.rho.shape[0],
                            groups=-(-pre.rho.shape[0] // cfg.ns_eff))
 
-    # where a TG-2D step's device time goes
+    # where a TG-2D step's device time goes (the K1 route)
     for dtype in ("float64", "float32"):
         cfg, collide, pre, step2, f2 = solvers[dtype]
         g = cfg.velocity_grid
@@ -505,25 +910,26 @@ def main() -> int:
                 step2(f2, pre)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        fam = {"K3 y/z GEMM (kron_gemm)": 0.0, "K3 x leg, group sum, beta1": 0.0,
-               "cuFFT": 0.0, "elementwise (advection, RK2, casts)": 0.0}
+        fam = {"K1 axis DFT (axis_dft_kernel)": 0.0,
+               "K1 group sum, beta1, init, assemble": 0.0,
+               "cuFFT": 0.0, "elementwise (advection, RK2, casts, phases)": 0.0}
         for e in prof.key_averages():
             if e.device_type != torch.autograd.DeviceType.CUDA:
                 continue
             t = getattr(e, "self_device_time_total", None)
             t = t if t is not None else e.self_cuda_time_total
             nm = e.key.lower()
-            if "kron_gemm" in nm:
-                fam["K3 y/z GEMM (kron_gemm)"] += t
-            elif any(s in nm for s in ("axis_dft", "group_sum", "beta1_acc")) or "memset" in nm:
-                fam["K3 x leg, group sum, beta1"] += t
+            if "axis_dft" in nm:
+                fam["K1 axis DFT (axis_dft_kernel)"] += t
+            elif any(s in nm for s in ("group_sum", "beta1_acc", "init_kernel", "assemble_kernel")):
+                fam["K1 group sum, beta1, init, assemble"] += t
             elif "fft" in nm:
                 fam["cuFFT"] += t
             else:
-                fam["elementwise (advection, RK2, casts)"] += t
+                fam["elementwise (advection, RK2, casts, phases)"] += t
         busy = sum(fam.values())
         parts = ", ".join(f"{k} {v / 3e3:.3f} ms ({100 * v / busy:.1f}%)" for k, v in fam.items())
-        print(f"[7 profile] TG-2D step {dtype}, 3 steps: device {busy / 3e3:.3f} ms/step of"
+        print(f"[11 profile] TG-2D step {dtype}, 3 steps: device {busy / 3e3:.3f} ms/step of"
               f" {wall_us / 3e3:.3f} ms/step wall; idle share {100 * (1 - busy / wall_us):.1f}% | {card}")
         print(f"  {parts}")
         print(f"  the 4 MUSCL half-steps alone (CUDA events): {statistics.mean(ms_adv):.4f} ms/step")
@@ -535,19 +941,9 @@ def main() -> int:
             n3 = n ** 3
             b_ms, b_by = bound(k1_flops((n, n, n), cfg.n_nodes, cfg.n_gl),
                                csize * n3 * 4, dtype)  # f, beta2, |l| in; Q out
-            kernels.append({
-                "name": f"fused_collide[{dtype},{n}^3,Ns=12]",
-                "route": "cuda",
-                "source": "boltzfft_torch/csrc/fused_collide.cu",
-                "replaces": "boltzfft/pallas_kernels.py:515",
-                "launches": launches[("k1", dtype, n)],
-                "max_abs_err": max_err[("k1", dtype, n)],
-                "ms": statistics.mean(times[("k1", n, dtype, "kernel")]),
-                "plain_ms": statistics.mean(times[("k1", n, dtype, "plain")]),
-                "bound_ms": b_ms,
-                "bound_by": b_by,
-                "library_ms": None,
-            })
+            entry(f"fused_collide[{dtype},{n}^3,Ns=12]", "fused_collide", dtype,
+                  launches[("k1", dtype, n)], c4["k1_plain"], max_err[("k1", dtype, n)],
+                  times[("k1", n, dtype, "kernel")], times[("k1", n, dtype, "plain")], b_ms, b_by)
     for dtype in ("float64", "float32"):
         t = tg2d[dtype]
         csize = 8 if dtype == "float64" else 4
@@ -557,26 +953,18 @@ def main() -> int:
                   + (n3 + 2 * b) * csize)
         flops = k3_flops((16, 16, 16), b, groups, batch=e)
         b_ms, b_by = bound(flops, nbytes, dtype)
-        kernels.append({
-            "name": f"fused_gain_kron[{dtype},TG-2D {e}x16^3,Ns=12]",
-            "route": "cuda",
-            "source": "boltzfft_torch/csrc/fused_gain_kron.cu",
-            "replaces": "boltzfft/pallas_kernels.py:221",
-            "launches": sum(c["k3"] for (dt, _), c in c5.items() if dt == dtype),
-            "max_abs_err": max_err[("k3", dtype)],
-            "ms": statistics.mean(t["k3"]),
-            "plain_ms": statistics.mean(t["plain"]),
-            "bound_ms": b_ms,
-            "bound_by": b_by,
-            "library_ms": None,
-        })
+        kron_runs = [c for (dt, lab), c in c5.items() if dt == dtype and "K3" in lab]
+        entry(f"fused_gain_kron[{dtype},TG-2D {e}x16^3,Ns=12]", "fused_gain_kron", dtype,
+              sum(c["k3"] for c in kron_runs), sum(c["k3_plain"] for c in kron_runs),
+              max_err[("k3", dtype)], t["k3"], t["plain"], b_ms, b_by)
         kron = k3_kron_flops((16, 16, 16), b, groups, batch=e)
-        ms = statistics.mean(t["k3"])
-        print(f"[7 bound] K3 {dtype} TG-2D batch: {flops / 1e9:.2f} GFLOP separable,"
+        ms = statistics.median(t["k3"])
+        print(f"[11 bound] K3 {dtype} TG-2D batch: {flops / 1e9:.2f} GFLOP separable,"
               f" {nbytes / 1e6:.1f} MB -> bound {b_ms:.4f} ms ({b_by}); measured {ms:.3f} ms"
               f" = {ms / b_ms:.1f}x the bound; K3's dense kron y/z product does"
               f" {kron / 1e9:.1f} GFLOP, {kron / (ms * 1e-3) / PEAK_FLOPS[dtype]:.1%}"
               " of the CUDA-core peak")
+    print(f"[11 total] {time.perf_counter() - t_start:.1f} s after the device check")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

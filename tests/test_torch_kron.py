@@ -5,8 +5,8 @@ batching, dispatch, and — on a card only — the CUDA kernel against its plain
 version.
 
 On the CPU boltzfft's own ``pick_scheme`` picks "ct" at these sizes
-(interpret mode allows small radices), so its kron scheme is always asked
-for by name.  The JAX package is imported inside the tests that use it, so
+(interpret mode allows small radices), and the port's picks "ct" from 16^3
+on, so the kron scheme is asked for by name.  The JAX package is imported inside the tests that use it, so
 the ``cuda`` tests also run on a machine without jax:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kron.py -m cuda
@@ -75,6 +75,13 @@ def test_kron_gain_matches_boltzfft(kw, per_step):
     q = _k3_call(k3.fused_gain_kron_reference, cfg, pre, torch.as_tensor(f_hat))
     assert q.dtype == torch.complex128 and q.shape == f.shape
     np.testing.assert_allclose(q.numpy(), q_j, rtol=0, atol=1e-12 * np.abs(q_j).max())
+    # the gain-only dispatcher builds the same tables from the phases
+    ax_t, ay_t, az_t = bt_op._alpha_factors(cfg, pre, pre.rho, pre.sigma)
+    q_d = k3.fused_gain(pre.rho, pre.gain_w, ax_t, ay_t, az_t, torch.as_tensor(f_hat),
+                        pre.dft_inv_axes(), pre.dft_fwd_axes(), pre.norm_l,
+                        length=cfg.domain_length, b_gamma=cfg.b_gamma,
+                        radial_group=cfg.ns_eff, scheme="kron")
+    assert torch.equal(q_d, q)
 
 
 def test_kron_gain_batch_equals_per_item():
@@ -92,24 +99,26 @@ def test_kron_gain_batch_equals_per_item():
     "shape,scheme",
     [
         ((8, 8, 8), "kron"),
-        ((16, 16, 16), "kron"),
-        ((24, 24, 24), "kron"),
-        ((8, 12, 16), "kron"),
-        ((32, 16, 48), "kron"),
+        ((32, 8, 8), "kron"),  # Ny*Nz = 64
+        ((16, 16, 16), "ct"),
+        ((24, 24, 24), "ct"),
+        ((8, 12, 16), "ct"),
+        ((32, 16, 48), "ct"),
         ((32, 32, 32), "ct"),
         ((48, 48, 48), "ct"),
         ((64, 64, 64), "ct"),
-        ((16, 32, 64), "ct"),  # Ny*Nz > 1024
-        ((8, 32, 32), "ct"),  # no short lane axis
+        ((16, 32, 64), "ct"),
+        ((8, 32, 32), "ct"),
     ],
 )
-def test_pick_scheme(shape, scheme, monkeypatch):
+def test_pick_scheme(shape, scheme):
+    # the port's rule follows its measurements on the card (kron only where
+    # Ny*Nz <= 64); boltzfft's own choice on the CPU (interpret-mode
+    # radices) is ct on every one of these grids, so the two agree wherever
+    # the port takes K1, 16^3 included
     assert bt.pick_scheme(*shape) == scheme
-    if shape[1] * shape[2] <= 1024:
-        # boltzfft's choice on a TPU (no interpret-mode radices) is the same
-        _, _, pk = _jax()
-        monkeypatch.setattr(pk, "_interpret", lambda: False)
-        assert pk.pick_scheme(*shape) == scheme
+    _, _, pk = _jax()
+    assert pk.pick_scheme(*shape) == "ct"
     cfg = bt.CollisionConfig(nv=shape[0], nvy=shape[1], nvz=shape[2], impl="fused")
     assert bt_op.fused_scheme(cfg) == scheme
     forced = bt.CollisionConfig(nv=shape[0], nvy=shape[1], nvz=shape[2],
@@ -118,14 +127,16 @@ def test_pick_scheme(shape, scheme, monkeypatch):
 
 
 def test_fused_scheme_validation():
-    with pytest.raises(NotImplementedError, match="K4.*ROADMAP"):
-        bt.CollisionConfig(fused_scheme="transpose")
     _, bz, _ = _jax()
-    with pytest.raises(ValueError, match="fused_scheme must be") as ej:
-        bz.CollisionConfig(fused_scheme="bogus")
-    with pytest.raises(ValueError, match="fused_scheme must be") as et:
-        bt.CollisionConfig(fused_scheme="bogus")
-    assert str(ej.value) == str(et.value)
+    for kw, msg in ((dict(fused_scheme="bogus"), "fused_scheme must be"),
+                    (dict(nv=8, nvy=10, impl="fused", fused_scheme="transpose"),
+                     "requires a cubic grid")):
+        with pytest.raises(ValueError, match=msg) as ej:
+            bz.CollisionConfig(**kw)
+        with pytest.raises(ValueError, match=msg) as et:
+            bt.CollisionConfig(**kw)
+        assert str(ej.value) == str(et.value)
+    assert bt.CollisionConfig(impl="fused", fused_scheme="transpose").fused_scheme == "transpose"
 
 
 def test_kron_collide_matches_boltzfft():
@@ -136,7 +147,7 @@ def test_kron_collide_matches_boltzfft():
     f = _bkw_f(cfg_j)
     q_j = np.asarray(collide_j(jnp.asarray(f), pre_j))
 
-    cfg = bt.CollisionConfig(impl="fused", **kw)
+    cfg = bt.CollisionConfig(impl="fused", fused_scheme="kron", **kw)
     collide, pre = bt.make_collision_operator(cfg, "cpu")
     k1_calls, k3_calls = k1.REFERENCE_CALLS, k3.REFERENCE_CALLS
     q = collide(torch.as_tensor(f), pre)
@@ -145,7 +156,7 @@ def test_kron_collide_matches_boltzfft():
 
 
 def test_kron_collide_matches_staged_c2c():
-    cfg = bt.CollisionConfig(nv=16, ns=12, impl="fused")
+    cfg = bt.CollisionConfig(nv=16, ns=12, impl="fused", fused_scheme="kron")
     cfg_c = bt.CollisionConfig(nv=16, ns=12, impl="c2c")
     f = torch.as_tensor(_bkw_f(cfg))
     fs = torch.stack([f, 0.8 * f])
@@ -161,7 +172,7 @@ def test_kron_collide_matches_staged_c2c():
 
 
 def test_kron_tables_built_once_per_precomp():
-    cfg = bt.CollisionConfig(nv=8, ns=6, impl="fused")
+    cfg = bt.CollisionConfig(nv=8, ns=6, impl="fused", fused_scheme="kron")
     collide, pre = bt.make_collision_operator(cfg, "cpu")
     f = torch.as_tensor(_bkw_f(cfg))
     q = collide(f, pre)
@@ -178,7 +189,7 @@ def test_kron_tables_built_once_per_precomp():
 
 
 def test_kron_gain_spectrum_and_hooks():
-    cfg = bt.CollisionConfig(nv=8, ns=6, impl="fused")
+    cfg = bt.CollisionConfig(nv=8, ns=6, impl="fused", fused_scheme="kron")
     cfg_c = bt.CollisionConfig(nv=8, ns=6, impl="c2c")
     f = torch.as_tensor(_bkw_f(cfg))
     pre, pre_c = bt.build_precomp(cfg, "cpu"), bt.build_precomp(cfg_c, "cpu")
@@ -192,7 +203,7 @@ def test_kron_gain_spectrum_and_hooks():
 
 
 def test_kron_route_has_no_gradient():
-    cfg = bt.CollisionConfig(nv=8, ns=6, impl="fused")
+    cfg = bt.CollisionConfig(nv=8, ns=6, impl="fused", fused_scheme="kron")
     collide, pre = bt.make_collision_operator(cfg, "cpu")
     x = torch.as_tensor(_bkw_f(cfg)).requires_grad_(True)
     with pytest.raises(NotImplementedError, match="no gradient"):
@@ -257,7 +268,7 @@ def test_kron_kernel_matches_plain_on_card(cuda_device, kw, batch, tol):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_kron_bitwise_reproducible_on_card(cuda_device, dtype):
-    cfg = bt.CollisionConfig(nv=16, ns=12, impl="fused", dtype=dtype)
+    cfg = bt.CollisionConfig(nv=16, ns=12, impl="fused", fused_scheme="kron", dtype=dtype)
     collide, pre = bt.make_collision_operator(cfg, cuda_device)
     f = torch.as_tensor(_bkw_f(cfg), dtype=cfg.real_dtype, device=cuda_device)
     fs = torch.stack([f, 0.8 * f, 1.1 * f])
@@ -269,7 +280,7 @@ def test_kron_bitwise_reproducible_on_card(cuda_device, dtype):
 def test_kron_chunking_is_bitwise_invariant_on_card(cuda_device, monkeypatch):
     # one radial group per chunk (many launches of the stages) against the
     # default single chunk: the same group order, so bitwise equal
-    cfg = bt.CollisionConfig(nv=16, ns=12, impl="fused")
+    cfg = bt.CollisionConfig(nv=16, ns=12, impl="fused", fused_scheme="kron")
     collide, pre = bt.make_collision_operator(cfg, cuda_device)
     f = torch.as_tensor(_bkw_f(cfg), device=cuda_device)
     fs = torch.stack([f, 0.8 * f])

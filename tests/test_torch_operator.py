@@ -97,13 +97,20 @@ def test_staged_batch_equals_per_item():
 
 
 def test_fused_gain_spectrum_not_ported():
-    # the gain-only spectrum of the ct scheme is K2 (not ported yet); the kron
-    # scheme's is K3 (tests/test_torch_kron.py)
+    # the gain-only spectrum of the ct scheme is K2, ported now
+    # (tests/test_torch_gain_only.py); under a hook it gives the staged
+    # pipeline's result
+    from boltzfft_torch.kernels import fused_gain_dft as k24
+
     cfg = bt.CollisionConfig(nv=8, ns=6, impl="fused", fused_scheme="ct")
-    pre = bt.build_precomp(cfg, "cpu")
+    cfg_c = bt.CollisionConfig(nv=8, ns=6, impl="c2c")
+    pre, pre_c = bt.build_precomp(cfg, "cpu"), bt.build_precomp(cfg_c, "cpu")
     f = torch.as_tensor(_bkw(cfg)[0])
-    with pytest.raises(NotImplementedError, match="gain-only"):
-        bt.collide(cfg, pre, f, gain_reduce=lambda q: q)
+    calls = k24.REFERENCE_CALLS["ct"]
+    q = bt.collide(cfg, pre, f, gain_reduce=lambda q: 0.5 * q)
+    assert k24.REFERENCE_CALLS["ct"] == calls + 1
+    qc = bt.collide(cfg_c, pre_c, f, gain_reduce=lambda q: 0.5 * q)
+    np.testing.assert_allclose(q.numpy(), qc.numpy(), rtol=0, atol=1e-12 * float(qc.abs().max()))
 
 
 @pytest.mark.parametrize(

@@ -162,11 +162,20 @@ def test_port_imports_no_jax(tmp_path):
         " ('open', 'ctypes.dlopen') and a and a[0] is not None else None)\n"
         "import boltzfft_torch as bt, boltzfft_torch._build\n"
         "import boltzfft_torch.kernels.fused_collide, boltzfft_torch.kernels.fused_gain\n"
+        "import boltzfft_torch.kernels.fused_gain_dft, boltzfft_torch.kernels.alpha_multiply\n"
+        "import boltzfft_torch.kernels.gain_reduce, boltzfft_torch.health, boltzfft_torch.timestepper\n"
         "from boltzfft_torch.cli import maxwell_bkw, sod_1d3v, taylor_green_2d3v, taylor_green_3d3v\n"
+        "from boltzfft_torch.cli import fft_benchmark, loop_benchmark\n"
         "for ns in bt.SPHERICAL_DESIGN_FILES: bt.spherical_design(ns)\n"
         "bt.gauss_legendre(16, 0.0, 1.0)\n"
         "assert taylor_green_2d3v.main(['--Nv', '8', '--Ns', '6', '--n-radial', '2', '--cells', '4',"
         " '--steps', '1', '--impl', 'fused', '--mass-tol', '1', '--device', 'cpu']) == 0\n"
+        "small = ['--Nv', '8', '--Ns', '6', '--n-radial', '2', '--device', 'cpu']\n"
+        "assert maxwell_bkw.main(small + ['--impl', 'dft', '--steps', '1']) == 0\n"
+        "assert fft_benchmark.main(small + ['--chain', '1']) == 0\n"
+        "assert loop_benchmark.main(small + ['--chain', '1', '--tile-size', '4']) == 0\n"
+        "assert boltzfft_torch.health.selfcheck(nv=8, device='cpu', cfg_kwargs={'use_pallas': True},"
+        " compare_impl='c2c', rel_tol=1e-12)['ok']\n"
         "bad = sorted(m for m in sys.modules"
         " if m == 'jax' or m.startswith(('jax.', 'boltzfft.')) or m == 'boltzfft')\n"
         "jax_pkg = sys.argv[1] + '/boltzfft/'\n"

@@ -21,7 +21,7 @@ from test_torch_transport import STEPS, CELLS, cell_data, small_kw
 def test_step_matches_boltzfft_kron(ndim):
     kw = small_kw(impl="fused")
     cfg_j = bz.CollisionConfig(fused_scheme="kron", **kw)
-    cfg_t = bt.CollisionConfig(**kw)
+    cfg_t = bt.CollisionConfig(fused_scheme="kron", **kw)
     mk_j, mk_t, deltas = STEPS[ndim]
     f = cell_data(cfg_t, CELLS[ndim], seed=ndim)
     collide_j, pre_j = bz.make_collision_operator(cfg_j, jit=False)
