@@ -2,7 +2,8 @@
 PyTorch, with its kernels hand-written in CUDA for Hopper (K1, the whole
 collision eval; K2/K4, the gain spectrum by per-axis DFTs; K3, by the
 Kronecker scheme; K5/K6, the node reduction and phase multiply of the rfft
-route), the RK relaxation loop, and the spatially inhomogeneous solver
+route; K7-K9, K12, the Ozaki-sliced contractions of the double-single
+engine), the RK relaxation loop, and the spatially inhomogeneous solver
 around it.
 
 The PyTorch counterpart of ``boltzfft`` (JAX), which stays the reference.
@@ -19,6 +20,7 @@ Imports torch and NumPy only, never jax::
 from . import transport
 from .bkw import bkw_dfdt, bkw_f, bkw_k, maxwellian
 from .conserve import ConservePrecomp, build_conserve_precomp, conservative, project
+from .ds_operator import collide_ds, make_ds_collision_operator
 from .grid import VelocityGrid, domain_from_support
 from .moments import Moments, entropy, moments
 from .operator import collide, gain_spectrum, make_collision_operator, pick_scheme
@@ -43,6 +45,7 @@ from .weights import (
     CollisionConfig,
     Precomp,
     build_precomp,
+    ds_precomp_from_numpy,
     precomp_from_numpy,
     sincc,
 )
@@ -65,8 +68,10 @@ __all__ = [
     "build_conserve_precomp",
     "build_precomp",
     "collide",
+    "collide_ds",
     "conservative",
     "domain_from_support",
+    "ds_precomp_from_numpy",
     "entropy",
     "error_norms",
     "error_norms_device",
@@ -74,6 +79,7 @@ __all__ = [
     "gain_spectrum",
     "gauss_legendre",
     "make_collision_operator",
+    "make_ds_collision_operator",
     "make_relaxation",
     "maxwellian",
     "moments",

@@ -4,7 +4,7 @@ At first use, ``load_library()`` compiles every ``csrc/*.cu`` to an object,
 one ``nvcc`` per source, all started together,
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
-         -Xcompiler -fPIC -Xptxas -v -c -o build/boltzfft_torch/<name>.o <name>.cu
+         -Xcompiler -fPIC -Xptxas -v [FILE_FLAGS] -c -o build/boltzfft_torch/<name>.o <name>.cu
 
 and links them with ``nvcc -shared`` into
 ``build/boltzfft_torch/libboltzfft_torch.so`` at the repository root.  It
@@ -39,6 +39,14 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+#: Flags added for single sources.  The ds engine's kernels (K7, K8, K9, K12)
+#: need every + - * rounded on its own, so nvcc must not contract a*b + c
+#: into one FMA there (``csrc/oz_common.cuh``).  Never ``--use_fast_math``:
+#: it flushes denormals.
+FILE_FLAGS = {
+    name: ["--fmad=false"]
+    for name in ("oz_preslice.cu", "oz_contract.cu", "oz_gmain3.cu", "oz_hadamard_half.cu")
+}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -56,6 +64,17 @@ _ENTRY_ARGS = {
     # 4 inputs, 1 output, 3 ints, 3 reals and the stream
     "bfft_gain_reduce": [_P] * 4 + [_P] + [_I] * 3 + [_D] * 3 + [_P],
 }
+#: argtypes of the float32-only entry points (the ds engine).
+_ENTRY_ARGS_F32 = {
+    # 4 inputs, 2 outputs, 5 ints and the stream
+    "bfft_oz_preslice": [_P] * 6 + [_I] * 5 + [_P],
+    # 4 planes, 2 presliced, 2 matrices, 4 outputs, 12 ints and the stream
+    "bfft_oz_contract": [_P] * 12 + [_I] * 12 + [_P],
+    # preslice, 6 matrices, scratch, 2 outputs, 9 ints and the stream
+    "bfft_oz_gmain3": [_P] * 10 + [_I] * 9 + [_P],
+    # 4 main blocks, 3 planes, 3 signs, 2 weights, 2 outputs, 5 ints and the stream
+    "bfft_oz_hadamard_half": [_P] * 14 + [_I] * 5 + [_P],
+}
 
 _lib = None
 
@@ -66,6 +85,7 @@ def _sources() -> list[Path]:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(FILE_FLAGS.items())).encode())
     for p in _sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -96,7 +116,8 @@ def build() -> Path:
     pid = os.getpid()
     srcs = [p for p in _sources() if p.suffix == ".cu"]
     objs = [BUILD_DIR / f"{p.stem}.{pid}.o" for p in srcs]
-    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)] for s, o in zip(srcs, objs)]
+    compiles = [[nvcc, *NVCC_FLAGS, *FILE_FLAGS.get(s.name, []), "-c", "-o", str(o), str(s)]
+                for s, o in zip(srcs, objs)]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(compiles)) as pool:
         results = list(pool.map(_run, compiles))
@@ -137,5 +158,9 @@ def load_library() -> ctypes.CDLL:
                 fn = getattr(lib, stem + suffix)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+        for name, argtypes in _ENTRY_ARGS_F32.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib

@@ -2,6 +2,7 @@
 
     python -m boltzfft_torch.cli.maxwell_bkw --Nv 32 --Ns 12 --impl fused --trials 10
     python -m boltzfft_torch.cli.maxwell_bkw --Nv 32 --Ns 12 --impl fused --steps 10
+    python -m boltzfft_torch.cli.maxwell_bkw --Nv 64 --Ns 12 --impl ds --trials 3
     python -m boltzfft_torch.cli.fft_benchmark --Nv 32 --Ns 12
     python -m boltzfft_torch.cli.loop_benchmark --Nv 32 --Ns 12 --tile-size 4 8 16
     python -m boltzfft_torch.cli.sod_1d3v --Nv 16 --nx 32 --steps 20
@@ -28,12 +29,53 @@ def standard_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--dtype", choices=["float32", "float64"], default="float64",
                    help="compute dtype")
     p.add_argument(
-        "--impl", choices=["auto", "rfft", "c2c", "dft", "fused"], default="rfft",
+        "--impl", choices=["auto", "rfft", "c2c", "dft", "fused", "ds"], default="rfft",
         help="pipeline: rfft (real transforms), c2c (complex transforms), "
              "dft (per-axis DFT einsums), fused (the hand-written CUDA "
              "kernels: the whole eval in K1, or K3 with its cuFFT finale "
              "where Nvy*Nvz <= 64; their plain PyTorch versions on --device "
-             "cpu); auto = fused on a CUDA device, rfft on the CPU",
+             "cpu), ds (compensated double-single, float32 pairs: the Ozaki "
+             "kernels K7, K8, K9, K12 on CUDA); auto = fused on a CUDA device, "
+             "rfft on the CPU",
+    )
+    p.add_argument(
+        "--ds-contract", choices=["vpu", "oz", "ozk"], default=None,
+        help="ds transform engine (--impl ds only): vpu = compensated rank-1 "
+             "updates in plain PyTorch (the bit reference), oz = the Ozaki "
+             "kernels (ozk is the same engine); default oz on CUDA, vpu on the CPU",
+    )
+    p.add_argument(
+        "--oz-cmax", type=int, default=None,
+        help="Ozaki slice-pair retention of the ds oz engine (default 6 = "
+             "every reference digit; 4 = ~1.6e-11 at 64^3)",
+    )
+    p.add_argument(
+        "--g-stream", choices=["full", "half"], default=None,
+        help="ds inverse-stream formulation: half = the exact half-spectrum "
+             "Nyquist-block decomposition (the oz default on CUDA), full = "
+             "direct complex streams (vpu only until K11 is ported)",
+    )
+    p.add_argument(
+        "--group-batch", type=int, default=None,
+        help="ds half path: radial groups per launch set (must divide the "
+             "radial group count; default 2 on grids <= 32/axis on CUDA)",
+    )
+    p.add_argument(
+        "--oz-merge", choices=["on", "off"], default=None,
+        help="ds oz engine: K-merged complex contractions where merge_ok "
+             "holds (default on)",
+    )
+    p.add_argument(
+        "--gmain-fused", choices=["auto", "off", "3", "12"], default="auto",
+        help="ds half path: the fused main block. auto = K9 ('3') on grids "
+             "up to ~40^3 on CUDA, off = staged K8, 3 = force K9, 12 = K10 "
+             "(not ported yet: raises)",
+    )
+    p.add_argument(
+        "--g1-reversal", action="store_true",
+        help="ds half path, opt-in: stream 1 from stream 2 by velocity "
+             "reversal, exact only for centrally symmetric f (the BKW states "
+             "maxwell_bkw evaluates)",
     )
     p.add_argument(
         "--device", default="cuda",

@@ -1,7 +1,8 @@
-"""Known-answer self-check (mirror of ``boltzfft/health.py``): evaluate the
+"""Known-answer self-checks (mirror of ``boltzfft/health.py``): evaluate the
 collision operator on a small BKW problem on a chosen device and compare it
-with the analytic ``bkw_dfdt``, or with a second pipeline on the same device,
-as a callable probe with a pass/fail verdict.
+with the analytic ``bkw_dfdt``, or with a second pipeline on the same device
+(:func:`selfcheck`), and the ds engine's oz route against its vpu route
+(:func:`selfcheck_ds`), as callable probes with a pass/fail verdict.
 """
 
 from __future__ import annotations
@@ -93,4 +94,64 @@ def selfcheck(
         "backend": device.type,
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
         "config": {"nv": nv, "ns": ns, "dtype": dtype, "impl": impl},
+    }
+
+
+def selfcheck_ds(
+    nv: int = 16,
+    ns: int = 6,
+    n_radial: Optional[int] = None,
+    rel_tol: float = 1e-11,
+    cfg_kwargs: Optional[dict] = None,
+    symmetrize: bool = False,
+    device=None,
+    **collide_kwargs,
+) -> dict:
+    """Cross-engine known-answer probe of the ds pipeline: ``collide_ds`` with
+    the oz engine (the kernels K7, K8, K9, K12 on CUDA, their plain versions
+    on the CPU; any knob passes through ``collide_kwargs``) against the vpu
+    engine on the same device, on a seeded Nyquist-rich positive noise input.
+    The bound is the ds noise floor (~2^-49 relative; tolerance 1e-11): an
+    exactness fault in a kernel lands orders of magnitude above it.
+    ``symmetrize`` makes the input centrally symmetric (for ``g1_reversal``).
+    ``device`` defaults to CUDA when a card is present, else the CPU.  The oz
+    engine runs the half g-stream unless told otherwise: its full streams
+    need K11, which is not ported yet."""
+    import numpy as np
+
+    import boltzfft_torch as bt
+    from boltzfft_torch import ds
+    from boltzfft_torch.ds_operator import build_ds_precomp, collide_ds
+
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = torch.device(device)
+    cfg = bt.CollisionConfig(
+        nv=nv, ns=ns, n_radial=n_radial if n_radial is not None else nv // 2,
+        dtype="float32", impl="c2c", **(cfg_kwargs or {}),
+    )
+    pre = build_ds_precomp(cfg, device=device)
+    rng = np.random.default_rng(12345)
+    fm = np.abs(rng.standard_normal(cfg.grid_shape)) + 0.1
+    if symmetrize:
+        fm = 0.5 * (fm + fm[::-1, ::-1, ::-1])
+    f = ds.from_f64(fm, torch.float32, device)
+    kw = {"g_stream": "half", **collide_kwargs}
+
+    t0 = time.perf_counter()
+    q_oz = collide_ds(cfg, pre, f, contract="oz", **kw)
+    q_ref = collide_ds(cfg, pre, f, contract="vpu")
+    dev = q_oz.hi - q_ref.hi + (q_oz.lo - q_ref.lo)
+    rel = float(dev.abs().max()) / float(q_ref.hi.abs().max())
+    finite = bool((torch.isfinite(q_oz.hi) & torch.isfinite(q_oz.lo)).all())
+    elapsed = time.perf_counter() - t0
+    return {
+        "ok": finite and rel < rel_tol,
+        "finite": finite,
+        "rel_linf": rel,
+        "rel_tol": rel_tol,
+        "elapsed_s": elapsed,
+        "backend": device.type,
+        "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+        "config": {"nv": nv, "ns": ns, **collide_kwargs},
     }

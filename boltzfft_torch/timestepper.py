@@ -5,22 +5,28 @@ The steppers are classic explicit RK schemes written as plain functions of a
 right-hand side; :func:`relax` runs them in a Python loop (``boltzfft`` runs
 the same loop as one ``lax.scan``) and stacks what ``record`` returns after
 every step along a leading time axis, field by field, as ``scan`` stacks a
-pytree.
+pytree.  A :class:`boltzfft_torch.ds.DS` state (the compensated ds engine)
+steps in double-single arithmetic.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
+
+from . import ds as _ds
 
 RHS = Callable[[torch.Tensor], torch.Tensor]
 
 
 def _axpy(f, a: float, k):
-    """``f + a * k`` in the state's own arithmetic.  The compensated
-    double-single state of ``boltzfft.ds`` gets its own branch here when the
-    ds engine is ported."""
+    """``f + a * k`` in the state's own arithmetic."""
+    if isinstance(f, _ds.DS):
+        # the scalar is split too: fl32(dt/6) alone costs 2^-24 relative per
+        # stage, swamping the ds state's 2^-48
+        return _ds.add(f, _ds.mul(k, _ds.from_f64(np.float64(a), k.hi.dtype, k.hi.device)))
     return f + a * k
 
 
@@ -40,6 +46,11 @@ def rk4_step(rhs: RHS, f, dt: float):
     k2 = rhs(_axpy(f, 0.5 * dt, k1))
     k3 = rhs(_axpy(f, 0.5 * dt, k2))
     k4 = rhs(_axpy(f, dt, k3))
+    if isinstance(f, _ds.DS):
+        out = _axpy(f, dt / 6.0, k1)
+        out = _axpy(out, dt / 3.0, k2)
+        out = _axpy(out, dt / 3.0, k3)
+        return _axpy(out, dt / 6.0, k4)
     return f + (dt / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
 
 

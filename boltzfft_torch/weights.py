@@ -9,7 +9,8 @@ the JAX package builds them, then turned into tensors on an explicit device.
 
 Left out of ``CollisionConfig``: ``fused_nodes_per_step``, ``fused_radix``
 and ``fused_sub_batch`` (the TPU kernels' VMEM tiling, which the port's
-kernels do not have), and ``oz_cmax`` (the ds engine, not ported yet).
+kernels do not have).  :func:`ds_precomp_from_numpy` carries the JAX
+package's double-single tables across.
 """
 
 from __future__ import annotations
@@ -88,6 +89,11 @@ class CollisionConfig:
     # operator.pick_scheme (kron on Ny*Nz <= 64, such as 8^3; ct elsewhere).
     fused_scheme: str = "auto"
     antipodal: bool = True  # exact antipodal-pair reduction (ns/2 nodes, 2x weights)
+    # Ozaki slice-pair retention of the ds engine's oz contractions
+    # (ds_operator.collide_ds): None = the digit-exact default (6); a
+    # per-call collide_ds(..., oz_cmax=) overrides it.  Ignored by the vpu
+    # engine and the non-ds impls.
+    oz_cmax: Optional[int] = None
 
     def __post_init__(self):
         if self.impl not in ("rfft", "c2c", "dft", "fused"):
@@ -129,6 +135,11 @@ class CollisionConfig:
             )
         if self.antipodal and self.ns % 2:
             raise ValueError("antipodal reduction requires an even ns")
+        if self.oz_cmax is not None and not (0 <= self.oz_cmax <= 14):
+            raise ValueError(
+                f"oz_cmax must be in [0, 14] (slice-pair level sum), got "
+                f"{self.oz_cmax!r}"
+            )
 
     # ---- derived static quantities -------------------------------------
     @property
@@ -363,3 +374,37 @@ def build_precomp(cfg: CollisionConfig, device) -> Precomp:
              norm_l=norm_l, beta2=beta2, **mats),
         device=device, dtype=cfg.dtype,
     )
+
+
+def _ds_leaf(v, device):
+    """One host array of a JAX ds table as a tensor: bfloat16 slices (NumPy's
+    ``bfloat16`` extension dtype) through float32, which holds them exactly."""
+    a = np.asarray(v)
+    if a.dtype.name == "bfloat16":
+        return torch.as_tensor(a.astype(np.float32), device=device).to(torch.bfloat16)
+    return torch.tensor(a, device=device)
+
+
+def _ds_tree(v, device):
+    from . import ds as _ds
+    from . import oz as _oz
+
+    if v is None:
+        return None
+    if isinstance(v, tuple):
+        parts = [_ds_tree(x, device) for x in v]
+        kinds = {"DS": _ds.DS, "CDS": _ds.CDS, "CSlicedMatrix": _oz.CSlicedMatrix}
+        kind = kinds.get(type(v).__name__) if hasattr(v, "_fields") else None
+        return kind(*parts) if kind is not None else tuple(parts)
+    return _ds_leaf(v, device)
+
+
+def ds_precomp_from_numpy(pre, *, device):
+    """A port ``DsPrecomp`` from the JAX package's, given with NumPy leaves,
+    e.g. ``jax.tree.map(np.asarray, boltzfft.ds_operator.build_ds_precomp(cfg))``
+    (or a mapping of its field names).  The named tuples ``DS``, ``CDS`` and
+    ``CSlicedMatrix`` map onto the port's by name; values keep their bits."""
+    from .ds_operator import DsPrecomp
+
+    get = pre.get if isinstance(pre, Mapping) else (lambda k: getattr(pre, k, None))
+    return DsPrecomp(**{f: _ds_tree(get(f), device) for f in DsPrecomp._fields})

@@ -49,7 +49,29 @@ Phases, in order; any failure raises and the script exits non-zero:
     32^3) at 32^3 and 64^3; K3 (first held to its plain
     version there), its plain version and K1 on the 256-cell TG-2D batch;
     the TG-2D step; and a ``torch.profiler`` window over TG-2D steps (device
-    time by kernel family and the card's idle share).
+    time by kernel family and the card's idle share);
+12. the ds engine's kernels against their plain versions at the main path's
+    shapes, 32^3 and 64^3, Ns=12 (real tables from
+    ``make_ds_collision_operator``, f_hat of the BKW state): K7 merged and
+    unmerged, K8 in every mode the default route launches (shared matrix
+    real_in / complex / real_out, Hermitian forward z; per-node repeat +
+    presliced + merged, merged, merged real_out), K9 at 32^3 (also against
+    the K8 kernel chain), K12 with gb = 2 (32^3) and 1 (64^3); each bitwise
+    equal to its plain version and to itself run to run;
+13. the ds BKW digits through ``make_ds_collision_operator``'s card defaults
+    (32^3: the reference L1/L2/Linf at rtol 1e-4; 64^3: Linf in
+    [3.0680, 3.0692]e-12), each within 1e-12 max|Q| of the float64 staged
+    cuFFT c2c of phase 5, with counts reset around the eval (K7, K8, K12 and,
+    at 32^3, K9 launched; no plain call); ``g1_reversal`` and ``oz_cmax=4``
+    at 64^3, and the staged K8 chain at 32^3 bitwise equal to K9's route;
+14. ``health.selfcheck_ds`` on the card (16^3, ns=6, oz vs vpu < 1e-11);
+15. ``maxwell_bkw --impl ds --Nv 32 --Ns 12``, ``--trials 3`` and ``--steps 4``;
+16. times: the ds eval at 32^3 (5 trials) and 64^3 (3 trials) after 2
+    warm-ups, a ``torch.profiler`` window over one eval of each (device time
+    and launches by kernel, idle share), and K7, K8, K9, K12 at main-path
+    shapes against their plain versions, their bounds (chunk-pair dots at the
+    bf16 tensor-core peak plus the fold at the float32 CUDA-core peak, or
+    bytes) and, for K8, a complex128 ``torch.bmm``/``matmul`` yardstick.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
@@ -66,6 +88,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 SHAPES_K1 = [  # (grid, ns, batch)
@@ -131,6 +154,10 @@ KERNEL_SOURCES = {  # name -> (source, the TPU kernel it replaces)
     "fused_gain_transpose": ("boltzfft_torch/csrc/fused_collide.cu", "boltzfft/pallas_kernels.py:913"),
     "gain_reduce": ("boltzfft_torch/csrc/gain_reduce.cu", "boltzfft/pallas_kernels.py:54"),
     "alpha_multiply": ("boltzfft_torch/csrc/alpha_multiply.cu", "boltzfft/pallas_kernels.py:1141"),
+    "preslice_rows": ("boltzfft_torch/csrc/oz_preslice.cu", "boltzfft/oz.py:535"),
+    "oz_contract": ("boltzfft_torch/csrc/oz_contract.cu", "boltzfft/oz.py:606"),
+    "gmain3_nodemat": ("boltzfft_torch/csrc/oz_gmain3.cu", "boltzfft/oz.py:1420"),
+    "hadamard_wsum_half": ("boltzfft_torch/csrc/oz_hadamard_half.cu", "boltzfft/oz.py:1832"),
 }
 
 
@@ -293,7 +320,7 @@ def max_rel(a, b):
 
 
 def reset_counts(ks):
-    for k in (ks.k1, ks.k3, ks.k5, ks.k6):
+    for k in (ks.k1, ks.k3, ks.k5, ks.k6, ks.k7, ks.k8, ks.k9, ks.k12):
         k.LAUNCHES = k.REFERENCE_CALLS = 0
     for s in ("ct", "transpose"):
         ks.k24.LAUNCHES[s] = ks.k24.REFERENCE_CALLS[s] = 0
@@ -305,7 +332,11 @@ def counts(ks):
                 k3=ks.k3.LAUNCHES, k3_plain=ks.k3.REFERENCE_CALLS,
                 k4=ks.k24.LAUNCHES["transpose"], k4_plain=ks.k24.REFERENCE_CALLS["transpose"],
                 k5=ks.k5.LAUNCHES, k5_plain=ks.k5.REFERENCE_CALLS,
-                k6=ks.k6.LAUNCHES, k6_plain=ks.k6.REFERENCE_CALLS)
+                k6=ks.k6.LAUNCHES, k6_plain=ks.k6.REFERENCE_CALLS,
+                k7=ks.k7.LAUNCHES, k7_plain=ks.k7.REFERENCE_CALLS,
+                k8=ks.k8.LAUNCHES, k8_plain=ks.k8.REFERENCE_CALLS,
+                k9=ks.k9.LAUNCHES, k9_plain=ks.k9.REFERENCE_CALLS,
+                k12=ks.k12.LAUNCHES, k12_plain=ks.k12.REFERENCE_CALLS)
 
 
 def plain_calls(c):
@@ -347,6 +378,338 @@ def run_driver(main, argv):
     return rc, [line for line in buf.getvalue().splitlines() if line.strip()]
 
 
+# ---- the ds engine (K7, K8, K9, K12) ------------------------------------
+DS_DIGITS_32 = ((1.5403e-03, 1.0119e-04, 4.2512e-05), 1e-4)  # L1, L2, Linf, rtol
+DS_LINF_64 = (3.0680e-12, 3.0692e-12)  # JAX ds-oz printed 3.0686e-12; f64 3.0685e-12
+DS_TRIALS = {32: 5, 64: 3}
+PEAK_BF16 = 989e12  # dense bf16 tensor-core FLOP/s of an H100 SXM at 700 W
+
+
+def oz_pairs(cmax):
+    """Chunk pairs (i, j) with i + j <= cmax, i < min(7, cmax + 1), j < 8."""
+    return sum(1 for i in range(min(7, cmax + 1)) for j in range(8) if i + j <= cmax)
+
+
+def oz_stage_work(rows, k, ell, mode, cmax=6):
+    """(exact-dot MACs, fold FLOPs) of one oz contraction over ``rows`` rows:
+    mode "cc" complex in and out, "ri" real in, "ro" real out, "m" merged
+    complex, "mro" merged real out.  A folded level costs ~10 float32 FLOPs
+    (two_sum, the low-word add, quick_two_sum) per list per output."""
+    combos, lists = {"cc": (4, 4), "ri": (2, 2), "ro": (2, 2), "m": (4, 2), "mro": (2, 1)}[mode]
+    return rows * ell * oz_pairs(cmax) * k * combos, rows * ell * (cmax + 1) * 10 * lists
+
+
+def oz_bound(macs, fold_flops, nbytes):
+    """(bound_ms, bound_by): the chunk dots at the bf16 tensor-core peak plus
+    the fold at the float32 CUDA-core peak, against the bytes at 3.35 TB/s."""
+    t_ops = 2.0 * macs / PEAK_BF16 + fold_flops / PEAK_FLOPS["float32"]
+    t_bytes = nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def same(a, b):
+    """Bitwise equality of two trees of tensors."""
+    if isinstance(a, tuple):
+        return all(same(x, y) for x, y in zip(a, b))
+    return torch.equal(a, b)
+
+
+def max_diff(a, b):
+    if isinstance(a, tuple):
+        return max(max_diff(x, y) for x, y in zip(a, b))
+    return float((a.double() - b.double()).abs().max())
+
+
+def ds_phases(bt, dev, card, ks, q_c2c, entry, report):
+    """Phases 12-16: the ds engine's kernels against their plain versions at
+    the main path's shapes, the ds BKW digits through the card's default
+    route, selfcheck_ds, the ds drivers, and times."""
+    from boltzfft_torch import ds, health, oz
+    from boltzfft_torch import ds_operator as dso
+    from boltzfft_torch.cli import maxwell_bkw
+
+    k7, k8, k9, k12 = ks.k7, ks.k8, ks.k9, ks.k12
+    tm = ds.tree_map
+    max_err, pres, cfgs, fs, collides = {}, {}, {}, {}, {}
+    grids = small, big = 32, 64
+
+    # ---- 12. kernels against their plain versions, 32^3 and 64^3, Ns=12 --
+    def parity(label, key, fn, ref):
+        a, b = fn(), fn()
+        r = ref()
+        torch.cuda.synchronize()
+        err, bit, rerun = max_diff(a, r), same(a, r), same(a, b)
+        max_err[key] = max(max_err.get(key, 0.0), err)
+        print(f"  {label}: max|kernel - plain| {err:.3e}; bitwise equal {bit}; run to run"
+              f" bitwise {rerun} {'ok' if bit and rerun else 'FAIL'}")
+        check(bit and rerun, f"{label}: kernel != plain version or not reproducible")
+        return a
+
+    inputs = {}
+    for n in grids:
+        cfg = bt.CollisionConfig(nv=n, ns=12, impl="c2c", dtype="float32")
+        t0 = time.perf_counter()
+        collides[n], pre = bt.make_ds_collision_operator(cfg, device=dev)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        nbytes = sum(t.numel() * t.element_size() for t in _leaves(pre))
+        print(f"[12 ds parity] {n}^3 Ns=12: make_ds_collision_operator (host float64 tables,"
+              f" split, to the card) {setup:.2f} s, {nbytes / 1e9:.3f} GB on the card | {card}")
+        cfgs[n], pres[n] = cfg, pre
+        rsq = cfg.velocity_grid.r_squared()
+        fs[n] = ds.from_f64(bt.bkw_f(rsq, 6.5), torch.float32, dev)
+        f_hat = oz.transform3_oz(ds.cds_from_real(fs[n]), pre.vfwd_sl, cmax=6, real_in=True)
+        kxy = torch.ones(n, device=dev)
+        kxy[n // 2] = 0.0
+        fmask = kxy[:, None, None] * kxy[None, :, None]
+        fhs = ds._swap_last2(tm(lambda a: a[..., : n // 2] * fmask, f_hat))  # (Nx, Nz/2, Ny)
+        for merged in (True, False):
+            parity(f"K7 {n}^3 rows {n * n // 2} K {n} merged={merged}", ("k7", n),
+                   lambda: k7.preslice_rows(fhs, cmax=6, merged=merged),
+                   lambda: k7.preslice_rows_reference(fhs, cmax=6, merged=merged))
+        x_pre = k7.preslice_rows(fhs, cmax=6, merged=True)
+        shared = [("forward z, real_in", ds.cds_from_real(fs[n]), pre.vfwd_sl, dict(real_in=True)),
+                  ("forward y, complex", ds._swap_last2(f_hat), pre.vfwd_sl, {}),
+                  ("inverse, real_out", f_hat, pre.vinv_sl, dict(real_out=True))]
+        if n <= 32:
+            shared.append(("Hermitian forward z", ds.cds_from_real(fs[n]), pre.vfwd_zh_sl,
+                           dict(real_in=True)))
+        for label, x, m, kw in shared:
+            parity(f"K8 {n}^3 shared matrix, {label}", ("k8", n),
+                   lambda: k8.contract_last_oz_kernel(x, m, cmax=6, **kw),
+                   lambda: k8.contract_last_oz_kernel_reference(x, m, cmax=6, **kw))
+        # the main block's per-node tables: gb groups x ns nodes per stream (gb
+        # = 2 at 32^3), or the first sub-batch of 2 nodes (64^3), both streams
+        gb = dso.default_group_batch(cfg, cfg.n_gl, dev)
+        take = (lambda t: tm(lambda a: a[:gb].reshape((-1,) + tuple(a.shape[2:])), t)) \
+            if n <= 32 else (lambda t: tm(lambda a: a[0, :2], t))
+        cat = lambda a, b: tm(lambda x, y: torch.cat((x, y)), a, b)
+        m_y = cat(take(pre.pm1[1]), take(pre.pm2[1]))
+        m_x = cat(take(pre.pm1[0]), take(pre.pm2[0]))
+        m_zh = cat(take(pre.pmz_half1w), take(pre.pmz_half2))
+        c = m_y.re.shape[0]
+        t1 = parity(f"K8 {n}^3 y stage: per-node, repeat, presliced, merged; C={c}", ("k8", n),
+                    lambda: k8.contract_last_oz_nodemat(fhs, m_y, cmax=6, repeat=True,
+                                                        x_pre=x_pre, merged=True),
+                    lambda: k8.contract_last_oz_nodemat_reference(fhs, m_y, cmax=6, repeat=True,
+                                                                  x_pre=x_pre, merged=True))
+        t1 = tm(lambda a: a.permute(0, 3, 2, 1), t1)
+        t2 = parity(f"K8 {n}^3 x stage: per-node, merged; C={c}", ("k8", n),
+                    lambda: k8.contract_last_oz_nodemat(t1, m_x, cmax=6, merged=True),
+                    lambda: k8.contract_last_oz_nodemat_reference(t1, m_x, cmax=6, merged=True))
+        t2 = tm(lambda a: a.permute(0, 3, 1, 2), t2)
+        main = parity(f"K8 {n}^3 half-z stage: per-node, merged, real_out; C={c}", ("k8", n),
+                      lambda: k8.contract_last_oz_nodemat(t2, m_zh, cmax=6, merged=True,
+                                                          real_out=True),
+                      lambda: k8.contract_last_oz_nodemat_reference(t2, m_zh, cmax=6, merged=True,
+                                                                    real_out=True)).re
+        if n <= 32:
+            fused = parity(f"K9 {n}^3 C={c}", ("k9", n),
+                           lambda: k9.gmain3_nodemat(x_pre, m_y, m_x, m_zh, cfg.grid_shape, cmax=6),
+                           lambda: k9.gmain3_reference(x_pre, m_y, m_x, m_zh, cfg.grid_shape, cmax=6))
+            chain = dso._g_main_half(fhs, x_pre, m_y, m_x, m_zh, 6, 7, None, merged=True,
+                                     grid_shape=cfg.grid_shape, fused=False)
+            print(f"  K9 {n}^3 against the K8 kernel chain: max|d| {max_diff(fused, chain):.3e};"
+                  f" bitwise equal {same(fused, chain)}")
+            check(same(fused, chain), f"K9 != the K8 chain at {n}^3")
+        ck = dso._corr_ck(6, 7, None)
+        corr1 = dso._nyq_corrections(cfg, pre, f_hat, ck, conj=False, coef=pre.nyq_coef_w)
+        corr2 = dso._nyq_corrections(cfg, pre, f_hat, ck, conj=True)
+        signs = tuple(torch.as_tensor((-1.0) ** np.arange(n), dtype=torch.float32, device=dev)
+                      for _ in range(3))
+        half = c // 2
+        r1, r2 = tm(lambda a: a[:half], main), tm(lambda a: a[half:], main)
+        c1, c2 = take(corr1), take(corr2)
+        hargs = (r1, c1, r2, c2, None, cfg.grid_shape, signs)
+        parity(f"K12 {n}^3 gb={gb} C={half} per stream", ("k12", n),
+               lambda: k12.hadamard_wsum_half(*hargs, groups=gb),
+               lambda: k12.hadamard_wsum_half_reference(*hargs, groups=gb))
+        inputs[n] = dict(fhs=fhs, x_pre=x_pre, f_hat=f_hat, m_y=m_y, m_x=m_x, m_zh=m_zh,
+                         t1=t1, t2=t2, hargs=hargs, gb=gb, c=c)
+
+    # ---- 13. the ds BKW digits through the card's default route ---------
+    ds_q, ds_counts = {}, {}
+    for n in grids:
+        reset_counts(ks)
+        q = collides[n](fs[n], pres[n])
+        torch.cuda.synchronize()
+        c = counts(ks)
+        ds_counts[n] = c
+        needed = ("k7", "k8", "k12") + (("k9",) if n <= 32 else ())
+        check(all(c[k] > 0 for k in needed) and plain_calls(c) == 0
+              and all(c[k] == 0 for k in ("k1", "k2", "k3", "k4", "k5", "k6")),
+              f"ds main path {n}^3: dispatch {c}")
+        ds_q[n] = q
+    for n in grids:
+        g = cfgs[n].velocity_grid
+        q64 = ds.to_f64(ds_q[n])
+        check(q64.shape == (n, n, n) and np.isfinite(q64).all(), f"ds Q at {n}^3")
+        d = q64 - bt.bkw_dfdt(g.r_squared(), 6.5)
+        l1, l2, linf = g.cell_volume * np.abs(d).sum(), np.sqrt(g.cell_volume * (d * d).sum()), np.abs(d).max()
+        qc = q_c2c[n].cpu().numpy()
+        dc = np.abs(q64 - qc).max() / np.abs(qc).max()
+        print(f"[13 ds digits] {n}^3 Ns=12, make_ds_collision_operator defaults on the card"
+              f" (oz, half, merged, gmain {dso._gmain_mode(cfgs[n], pres[n], 6, 7, device=dev)!r},"
+              f" herm {n <= 32}, gb {inputs[n]['gb']}): L1 {l1:.5e} L2 {l2:.5e} Linf {linf:.5e};"
+              f" vs native f64 staged c2c (cuFFT) {dc:.3e} max|Q| (tol 1e-12); counts {ds_counts[n]}")
+        check(dc <= 1e-12, f"ds {n}^3 vs f64 c2c {dc:.3e}")
+        if n == small:
+            ref, rtol = DS_DIGITS_32
+            for got, want, lab in zip((l1, l2, linf), ref, ("L1", "L2", "Linf")):
+                check(abs(got - want) <= rtol * want, f"ds 32^3 {lab} {got:.5e} vs {want:.4e}")
+        else:
+            check(DS_LINF_64[0] <= linf <= DS_LINF_64[1], f"ds 64^3 Linf {linf:.5e}")
+    cfg, pre, f = cfgs[big], pres[big], fs[big]
+    g = cfg.velocity_grid
+    for label, kw, gate in (("g1_reversal=True", dict(g1_reversal=True), True),
+                            ("oz_cmax=4", dict(oz_cmax=4), False)):
+        q64 = ds.to_f64(dso.collide_ds(cfg, pre, f, contract="oz", g_stream="half", **kw))
+        linf = np.abs(q64 - bt.bkw_dfdt(g.r_squared(), 6.5)).max()
+        dc = np.abs(q64 - q_c2c[big].cpu().numpy()).max() / float(q_c2c[big].abs().max())
+        print(f"  {big}^3 {label}: Linf {linf:.5e}; vs f64 c2c {dc:.3e} max|Q|"
+              + (" (gates: Linf in [3.0680, 3.0692]e-12, 1e-12)" if gate else " (printed, no gate)"))
+        if gate:
+            check(dc <= 1e-12 and DS_LINF_64[0] <= linf <= DS_LINF_64[1], f"{big}^3 {label}")
+    q_staged = dso.collide_ds(cfgs[small], pres[small], fs[small], contract="oz", gmain_fused=False)
+    print(f"  {small}^3 gmain_fused=False (staged K8 chain) bitwise equal to the default (K9):"
+          f" {same(q_staged, ds_q[small])}")
+    check(same(q_staged, ds_q[small]), f"{small}^3 staged != K9 route")
+    q_again = collides[small](fs[small], pres[small])
+    check(same(q_again, ds_q[small]), f"{small}^3 ds eval not reproducible")
+
+    # ---- 14. selfcheck_ds on the card -----------------------------------
+    reset_counts(ks)
+    r = health.selfcheck_ds(device=dev)
+    c = counts(ks)
+    print(f"[14 selfcheck_ds] 16^3 ns=6: ok {r['ok']}, rel_linf {r['rel_linf']:.4e} (tol"
+          f" {r['rel_tol']}), {r['elapsed_s']:.1f} s, counts {c}")
+    check(r["ok"] and c["k8"] > 0 and c["k12"] > 0 and plain_calls(c) == 0, f"selfcheck_ds {r} {c}")
+
+    # ---- 15. the ds drivers ---------------------------------------------
+    for extra in (["--trials", "3"], ["--steps", "4"]):
+        argv = ["--impl", "ds", "--Nv", str(small), "--Ns", "12", "--device", "cuda", *extra]
+        reset_counts(ks)
+        rc, lines = run_driver(maxwell_bkw.main, argv)
+        c = counts(ks)
+        print(f"[15 ds drivers] maxwell_bkw {' '.join(argv)}: exit {rc}, counts {c} | {card}")
+        for line in lines[-6:]:
+            print(f"  | {line}")
+        check(rc == 0 and c["k9"] > 0 and plain_calls(c) == 0, f"maxwell_bkw ds {extra}: {rc} {c}")
+
+    # ---- 16. times --------------------------------------------------------
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for n in grids:
+        cfg, pre, f = cfgs[n], pres[n], fs[n]
+        ms = time_ms(lambda: collides[n](f, pre), trials=DS_TRIALS[n])
+        report(f"ds eval (oz defaults) {n}^3 Ns=12", ms, phase=16)
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            collides[n](f, pre)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        fam = {k: [0.0, 0] for k in ("oz_contract_kernel", "gmain3_kernel", "hwh_kernel",
+                                     "preslice_kernel", "other")}
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            t = getattr(e, "self_device_time_total", None)
+            t = t if t is not None else e.self_cuda_time_total
+            key = next((k for k in fam if k != "other" and k in e.key), "other")
+            fam[key][0] += t
+            fam[key][1] += e.count
+        busy = max(sum(v[0] for v in fam.values()), 1e-9)  # us; 0 if the profiler saw no device
+        print(f"[16 profile] ds eval {n}^3: device {busy / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms"
+              f" wall; idle share {100 * (1 - busy / wall_us):.1f}% | {card}")
+        print("  " + ", ".join(f"{k} {v[0] / 1e3:.3f} ms in {v[1]} launches ({100 * v[0] / busy:.1f}%)"
+                               for k, v in fam.items()))
+        inputs[n]["profile"] = fam
+
+    def row(name, key, n, kname, fn, ref, b, lib=None):
+        ms, pms = time_ms(fn), time_ms(ref)
+        lms = time_ms(lib) if lib is not None else None
+        report(f"{name} kernel", ms, "call", 16)
+        report(f"{name} plain", pms, "call", 16)
+        if lms is not None:
+            report(f"{name} library yardstick (complex128 matmul)", lms, "call", 16)
+        print(f"[16 bound] {name}: {b[0]:.4f} ms ({b[1]}); kernel median"
+              f" {statistics.median(ms) / b[0]:.1f}x the bound")
+        entry(name, kname, "float32", ds_counts[n][key], ds_counts[n][key + "_plain"],
+              max_err[(key, n)], ms, pms, b[0], b[1], lms)
+
+    sx = 7
+    for n in grids:
+        v = inputs[n]
+        nzh, c = n // 2, v["c"]
+        rows = n * nzh
+        b7 = oz_bound(0, rows * n * 2 * sx * 13, rows * n * 16 + rows * sx * 2 * n * 2)
+        row(f"preslice_rows[{n}^3,Ns=12,merged,rows={rows},K={n}]", "k7", n, "preslice_rows",
+            lambda: k7.preslice_rows(v["fhs"], cmax=6, merged=True),
+            lambda: k7.preslice_rows_reference(v["fhs"], cmax=6, merged=True), b7)
+        macs, fold = oz_stage_work(c * rows, n, n, "m")
+        mat_bytes = c * 8 * n * n * 2 * 2
+        b8 = oz_bound(macs, fold, rows * sx * 2 * n * 2 + mat_bytes + c * rows * n * 16)
+        cr = torch.randn(c, rows, n, dtype=torch.complex128, device=dev)
+        cm = torch.randn(c, n, n, dtype=torch.complex128, device=dev)
+        row(f"oz_contract[{n}^3,Ns=12,y stage,per-node repeat presliced merged,C={c}]", "k8", n,
+            "oz_contract",
+            lambda: k8.contract_last_oz_nodemat(v["fhs"], v["m_y"], cmax=6, repeat=True,
+                                                x_pre=v["x_pre"], merged=True),
+            lambda: k8.contract_last_oz_nodemat_reference(v["fhs"], v["m_y"], cmax=6, repeat=True,
+                                                          x_pre=v["x_pre"], merged=True),
+            b8, lambda: torch.bmm(cr, cm))
+        if n == small:
+            xs = ds._swap_last2(v["f_hat"])
+            macs, fold = oz_stage_work(n * n, n, n, "cc")
+            b8s = oz_bound(macs, fold, n ** 3 * 16 + 8 * n * n * 2 * 2 + n ** 3 * 16)
+            ca = torch.randn(n * n, n, dtype=torch.complex128, device=dev)
+            cb = torch.randn(n, n, dtype=torch.complex128, device=dev)
+            row(f"oz_contract[{n}^3,Ns=12,forward y,shared matrix,complex]", "k8", n, "oz_contract",
+                lambda: k8.contract_last_oz_kernel(xs, pres[n].vfwd_sl, cmax=6),
+                lambda: k8.contract_last_oz_kernel_reference(xs, pres[n].vfwd_sl, cmax=6),
+                b8s, lambda: torch.matmul(ca, cb))
+            work = [oz_stage_work(c * rows, n, n, "m"), oz_stage_work(c * rows, n, n, "m"),
+                    oz_stage_work(c * n * n, nzh, n, "mro")]
+            b9 = oz_bound(sum(w[0] for w in work), sum(w[1] for w in work),
+                          rows * sx * 2 * n * 2 + c * 8 * 2 * 2 * (2 * n * n + nzh * n)
+                          + c * n ** 3 * 8)
+            row(f"gmain3_nodemat[{n}^3,Ns=12,C={c}]", "k9", n, "gmain3_nodemat",
+                lambda: k9.gmain3_nodemat(v["x_pre"], v["m_y"], v["m_x"], v["m_zh"], cfgs[n].grid_shape,
+                                          cmax=6),
+                lambda: k9.gmain3_reference(v["x_pre"], v["m_y"], v["m_x"], v["m_zh"], cfgs[n].grid_shape,
+                                            cmax=6), b9)
+        else:
+            macs, fold = oz_stage_work(c * n * n, nzh, n, "mro")
+            b8z = oz_bound(macs, fold, c * n * n * nzh * 16 + c * 8 * nzh * n * 2 * 2 + c * n ** 3 * 8)
+            za = torch.randn(c, n * n, nzh, dtype=torch.complex128, device=dev)
+            zb = torch.randn(c, nzh, n, dtype=torch.complex128, device=dev)
+            row(f"oz_contract[{n}^3,Ns=12,half-z stage,per-node merged real_out,C={c}]", "k8", n,
+                "oz_contract",
+                lambda: k8.contract_last_oz_nodemat(v["t2"], v["m_zh"], cmax=6, merged=True,
+                                                    real_out=True),
+                lambda: k8.contract_last_oz_nodemat_reference(v["t2"], v["m_zh"], cmax=6,
+                                                              merged=True, real_out=True),
+                b8z, lambda: torch.bmm(za, zb))
+        gb = v["gb"]
+        half = c // 2
+        b12 = oz_bound(0, half * n ** 3 * 138, half * n ** 3 * 16 + half * 8 * 3 * n * n * 4
+                       + gb * n ** 3 * 8)
+        row(f"hadamard_wsum_half[{n}^3,Ns=12,gb={gb},C={half} per stream]", "k12", n,
+            "hadamard_wsum_half",
+            lambda: k12.hadamard_wsum_half(*v["hargs"], groups=gb),
+            lambda: k12.hadamard_wsum_half_reference(*v["hargs"], groups=gb), b12)
+
+
+def _leaves(tree):
+    out = []
+    if tree is None:
+        return out
+    if isinstance(tree, tuple):
+        for t in tree:
+            out += _leaves(t)
+        return out
+    return [tree]
+
+
 def main() -> int:
     # ---- 1. device -----------------------------------------------------
     if not torch.cuda.is_available():
@@ -371,8 +734,12 @@ def main() -> int:
     from boltzfft_torch.kernels import fused_gain as k3
     from boltzfft_torch.kernels import fused_gain_dft as k24
     from boltzfft_torch.kernels import gain_reduce as k5
+    from boltzfft_torch.kernels import oz_contract as k8
+    from boltzfft_torch.kernels import oz_gmain as k9
+    from boltzfft_torch.kernels import oz_hadamard as k12
+    from boltzfft_torch.kernels import oz_preslice as k7
 
-    ks = SimpleNamespace(k1=k1, k3=k3, k24=k24, k5=k5, k6=k6)
+    ks = SimpleNamespace(k1=k1, k3=k3, k24=k24, k5=k5, k6=k6, k7=k7, k8=k8, k9=k9, k12=k12)
 
     # ---- 2. build ------------------------------------------------------
     t0 = time.perf_counter()
@@ -784,9 +1151,9 @@ def main() -> int:
     times = {}
     kernels = []
 
-    def report(label, ms, unit="eval"):
+    def report(label, ms, unit="eval", phase=11):
         rates = [1e3 / t for t in ms]
-        print(f"[11 time] {label}: median {statistics.median(ms):.4f} mean {statistics.mean(ms):.4f}"
+        print(f"[{phase} time] {label}: median {statistics.median(ms):.4f} mean {statistics.mean(ms):.4f}"
               f" ms/{unit} (mean {statistics.mean(rates):.4f} min {min(rates):.4f}"
               f" stdev {statistics.stdev(rates):.4f} {unit}s/s, {len(ms)} trials) | {card}")
 
@@ -964,7 +1331,8 @@ def main() -> int:
               f" = {ms / b_ms:.1f}x the bound; K3's dense kron y/z product does"
               f" {kron / 1e9:.1f} GFLOP, {kron / (ms * 1e-3) / PEAK_FLOPS[dtype]:.1%}"
               " of the CUDA-core peak")
-    print(f"[11 total] {time.perf_counter() - t_start:.1f} s after the device check")
+    ds_phases(bt, dev, card, ks, q_c2c, entry, report)
+    print(f"[16 total] {time.perf_counter() - t_start:.1f} s after the device check")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

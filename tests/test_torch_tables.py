@@ -164,6 +164,9 @@ def test_port_imports_no_jax(tmp_path):
         "import boltzfft_torch.kernels.fused_collide, boltzfft_torch.kernels.fused_gain\n"
         "import boltzfft_torch.kernels.fused_gain_dft, boltzfft_torch.kernels.alpha_multiply\n"
         "import boltzfft_torch.kernels.gain_reduce, boltzfft_torch.health, boltzfft_torch.timestepper\n"
+        "import boltzfft_torch.ds, boltzfft_torch.oz, boltzfft_torch.ds_operator\n"
+        "import boltzfft_torch.kernels.oz_preslice, boltzfft_torch.kernels.oz_contract\n"
+        "import boltzfft_torch.kernels.oz_gmain, boltzfft_torch.kernels.oz_hadamard\n"
         "from boltzfft_torch.cli import maxwell_bkw, sod_1d3v, taylor_green_2d3v, taylor_green_3d3v\n"
         "from boltzfft_torch.cli import fft_benchmark, loop_benchmark\n"
         "for ns in bt.SPHERICAL_DESIGN_FILES: bt.spherical_design(ns)\n"
@@ -173,6 +176,9 @@ def test_port_imports_no_jax(tmp_path):
         "small = ['--Nv', '8', '--Ns', '6', '--n-radial', '2', '--device', 'cpu']\n"
         "assert maxwell_bkw.main(small + ['--impl', 'dft', '--steps', '1']) == 0\n"
         "assert fft_benchmark.main(small + ['--chain', '1']) == 0\n"
+        "assert maxwell_bkw.main(small + ['--impl', 'ds', '--trials', '0', '--ds-contract', 'oz',"
+        " '--g-stream', 'half', '--gmain-fused', '3']) == 0\n"
+        "assert boltzfft_torch.health.selfcheck_ds(nv=8, n_radial=2, device='cpu')['ok']\n"
         "assert loop_benchmark.main(small + ['--chain', '1', '--tile-size', '4']) == 0\n"
         "assert boltzfft_torch.health.selfcheck(nv=8, device='cpu', cfg_kwargs={'use_pallas': True},"
         " compare_impl='c2c', rel_tol=1e-12)['ok']\n"
