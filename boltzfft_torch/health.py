@@ -22,6 +22,15 @@ _REL_TOL = 0.12
 _PROBE_TIME = 6.5
 
 
+def _open(device) -> torch.device:
+    """``device`` as a torch device; CUDA without a card raises (no quiet
+    fall-back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device='cuda' requested but torch.cuda.is_available() is False")
+    return device
+
+
 def selfcheck(
     nv: int = 24,
     ns: int = 6,
@@ -32,14 +41,15 @@ def selfcheck(
     pre_transform: Optional[Callable] = None,
     cfg_kwargs: Optional[dict] = None,
     compare_impl: Optional[str] = None,
-    device=None,
+    device="cuda",
 ) -> dict:
     """Run a small end-to-end collision eval and compare it with the BKW
     oracle.
 
     Returns a dict with ``ok`` (bool), the relative Linf deviation, timing
-    and the device.  ``device`` defaults to CUDA when a card is present, else
-    the CPU; ``impl`` to ``"fused"`` on CUDA and ``"rfft"`` on the CPU;
+    and the device.  ``device`` defaults to CUDA and raises without a card
+    (pass ``device="cpu"`` for the plain versions); ``impl`` defaults to
+    ``"fused"`` on CUDA and ``"rfft"`` on the CPU;
     ``dtype`` to float64.  ``pre_transform`` is a fault-injection hook: it
     receives the ``Precomp`` before the eval and returns the one to use.
     ``cfg_kwargs`` passes extra ``CollisionConfig`` fields (``fused_scheme``,
@@ -49,9 +59,7 @@ def selfcheck(
     """
     import boltzfft_torch as bt
 
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    device = torch.device(device)
+    device = _open(device)
     if dtype is None:
         dtype = "float64"
     if impl is None:
@@ -104,7 +112,7 @@ def selfcheck_ds(
     rel_tol: float = 1e-11,
     cfg_kwargs: Optional[dict] = None,
     symmetrize: bool = False,
-    device=None,
+    device="cuda",
     **collide_kwargs,
 ) -> dict:
     """Cross-engine known-answer probe of the ds pipeline: ``collide_ds`` with
@@ -114,18 +122,15 @@ def selfcheck_ds(
     The bound is the ds noise floor (~2^-49 relative; tolerance 1e-11): an
     exactness fault in a kernel lands orders of magnitude above it.
     ``symmetrize`` makes the input centrally symmetric (for ``g1_reversal``).
-    ``device`` defaults to CUDA when a card is present, else the CPU.  The oz
-    engine runs the half g-stream unless told otherwise: its full streams
-    need K11, which is not ported yet."""
+    ``device`` defaults to CUDA and raises without a card.  The oz engine
+    runs the half g-stream unless told otherwise."""
     import numpy as np
 
     import boltzfft_torch as bt
     from boltzfft_torch import ds
     from boltzfft_torch.ds_operator import build_ds_precomp, collide_ds
 
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    device = torch.device(device)
+    device = _open(device)
     cfg = bt.CollisionConfig(
         nv=nv, ns=ns, n_radial=n_radial if n_radial is not None else nv // 2,
         dtype="float32", impl="c2c", **(cfg_kwargs or {}),
@@ -136,9 +141,8 @@ def selfcheck_ds(
     if symmetrize:
         fm = 0.5 * (fm + fm[::-1, ::-1, ::-1])
     f = ds.from_f64(fm, torch.float32, device)
-    kw = {"g_stream": "half", **collide_kwargs}
-
     t0 = time.perf_counter()
+    kw = {"g_stream": "half", **collide_kwargs}
     q_oz = collide_ds(cfg, pre, f, contract="oz", **kw)
     q_ref = collide_ds(cfg, pre, f, contract="vpu")
     dev = q_oz.hi - q_ref.hi + (q_oz.lo - q_ref.lo)
