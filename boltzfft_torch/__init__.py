@@ -2,8 +2,8 @@
 PyTorch, with its kernels hand-written in CUDA for Hopper (K1, the whole
 collision eval; K2/K4, the gain spectrum by per-axis DFTs; K3, by the
 Kronecker scheme; K5/K6, the node reduction and phase multiply of the rfft
-route; K7-K9, K12, the Ozaki-sliced contractions of the double-single
-engine), the RK relaxation loop, and the spatially inhomogeneous solver
+route; K7-K12, the Ozaki-sliced contractions and Hadamard sums of the
+double-single engine), the RK relaxation loop, and the spatially inhomogeneous solver
 around it.
 
 The PyTorch counterpart of ``boltzfft`` (JAX), which stays the reference.

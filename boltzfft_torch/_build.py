@@ -39,13 +39,14 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-#: Flags added for single sources.  The ds engine's kernels (K7, K8, K9, K12)
+#: Flags added for single sources.  The ds engine's kernels (K7-K12)
 #: need every + - * rounded on its own, so nvcc must not contract a*b + c
 #: into one FMA there (``csrc/oz_common.cuh``).  Never ``--use_fast_math``:
 #: it flushes denormals.
 FILE_FLAGS = {
     name: ["--fmad=false"]
-    for name in ("oz_preslice.cu", "oz_contract.cu", "oz_gmain3.cu", "oz_hadamard_half.cu")
+    for name in ("oz_preslice.cu", "oz_contract.cu", "oz_gmain3.cu", "oz_gmain12.cu",
+                 "oz_hadamard.cu", "oz_hadamard_half.cu")
 }
 
 _P = ctypes.c_void_p
@@ -68,10 +69,15 @@ _ENTRY_ARGS = {
 _ENTRY_ARGS_F32 = {
     # 4 inputs, 2 outputs, 5 ints and the stream
     "bfft_oz_preslice": [_P] * 6 + [_I] * 5 + [_P],
-    # 4 planes, 2 presliced, 2 matrices, 4 outputs, 12 ints and the stream
-    "bfft_oz_contract": [_P] * 12 + [_I] * 12 + [_P],
+    # 4 planes, 2 presliced, 2 matrices, 4 phase planes, 4 outputs, 12 ints
+    # and the stream
+    "bfft_oz_contract": [_P] * 16 + [_I] * 12 + [_P],
     # preslice, 6 matrices, scratch, 2 outputs, 9 ints and the stream
     "bfft_oz_gmain3": [_P] * 10 + [_I] * 9 + [_P],
+    # preslice, 4 matrices, 4 outputs, 10 ints and the stream
+    "bfft_oz_gmain12": [_P] * 9 + [_I] * 10 + [_P],
+    # 8 stream planes, 2 weights, 4 outputs, 2 ints and the stream
+    "bfft_oz_hadamard": [_P] * 14 + [_I] * 2 + [_P],
     # 4 main blocks, 3 planes, 3 signs, 2 weights, 2 outputs, 5 ints and the stream
     "bfft_oz_hadamard_half": [_P] * 14 + [_I] * 5 + [_P],
 }

@@ -35,7 +35,7 @@ def standard_parser(description: str) -> argparse.ArgumentParser:
              "kernels: the whole eval in K1, or K3 with its cuFFT finale "
              "where Nvy*Nvz <= 64; their plain PyTorch versions on --device "
              "cpu), ds (compensated double-single, float32 pairs: the Ozaki "
-             "kernels K7, K8, K9, K12 on CUDA); auto = fused on a CUDA device, "
+             "kernels K7-K12 on CUDA); auto = fused on a CUDA device, "
              "rfft on the CPU",
     )
     p.add_argument(
@@ -53,7 +53,8 @@ def standard_parser(description: str) -> argparse.ArgumentParser:
         "--g-stream", choices=["full", "half"], default=None,
         help="ds inverse-stream formulation: half = the exact half-spectrum "
              "Nyquist-block decomposition (the oz default on CUDA), full = "
-             "direct complex streams (vpu only until K11 is ported)",
+             "direct complex streams (oz: K8, then K11's Hadamard sum; the "
+             "vpu and CPU default)",
     )
     p.add_argument(
         "--group-batch", type=int, default=None,
@@ -69,7 +70,7 @@ def standard_parser(description: str) -> argparse.ArgumentParser:
         "--gmain-fused", choices=["auto", "off", "3", "12"], default="auto",
         help="ds half path: the fused main block. auto = K9 ('3') on grids "
              "up to ~40^3 on CUDA, off = staged K8, 3 = force K9, 12 = K10 "
-             "(not ported yet: raises)",
+             "(y and x fused, z-blocked) then the half-z stage through K8",
     )
     p.add_argument(
         "--g1-reversal", action="store_true",

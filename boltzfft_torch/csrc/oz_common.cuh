@@ -1,7 +1,7 @@
 // Device code shared by the ds engine's kernels (K7 oz_preslice.cu, K8
-// oz_contract.cu, K9 oz_gmain3.cu, K12 oz_hadamard_half.cu): the float32
-// error-free transformations, the Ozaki chunk extraction, and one tile of
-// the sliced contraction.
+// oz_contract.cu, K9 oz_gmain3.cu, K10 oz_gmain12.cu, K11 oz_hadamard.cu,
+// K12 oz_hadamard_half.cu): the float32 error-free transformations, the
+// Ozaki chunk extraction, and one tile of the sliced contraction.
 //
 // Every source that includes this header is compiled with --fmad=false
 // (_build.py).  The EFTs are right only when each + - * is rounded on its
@@ -71,6 +71,25 @@ __device__ __forceinline__ void ds_mul(float ah, float al, float bh, float bl,
   quick_two_sum(p, e, ph, pl);
 }
 
+// t = phase * x (or conj(phase) * x) in ds, the TPU kernel's _k_phase_cmul:
+// the four products phase-first, then re = rr - ii, im = ri + ir.
+__device__ __forceinline__ void phase_cmul(float prh, float prl, float pih, float pil,
+                                           bool conj, float xrh, float xrl, float xih,
+                                           float xil, float& trh, float& trl, float& tih,
+                                           float& til) {
+  if (conj) {
+    pih = -pih;
+    pil = -pil;
+  }
+  float rrh, rrl, iih, iil, rih, ril, irh, irl;
+  ds_mul(prh, prl, xrh, xrl, rrh, rrl);
+  ds_mul(pih, pil, xih, xil, iih, iil);
+  ds_mul(prh, prl, xih, xil, rih, ril);
+  ds_mul(pih, pil, xrh, xrl, irh, irl);
+  ds_add(rrh, rrl, -iih, -iil, trh, trl);
+  ds_add(rih, ril, irh, irl, tih, til);
+}
+
 // ---- Ozaki chunks ------------------------------------------------------
 
 // Smallest power of two strictly above |x| from the bits of |x| (a float32
@@ -109,8 +128,12 @@ __device__ __forceinline__ uint16_t float_to_bf16_exact(float x) {
 // A tile of `nrows` consecutive rows (from `row0`) of one contraction stage
 // against one node's matrix slices.  Inputs: float32 planes at row stride K
 // (ih == nullptr: a real input), or presliced bf16 chunks (pre0/pre1:
-// unmerged, sx*K per row each; pre0 alone: merged, sx*2K per row).  Output
-// (oih == nullptr: real output only) of row r and column l at
+// unmerged, sx*K per row each; pre0 alone: merged, sx*2K per row).  Row r
+// of the stage reads input row (r / iB) * isa + (r % iB) * isb (the
+// identity by default).  Phased mode (prh != nullptr, complex planes in,
+// unmerged): the operand is t = phase * x (conj(phase) when `conj`), the
+// phase a ds row of K values (prh, prl, pih, pil) shared by the tile's rows.
+// Output (oih == nullptr: real output only) of row r and column l at
 // (r / B) * sa + (r % B) * sb + l * sl.
 struct OzTile {
   const float *rh, *rl, *ih, *il;
@@ -120,7 +143,27 @@ struct OzTile {
   int row0, nrows, tr_rows;   // tile start, rows in it, rows a tile holds
   int K, L, sm, sx, w, fold_tail, merged;
   long long B, sa, sb, sl;
+  long long iB = 1, isa = 1, isb = 0;
+  const float *prh = nullptr, *prl = nullptr, *pih = nullptr, *pil = nullptr;
+  int conj = 0;
 };
+
+__device__ __forceinline__ long long in_row(const OzTile& t, int r) {
+  const long long q = t.row0 + r;
+  return t.iB == 1 ? q * t.isa : (q / t.iB) * t.isa + (q % t.iB) * t.isb;
+}
+
+// The tile's complex operand at (input offset off, column k): x, or
+// phase * x in phased mode.
+__device__ __forceinline__ void operand(const OzTile& t, long long off, int k, float& rh,
+                                        float& rl, float& ih, float& il) {
+  rh = t.rh[off];
+  rl = t.rl[off];
+  ih = t.ih[off];
+  il = t.il[off];
+  if (t.prh != nullptr)
+    phase_cmul(t.prh[k], t.prl[k], t.pih[k], t.pil[k], t.conj, rh, rl, ih, il, rh, rl, ih, il);
+}
 
 // Shared memory of a tile: chunks 2 * sx * tr_rows * Kp floats, matrix slice
 // 2 * L * mat_stride floats, row maxima 2 * tr_rows words.
@@ -177,7 +220,7 @@ __device__ __noinline__ void oz_tile(const OzTile t, float* smem) {
       const int i = idx / n_el, r = (idx / Kp) % TR, k = idx % Kp;
       float cr = 0.0f, ci = 0.0f;
       if (r < t.nrows && k < K) {
-        const long long row = t.row0 + r;
+        const long long row = in_row(t, r);
         if (t.merged) {
           const uint16_t* p = t.pre0 + row * (2LL * sx * K) + (long long)i * 2 * K;
           cr = bf16_to_float(p[k]);
@@ -193,23 +236,34 @@ __device__ __noinline__ void oz_tile(const OzTile t, float* smem) {
   } else {
     for (int r = tid; r < 2 * TR; r += nt) s_max[r] = 0u;
     __syncthreads();
+    // phased mode forms phase * x here and again below: the same
+    // operations on the same inputs, so the same bits (nothing is staged)
     for (int idx = tid; idx < t.nrows * K; idx += nt) {
       const int r = idx / K, k = idx % K;
-      const long long off = (long long)(t.row0 + r) * K + k;
-      atomicMax(&s_max[r], __float_as_uint(fabsf(t.rh[off])));
-      if (cplx_in) atomicMax(&s_max[t.merged ? r : TR + r], __float_as_uint(fabsf(t.ih[off])));
+      const long long off = in_row(t, r) * K + k;
+      if (cplx_in) {
+        float xrh, xrl, xih, xil;
+        operand(t, off, k, xrh, xrl, xih, xil);
+        atomicMax(&s_max[r], __float_as_uint(fabsf(xrh)));
+        atomicMax(&s_max[t.merged ? r : TR + r], __float_as_uint(fabsf(xih)));
+      } else {
+        atomicMax(&s_max[r], __float_as_uint(fabsf(t.rh[off])));
+      }
     }
     __syncthreads();
     for (int idx = tid; idx < n_el; idx += nt) {
       const int r = idx / Kp, k = idx % Kp;
       if (r < t.nrows && k < K) {
-        const long long off = (long long)(t.row0 + r) * K + k;
+        const long long off = in_row(t, r) * K + k;
         const float sr = pow2_ceil_bits(s_max[r]);
-        extract_chunks(t.rh[off], t.rl[off], sr, t.w, sx, s_cr + idx, n_el);
         if (cplx_in) {
+          float xrh, xrl, xih, xil;
+          operand(t, off, k, xrh, xrl, xih, xil);
+          extract_chunks(xrh, xrl, sr, t.w, sx, s_cr + idx, n_el);
           const float si = t.merged ? sr : pow2_ceil_bits(s_max[TR + r]);
-          extract_chunks(t.ih[off], t.il[off], si, t.w, sx, s_ci + idx, n_el);
+          extract_chunks(xih, xil, si, t.w, sx, s_ci + idx, n_el);
         } else {
+          extract_chunks(t.rh[off], t.rl[off], sr, t.w, sx, s_cr + idx, n_el);
           for (int i = 0; i < sx; ++i) s_ci[i * n_el + idx] = 0.0f;
         }
       } else {

@@ -2,9 +2,11 @@
 // out[..., l] = sum_k x[..., k] m[k, l], float32 pairs in and out.
 //
 // Replaces boltzfft/oz.py::_oz_contract_kernel_v3 as launched by
-// contract_last_oz_kernel (a shared matrix; real_in, real_out) and
-// contract_last_oz_nodemat (per-node matrices; repeat, presliced input,
-// merged, real_out).  Its phased mode (_phased_contract) is not ported.
+// contract_last_oz_kernel (a shared matrix; real_in, real_out),
+// _phased_contract (a shared matrix, a ds phase row per node applied to x in
+// the tile load, conj or not; x shared by every node with repeat, else one
+// x per node) and contract_last_oz_nodemat (per-node matrices; repeat,
+// presliced input, merged, real_out).
 //
 // What bounds it on this card: operations.  Per output element it does
 // (levels' chunk pairs) x K multiply-adds per component pair: at cmax = 6,
@@ -18,8 +20,12 @@
 // K7's presliced chunks), then streams the matrix slices through shared
 // memory one at a time, each thread forming all levels of its output in
 // registers with float4 loads along K, and folding them in the TPU kernel's
-// order.  The per-node matrices are selected by blockIdx.y; a shared operand
-// (repeat) is read in place for every node.  No atomics touch the result;
+// order.  The per-node matrices (or phase rows) are selected by blockIdx.y;
+// a shared operand (repeat) is read in place for every node.  Phased mode
+// adds ~120 float operations per operand element (four ds products and two
+// ds adds, the TPU kernel's order), done twice, for the row maximum and for
+// the chunks, rather than staged: a few percent of the contraction's
+// chunk-pair arithmetic at K = 32-64.  No atomics touch the result;
 // every sum runs in one thread in a fixed order, so the result is bitwise
 // reproducible and equal to the plain PyTorch version.
 //
@@ -35,8 +41,9 @@ using bfft_oz::OzTile;
 struct OzArgs {
   const float *rh, *rl, *ih, *il;
   const uint16_t *pre0, *pre1, *mre, *mim;
+  const float *prh, *prl, *pih, *pil;  // (n_nodes, K) phase rows, or null
   float *orh, *orl, *oih, *oil;
-  int rows_pn, per_node, x_per_node, K, L, sm, sx, w, fold_tail, merged, tr_rows;
+  int rows_pn, per_node, x_per_node, K, L, sm, sx, w, fold_tail, merged, conj, tr_rows;
 };
 
 template <int NLEV>
@@ -57,6 +64,14 @@ __global__ void oz_contract_kernel(const OzArgs a) {
   const size_t moff = a.per_node ? (size_t)node * a.sm * a.K * a.L : 0;
   t.mre = a.mre + moff;
   t.mim = a.mim + moff;
+  if (a.prh != nullptr) {
+    const long long poff = (long long)node * a.K;
+    t.prh = a.prh + poff;
+    t.prl = a.prl + poff;
+    t.pih = a.pih + poff;
+    t.pil = a.pil + poff;
+    t.conj = a.conj;
+  }
   const long long ooff = (long long)node * a.rows_pn * a.L;
   t.orh = a.orh + ooff;
   t.orl = a.orl + ooff;
@@ -94,10 +109,13 @@ int launch(const OzArgs& a, int n_nodes, cudaStream_t st) {
 
 }  // namespace
 
-// flags: 1 real_in, 2 real_out, 4 merged, 8 presliced (pre0/pre1 given)
+// flags: 1 real_in, 2 real_out, 4 merged, 8 presliced (pre0/pre1 given),
+// 16 conj; phased mode when prh is given (complex planes in, unmerged)
 extern "C" int bfft_oz_contract(const void* rh, const void* rl, const void* ih,
                                 const void* il, const void* pre0, const void* pre1,
-                                const void* mre, const void* mim, void* orh, void* orl,
+                                const void* mre, const void* mim, const void* prh,
+                                const void* prl, const void* pih, const void* pil,
+                                void* orh, void* orl,
                                 void* oih, void* oil, int n_nodes, int rows_pn,
                                 int per_node, int x_per_node, int K, int L, int sm,
                                 int nlev, int sx, int w, int fold_tail, int flags,
@@ -108,6 +126,9 @@ extern "C" int bfft_oz_contract(const void* rh, const void* rl, const void* ih,
   OzArgs a;
   const bool presliced = flags & 8;
   const bool real_in = flags & 1, real_out = flags & 2;
+  const bool phased = prh != nullptr;
+  if (phased && (presliced || real_in || (flags & 4) || per_node || !prl || !pih || !pil))
+    return cudaErrorInvalidValue;
   a.rh = presliced ? nullptr : (const float*)rh;
   a.rl = presliced ? nullptr : (const float*)rl;
   a.ih = presliced || real_in ? nullptr : (const float*)ih;
@@ -116,6 +137,11 @@ extern "C" int bfft_oz_contract(const void* rh, const void* rl, const void* ih,
   a.pre1 = presliced ? (const uint16_t*)pre1 : nullptr;
   a.mre = (const uint16_t*)mre;
   a.mim = (const uint16_t*)mim;
+  a.prh = (const float*)prh;
+  a.prl = (const float*)prl;
+  a.pih = (const float*)pih;
+  a.pil = (const float*)pil;
+  a.conj = (flags & 16) ? 1 : 0;
   a.orh = (float*)orh;
   a.orl = (float*)orl;
   a.oih = real_out ? nullptr : (float*)oih;

@@ -9,10 +9,15 @@ split of a host float64 distribution (:func:`ds.from_f64`).
 
 Two transform engines: ``"vpu"``, compensated rank-1 updates in plain
 PyTorch (the bit reference), and ``"oz"`` (``"ozk"`` is the same engine),
-Ozaki-sliced contractions through the hand-written kernels K7 (chunks of the
-shared spectrum), K8 (contractions), K9 (the fused main block) and K12 (the
+Ozaki-sliced contractions through the hand-written kernels K7 (chunks of a
+shared spectrum), K8 (contractions; its phased mode for tables built without
+the per-node matrices), K9 (the fused main block), K10 (the fused y+x main
+block, z-blocked), K11 (the full-stream Hadamard sum) and K12 (the
 half-spectrum Hadamard sum) on a CUDA device, and through their plain
-PyTorch versions on the CPU.
+PyTorch versions on the CPU.  The oz engine's routes: the half g-streams
+(K7, K8, K9 or K10 or the staged K8 chain, K12), the full g-streams on the
+per-node matrices (K7, K8, K11) and, for tables built with
+``node_mats=False``, the phased full streams (K8's phased mode, K11).
 
 The device of the tensors takes the place of the JAX package's
 ``jax.default_backend() == "tpu"`` test: on CUDA the defaults are the oz
@@ -23,10 +28,7 @@ streams, as in JAX.  Those rules were measured on a TPU; the port keeps them
 as its starting rule, so the default route launches every ported kernel,
 until they are measured on the card.
 
-Not ported yet (next slice): the oz engine's full g-stream (``g_stream=
-"full"``, K11), ``gmain_fused="12"`` (K10) and the phased contraction; each
-raises ``NotImplementedError``.  The sharded operator waits for the
-multi-device slice.
+The sharded operator waits for the multi-device slice.
 """
 
 from __future__ import annotations
@@ -45,12 +47,11 @@ from . import weights as _weights
 from .ds import CDS, DS, tree_map
 from .kernels import oz_contract as _k8
 from .kernels import oz_gmain as _k9
+from .kernels import oz_gmain12 as _k10
 from .kernels import oz_hadamard as _k12
+from .kernels import oz_hadamard_full as _k11
 from .kernels import oz_preslice as _k7
 from .weights import CollisionConfig, sincc
-
-_NEXT_SLICE = "it comes with the next slice of the ds engine (K10, K11, K8's phased mode)"
-
 
 class DsPrecomp(NamedTuple):
     """Double-single tables, grouped by radial quadrature node (the fields
@@ -277,15 +278,17 @@ def _g_main_half(fhs, x_pre, m_y, m_x, m_zh, cmax, w, ftail, merged=False,
     """The real main (Nyquist-free) block of the streams of a node batch:
     the y/x complex contractions on the half-z spectrum, then the real_out
     half-depth z contraction.  ``fused="3"`` runs all three stages in one K9
-    launch (bitwise equal to the staged K8 chain); ``"12"`` (K10) is not
-    ported yet."""
+    launch; ``"12"`` the y and x stages in one K10 launch (z-blocked), then
+    the half-z stage through K8.  Both are bitwise equal to the staged K8
+    chain."""
     if fused == "3":
         return _k9.gmain3_nodemat(x_pre, m_y, m_x, m_zh, grid_shape, cmax=cmax, w=w,
                                   fold_tail=ftail)
-    if fused == "12":
-        raise NotImplementedError(f"gmain_fused='12' (K10, gmain12_nodemat): {_NEXT_SLICE}")
     ck = partial(_k8.contract_last_oz_nodemat, cmax=cmax, w=w, fold_tail=ftail)
     mok = lambda mm: merged and oz.merge_ok(mm.re.shape[-2], sm=mm.re.shape[-3], cmax=cmax, w=w)
+    if fused == "12":
+        t = _k10.gmain12_nodemat(x_pre, m_y, m_x, grid_shape, cmax=cmax, w=w, fold_tail=ftail)
+        return ck(t, m_zh, real_out=True, merged=mok(m_zh)).re
     t = ck(fhs, m_y, repeat=True, x_pre=x_pre, merged=mok(m_y))
     t = tree_map(lambda a: a.permute(0, 3, 2, 1), t)  # (C, Ny, Nzh, Nx)
     t = ck(t, m_x, merged=mok(m_x))
@@ -309,7 +312,8 @@ def _g1_from_g2(r2: DS, w: DS) -> DS:
 
 def _gmain_mode(cfg: CollisionConfig, pre: DsPrecomp, cmax: int, w: int,
                 forced: bool = False, device=None):
-    """Auto fused-main-block mode: ``"3"`` or ``False`` (staged).
+    """Auto fused-main-block mode: ``"3"`` or ``False`` (staged); ``"12"``
+    (K10) only when ``forced`` past the envelope.
 
     The JAX package's rule, kept as the port's starting rule: on the
     accelerator (here a CUDA device; ``forced`` skips that test), merged
@@ -317,7 +321,8 @@ def _gmain_mode(cfg: CollisionConfig, pre: DsPrecomp, cmax: int, w: int,
     TPU VMEM envelope (45.6 MB at 64^3, kept under 12 MB: grids up to ~40^3).
     The Mosaic tiling condition of the TPU rule has no counterpart on the
     card (K9 walks a node in row tiles of any size).  Re-measuring the
-    envelope on the card is ROADMAP perf work."""
+    envelope on the card, and K10 against K9 and the staged chain, is
+    ROADMAP perf work."""
     nx, ny, nz = cfg.grid_shape
     sm = pre.pm1[0].re.shape[-3]
     if not forced:
@@ -329,7 +334,7 @@ def _gmain_mode(cfg: CollisionConfig, pre: DsPrecomp, cmax: int, w: int,
     est3 = 45.6 * (nx * ny * nz) / (64**3)
     if est3 <= 12.0 and (forced or oz.merge_ok(nz // 2, sm=sm, cmax=cmax, w=w)):
         return "3"
-    # a forced gmain_fused=True past the envelope would take K10 ("12")
+    # a forced gmain_fused=True past the envelope takes K10 ("12")
     return "12" if forced else False
 
 
@@ -418,21 +423,24 @@ def collide_ds(
 
     ``sub_batch``: nodes of a radial group in flight at once (gb = 1).
     ``contract``: ``"vpu"`` (compensated rank-1 updates, plain PyTorch) or
-    ``"oz"``/``"ozk"`` (the Ozaki engine: K7, K8, K9, K12 on CUDA, their plain
+    ``"oz"``/``"ozk"`` (the Ozaki engine: K7-K12 on CUDA, their plain
     versions on the CPU).  ``gain_reduce``: a hook on the gain spectrum
     before the final inverse.  ``oz_cmax``: Ozaki retention (call > cfg >
     6).  ``preslice``: cut f_hat's chunks once per eval (K7; on the CPU only
-    when the fused main block is forced).  ``g_stream``: ``"half"`` (the
-    exact Nyquist-block decomposition) or ``"full"`` (vpu only here; the oz
-    engine's full streams need K11, next slice).  ``herm_downstream``: the
+    when the fused main block is forced, and not for the full streams).
+    ``g_stream``: ``"half"`` (the exact Nyquist-block decomposition: K9/K10
+    or K8, then K12) or ``"full"`` (the direct complex streams: per-node
+    matrices through K8, or K8's phased mode for tables built with
+    ``node_mats=False``, then K11).  ``herm_downstream``: the
     half path's Hermitian finale (auto: grids <= 32 per axis, the TPU's
     measured crossover, kept as the starting rule until measured on the
     card).  ``group_batch``: radial groups per launch set (auto:
     :func:`default_group_batch`).  ``oz_merge``: K-merged stages where
     :func:`oz.merge_ok` holds (default on).  ``gmain_fused``: ``"3"`` (K9),
-    ``False`` (staged K8), ``True`` (by size), None (auto,
-    :func:`_gmain_mode`); ``"12"`` raises.  ``g1_reversal``: opt-in stream-1
-    reuse, exact only for centrally symmetric f."""
+    ``"12"`` (K10, then the half-z stage through K8), ``False`` (staged K8),
+    ``True`` (by size: "3" up to ~40^3, "12" above), None (auto,
+    :func:`_gmain_mode`).  ``g1_reversal``: opt-in stream-1 reuse, exact
+    only for centrally symmetric f."""
     dev = f.hi.device
     on_cuda = dev.type == "cuda"
     ns = cfg.ns_eff
@@ -462,11 +470,6 @@ def collide_ds(
         raise ValueError(
             "g_stream='half' needs an oz/ozk engine with node_mats tables on an all-even grid"
         )
-    if phased and not half:
-        raise NotImplementedError(
-            f"the oz engine's full g-streams (g_stream='full', or tables without the half "
-            f"g-stream) need K11 (hadamard_wsum): {_NEXT_SLICE}; use g_stream='half' or "
-            "contract='vpu'")
     fhs = f_pre_h = signs = corr1 = corr2 = None
     fuse3 = False
     gb = 1
@@ -504,8 +507,6 @@ def collide_ds(
             fuse3 = _gmain_mode(cfg, pre, cmax, slw, forced=True)
         else:
             fuse3 = str(gmain_fused)
-        if fuse3 == "12":
-            raise NotImplementedError(f"gmain_fused='12' (K10, gmain12_nodemat): {_NEXT_SLICE}")
         if not (mg and f_pre_h is not None):
             fuse3 = False
         ckc = _corr_ck(cmax, slw, ftail)
@@ -523,6 +524,12 @@ def collide_ds(
         if herm:
             beta1h = tree_map(lambda a: a[..., :nzh], pre.beta1)
             beta1p = tree_map(lambda a: a[..., nzh], pre.beta1)
+    # the full streams on the per-node matrices: f_hat's chunks cut once per
+    # eval for every repeat-mode z contraction (K7; on CUDA only, where the
+    # kernel consumes them: the plain version cuts the same chunks inline)
+    f_pre = None
+    if nodemat and not half and preslice and on_cuda:
+        f_pre = _k7.preslice_rows(f_hat, cmax=cmax, w=slw, merged=mok(pre.pm1[2]))
 
     def group(acc, xs):
         if half and rev1:
@@ -531,6 +538,8 @@ def collide_ds(
         elif half:
             b1h = b1 = xs[0]
             _, mxy1, mxy2, mzh1g, mzh2g, c1g, c2g = xs
+        elif nodemat:
+            gw, b1, pm1, pm2 = xs
         else:
             ax, ay, az, gw, b1 = xs
         s = None
@@ -559,6 +568,23 @@ def collide_ds(
                 part = _k12.hadamard_wsum_half(r1, take(c1g), r2, take(c2g), None,
                                                cfg.grid_shape, signs, groups=gb)
                 s = part if s is None else ds.add(s, part)
+                continue
+            if phased:
+                if nodemat:  # the phases folded into the per-node matrices
+                    m1 = tuple(_cindex(m, sl) for m in pm1)
+                    m2 = tuple(_cindex(m, sl) for m in pm2)
+                    g1 = oz.transform3_oz_nodemat(f_hat, m1, cmax=cmax, w=slw, fold_tail=ftail,
+                                                  x_pre=f_pre, merged=mg)
+                    g2 = oz.transform3_oz_nodemat(f_hat, m2, cmax=cmax, w=slw, fold_tail=ftail,
+                                                  x_pre=f_pre, merged=mg)
+                else:  # K8's phased mode
+                    ph = (_cindex(ax, sl), _cindex(ay, sl), _cindex(az, sl))
+                    g1 = oz.transform3_oz_phased(f_hat, pre.vinv_sl, ph, conj=False, cmax=cmax,
+                                                 w=slw, fold_tail=ftail)
+                    g2 = oz.transform3_oz_phased(f_hat, pre.vinv_sl, ph, conj=True, cmax=cmax,
+                                                 w=slw, fold_tail=ftail)
+                part = _k11.hadamard_wsum(g1, g2, _cindex(gw, sl))
+                s = part if s is None else ds.cadd(s, part)
                 continue
             # vpu engine: a1[s, x, y, z] = ax[s, x] * ay[s, y] * az[s, z]
             a_yz = ds.cmul(_cindex(ay, (sl, slice(None), None)), _cindex(az, (sl, None, slice(None))))
@@ -612,6 +638,9 @@ def collide_ds(
             nod = lambda t: tree_map(
                 lambda a: a.reshape((n_gl // gb, gb * a.shape[1]) + tuple(a.shape[2:])), t)
             xs = (grp(xs[0]),) + tuple(nod(t) for t in xs[1:])
+    elif nodemat:
+        acc = ds.czeros(cfg.grid_shape, fdt, dev)
+        xs = (pre.gain_w, pre.beta1, pre.pm1, pre.pm2)
     else:
         acc = ds.czeros(cfg.grid_shape, fdt, dev)
         xs = (pre.ax, pre.ay, pre.az, pre.gain_w, pre.beta1)
@@ -676,7 +705,7 @@ def default_group_batch(cfg: CollisionConfig, n_gl: int, device="cuda") -> int:
 def default_g_stream(contract: str, device="cuda") -> str:
     """Default g stream of the oz engines: ``"half"`` on CUDA (the TPU's
     measured default, kept as the starting rule), ``"full"`` elsewhere, as
-    in the JAX package (the oz engine's full streams raise until K11)."""
+    in the JAX package."""
     return "half" if torch.device(device).type == "cuda" else "full"
 
 

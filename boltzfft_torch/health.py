@@ -116,14 +116,19 @@ def selfcheck_ds(
     **collide_kwargs,
 ) -> dict:
     """Cross-engine known-answer probe of the ds pipeline: ``collide_ds`` with
-    the oz engine (the kernels K7, K8, K9, K12 on CUDA, their plain versions
+    the oz engine (the kernels K7-K12 on CUDA, their plain versions
     on the CPU; any knob passes through ``collide_kwargs``) against the vpu
     engine on the same device, on a seeded Nyquist-rich positive noise input.
     The bound is the ds noise floor (~2^-49 relative; tolerance 1e-11): an
     exactness fault in a kernel lands orders of magnitude above it.
     ``symmetrize`` makes the input centrally symmetric (for ``g1_reversal``).
     ``device`` defaults to CUDA and raises without a card.  The oz engine
-    runs the half g-stream unless told otherwise."""
+    takes its default g-stream for the device
+    (:func:`ds_operator.default_g_stream`, as the JAX package does): the
+    half streams on CUDA (K9, K12), the full streams on the CPU (K11's plain
+    version), unless ``g_stream`` is passed; the half-path-only knobs
+    (``group_batch``, ``g1_reversal``) need ``g_stream="half"`` on the
+    CPU."""
     import numpy as np
 
     import boltzfft_torch as bt
@@ -142,8 +147,7 @@ def selfcheck_ds(
         fm = 0.5 * (fm + fm[::-1, ::-1, ::-1])
     f = ds.from_f64(fm, torch.float32, device)
     t0 = time.perf_counter()
-    kw = {"g_stream": "half", **collide_kwargs}
-    q_oz = collide_ds(cfg, pre, f, contract="oz", **kw)
+    q_oz = collide_ds(cfg, pre, f, contract="oz", **collide_kwargs)
     q_ref = collide_ds(cfg, pre, f, contract="vpu")
     dev = q_oz.hi - q_ref.hi + (q_oz.lo - q_ref.lo)
     rel = float(dev.abs().max()) / float(q_ref.hi.abs().max())

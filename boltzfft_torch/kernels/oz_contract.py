@@ -3,11 +3,11 @@ CUDA kernel, and its plain PyTorch version.
 
 Counterpart of ``boltzfft/oz.py``'s ``_oz_contract_kernel_v3``, reached
 through ``contract_last_oz_kernel`` (shared matrix: ``real_in``,
-``real_out``) and ``contract_last_oz_nodemat`` (per-node matrices:
-``repeat``, ``x_pre``, ``merged``, ``real_out``).  Both entry points dispatch
-on the device of ``x``: a CUDA tensor runs the kernel of
-``csrc/oz_contract.cu`` (or raises), a CPU tensor runs the plain version.
-Any other device raises.
+``real_out``; phased mode: ``phase``, ``conj``, ``repeat``) and
+``contract_last_oz_nodemat`` (per-node matrices: ``repeat``, ``x_pre``,
+``merged``, ``real_out``).  Both entry points dispatch on the device of
+``x``: a CUDA tensor runs the kernel of ``csrc/oz_contract.cu`` (or raises),
+a CPU tensor runs the plain version.  Any other device raises.
 
 The function: ``out[..., l] = sum_k x[..., k] * m[k, l]`` with ``x`` a
 complex ds operand cut into ``sx`` bf16 chunks per row and ``m`` given as
@@ -27,8 +27,12 @@ them to float32 (exact below 2^24 units, the bound :func:`oz.merge_ok` and
 same reason).  Both then fold with the same float32 operations in the same
 order, so they give the same bits.
 
-The phased mode of the TPU kernel (``phase=``, ``_phased_contract``) is not
-ported yet: it raises ``NotImplementedError``.
+Phased mode (``_phased_contract``): the operand is ``t = phase[c] * x`` in
+ds (``conj(phase[c])`` with ``conj``), formed in the tile load with the TPU
+kernel's operation order (``_k_phase_cmul``: four ds products phase-first,
+then ``re = rr - ii``, ``im = ri + ir``); each component of ``t`` is cut at
+its own row scale and contracted unmerged.  The plain version forms ``t``
+with the same ds operations, then contracts it.
 """
 
 from __future__ import annotations
@@ -38,20 +42,19 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import ds
 from .. import oz as _oz
 from ..ds import CDS, DS
 
 #: Launches of the CUDA kernel (one per entry call on CUDA).
 LAUNCHES = 0
+#: Of those, the launches in phased mode.
+PHASED_LAUNCHES = 0
 #: Calls of the plain PyTorch version.
 REFERENCE_CALLS = 0
 
-_PHASED = ("contract_last_oz_kernel(phase=...): the phased contraction "
-           "(boltzfft/oz.py _phased_contract) is not ported yet; it comes with "
-           "the next slice of the ds engine (K10, K11, K8's phased mode)")
-
 # flag bits of the CUDA entry
-_REAL_IN, _REAL_OUT, _MERGED, _PRESLICED = 1, 2, 4, 8
+_REAL_IN, _REAL_OUT, _MERGED, _PRESLICED, _CONJ = 1, 2, 4, 8, 16
 
 
 def contract_last_oz_kernel(
@@ -69,18 +72,27 @@ def contract_last_oz_kernel(
 ) -> CDS:
     """Shared-matrix contraction: ``m`` is ``(sm, K, L)``; returns the CDS of
     shape ``x.shape[:-1] + (L,)`` (zero imaginary planes when ``real_out``).
-    ``interpret`` is accepted for the JAX signature; the device decides."""
+    ``phase``: per-node ds phase rows, a CDS ``(C, K)``; the result is
+    ``out[c, ..., l] = sum_k (phase[c, k] x[..., k]) m[k, l]`` (``conj``:
+    the conjugate phase).  With ``repeat`` (the node count C) ``x`` is one
+    shared operand read in place for every node and the output gains the
+    leading ``(C,)`` axis; otherwise ``x`` leads with ``C`` (its rows split
+    evenly over the nodes).  ``interpret`` is accepted for the JAX
+    signature; the device decides."""
     if phase is not None:
-        raise NotImplementedError(_PHASED)
+        return _phased(x, m, phase, conj, repeat, cmax, w, fold_tail, _dispatch)
     if repeat is not None:
         raise ValueError("repeat requires phase mode")
     return _shared(x, m, cmax, w, real_in, real_out, fold_tail, _dispatch)
 
 
 def contract_last_oz_kernel_reference(x, m, cmax=_oz.DEFAULT_CMAX, w=_oz.DEFAULT_W,
-                                      real_in=False, real_out=False, fold_tail=None) -> CDS:
+                                      real_in=False, real_out=False, phase=None, conj=False,
+                                      repeat=None, fold_tail=None) -> CDS:
     """:func:`contract_last_oz_kernel` through the plain version, on the
     device of ``x`` (how ``chip_smoke.py`` holds the kernel to it)."""
+    if phase is not None:
+        return _phased(x, m, phase, conj, repeat, cmax, w, fold_tail, contract_reference)
     return _shared(x, m, cmax, w, real_in, real_out, fold_tail, contract_reference)
 
 
@@ -94,6 +106,49 @@ def _shared(x, m, cmax, w, real_in, real_out, fold_tail, run) -> CDS:
     out = run(planes, None, m, cmax=cmax, w=w, real_out=real_out, merged=False,
               fold_tail=fold_tail, n_nodes=1, rows_pn=rows, per_node=False, x_per_node=False)
     return _to_cds(out, shape[:-1] + (ell,))
+
+
+def _phased(x, m, phase, conj, repeat, cmax, w, fold_tail, run) -> CDS:
+    shape = tuple(x.re.hi.shape)
+    k = shape[-1]
+    ell = m.re.shape[-1]
+    c = phase.re.hi.shape[0]
+    if tuple(phase.re.hi.shape) != (c, k):
+        raise ValueError(f"phase rows {tuple(phase.re.hi.shape)}, expected {(c, k)}")
+    rows_in = int(np.prod(shape[:-1]))
+    if repeat:
+        if repeat != c:
+            raise ValueError(f"repeat={repeat} != the phase's node count {c}")
+        rows_pn, out_lead = rows_in, (c,) + shape[:-1]
+    else:
+        if rows_in % c:
+            raise ValueError(f"{rows_in} rows do not split over {c} nodes")
+        rows_pn, out_lead = rows_in // c, shape[:-1]
+    planes = [a.reshape(rows_in, k) for a in (x.re.hi, x.re.lo, x.im.hi, x.im.lo)]
+    ph = [a.reshape(c, k) for a in (phase.re.hi, phase.re.lo, phase.im.hi, phase.im.lo)]
+    out = run(planes, None, m, cmax=cmax, w=w, real_out=False, merged=False,
+              fold_tail=fold_tail, n_nodes=c, rows_pn=rows_pn, per_node=False,
+              x_per_node=not repeat, phase=ph, conj=conj)
+    return _to_cds(out, out_lead + (ell,))
+
+
+def phase_operand(planes, phase, conj, n_nodes, x_per_node):
+    """The phased mode's operand ``t = phase * x`` (``conj(phase)`` with
+    ``conj``) as four float32 ``(n_nodes * rows, K)`` planes: ds products
+    phase-first, then ``re = rr - ii``, ``im = ri + ir``
+    (``boltzfft.oz._k_phase_cmul``).  A shared ``x`` broadcasts over the
+    nodes."""
+    k = planes[0].shape[-1]
+    lead = n_nodes if x_per_node else 1
+    xr, xi = (DS(*(a.to(torch.float32).reshape(lead, -1, k) for a in pair))
+              for pair in (planes[:2], planes[2:]))
+    pr, pi = (DS(*(a.to(torch.float32).reshape(n_nodes, 1, k) for a in pair))
+              for pair in (phase[:2], phase[2:]))
+    if conj:
+        pi = ds.neg(pi)
+    tre = ds.sub(ds.mul(pr, xr), ds.mul(pi, xi))
+    tim = ds.add(ds.mul(pr, xi), ds.mul(pi, xr))
+    return [a.reshape(-1, k) for a in (tre.hi, tre.lo, tim.hi, tim.lo)]
 
 
 def contract_last_oz_nodemat(
@@ -167,7 +222,8 @@ def _to_cds(out, shape) -> CDS:
 
 
 def _dispatch(planes, x_pre, m, **kw):
-    tensors = [t for t in (*planes, *(x_pre or ()), m.re, m.im) if t is not None]
+    tensors = [t for t in (*planes, *(x_pre or ()), *(kw.get("phase") or ()), m.re, m.im)
+               if t is not None]
     dev = tensors[0].device
     if any(t.device != dev for t in tensors):
         raise ValueError(f"oz contraction: operands on {sorted({str(t.device) for t in tensors})}")
@@ -204,14 +260,18 @@ def _chunks(planes, x_pre, *, w, sx, merged, x_per_node, n_nodes, k):
 
 
 def contract_reference(planes, x_pre, m, *, cmax, w, real_out, merged, fold_tail,
-                       n_nodes, rows_pn, per_node, x_per_node):
+                       n_nodes, rows_pn, per_node, x_per_node, phase=None, conj=False):
     """Plain PyTorch version of the kernel's entry, on the device of ``m``:
     ``planes`` are the four
     float32 (rows_in, K) planes (the imaginary pair None for a real input),
-    ``x_pre`` presliced chunks or None; returns the four (rows_out, L) output
+    ``x_pre`` presliced chunks or None, ``phase`` the four (n_nodes, K) phase
+    planes of phased mode or None; returns the four (rows_out, L) output
     planes (the imaginary pair None for ``real_out``)."""
     global REFERENCE_CALLS
     REFERENCE_CALLS += 1
+    if phase is not None:
+        planes = phase_operand(planes, phase, conj, n_nodes, x_per_node)
+        x_per_node = True
     return contract_plain(planes, x_pre, m, cmax=cmax, w=w, real_out=real_out, merged=merged,
                           fold_tail=fold_tail, n_nodes=n_nodes, rows_pn=rows_pn,
                           x_per_node=x_per_node)
@@ -288,8 +348,8 @@ def check_exact(k: int, sm: int, cmax: int, w: int, merged: bool) -> None:
 
 
 def _contract_cuda(planes, x_pre, m, *, cmax, w, real_out, merged, fold_tail,
-                   n_nodes, rows_pn, per_node, x_per_node):
-    global LAUNCHES
+                   n_nodes, rows_pn, per_node, x_per_node, phase=None, conj=False):
+    global LAUNCHES, PHASED_LAUNCHES
     from .._build import load_library
 
     sm, k, ell = m.re.shape[-3:]
@@ -300,9 +360,19 @@ def _contract_cuda(planes, x_pre, m, *, cmax, w, real_out, merged, fold_tail,
     check_exact(k, sm, cmax, w, merged)
     dev = m.re.device
     real_in = planes[2] is None
-    flags = (_REAL_IN * real_in) | (_REAL_OUT * real_out) | (_MERGED * merged)
+    flags = ((_REAL_IN * real_in) | (_REAL_OUT * real_out) | (_MERGED * merged)
+             | (_CONJ * bool(conj)))
     ptr = lambda t: None if t is None else t.data_ptr()
     keep = []  # contiguous operands, alive until the launch is queued
+    ph = [None] * 4
+    if phase is not None:
+        if merged or x_pre is not None or real_in or per_node:
+            raise ValueError("oz contraction: phased mode is unmerged, complex in, shared matrix")
+        ph = [t.to(torch.float32).contiguous() for t in phase]
+        for t in ph:
+            if tuple(t.shape) != (n_nodes, k):
+                raise ValueError(f"oz contraction: phase rows {tuple(t.shape)}, expected {(n_nodes, k)}")
+        keep += ph
     if x_pre is not None:
         flags |= _PRESLICED
         pre = [x_pre.full, None] if merged else [x_pre.all_re, x_pre.all_im]
@@ -331,10 +401,11 @@ def _contract_cuda(planes, x_pre, m, *, cmax, w, real_out, merged, fold_tail,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.bfft_oz_contract(
             *[ptr(t) for t in xs], *[ptr(t) for t in pre], mre.data_ptr(), mim.data_ptr(),
-            *[ptr(t) for t in outs],
+            *[ptr(t) for t in ph], *[ptr(t) for t in outs],
             n_nodes, rows_pn, int(per_node), int(x_per_node), k, ell, sm, nlev, sx, w,
             -1 if fold_tail is None else int(fold_tail), flags, stream)
     if rc != 0:
         raise RuntimeError(f"oz contraction: CUDA kernel failed with cudaError {rc}")
     LAUNCHES += 1
+    PHASED_LAUNCHES += phase is not None
     return tuple(outs)

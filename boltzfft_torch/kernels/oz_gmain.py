@@ -15,7 +15,7 @@ Every stage is K8's merged contraction (``merge_ok`` must hold on all three),
 so the result is bitwise equal to the staged K8 chain
 (``ds_operator._g_main_half`` with ``fused=False``) and to
 :func:`gmain3_reference`, which is that chain on the plain version.
-``fused="12"`` (K10, ``gmain12_nodemat``) is not ported yet.
+``fused="12"`` is K10 (``kernels.oz_gmain12``).
 """
 
 from __future__ import annotations

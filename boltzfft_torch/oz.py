@@ -13,9 +13,10 @@ pipeline's ``w=7, cmax=6``.
 
 This module holds the host table slicing, the chunk extraction and fold
 shared by the kernels' plain versions, the staged contraction
-(:func:`contract_last_oz`, the JAX package's off-TPU engine) and the 3-D
+(:func:`contract_last_oz`, the JAX package's off-TPU engine), the 3-D
 transforms, which call the K8 wrapper (``kernels.oz_contract``): the CUDA
-kernel on a CUDA tensor, its plain version on a CPU tensor.
+kernel on a CUDA tensor, its plain version on a CPU tensor, and the z-block
+rule of K10 (:func:`default_zh_block`).
 
 The row scale.  The JAX package has two rules: its TPU kernels and
 ``preslice_rows`` take ``exp2(floor(log2(max|x|)) + 1)`` (``_phase_sigma``),
@@ -298,6 +299,39 @@ def transform3_oz(
     )
 
 
+def transform3_oz_phased(
+    f_hat: CDS,
+    m,
+    phases,
+    conj: bool = False,
+    cmax: int = DEFAULT_CMAX,
+    kernel: Optional[bool] = None,
+    w: int = DEFAULT_W,
+    fold_tail: Optional[int] = None,
+) -> CDS:
+    """``IFFT3(alpha_b . f_hat)`` for a block of nodes with the separable
+    per-axis phases applied in each axis contraction (K8's phased mode).
+    ``f_hat`` is the shared ``(Nx, Ny, Nz)`` spectrum, ``phases`` a
+    ``(px, py, pz)`` triple of CDS ``(C, N_axis)`` tables, ``m`` the shared
+    sliced matrix or a per-axis tuple; ``conj`` evaluates the conjugate-phase
+    (g2) stream.  Returns ``(C, Nx, Ny, Nz)``.  The device of ``f_hat``
+    picks K8 or its plain version (the JAX signature's ``kernel`` has no
+    counterpart)."""
+    from .kernels.oz_contract import contract_last_oz_kernel
+
+    mx, my, mz = (m, m, m) if isinstance(m, CSlicedMatrix) else tuple(m)
+    px, py, pz = phases
+    c = px.re.hi.shape[0]
+
+    def ck(t, mm, ph, **kw):
+        return contract_last_oz_kernel(t, mm, cmax=cmax, w=w, phase=ph, conj=conj,
+                                       fold_tail=fold_tail, **kw)
+
+    x = ck(f_hat, mz, pz, repeat=c)  # z, shared input: (C, Nx, Ny, Nz)
+    x = ds._swap_last2(ck(ds._swap_last2(x), my, py))  # y
+    return ds._roll_axis(ck(ds._roll_axis(x, -3, -1), mx, px), -1, -3)  # x
+
+
 def transform3_oz_nodemat(
     x: CDS,
     mats,
@@ -326,3 +360,47 @@ def transform3_oz_nodemat(
     x = ck(x, mz, repeat=repeat, merged=mok(mz), **pre_kw)  # z: (C, Nx, Ny, Nz)
     x = ds._swap_last2(ck(ds._swap_last2(x), my, merged=mok(my)))  # y
     return ds._roll_axis(ck(ds._roll_axis(x, -3, -1), mx, merged=mok(mx)), -1, -3)  # x
+
+
+# ---------------------------------------------------------------------------
+# K10's z blocking
+# ---------------------------------------------------------------------------
+
+_THREADS = 512  # threads of a K10 block (csrc/oz_gmain12.cu)
+BLOCK_SMEM_MAX = 232448  # shared memory one block may use on sm_90
+
+
+def _tile_smem(k: int, ell: int, sx: int, rows: int) -> int:
+    """Shared memory of one tile of the contraction (``tile_smem_bytes`` of
+    ``csrc/oz_common.cuh``)."""
+    kp = (k + 3) & ~3
+    stride = kp if (kp // 4) % 2 else kp + 4
+    return 4 * (2 * sx * rows * kp + 2 * ell * stride) + 8 * rows
+
+
+def gmain12_smem(nx: int, ny: int, zb: int, sx: int = DEFAULT_SLICES_X) -> int:
+    """Shared memory of one K10 block: its stage-1 intermediate (4 float32
+    planes of ``Nx * zb * Ny``) and the larger of its two stages' tiles."""
+    tiles = []
+    for k, rows in ((ny, nx * zb), (nx, ny * zb)):
+        tiles.append(_tile_smem(k, k, sx, min(max(1, _THREADS // k), rows)))
+    return 16 * nx * zb * ny + max(tiles)
+
+
+def default_zh_block(nx: int, nzh: int, ny: Optional[int] = None,
+                     sx: int = DEFAULT_SLICES_X) -> int:
+    """K10's z-half block: the smallest divisor ``zb`` of ``nzh`` whose
+    block rows fill a 512-thread tile in both stages (``Nx * zb >= 512 //
+    Ny`` and ``Ny * zb >= 512 // Nx``), so no thread idles and the grid has
+    the most blocks (``C * nzh / zb``); within the shared memory a block may
+    hold (:func:`gmain12_smem`).  32^3 and 64^3 give 1, 16^3 2, 8^3 4.  The
+    JAX package's rule (multiples of 8 under a 1024-row VMEM cap) follows
+    Mosaic's tiling and has no meaning here.  Every ``zb`` gives the same
+    bits: the z rows are independent."""
+    ny = nx if ny is None else ny
+    divisors = [d for d in range(1, nzh + 1) if nzh % d == 0]
+    fits = [d for d in divisors if gmain12_smem(nx, ny, d, sx) <= BLOCK_SMEM_MAX] or divisors[:1]
+    for d in fits:
+        if nx * d >= _THREADS // ny and ny * d >= _THREADS // nx:
+            return d
+    return fits[-1]

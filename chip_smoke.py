@@ -71,7 +71,27 @@ Phases, in order; any failure raises and the script exits non-zero:
     and launches by kernel, idle share), and K7, K8, K9, K12 at main-path
     shapes against their plain versions, their bounds (chunk-pair dots at the
     bf16 tensor-core peak plus the fold at the float32 CUDA-core peak, or
-    bytes) and, for K8, a complex128 ``torch.bmm``/``matmul`` yardstick.
+    bytes) and, for K8, a complex128 ``torch.bmm``/``matmul`` yardstick;
+17. the oz engine's other routes' kernels against their plain versions at
+    their shapes, 32^3 and 64^3, Ns=12: K8's phased mode (the three stages of
+    ``transform3_oz_phased`` on the first sub-batch of 2 nodes, tables from
+    ``build_ds_precomp(node_mats=False)``, conj and not), K11 on the two
+    streams (C = 2), K10 on the main block's nodes at its default z block,
+    and at z blocks 2 and 4 (where a block's shared memory holds them)
+    bitwise equal to it;
+18. the full g-streams (``make_ds_collision_operator(g_stream="full")``: K7,
+    K8, K11), the phased route (``collide_ds`` on the ``node_mats=False``
+    tables: K8 phased, K11) and ``gmain_fused="12"`` (K7, K10, K8, K12), each
+    giving the ds digits, within 1e-12 max|Q| of the f64 c2c and of the
+    default route, launching its kernels and no plain version; "12" bitwise
+    equal to the staged route and, at 32^3, to K9's;
+19. ``maxwell_bkw --impl ds --Nv 32 --Ns 12 --trials 3`` with
+    ``--g-stream full`` and with ``--gmain-fused 12``;
+20. times: each route's eval (1 warm-up, 5 trials at 32^3, 3 at 64^3) and a
+    profile of one eval; K8 phased, K11 and K10 against their plain
+    versions, bounds and yardsticks (complex128 ``einsum``; K10 none), with
+    their launches per eval; the 32^3 main block through K9, K10 + the half-z
+    K8 call, and the staged K8 chain, on the same nodes.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
@@ -87,6 +107,7 @@ import statistics
 import subprocess
 import sys
 import time
+from functools import partial
 
 import numpy as np
 import torch
@@ -158,6 +179,9 @@ KERNEL_SOURCES = {  # name -> (source, the TPU kernel it replaces)
     "oz_contract": ("boltzfft_torch/csrc/oz_contract.cu", "boltzfft/oz.py:606"),
     "gmain3_nodemat": ("boltzfft_torch/csrc/oz_gmain3.cu", "boltzfft/oz.py:1420"),
     "hadamard_wsum_half": ("boltzfft_torch/csrc/oz_hadamard_half.cu", "boltzfft/oz.py:1832"),
+    "oz_contract_phased": ("boltzfft_torch/csrc/oz_contract.cu", "boltzfft/oz.py:1117"),
+    "gmain12_nodemat": ("boltzfft_torch/csrc/oz_gmain12.cu", "boltzfft/oz.py:1536"),
+    "hadamard_wsum": ("boltzfft_torch/csrc/oz_hadamard.cu", "boltzfft/oz.py:1728"),
 }
 
 
@@ -320,8 +344,9 @@ def max_rel(a, b):
 
 
 def reset_counts(ks):
-    for k in (ks.k1, ks.k3, ks.k5, ks.k6, ks.k7, ks.k8, ks.k9, ks.k12):
+    for k in (ks.k1, ks.k3, ks.k5, ks.k6, ks.k7, ks.k8, ks.k9, ks.k10, ks.k11, ks.k12):
         k.LAUNCHES = k.REFERENCE_CALLS = 0
+    ks.k8.PHASED_LAUNCHES = 0
     for s in ("ct", "transpose"):
         ks.k24.LAUNCHES[s] = ks.k24.REFERENCE_CALLS[s] = 0
 
@@ -335,7 +360,10 @@ def counts(ks):
                 k6=ks.k6.LAUNCHES, k6_plain=ks.k6.REFERENCE_CALLS,
                 k7=ks.k7.LAUNCHES, k7_plain=ks.k7.REFERENCE_CALLS,
                 k8=ks.k8.LAUNCHES, k8_plain=ks.k8.REFERENCE_CALLS,
+                k8p=ks.k8.PHASED_LAUNCHES,
                 k9=ks.k9.LAUNCHES, k9_plain=ks.k9.REFERENCE_CALLS,
+                k10=ks.k10.LAUNCHES, k10_plain=ks.k10.REFERENCE_CALLS,
+                k11=ks.k11.LAUNCHES, k11_plain=ks.k11.REFERENCE_CALLS,
                 k12=ks.k12.LAUNCHES, k12_plain=ks.k12.REFERENCE_CALLS)
 
 
@@ -381,8 +409,12 @@ def run_driver(main, argv):
 # ---- the ds engine (K7, K8, K9, K12) ------------------------------------
 DS_DIGITS_32 = ((1.5403e-03, 1.0119e-04, 4.2512e-05), 1e-4)  # L1, L2, Linf, rtol
 DS_LINF_64 = (3.0680e-12, 3.0692e-12)  # JAX ds-oz printed 3.0686e-12; f64 3.0685e-12
+DS_GRIDS = (32, 64)
 DS_TRIALS = {32: 5, 64: 3}
 PEAK_BF16 = 989e12  # dense bf16 tensor-core FLOP/s of an H100 SXM at 700 W
+# the ds kernels as the profiler names them (the default route's four first)
+DS_FAMILIES = ("oz_contract_kernel", "gmain3_kernel", "hwh_kernel", "preslice_kernel",
+               "gmain12_kernel", "hadamard_wsum_kernel")
 
 
 def oz_pairs(cmax):
@@ -420,6 +452,65 @@ def max_diff(a, b):
     return float((a.double() - b.double()).abs().max())
 
 
+def parity_check(max_err, label, key, fn, ref):
+    """The kernel (twice) against its plain version on the same inputs:
+    bitwise equal, and bitwise run to run; records max|kernel - plain| under
+    ``key``.  Returns the kernel's result."""
+    a, b = fn(), fn()
+    r = ref()
+    torch.cuda.synchronize()
+    err, bit, rerun = max_diff(a, r), same(a, r), same(a, b)
+    max_err[key] = max(max_err.get(key, 0.0), err)
+    print(f"  {label}: max|kernel - plain| {err:.3e}; bitwise equal {bit}; run to run"
+          f" bitwise {rerun} {'ok' if bit and rerun else 'FAIL'}")
+    check(bit and rerun, f"{label}: kernel != plain version or not reproducible")
+    return a
+
+
+def profile_eval(fn, families):
+    """One call under ``torch.profiler``: ({family: [device us, launches]}
+    with the rest under "other", wall us)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    fam = {k: [0.0, 0] for k in (*families, "other")}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        t = t if t is not None else e.self_cuda_time_total
+        key = next((k for k in families if k in e.key), "other")
+        fam[key][0] += t
+        fam[key][1] += e.count
+    return fam, wall_us
+
+
+def print_profile(label, fam, wall_us, card, phase):
+    busy = max(sum(v[0] for v in fam.values()), 1e-9)  # us; 0 if the profiler saw no device
+    print(f"[{phase} profile] {label}: device {busy / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms"
+          f" wall; idle share {100 * (1 - busy / wall_us):.1f}% | {card}")
+    print("  " + ", ".join(f"{k} {v[0] / 1e3:.3f} ms in {v[1]} launches ({100 * v[0] / busy:.1f}%)"
+                           for k, v in fam.items()))
+
+
+def ds_digits(bt, cfg, q, q_c2c):
+    """(L1, L2, Linf) of a ds Q against the analytic BKW dQ/dt at t = 6.5, and
+    its max distance from the float64 c2c Q in units of max|Q_c2c|."""
+    from boltzfft_torch import ds
+
+    g = cfg.velocity_grid
+    q64 = ds.to_f64(q)
+    check(q64.shape == cfg.grid_shape and np.isfinite(q64).all(), f"ds Q {q64.shape}")
+    d = q64 - bt.bkw_dfdt(g.r_squared(), 6.5)
+    dv = g.cell_volume
+    qc = q_c2c.cpu().numpy()
+    dc = np.abs(q64 - qc).max() / np.abs(qc).max()
+    return dv * np.abs(d).sum(), np.sqrt(dv * (d * d).sum()), np.abs(d).max(), dc
+
+
 def ds_phases(bt, dev, card, ks, q_c2c, entry, report):
     """Phases 12-16: the ds engine's kernels against their plain versions at
     the main path's shapes, the ds BKW digits through the card's default
@@ -431,20 +522,10 @@ def ds_phases(bt, dev, card, ks, q_c2c, entry, report):
     k7, k8, k9, k12 = ks.k7, ks.k8, ks.k9, ks.k12
     tm = ds.tree_map
     max_err, pres, cfgs, fs, collides = {}, {}, {}, {}, {}
-    grids = small, big = 32, 64
+    grids = small, big = DS_GRIDS
 
     # ---- 12. kernels against their plain versions, 32^3 and 64^3, Ns=12 --
-    def parity(label, key, fn, ref):
-        a, b = fn(), fn()
-        r = ref()
-        torch.cuda.synchronize()
-        err, bit, rerun = max_diff(a, r), same(a, r), same(a, b)
-        max_err[key] = max(max_err.get(key, 0.0), err)
-        print(f"  {label}: max|kernel - plain| {err:.3e}; bitwise equal {bit}; run to run"
-              f" bitwise {rerun} {'ok' if bit and rerun else 'FAIL'}")
-        check(bit and rerun, f"{label}: kernel != plain version or not reproducible")
-        return a
-
+    parity = partial(parity_check, max_err)
     inputs = {}
     for n in grids:
         cfg = bt.CollisionConfig(nv=n, ns=12, impl="c2c", dtype="float32")
@@ -597,31 +678,12 @@ def ds_phases(bt, dev, card, ks, q_c2c, entry, report):
         check(rc == 0 and c["k9"] > 0 and plain_calls(c) == 0, f"maxwell_bkw ds {extra}: {rc} {c}")
 
     # ---- 16. times --------------------------------------------------------
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for n in grids:
         cfg, pre, f = cfgs[n], pres[n], fs[n]
         ms = time_ms(lambda: collides[n](f, pre), trials=DS_TRIALS[n])
         report(f"ds eval (oz defaults) {n}^3 Ns=12", ms, phase=16)
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            collides[n](f, pre)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        fam = {k: [0.0, 0] for k in ("oz_contract_kernel", "gmain3_kernel", "hwh_kernel",
-                                     "preslice_kernel", "other")}
-        for e in prof.key_averages():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            t = getattr(e, "self_device_time_total", None)
-            t = t if t is not None else e.self_cuda_time_total
-            key = next((k for k in fam if k != "other" and k in e.key), "other")
-            fam[key][0] += t
-            fam[key][1] += e.count
-        busy = max(sum(v[0] for v in fam.values()), 1e-9)  # us; 0 if the profiler saw no device
-        print(f"[16 profile] ds eval {n}^3: device {busy / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms"
-              f" wall; idle share {100 * (1 - busy / wall_us):.1f}% | {card}")
-        print("  " + ", ".join(f"{k} {v[0] / 1e3:.3f} ms in {v[1]} launches ({100 * v[0] / busy:.1f}%)"
-                               for k, v in fam.items()))
+        fam, wall_us = profile_eval(lambda: collides[n](f, pre), DS_FAMILIES[:4])
+        print_profile(f"ds eval {n}^3", fam, wall_us, card, 16)
         inputs[n]["profile"] = fam
 
     def row(name, key, n, kname, fn, ref, b, lib=None):
@@ -697,6 +759,220 @@ def ds_phases(bt, dev, card, ks, q_c2c, entry, report):
             "hadamard_wsum_half",
             lambda: k12.hadamard_wsum_half(*v["hargs"], groups=gb),
             lambda: k12.hadamard_wsum_half_reference(*v["hargs"], groups=gb), b12)
+    return dict(cfgs=cfgs, pres=pres, fs=fs, ds_q=ds_q, inputs=inputs)
+
+
+# ---- the ds engine's other routes (K8 phased, K10, K11) ---------------------
+ROUTE_TRIALS = {32: 5, 64: 3}  # after 1 warm-up
+ROUTE_KERNELS = {  # the counts each route's eval must show (and no plain call)
+    "full": ("k7", "k8", "k11"),
+    "phased": ("k8", "k8p", "k11"),
+    "12": ("k7", "k8", "k10", "k12"),
+}
+PHASE_FLOPS = 122  # float32 operations of phase * x per element: 4 ds products, 2 ds adds
+HADAMARD_FLOPS = 160  # K11 per element and node: 4 + 2 ds products, 4 ds adds
+
+
+def ds_route_phases(bt, dev, card, ks, q_c2c, entry, report, st):
+    """Phases 17-20: the oz engine's full g-streams (K7, K8, K11), its phased
+    full streams on tables without the per-node matrices (K8's phased mode,
+    K11) and the fused y+x main block ``gmain_fused="12"`` (K10): the kernels
+    against their plain versions at the routes' shapes, each route's digits
+    and launches, the ds drivers on those routes, and times."""
+    from boltzfft_torch import ds, oz
+    from boltzfft_torch import ds_operator as dso
+    from boltzfft_torch.cli import maxwell_bkw
+
+    k8, k10, k11 = ks.k8, ks.k10, ks.k11
+    tm = ds.tree_map
+    cfgs, fs, ds_q, inputs = st["cfgs"], st["fs"], st["ds_q"], st["inputs"]
+    grids = DS_GRIDS
+    small = grids[0]
+    max_err, pre0s, shapes = {}, {}, {}
+    parity = partial(parity_check, max_err)
+    sb = 2  # collide_ds's sub_batch: the nodes of one launch set of the full routes
+
+    # ---- 17. K8 phased, K11 and K10 against their plain versions ---------
+    for n in grids:
+        cfg, v = cfgs[n], inputs[n]
+        t0 = time.perf_counter()
+        pre0s[n] = pre0 = dso.build_ds_precomp(cfg, node_mats=False, device=dev)
+        torch.cuda.synchronize()
+        print(f"[17 ds routes parity] {n}^3 Ns=12: build_ds_precomp(node_mats=False)"
+              f" {time.perf_counter() - t0:.2f} s | {card}")
+        # the first launch set of the phased route: radial group 0, nodes 0-1
+        ph = tuple(tm(lambda a: a[0, :sb], p) for p in (pre0.ax, pre0.ay, pre0.az))
+        gw = tm(lambda a: a[0, :sb], pre0.gain_w)
+        m = pre0.vinv_sl
+        g = {}
+        for conj in (False, True):
+            kw = dict(cmax=6, conj=conj)
+            t = parity(f"K8 phased {n}^3 z stage, shared x (repeat {sb}), conj={conj}", ("k8p", n),
+                       lambda: k8.contract_last_oz_kernel(v["f_hat"], m, phase=ph[2], repeat=sb, **kw),
+                       lambda: k8.contract_last_oz_kernel_reference(v["f_hat"], m, phase=ph[2],
+                                                                    repeat=sb, **kw))
+            xy = ds._swap_last2(t)
+            t = ds._swap_last2(parity(
+                f"K8 phased {n}^3 y stage, per node (C={sb}), conj={conj}", ("k8p", n),
+                lambda: k8.contract_last_oz_kernel(xy, m, phase=ph[1], **kw),
+                lambda: k8.contract_last_oz_kernel_reference(xy, m, phase=ph[1], **kw)))
+            xx = ds._roll_axis(t, -3, -1)
+            g[conj] = ds._roll_axis(parity(
+                f"K8 phased {n}^3 x stage, per node (C={sb}), conj={conj}", ("k8p", n),
+                lambda: k8.contract_last_oz_kernel(xx, m, phase=ph[0], **kw),
+                lambda: k8.contract_last_oz_kernel_reference(xx, m, phase=ph[0], **kw)), -1, -3)
+            whole = oz.transform3_oz_phased(v["f_hat"], m, ph, conj=conj, cmax=6)
+            check(same(whole, g[conj]), f"transform3_oz_phased != its stages at {n}^3")
+        parity(f"K11 {n}^3 C={sb} (the full routes' launch set)", ("k11", n),
+               lambda: k11.hadamard_wsum(g[False], g[True], gw),
+               lambda: k11.hadamard_wsum_reference(g[False], g[True], gw))
+        c, grid = v["c"], cfg.grid_shape
+        zb0 = oz.default_zh_block(n, n // 2, n)
+        g12 = parity(f"K10 {n}^3 C={c} zh_block={zb0} (the default)", ("k10", n),
+                     lambda: k10.gmain12_nodemat(v["x_pre"], v["m_y"], v["m_x"], grid, cmax=6),
+                     lambda: k10.gmain12_reference(v["x_pre"], v["m_y"], v["m_x"], grid, cmax=6))
+        for zb in (d for d in (2, 4) if (n // 2) % d == 0
+                   and oz.gmain12_smem(n, n, d) <= oz.BLOCK_SMEM_MAX):
+            other = k10.gmain12_nodemat(v["x_pre"], v["m_y"], v["m_x"], grid, cmax=6, zh_block=zb)
+            torch.cuda.synchronize()
+            print(f"  K10 {n}^3 zh_block={zb} bitwise equal to zh_block={zb0}: {same(other, g12)}")
+            check(same(other, g12), f"K10 {n}^3 not invariant in zh_block")
+        shapes[n] = dict(ph=ph, gw=gw, g=g, xy=xy, zb=zb0)
+
+    # ---- 18. each route through its entry point, 32^3 and 64^3 -----------
+    route_counts = {}
+    for n in grids:
+        cfg, f = cfgs[n], fs[n]
+        t0 = time.perf_counter()
+        routes = {
+            "full": bt.make_ds_collision_operator(cfg, g_stream="full", device=dev),
+            "phased": (lambda x, p, _cfg=cfg: dso.collide_ds(_cfg, p, x, contract="oz"), pre0s[n]),
+            "12": bt.make_ds_collision_operator(cfg, gmain_fused="12", device=dev),
+        }
+        torch.cuda.synchronize()
+        print(f"[18 ds routes] {n}^3 Ns=12: make_ds_collision_operator x2"
+              f" {time.perf_counter() - t0:.2f} s | {card}")
+        for name, (fn, pre) in routes.items():
+            reset_counts(ks)
+            q = fn(f, pre)
+            torch.cuda.synchronize()
+            c = counts(ks)
+            route_counts[(name, n)] = c
+            l1, l2, linf, dc = ds_digits(bt, cfg, q, q_c2c[n])
+            qd = ds.to_f64(ds_q[n])
+            dh = np.abs(ds.to_f64(q) - qd).max() / np.abs(qd).max()
+            print(f"  route {name} {n}^3: L1 {l1:.5e} L2 {l2:.5e} Linf {linf:.5e}; vs f64 c2c"
+                  f" {dc:.3e}, vs the default half route {dh:.3e} max|Q| (tol 1e-12); counts {c}")
+            ok_counts = (all(c[k] > 0 for k in ROUTE_KERNELS[name]) and plain_calls(c) == 0
+                         and all(c[k] == 0 for k in ("k1", "k2", "k3", "k4", "k5", "k6", "k9")))
+            check(ok_counts, f"route {name} {n}^3: dispatch {c}")
+            check(dc <= 1e-12 and dh <= 1e-12, f"route {name} {n}^3: {dc:.3e} {dh:.3e}")
+            if n == small:
+                ref, rtol = DS_DIGITS_32
+                for got, want, lab in zip((l1, l2, linf), ref, ("L1", "L2", "Linf")):
+                    check(abs(got - want) <= rtol * want, f"route {name} 32^3 {lab} {got:.5e}")
+            else:
+                check(DS_LINF_64[0] <= linf <= DS_LINF_64[1], f"route {name} 64^3 Linf {linf:.5e}")
+            again = fn(f, pre)
+            check(same(again, q), f"route {name} {n}^3 not reproducible")
+            if name == "12":
+                staged = dso.collide_ds(cfg, pre, f, contract="oz", gmain_fused=False)
+                print(f"  route 12 {n}^3 bitwise equal to gmain_fused=False (staged K8):"
+                      f" {same(q, staged)}" + (f"; to the default K9 route: {same(q, ds_q[n])}"
+                                               if n == small else ""))
+                check(same(q, staged) and (n != small or same(q, ds_q[n])),
+                      f"route 12 {n}^3 != staged / K9")
+            del q, again
+
+        # ---- times of the route evals (and the default route beside them)
+        for name, (fn, pre) in routes.items():
+            ms = time_ms(lambda: fn(f, pre), trials=ROUTE_TRIALS[n], warmup=1)
+            report(f"ds eval route {name} {n}^3 Ns=12", ms, phase=20)
+            fam, wall_us = profile_eval(lambda: fn(f, pre), DS_FAMILIES)
+            print_profile(f"ds eval route {name} {n}^3", fam, wall_us, card, 20)
+        del routes
+
+    # ---- 19. the ds driver on the new routes ------------------------------
+    for extra, key in ((["--g-stream", "full"], "k11"), (["--gmain-fused", "12"], "k10")):
+        argv = ["--impl", "ds", "--Nv", str(small), "--Ns", "12", "--device", "cuda",
+                "--trials", "3", *extra]
+        reset_counts(ks)
+        rc, lines = run_driver(maxwell_bkw.main, argv)
+        c = counts(ks)
+        print(f"[19 ds drivers] maxwell_bkw {' '.join(argv)}: exit {rc}, counts {c} | {card}")
+        for line in lines[-6:]:
+            print(f"  | {line}")
+        linf = [float(line.split()[-1]) for line in lines if line.startswith("Linf error:")]
+        check(rc == 0 and c[key] > 0 and plain_calls(c) == 0 and len(linf) == 1
+              and abs(linf[0] - DS_DIGITS_32[0][2]) <= DS_DIGITS_32[1] * DS_DIGITS_32[0][2],
+              f"maxwell_bkw {extra}: {rc} {c} {linf}")
+
+    # ---- 20. kernel times at the routes' shapes ----------------------------
+    def row(name, kname, key, launches, fn, ref, b, lib=None, lib_label="complex128 einsum"):
+        ms, pms = time_ms(fn), time_ms(ref)
+        lms = time_ms(lib) if lib is not None else None
+        report(f"{name} kernel", ms, "call", 20)
+        report(f"{name} plain", pms, "call", 20)
+        if lms is not None:
+            report(f"{name} library yardstick ({lib_label})", lms, "call", 20)
+        print(f"[20 bound] {name}: {b[0]:.4f} ms ({b[1]}); kernel median"
+              f" {statistics.median(ms) / b[0]:.1f}x the bound; {launches} launches per eval")
+        entry(name, kname, "float32", launches, 0, max_err[key], ms, pms, b[0], b[1], lms)
+        return ms
+
+    sx = 7
+    for n in grids:
+        v, s = inputs[n], shapes[n]
+        nzh, c, n3 = n // 2, v["c"], n ** 3
+        # K8 phased, the y stage (per node): rows (C, Nx, Nz), K = L = N
+        rows = sb * n * n
+        macs, fold = oz_stage_work(rows, n, n, "cc")
+        b8 = oz_bound(macs, fold + rows * n * PHASE_FLOPS,
+                      rows * n * 16 + sb * n * 16 + 8 * n * n * 2 * 2 + rows * n * 16)
+        cx = torch.randn(sb, n * n, n, dtype=torch.complex128, device=dev)
+        cp = torch.randn(sb, n, dtype=torch.complex128, device=dev)
+        cm = torch.randn(n, n, dtype=torch.complex128, device=dev)
+        m = pre0s[n].vinv_sl
+        row(f"oz_contract_phased[{n}^3,Ns=12,y stage,per node,C={sb}]", "oz_contract_phased",
+            ("k8p", n), route_counts[("phased", n)]["k8p"],
+            lambda: k8.contract_last_oz_kernel(s["xy"], m, cmax=6, phase=s["ph"][1]),
+            lambda: k8.contract_last_oz_kernel_reference(s["xy"], m, cmax=6, phase=s["ph"][1]),
+            b8, lambda: torch.einsum("ck,crk,kl->crl", cp, cx, cm))
+        # K11 with C = 2
+        b11 = oz_bound(0, sb * n3 * HADAMARD_FLOPS, 2 * sb * n3 * 16 + sb * 8 + n3 * 16)
+        c1 = torch.randn((sb,) + (n,) * 3, dtype=torch.complex128, device=dev)
+        c2 = torch.randn((sb,) + (n,) * 3, dtype=torch.complex128, device=dev)
+        cw = torch.rand(sb, dtype=torch.float64, device=dev).to(torch.complex128)
+        row(f"hadamard_wsum[{n}^3,Ns=12,C={sb}]", "hadamard_wsum", ("k11", n),
+            route_counts[("full", n)]["k11"],
+            lambda: k11.hadamard_wsum(s["g"][False], s["g"][True], s["gw"]),
+            lambda: k11.hadamard_wsum_reference(s["g"][False], s["g"][True], s["gw"]),
+            b11, lambda: torch.einsum("c,c...,c...->...", cw, c1, c2))
+        # K10: stages 1 and 2 over C nodes
+        work = [oz_stage_work(c * n * nzh, n, n, "m")] * 2
+        b10 = oz_bound(sum(w[0] for w in work), sum(w[1] for w in work),
+                       n * nzh * sx * 2 * n * 2 + c * 8 * 2 * 2 * 2 * n * n + c * n * n * nzh * 16)
+        grid = cfgs[n].grid_shape
+        ms10 = row(f"gmain12_nodemat[{n}^3,Ns=12,C={c},zh_block={s['zb']}]", "gmain12_nodemat",
+                   ("k10", n), route_counts[("12", n)]["k10"],
+                   lambda: k10.gmain12_nodemat(v["x_pre"], v["m_y"], v["m_x"], grid, cmax=6),
+                   lambda: k10.gmain12_reference(v["x_pre"], v["m_y"], v["m_x"], grid, cmax=6),
+                   b10)
+        if n == small:
+            # K10 against K9 on the same nodes: the main block of each route
+            main = dict(
+                K9=lambda: dso._g_main_half(v["fhs"], v["x_pre"], v["m_y"], v["m_x"], v["m_zh"], 6,
+                                            7, None, merged=True, grid_shape=grid, fused="3"),
+                **{"K10 + K8 half-z": lambda: dso._g_main_half(
+                    v["fhs"], v["x_pre"], v["m_y"], v["m_x"], v["m_zh"], 6, 7, None, merged=True,
+                    grid_shape=grid, fused="12")},
+                **{"staged K8 x3": lambda: dso._g_main_half(
+                    v["fhs"], v["x_pre"], v["m_y"], v["m_x"], v["m_zh"], 6, 7, None, merged=True,
+                    grid_shape=grid, fused=False)})
+            for label in ("K9", "K10 + K8 half-z", "staged K8 x3", "K10 + K8 half-z", "K9"):
+                report(f"main block {n}^3 C={c} through {label}", time_ms(main[label]), "call", 20)
+            print(f"[20 K10 vs K9] {n}^3 C={c}: K10 alone (stages y, x) median"
+                  f" {statistics.median(ms10):.4f} ms | {card}")
 
 
 def _leaves(tree):
@@ -736,10 +1012,13 @@ def main() -> int:
     from boltzfft_torch.kernels import gain_reduce as k5
     from boltzfft_torch.kernels import oz_contract as k8
     from boltzfft_torch.kernels import oz_gmain as k9
+    from boltzfft_torch.kernels import oz_gmain12 as k10
     from boltzfft_torch.kernels import oz_hadamard as k12
+    from boltzfft_torch.kernels import oz_hadamard_full as k11
     from boltzfft_torch.kernels import oz_preslice as k7
 
-    ks = SimpleNamespace(k1=k1, k3=k3, k24=k24, k5=k5, k6=k6, k7=k7, k8=k8, k9=k9, k12=k12)
+    ks = SimpleNamespace(k1=k1, k3=k3, k24=k24, k5=k5, k6=k6, k7=k7, k8=k8, k9=k9, k10=k10,
+                         k11=k11, k12=k12)
 
     # ---- 2. build ------------------------------------------------------
     t0 = time.perf_counter()
@@ -1331,8 +1610,10 @@ def main() -> int:
               f" = {ms / b_ms:.1f}x the bound; K3's dense kron y/z product does"
               f" {kron / 1e9:.1f} GFLOP, {kron / (ms * 1e-3) / PEAK_FLOPS[dtype]:.1%}"
               " of the CUDA-core peak")
-    ds_phases(bt, dev, card, ks, q_c2c, entry, report)
+    st = ds_phases(bt, dev, card, ks, q_c2c, entry, report)
     print(f"[16 total] {time.perf_counter() - t_start:.1f} s after the device check")
+    ds_route_phases(bt, dev, card, ks, q_c2c, entry, report, st)
+    print(f"[20 total] {time.perf_counter() - t_start:.1f} s after the device check")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

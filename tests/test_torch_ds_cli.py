@@ -62,8 +62,8 @@ def test_maxwell_bkw_ds_steps_lines(capsys):
 
 
 def test_maxwell_bkw_ds_oz_route(capsys):
-    """The oz route's flags on the CPU (plain versions of K7, K8, K9, K12)
-    print the vpu route's digits."""
+    """The oz route's flags on the CPU (plain versions of K7-K12: the half
+    route with K9 or K10, the full streams) print the vpu route's digits."""
     small = ["--impl", "ds", "--Nv", "8", "--Ns", "6", "--n-radial", "4", "--trials", "0",
              "--device", "cpu"]
     assert maxwell_bkw.main(small) == 0
@@ -72,12 +72,13 @@ def test_maxwell_bkw_ds_oz_route(capsys):
                     "--group-batch", "2", "--oz-merge", "on"]
     assert maxwell_bkw.main(argv) == 0
     np.testing.assert_allclose(_norms(capsys.readouterr().out), vpu, rtol=1e-9, atol=0)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        maxwell_bkw.main(small + ["--ds-contract", "oz", "--g-stream", "full"])
+    for extra in (["--g-stream", "full"], ["--g-stream", "half", "--gmain-fused", "12"]):
+        assert maxwell_bkw.main(small + ["--ds-contract", "oz", *extra]) == 0
+        np.testing.assert_allclose(_norms(capsys.readouterr().out), vpu, rtol=1e-9, atol=0)
 
 
-@pytest.mark.parametrize("kw", [{}, {"symmetrize": True, "g1_reversal": True},
-                                {"gmain_fused": "3", "group_batch": 2}])
+@pytest.mark.parametrize("kw", [{}, {"symmetrize": True, "g1_reversal": True, "g_stream": "half"},
+                                {"gmain_fused": "3", "group_batch": 2, "g_stream": "half"}])
 def test_selfcheck_ds_on_cpu(kw):
     r = health.selfcheck_ds(nv=8, ns=6, n_radial=4, device="cpu", **kw)
     assert r["ok"] and r["finite"] and r["backend"] == "cpu", r

@@ -1,9 +1,11 @@
 """The ds engine's CUDA kernels (K7 ``preslice_rows``, K8 the two contraction
-entries, K9 ``gmain3_nodemat``, K12 ``hadamard_wsum_half``) against their
-plain PyTorch versions on a card, at small shapes: every result must be
+entries and its phased mode, K9 ``gmain3_nodemat``, K10 ``gmain12_nodemat``
+at every z block, K11 ``hadamard_wsum``, K12 ``hadamard_wsum_half``) against
+their plain PyTorch versions on a card, at small shapes: every result must be
 bitwise equal to the plain version's and to itself run to run.  Then
-``collide_ds`` on the card's default route against the same route on the
-CPU (plain versions) and against the vpu engine.
+``collide_ds`` on the card's default route, and on the full, phased and
+"12" routes, against the same route on the CPU (plain versions) and against
+the vpu engine.
 
 No test here imports jax, so the file also runs on a machine without it:
 
@@ -21,7 +23,9 @@ from boltzfft_torch import ds, oz
 from boltzfft_torch.ds_operator import build_ds_precomp, collide_ds
 from boltzfft_torch.kernels import oz_contract as k8
 from boltzfft_torch.kernels import oz_gmain as k9
+from boltzfft_torch.kernels import oz_gmain12 as k10
 from boltzfft_torch.kernels import oz_hadamard as k12
+from boltzfft_torch.kernels import oz_hadamard_full as k11
 from boltzfft_torch.kernels import oz_preslice as k7
 
 GRIDS = [(8, 8, 8), (6, 8, 10)]
@@ -169,13 +173,87 @@ def test_collide_ds_default_route_on_card(cuda_device, grid):
 
 @pytest.mark.cuda
 def test_unported_modes_raise_on_card(cuda_device):
+    """The routes that raised before K10, K11 and K8's phased mode run on the
+    card: the full streams, the phased route and "12", each bitwise equal to
+    the same route on the CPU (plain versions), and "12" to the staged one."""
     cfg = _cfg((8, 8, 8))
     pre = build_ds_precomp(cfg, device=cuda_device)
-    f = ds.from_f64(np.ones(cfg.grid_shape), torch.float32, cuda_device)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        collide_ds(cfg, pre, f, contract="oz", g_stream="full")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        collide_ds(cfg, pre, f, contract="oz", gmain_fused="12")
+    pre0 = build_ds_precomp(cfg, node_mats=False, device=cuda_device)
+    fm = np.abs(np.random.default_rng(5).standard_normal(cfg.grid_shape)) + 0.1
+    f = ds.from_f64(fm, torch.float32, cuda_device)
+    cpu = lambda p: build_ds_precomp(cfg, node_mats=p is pre, device="cpu")
+    for tables, kw in ((pre, dict(g_stream="full")), (pre0, {}),
+                       (pre, dict(g_stream="half", gmain_fused="12"))):
+        q = collide_ds(cfg, tables, f, contract="oz", **kw)
+        ref = collide_ds(cfg, cpu(tables), ds.from_f64(fm), contract="oz", **kw)
+        torch.cuda.synchronize()
+        assert _same(q, ref), kw
+    staged = collide_ds(cfg, pre, f, contract="oz", g_stream="half", gmain_fused=False)
+    assert _same(q, staged)
     x = _cds((4, 8), 1, cuda_device)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        k8.contract_last_oz_kernel(x, pre.vinv_sl, phase=x)
+    ph = _cds((4, 8), 2, cuda_device)
+    a = k8.contract_last_oz_kernel(x, pre.vinv_sl, phase=ph)
+    ref = k8.contract_last_oz_kernel(_to(x, "cpu"), _to(pre.vinv_sl, "cpu"), phase=_to(ph, "cpu"))
+    torch.cuda.synchronize()
+    assert _same(a, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("repeat", [True, False])
+@pytest.mark.parametrize("conj", [False, True])
+@pytest.mark.parametrize("grid", GRIDS)
+def test_k8_phased_matches_plain(cuda_device, grid, repeat, conj):
+    """The phased 3-D transform's three stages (z with a shared x, y and x
+    per node) and one stage alone, on the card's kernel and the plain
+    version."""
+    c = 3
+    mats = tuple(oz.slice_matrix(np.exp(2j * np.pi * np.random.default_rng(n).random((n, n))),
+                                 device=cuda_device) for n in grid)
+    phases = tuple(_cds((c, n), 10 + n, cuda_device) for n in grid)
+    x = _cds(grid if repeat else (c,) + grid, 9, cuda_device)
+    if repeat:
+        a = oz.transform3_oz_phased(x, mats, phases, conj=conj)
+        b = oz.transform3_oz_phased(x, mats, phases, conj=conj)
+        ref = oz.transform3_oz_phased(_to(x, "cpu"), _to(mats, "cpu"), _to(phases, "cpu"),
+                                      conj=conj)
+    else:
+        kw = dict(phase=phases[2], conj=conj)
+        a = k8.contract_last_oz_kernel(x, mats[2], **kw)
+        b = k8.contract_last_oz_kernel(x, mats[2], **kw)
+        ref = k8.contract_last_oz_kernel_reference(x, mats[2], **kw)
+    torch.cuda.synchronize()
+    assert _same(a, ref) and _same(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", GRIDS)
+def test_k10_matches_plain_every_zh_block(cuda_device, grid):
+    nx, ny, nz = grid
+    nzh = nz // 2
+    cfg = _cfg(grid)
+    pre = build_ds_precomp(cfg, device=cuda_device)
+    fhs = _cds((nx, nzh, ny), 6, cuda_device)
+    x_pre = k7.preslice_rows(fhs, cmax=6, merged=True)
+    first = lambda m: ds.tree_map(lambda a: a[0], m)
+    m_y, m_x = first(pre.pm1[1]), first(pre.pm1[0])
+    ref = k10.gmain12_reference(_to(x_pre, "cpu"), _to(m_y, "cpu"), _to(m_x, "cpu"), grid, cmax=6)
+    outs = [k10.gmain12_nodemat(x_pre, m_y, m_x, grid, cmax=6, zh_block=zb)
+            for zb in range(1, nzh + 1) if nzh % zb == 0]
+    again = k10.gmain12_nodemat(x_pre, m_y, m_x, grid, cmax=6)
+    torch.cuda.synchronize()
+    assert all(_same(o, ref) for o in outs) and _same(again, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("grid", GRIDS)
+def test_k11_matches_plain(cuda_device, grid, weighted):
+    c = 2
+    g1, g2 = _cds((c,) + grid, 11, cuda_device), _cds((c,) + grid, 12, cuda_device)
+    rng = np.random.default_rng(13)
+    w = ds.from_f64(rng.uniform(0.5, 1.5, c), torch.float32, cuda_device) if weighted else None
+    a = k11.hadamard_wsum(g1, g2, w)
+    b = k11.hadamard_wsum(g1, g2, w)
+    ref = k11.hadamard_wsum(_to(g1, "cpu"), _to(g2, "cpu"), _to(w, "cpu"))
+    torch.cuda.synchronize()
+    assert _same(a, ref) and _same(a, b)

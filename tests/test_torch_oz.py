@@ -161,12 +161,21 @@ def test_k8_nodemat_plain_matches_jax(repeat, x_pre, merged, real_out):
 
 
 def test_k8_merged_past_merge_ok_raises():
+    """A merged call past merge_ok raises; the phased mode, unmerged, runs
+    there (K = 74 <= 146) and is the shared-matrix contraction of the
+    operand phase * x, bitwise."""
     _, xt, _ = _cds_pair((2, 74), 6)
     m = oz.slice_matrix_nodes(np.ones((2, 74, 4)) + 0j)
     with pytest.raises(ValueError, match="merge_ok"):
         k8.contract_last_oz_nodemat(xt, m, repeat=True, merged=True)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        k8.contract_last_oz_kernel(xt, oz.slice_matrix(np.ones((74, 4))), phase=xt)
+    _, ph, _ = _cds_pair((2, 74), 7)
+    ms = oz.slice_matrix(np.exp(2j * np.pi * np.random.default_rng(8).random((74, 4))))
+    for conj in (False, True):
+        got = k8.contract_last_oz_kernel(xt, ms, phase=ph, conj=conj)
+        t = k8.phase_operand([xt.re.hi, xt.re.lo, xt.im.hi, xt.im.lo],
+                             [ph.re.hi, ph.re.lo, ph.im.hi, ph.im.lo], conj, 2, True)
+        want = k8.contract_last_oz_kernel(ds.CDS(ds.DS(t[0], t[1]), ds.DS(t[2], t[3])), ms)
+        _equal(tuple(want), tuple(got))
 
 
 def test_staged_contract_last_oz_matches_jax():
