@@ -76,8 +76,11 @@ _ENTRY_ARGS_F32 = {
     "bfft_oz_gmain3": [_P] * 10 + [_I] * 9 + [_P],
     # preslice, 4 matrices, 4 outputs, 10 ints and the stream
     "bfft_oz_gmain12": [_P] * 9 + [_I] * 10 + [_P],
-    # 8 stream planes, 2 weights, 4 outputs, 2 ints and the stream
-    "bfft_oz_hadamard": [_P] * 14 + [_I] * 2 + [_P],
+    # Nx, Ny, the z block and sx: whether K10's block fits in shared memory
+    "bfft_oz_gmain12_fits": [_I] * 4,
+    # 8 stream planes, 2 weights, 4 outputs, the node count, 3 dims, 11
+    # strides and the stream
+    "bfft_oz_hadamard": [_P] * 14 + [_I] * 15 + [_P],
     # 4 main blocks, 3 planes, 3 signs, 2 weights, 2 outputs, 5 ints and the stream
     "bfft_oz_hadamard_half": [_P] * 14 + [_I] * 5 + [_P],
 }

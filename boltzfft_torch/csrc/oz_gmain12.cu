@@ -21,7 +21,8 @@
 // the card parallelism: C * Nz/(2 zb) blocks, against K9's one block per
 // node (oz_gmain3.cu).  The block's z extent is chosen by
 // boltzfft_torch/oz.py default_zh_block: the fewest z rows that fill a
-// 512-thread tile.
+// 512-thread tile, among those whose block fits in shared memory
+// (bfft_oz_gmain12_fits, the one count of it).
 //
 // The entry point returns cudaGetLastError() of its launch; it launches on
 // the given stream, does not synchronise and allocates nothing.
@@ -118,6 +119,8 @@ __global__ void __launch_bounds__(kThreads) gmain12_kernel(const G12Args a) {
   stage<NLEV>(t, ny * zb, tile);
 }
 
+constexpr size_t kSmemMax = 232448;  // dynamic shared memory one block may use
+
 size_t smem_bytes(int nx, int ny, int zb, int sx) {
   const size_t inter = sizeof(float) * 4 * (size_t)nx * zb * ny;
   const int dims[2][2] = {{ny, nx * zb}, {nx, ny * zb}};  // (K = L, rows) per stage
@@ -142,6 +145,13 @@ int launch(const G12Args& a, int n_nodes, cudaStream_t st) {
 
 }  // namespace
 
+// 1 when a block of z extent zb (its stage-1 intermediate and the larger of
+// its two stages' tiles) fits in a block's shared memory, else 0.
+extern "C" int bfft_oz_gmain12_fits(int nx, int ny, int zb, int sx) {
+  if (nx < 1 || ny < 1 || zb < 1 || sx < 1) return 0;
+  return smem_bytes(nx, ny, zb, sx) <= kSmemMax ? 1 : 0;
+}
+
 extern "C" int bfft_oz_gmain12(const void* pre, const void* myr, const void* myi,
                                const void* mxr, const void* mxi, void* orh, void* orl,
                                void* oih, void* oil, int n_nodes, int nx, int ny, int nzh,
@@ -151,7 +161,7 @@ extern "C" int bfft_oz_gmain12(const void* pre, const void* myr, const void* myi
       nzh % zb || nx > kThreads || ny > kThreads || sm < 1 || sm > bfft_oz::SM_MAX ||
       sx < 1 || sx > bfft_oz::SX_MAX || nlev < 1 || nlev > 8)
     return cudaErrorInvalidValue;
-  if (smem_bytes(nx, ny, zb, sx) > 232448) return cudaErrorInvalidValue;
+  if (!bfft_oz_gmain12_fits(nx, ny, zb, sx)) return cudaErrorInvalidValue;
   G12Args a;
   a.pre = (const uint16_t*)pre;
   a.myr = (const uint16_t*)myr;

@@ -15,8 +15,9 @@ are K8's merged contraction (``merge_ok`` must hold on both), so the result,
 the ``(C, Nx, Ny, Nz/2)`` CDS the staged half-z K8 call consumes, is bitwise
 equal to the staged K8 chain and to :func:`gmain12_reference`, which is that
 chain on the plain version.  The kernel blocks the z-half axis
-(``zh_block``, default :func:`oz.default_zh_block`); z is a passenger of
-both stages, so every block size gives the same bits.
+(``zh_block``, default :func:`oz.default_zh_block` over the blocks that
+fit in shared memory, :func:`block_fits`); z is a passenger of both stages,
+so every block size gives the same bits.
 """
 
 from __future__ import annotations
@@ -33,6 +34,16 @@ from .oz_contract import contract_plain
 LAUNCHES = 0
 #: Calls of the plain PyTorch version.
 REFERENCE_CALLS = 0
+
+
+def block_fits(nx: int, ny: int, zh_block: int, sx: int = _oz.DEFAULT_SLICES_X) -> bool:
+    """Whether a K10 block of ``zh_block`` z rows fits in a block's shared
+    memory on the card.  The kernel's source holds the one count of its
+    shared memory (``bfft_oz_gmain12_fits``), so this needs the built
+    library."""
+    from .._build import load_library
+
+    return bool(load_library().bfft_oz_gmain12_fits(nx, ny, int(zh_block), sx))
 
 
 def gmain12_nodemat(
@@ -54,10 +65,16 @@ def gmain12_nodemat(
     for mm, k in ((m_y, ny), (m_x, nx)):
         if not _oz.merge_ok(k, sm=mm.re.shape[-3], cmax=cmax, w=w):
             raise ValueError("gmain12 needs merge_ok on both fused stages")
-    zb = _oz.default_zh_block(nx, nzh, ny) if zh_block is None else int(zh_block)
+    dev = x_pre.full.device
+    sx = min(_oz.DEFAULT_SLICES_X, cmax + 1)
+    if zh_block is not None:
+        zb = int(zh_block)
+    elif dev.type == "cuda":
+        zb = _oz.default_zh_block(nx, nzh, ny, fits=lambda d: block_fits(nx, ny, d, sx))
+    else:  # the plain version gives the same bits for every block
+        zb = _oz.default_zh_block(nx, nzh, ny)
     if zb < 1 or nzh % zb:
         raise ValueError(f"zh_block {zb} must divide Nz/2 = {nzh}")
-    dev = x_pre.full.device
     if any(t.device != dev for mm in (m_y, m_x) for t in mm):
         raise ValueError("gmain12_nodemat: operands on more than one device")
     args = (x_pre, m_y, m_x, tuple(grid_shape), cmax, w, fold_tail)
@@ -105,9 +122,8 @@ def _gmain12_cuda(x_pre, m_y, m_x, grid_shape, cmax, w, fold_tail, zb) -> CDS:
     pre = x_pre.full.contiguous()
     if tuple(pre.shape) != (nx * nzh, sx * 2 * ny):
         raise ValueError(f"gmain12: x_pre {tuple(pre.shape)}, expected {(nx * nzh, sx * 2 * ny)}")
-    if _oz.gmain12_smem(nx, ny, zb, sx) > _oz.BLOCK_SMEM_MAX:
-        raise ValueError(f"gmain12: zh_block {zb} needs {_oz.gmain12_smem(nx, ny, zb, sx)} B of"
-                         f" shared memory, more than a block has ({_oz.BLOCK_SMEM_MAX})")
+    if not block_fits(nx, ny, zb, sx):
+        raise ValueError(f"gmain12: a block of zh_block {zb} does not fit in shared memory")
     dev = pre.device
     mats = [t.contiguous() for mm in (m_y, m_x) for t in (mm.re, mm.im)]
     out = [torch.empty((c, nx, ny, nzh), dtype=torch.float32, device=dev) for _ in range(4)]

@@ -68,27 +68,41 @@ def _hadamard_cuda(g1, g2, w) -> CDS:
 
     f32 = torch.float32
     shape = tuple(g1.re.hi.shape)
-    c, n = shape[0], math.prod(shape[1:])
-    planes = [t.to(f32).contiguous() for g in (g1, g2)
-              for t in (g.re.hi, g.re.lo, g.im.hi, g.im.lo)]
-    for t in planes:
+    c = shape[0]
+    p1, p2 = ([t.to(f32) for t in (g.re.hi, g.re.lo, g.im.hi, g.im.lo)] for g in (g1, g2))
+    for t in p1 + p2:
         if tuple(t.shape) != shape:
             raise ValueError(f"hadamard_wsum: stream planes {tuple(t.shape)}, expected {shape}")
+    # The kernel reads each stream in place through one set of strides (the
+    # full routes hand over the x stage's rolled views), its three per-node
+    # axes ordered as the first stream lies in memory, and writes the output
+    # through its strides.  Planes that differ in layout, or more than three
+    # per-node axes, are copied into order first.
+    if len(shape) > 4 or any(len({t.stride() for t in p}) > 1 for p in (p1, p2)):
+        p1, p2 = ([t.contiguous().reshape(c, -1) for t in p] for p in (p1, p2))
+    pad = lambda t: t.reshape((c,) + (1,) * (4 - t.dim()) + tuple(t.shape[1:]))
+    p1, p2 = [pad(t) for t in p1], [pad(t) for t in p2]
+    d = tuple(p1[0].shape[1:])
+    perm = sorted(range(3), key=lambda a: (-p1[0].stride(a + 1), a))
+    dims = tuple(d[a] for a in perm)
+    so = tuple((d[1] * d[2], d[2], 1)[a] for a in perm)
+    s1, s2 = ((t.stride(0),) + tuple(t.stride(a + 1) for a in perm) for t in (p1[0], p2[0]))
+    if math.prod(dims) >= 2**31 or max(s1 + s2) >= 2**31:
+        raise ValueError(f"hadamard_wsum: {dims} per node, strides {s1} {s2}; the kernel"
+                         " takes < 2^31")
     ws = [None, None]
     if w is not None:
         ws = [t.to(f32).contiguous() for t in (w.hi, w.lo)]
         if any(tuple(t.shape) != (c,) for t in ws):
             raise ValueError(f"hadamard_wsum: weights {tuple(w.hi.shape)}, expected {(c,)}")
-    if n >= 2**31:
-        raise ValueError(f"hadamard_wsum: {n} elements per node, the kernel takes < 2^31")
     dev = g1.re.hi.device
     out = [torch.empty(shape[1:], dtype=f32, device=dev) for _ in range(4)]
     ptr = lambda t: None if t is None else t.data_ptr()
     lib = load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.bfft_oz_hadamard(*[t.data_ptr() for t in planes], *[ptr(t) for t in ws],
-                                  *[t.data_ptr() for t in out], c, n, stream)
+        rc = lib.bfft_oz_hadamard(*[t.data_ptr() for t in p1 + p2], *[ptr(t) for t in ws],
+                                  *[t.data_ptr() for t in out], c, *dims, *s1, *s2, *so, stream)
     if rc != 0:
         raise RuntimeError(f"hadamard_wsum: CUDA kernel failed with cudaError {rc}")
     LAUNCHES += 1

@@ -30,7 +30,7 @@ bitwise wherever the two scales agree and at the ds noise floor elsewhere.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -367,40 +367,24 @@ def transform3_oz_nodemat(
 # ---------------------------------------------------------------------------
 
 _THREADS = 512  # threads of a K10 block (csrc/oz_gmain12.cu)
-BLOCK_SMEM_MAX = 232448  # shared memory one block may use on sm_90
-
-
-def _tile_smem(k: int, ell: int, sx: int, rows: int) -> int:
-    """Shared memory of one tile of the contraction (``tile_smem_bytes`` of
-    ``csrc/oz_common.cuh``)."""
-    kp = (k + 3) & ~3
-    stride = kp if (kp // 4) % 2 else kp + 4
-    return 4 * (2 * sx * rows * kp + 2 * ell * stride) + 8 * rows
-
-
-def gmain12_smem(nx: int, ny: int, zb: int, sx: int = DEFAULT_SLICES_X) -> int:
-    """Shared memory of one K10 block: its stage-1 intermediate (4 float32
-    planes of ``Nx * zb * Ny``) and the larger of its two stages' tiles."""
-    tiles = []
-    for k, rows in ((ny, nx * zb), (nx, ny * zb)):
-        tiles.append(_tile_smem(k, k, sx, min(max(1, _THREADS // k), rows)))
-    return 16 * nx * zb * ny + max(tiles)
 
 
 def default_zh_block(nx: int, nzh: int, ny: Optional[int] = None,
-                     sx: int = DEFAULT_SLICES_X) -> int:
+                     fits: Callable[[int], bool] = lambda zb: True) -> int:
     """K10's z-half block: the smallest divisor ``zb`` of ``nzh`` whose
     block rows fill a 512-thread tile in both stages (``Nx * zb >= 512 //
     Ny`` and ``Ny * zb >= 512 // Nx``), so no thread idles and the grid has
-    the most blocks (``C * nzh / zb``); within the shared memory a block may
-    hold (:func:`gmain12_smem`).  32^3 and 64^3 give 1, 16^3 2, 8^3 4.  The
-    JAX package's rule (multiples of 8 under a 1024-row VMEM cap) follows
-    Mosaic's tiling and has no meaning here.  Every ``zb`` gives the same
-    bits: the z rows are independent."""
+    the most blocks (``C * nzh / zb``); among the divisors for which
+    ``fits(zb)`` holds (on the card, whether the block fits in shared
+    memory, which the kernel counts: ``kernels.oz_gmain12.block_fits``).
+    32^3 and 64^3 give 1, 16^3 2, 8^3 4.  The JAX package's rule (multiples
+    of 8 under a 1024-row VMEM cap) follows Mosaic's tiling and has no
+    meaning here.  Every ``zb`` gives the same bits: the z rows are
+    independent."""
     ny = nx if ny is None else ny
     divisors = [d for d in range(1, nzh + 1) if nzh % d == 0]
-    fits = [d for d in divisors if gmain12_smem(nx, ny, d, sx) <= BLOCK_SMEM_MAX] or divisors[:1]
-    for d in fits:
+    ok = [d for d in divisors if fits(d)] or divisors[:1]
+    for d in ok:
         if nx * d >= _THREADS // ny and ny * d >= _THREADS // nx:
             return d
-    return fits[-1]
+    return ok[-1]

@@ -17,7 +17,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    c2c in float64 (1e-12 max|Q|);
 4. the scheme measurement: the whole Q through K1 against the kron route
    (K3 plus its cuFFT finale) at 8^3, 12^3 and 16^3, Ns=12, on E = 1, 32, 256
-   and 512 distributions, float32 and float64, medians of 10 trials;
+   and 512 distributions, float32 and float64, medians of 20 trials (5 in
+   each of four turns);
 5. the homogeneous main paths, ``make_collision_operator`` or ``collide``
    at 32^3 and 64^3, Ns=12, on the BKW distribution at t = 6.5: K1
    (``impl="fused"``), rfft + use_pallas (K6, K5), fused + a ``gain_reduce``
@@ -42,7 +43,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 9. ``health.selfcheck`` on the card for fused, rfft + use_pallas and dft,
    and with a corrupted ``Precomp`` (must fail);
 10. ``fft_benchmark`` and ``loop_benchmark`` at 32^3, Ns=12, float64;
-11. times (CUDA events, 2 warm-ups, 10 trials; median and mean): K1 at 32^3
+11. times (CUDA events, 2 warm-ups, 10 trials, a plain version 1 and 5;
+    median and mean): K1 at 32^3
     and 64^3; K2, K4, K5, K6 at the main paths' shapes with their bounds,
     plain versions and K5's library yardstick; ``collide`` through each route
     (K1, staged rfft and c2c, rfft + use_pallas, K2 + hook, K4, dft at
@@ -71,7 +73,8 @@ Phases, in order; any failure raises and the script exits non-zero:
     and launches by kernel, idle share), and K7, K8, K9, K12 at main-path
     shapes against their plain versions, their bounds (chunk-pair dots at the
     bf16 tensor-core peak plus the fold at the float32 CUDA-core peak, or
-    bytes) and, for K8, a complex128 ``torch.bmm``/``matmul`` yardstick;
+    bytes) and, for K8, a complex128 ``torch.bmm``/``matmul`` yardstick, for
+    K9 a complex128 ``einsum`` of its three stages;
 17. the oz engine's other routes' kernels against their plain versions at
     their shapes, 32^3 and 64^3, Ns=12: K8's phased mode (the three stages of
     ``transform3_oz_phased`` on the first sub-batch of 2 nodes, tables from
@@ -89,11 +92,12 @@ Phases, in order; any failure raises and the script exits non-zero:
     ``--g-stream full`` and with ``--gmain-fused 12``;
 20. times: each route's eval (1 warm-up, 5 trials at 32^3, 3 at 64^3) and a
     profile of one eval; K8 phased, K11 and K10 against their plain
-    versions, bounds and yardsticks (complex128 ``einsum``; K10 none), with
+    versions, bounds and complex128 ``einsum`` yardsticks, with
     their launches per eval; the 32^3 main block through K9, K10 + the half-z
     K8 call, and the staged K8 chain, on the same nodes.
 
-The last two lines are a JSON summary of the kernels and
+A ``[N total]`` line after phases 3-11, 16 and 20 gives the seconds since the
+device check.  The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -151,6 +155,10 @@ BKW_DIGITS = {  # reference f64 L1, L2, Linf at Ns=12 and the rtol they hold to
     64: ((8.9149e-11, 8.3092e-12, 3.0685e-12), 1e-3),
 }
 TRIALS = 10
+# the plain versions' and the scheme measurement's trials: fewer, so that the
+# whole script stays near 300 s of command time
+PLAIN_TRIALS = 5
+SCHEME_TRIALS = 5
 # The CLIs' gates: relative mass drift, and the worst per-step H rise as a
 # share of the total dissipation |H_end - H_0|.
 MASS_TOL = 1e-2
@@ -686,13 +694,13 @@ def ds_phases(bt, dev, card, ks, q_c2c, entry, report):
         print_profile(f"ds eval {n}^3", fam, wall_us, card, 16)
         inputs[n]["profile"] = fam
 
-    def row(name, key, n, kname, fn, ref, b, lib=None):
-        ms, pms = time_ms(fn), time_ms(ref)
+    def row(name, key, n, kname, fn, ref, b, lib=None, lib_label="complex128 matmul"):
+        ms, pms = time_ms(fn), time_ms(ref, PLAIN_TRIALS, 1)
         lms = time_ms(lib) if lib is not None else None
         report(f"{name} kernel", ms, "call", 16)
         report(f"{name} plain", pms, "call", 16)
         if lms is not None:
-            report(f"{name} library yardstick (complex128 matmul)", lms, "call", 16)
+            report(f"{name} library yardstick ({lib_label})", lms, "call", 16)
         print(f"[16 bound] {name}: {b[0]:.4f} ms ({b[1]}); kernel median"
               f" {statistics.median(ms) / b[0]:.1f}x the bound")
         entry(name, kname, "float32", ds_counts[n][key], ds_counts[n][key + "_plain"],
@@ -734,11 +742,16 @@ def ds_phases(bt, dev, card, ks, q_c2c, entry, report):
             b9 = oz_bound(sum(w[0] for w in work), sum(w[1] for w in work),
                           rows * sx * 2 * n * 2 + c * 8 * 2 * 2 * (2 * n * n + nzh * n)
                           + c * n ** 3 * 8)
+            # the library yardstick: the three stages as one complex128 einsum
+            # (y, x, then the half-z stage's real part)
+            g3 = [torch.randn(*sh, dtype=torch.complex128, device=dev)
+                  for sh in ((n, nzh, n), (c, n, n), (c, n, n), (c, nzh, n))]
             row(f"gmain3_nodemat[{n}^3,Ns=12,C={c}]", "k9", n, "gmain3_nodemat",
                 lambda: k9.gmain3_nodemat(v["x_pre"], v["m_y"], v["m_x"], v["m_zh"], cfgs[n].grid_shape,
                                           cmax=6),
                 lambda: k9.gmain3_reference(v["x_pre"], v["m_y"], v["m_x"], v["m_zh"], cfgs[n].grid_shape,
-                                            cmax=6), b9)
+                                            cmax=6), b9,
+                lambda: torch.einsum("xzy,cyj,cxi,czk->cijk", *g3).real, "complex128 einsum")
         else:
             macs, fold = oz_stage_work(c * n * n, nzh, n, "mro")
             b8z = oz_bound(macs, fold, c * n * n * nzh * 16 + c * 8 * nzh * n * 2 * 2 + c * n ** 3 * 8)
@@ -831,8 +844,7 @@ def ds_route_phases(bt, dev, card, ks, q_c2c, entry, report, st):
         g12 = parity(f"K10 {n}^3 C={c} zh_block={zb0} (the default)", ("k10", n),
                      lambda: k10.gmain12_nodemat(v["x_pre"], v["m_y"], v["m_x"], grid, cmax=6),
                      lambda: k10.gmain12_reference(v["x_pre"], v["m_y"], v["m_x"], grid, cmax=6))
-        for zb in (d for d in (2, 4) if (n // 2) % d == 0
-                   and oz.gmain12_smem(n, n, d) <= oz.BLOCK_SMEM_MAX):
+        for zb in (d for d in (2, 4) if (n // 2) % d == 0 and k10.block_fits(n, n, d)):
             other = k10.gmain12_nodemat(v["x_pre"], v["m_y"], v["m_x"], grid, cmax=6, zh_block=zb)
             torch.cuda.synchronize()
             print(f"  K10 {n}^3 zh_block={zb} bitwise equal to zh_block={zb0}: {same(other, g12)}")
@@ -909,7 +921,7 @@ def ds_route_phases(bt, dev, card, ks, q_c2c, entry, report, st):
 
     # ---- 20. kernel times at the routes' shapes ----------------------------
     def row(name, kname, key, launches, fn, ref, b, lib=None, lib_label="complex128 einsum"):
-        ms, pms = time_ms(fn), time_ms(ref)
+        ms, pms = time_ms(fn), time_ms(ref, PLAIN_TRIALS, 1)
         lms = time_ms(lib) if lib is not None else None
         report(f"{name} kernel", ms, "call", 20)
         report(f"{name} plain", pms, "call", 20)
@@ -953,11 +965,13 @@ def ds_route_phases(bt, dev, card, ks, q_c2c, entry, report, st):
         b10 = oz_bound(sum(w[0] for w in work), sum(w[1] for w in work),
                        n * nzh * sx * 2 * n * 2 + c * 8 * 2 * 2 * 2 * n * n + c * n * n * nzh * 16)
         grid = cfgs[n].grid_shape
+        e10 = [torch.randn(*sh, dtype=torch.complex128, device=dev)
+               for sh in ((n, nzh, n), (c, n, n), (c, n, n))]
         ms10 = row(f"gmain12_nodemat[{n}^3,Ns=12,C={c},zh_block={s['zb']}]", "gmain12_nodemat",
                    ("k10", n), route_counts[("12", n)]["k10"],
                    lambda: k10.gmain12_nodemat(v["x_pre"], v["m_y"], v["m_x"], grid, cmax=6),
                    lambda: k10.gmain12_reference(v["x_pre"], v["m_y"], v["m_x"], grid, cmax=6),
-                   b10)
+                   b10, lambda: torch.einsum("xzy,cyj,cxi->cijz", *e10))
         if n == small:
             # K10 against K9 on the same nodes: the main block of each route
             main = dict(
@@ -995,6 +1009,9 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     print(f"[1 device] {card} | torch {torch.__version__} cuda {torch.version.cuda}")
     t_start = time.perf_counter()
+
+    def lap(phase):
+        print(f"[{phase} total] {time.perf_counter() - t_start:.1f} s after the device check")
 
     from types import SimpleNamespace
 
@@ -1150,9 +1167,11 @@ def main() -> int:
             print(f"  K3 route collide 16^3 float32 vs float64: {d32:.3e} max|Q| (tol {TOL_F32_16:g})")
             check(d32 <= TOL_F32_16, f"K3 route float32 at 16^3: {d32:.3e}")
 
+    lap(3)
+
     # ---- 4. the scheme measurement: K1 against the kron route ----------
     print("[4 scheme] the whole Q, K1 (fused_scheme='ct') vs K3 + cuFFT finale"
-          f" (fused_scheme='kron'), Ns=12, median of {TRIALS} trials | {card}")
+          f" (fused_scheme='kron'), Ns=12, median of {4 * SCHEME_TRIALS} trials | {card}")
     scheme_ms = {}
     for dtype in ("float64", "float32"):
         for n in SCHEME_GRIDS:
@@ -1164,7 +1183,7 @@ def main() -> int:
                 cells = torch.stack([f * (1.0 - 0.5 * i / e) for i in range(e)])
                 row = {}
                 for s in ("ct", "kron", "kron", "ct"):  # in turns
-                    ms = time_ms(lambda: bt.collide(cfgs[s], pres[s], cells))
+                    ms = time_ms(lambda: bt.collide(cfgs[s], pres[s], cells), SCHEME_TRIALS, 1)
                     row.setdefault(s, []).extend(ms)
                 med = {s: statistics.median(v) for s, v in row.items()}
                 scheme_ms[(dtype, n, e)] = med
@@ -1174,6 +1193,7 @@ def main() -> int:
                       f" ({max(med.values()) / min(med.values()):.2f}x)")
     print("  pick_scheme: " + ", ".join(f"{n}^3 -> {bt.pick_scheme(n, n, n)!r}"
                                         for n in SCHEME_GRIDS))
+    lap(4)
 
     # ---- 5. homogeneous main paths -------------------------------------
     reset_counts(ks)
@@ -1276,6 +1296,8 @@ def main() -> int:
         if len(key) == 3:
             del main_q[key]
 
+    lap(5)
+
     # ---- 6. inhomogeneous main path (K1; K3 by name) -------------------
     # The CLIs' defaults: 16^3 velocities, Ns=12, CFL time step, MUSCL.
     tg = dict(u0=0.8, temperature=3.0, length=1.0)
@@ -1331,6 +1353,8 @@ def main() -> int:
     check(d <= 1e-12, f"TG-2D step vs c2c {d:.3e}")
     del coll_c, pre_c, step_c
 
+    lap(6)
+
     # ---- 7. determinism and dispatch -----------------------------------
     for dtype in ("float64", "float32"):
         cfg = bt.CollisionConfig(nv=32, ns=12, impl="fused", dtype=dtype)
@@ -1373,6 +1397,8 @@ def main() -> int:
     check(plain_calls(c4) == 0, f"homogeneous main path called a plain version {c4}")
     print(f"[7 dispatch] homogeneous K1 path {c4}; every route launched its kernels with 0"
           " plain calls; inhomogeneous paths: K1 (or K3 by name) launched 2 per step, nothing else")
+
+    lap(7)
 
     # ---- 8. RK4 relaxation (maxwell_bkw --steps) -----------------------
     reset_counts(ks)
@@ -1426,6 +1452,8 @@ def main() -> int:
         if mod is loop_benchmark:
             check(c["k5"] > 0 and c["k5_plain"] == 0, f"loop_benchmark dispatch {c}")
 
+    lap(10)
+
     # ---- 11. times -----------------------------------------------------
     times = {}
     kernels = []
@@ -1453,7 +1481,7 @@ def main() -> int:
             _, _, f = bkw(bt, cfg, dev)
             args, kw = k1_inputs(op, cfg, pre, f)
             for label, fn in (("kernel", k1.fused_collide), ("plain", k1.fused_collide_reference)):
-                ms = time_ms(lambda: fn(*args, **kw))
+                ms = time_ms(lambda: fn(*args, **kw), *((PLAIN_TRIALS, 1) if label == "plain" else ()))
                 times[("k1", n, dtype, label)] = ms
                 report(f"K1 {n}^3 Ns=12 {dtype} {label}", ms)
             # K2 and K4 at the same shape, on this f's spectrum
@@ -1461,7 +1489,7 @@ def main() -> int:
             for key, scheme in (("k2", "ct"), ("k4", "transpose")):
                 for label, fn in (("kernel", lambda: k24.fused_gain_dft(*args, scheme=scheme, **kw)),
                                   ("plain", lambda: k24.fused_gain_dft_reference(*args, **kw))):
-                    ms = time_ms(fn)
+                    ms = time_ms(fn, *((PLAIN_TRIALS, 1) if label == "plain" else ()))
                     times[(key, n, dtype, label)] = ms
                     report(f"{key.upper()} {n}^3 Ns=12 {dtype} {label}", ms, "call")
             # K6 and K5 on the first node chunk of the rfft + use_pallas route
@@ -1476,7 +1504,7 @@ def main() -> int:
                 ("k5", "plain", lambda: k5.gain_reduce_reference(*k5_args, **k5_kw)),
                 ("k5", "library", lambda: torch.einsum("bm,bm->m", w, k5_args[0])),
             ):
-                ms = time_ms(fn)
+                ms = time_ms(fn, *((PLAIN_TRIALS, 1) if label == "plain" else ()))
                 times[(key, n, dtype, label)] = ms
                 tag = "torch.einsum('bm,bm->m') on precomputed weights (library yardstick)" \
                     if label == "library" else label
@@ -1529,7 +1557,7 @@ def main() -> int:
         err, (args, kw) = k3_batch_parity(op, k3, cfg_k, pre, cells, "TG-2D")
         max_err[("k3", dtype)] = max(max_err[("k3", dtype)], err)
         ms_k3 = time_ms(lambda: k3.fused_gain_kron(*args, **kw))
-        ms_plain = time_ms(lambda: k3.fused_gain_kron_reference(*args, **kw))
+        ms_plain = time_ms(lambda: k3.fused_gain_kron_reference(*args, **kw), PLAIN_TRIALS, 1)
         args1, kw1 = k1_inputs(op, cfg, pre, cells)
         ms_k1 = time_ms(lambda: k1.fused_collide(*args1, **kw1))
         ms_step = time_ms(lambda: step2(f2, pre))
@@ -1610,10 +1638,11 @@ def main() -> int:
               f" = {ms / b_ms:.1f}x the bound; K3's dense kron y/z product does"
               f" {kron / 1e9:.1f} GFLOP, {kron / (ms * 1e-3) / PEAK_FLOPS[dtype]:.1%}"
               " of the CUDA-core peak")
+    lap(11)
     st = ds_phases(bt, dev, card, ks, q_c2c, entry, report)
-    print(f"[16 total] {time.perf_counter() - t_start:.1f} s after the device check")
+    lap(16)
     ds_route_phases(bt, dev, card, ks, q_c2c, entry, report, st)
-    print(f"[20 total] {time.perf_counter() - t_start:.1f} s after the device check")
+    lap(20)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

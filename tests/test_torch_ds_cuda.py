@@ -245,11 +245,18 @@ def test_k10_matches_plain_every_zh_block(cuda_device, grid):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rolled", [False, True])
 @pytest.mark.parametrize("weighted", [True, False])
 @pytest.mark.parametrize("grid", GRIDS)
-def test_k11_matches_plain(cuda_device, grid, weighted):
+def test_k11_matches_plain(cuda_device, grid, weighted, rolled):
+    """K11 on streams in order and, as the full routes hand them over, on
+    the x stage's rolled views (read in place through their strides)."""
     c = 2
     g1, g2 = _cds((c,) + grid, 11, cuda_device), _cds((c,) + grid, 12, cuda_device)
+    if rolled:
+        raw = _cds((c, grid[1], grid[2], grid[0]), 14, cuda_device)
+        g1 = ds._roll_axis(raw, -1, -3)
+        assert not g1.re.hi.is_contiguous() and tuple(g1.re.hi.shape) == (c,) + grid
     rng = np.random.default_rng(13)
     w = ds.from_f64(rng.uniform(0.5, 1.5, c), torch.float32, cuda_device) if weighted else None
     a = k11.hadamard_wsum(g1, g2, w)

@@ -164,8 +164,10 @@ def test_k10_plain_matches_jax_interpret_and_zh_blocks(grid):
 def test_default_zh_block_rule():
     assert [oz.default_zh_block(n, n // 2) for n in (8, 16, 32, 64)] == [4, 2, 1, 1]
     assert oz.default_zh_block(6, 5, 8) == 5  # no divisor fills a tile: the largest
-    for n in (8, 16, 32, 64, 72):
-        assert oz.gmain12_smem(n, n, oz.default_zh_block(n, n // 2)) <= 232448
+    # blocks the card's shared memory refuses (``fits``) drop out of the choice
+    assert oz.default_zh_block(8, 4, fits=lambda d: d <= 2) == 2
+    assert oz.default_zh_block(16, 8, fits=lambda d: d != 2) == 4
+    assert oz.default_zh_block(4, 1021, 4, fits=lambda d: d == 1) == 1
 
 
 def test_full_routes_agree_with_half_and_f64_c2c_at_8():
@@ -224,4 +226,68 @@ def test_entry_argtypes_match_the_sources():
     for name, argtypes in table.items():
         if name in entries:  # the f32/f64 pairs come from macros, not read here
             assert entries[name] == argtypes, name
-    assert {"bfft_oz_contract", "bfft_oz_gmain12", "bfft_oz_hadamard"} <= set(entries)
+    assert {"bfft_oz_contract", "bfft_oz_gmain12", "bfft_oz_gmain12_fits",
+            "bfft_oz_hadamard"} <= set(entries)
+
+
+def _k11_layouts(name):
+    rng = np.random.default_rng(31)
+    c, grid = 3, (4, 5, 6)
+    cds = lambda shape: ds.cds_from_f64(rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+    rolled = lambda: ds._roll_axis(cds((c, grid[1], grid[2], grid[0])), -1, -3)
+    if name == "rolled":
+        return rolled(), rolled()
+    if name == "rolled, in order":
+        return rolled(), cds((c,) + grid)
+    if name == "in order, rolled":
+        return cds((c,) + grid), rolled()
+    if name == "two axes":
+        return ds._roll_axis(cds((c, 6, 5)), -1, -2), cds((c, 5, 6))
+    # planes of one stream in different layouts: copied into order
+    g = rolled()
+    return ds.CDS(g.re, ds.tree_map(lambda a: a.contiguous(), g.im)), rolled()
+
+
+@pytest.mark.parametrize("layout", ["rolled", "rolled, in order", "in order, rolled",
+                                    "two axes", "planes differ"])
+def test_k11_wrapper_addresses_strided_streams(monkeypatch, layout):
+    """The CUDA wrapper's layout arguments (streams read in place through
+    their strides, axes in the first stream's memory order, the output
+    written through its strides), held on the CPU against an entry that does
+    the kernel's addressing in NumPy on the raw memory and copies one input
+    element through to each output plane."""
+    import contextlib
+    import ctypes
+    import types
+
+    from boltzfft_torch import _build
+
+    seen = {}
+
+    def entry(*args):
+        planes, outs = args[:8], args[10:14]
+        c, d1, d2, d3 = args[14:18]
+        s1, s2, so = args[18:22], args[22:26], args[26:29]
+        seen["s1"] = s1
+        e = np.arange(d1 * d2 * d3)
+        i1, i2, i3 = e // (d2 * d3), (e // d3) % d2, e % d3
+        view = lambda p, o: np.ctypeslib.as_array((ctypes.c_float * (int(o.max()) + 1)).from_address(p))
+        oe = i1 * so[0] + i2 * so[1] + i3 * so[2]
+        assert np.array_equal(np.sort(oe), e)  # the output: each element once, in bounds
+        for out, p, s, j in ((outs[0], planes[0], s1, c - 1), (outs[1], planes[4], s2, c - 1),
+                             (outs[2], planes[3], s1, 0), (outs[3], planes[7], s2, 0)):
+            o = j * s[0] + i1 * s[1] + i2 * s[2] + i3 * s[3]
+            view(out, oe)[oe] = view(p, o)[o]
+        return 0
+
+    monkeypatch.setattr(_build, "load_library",
+                        lambda: types.SimpleNamespace(bfft_oz_hadamard=entry))
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: types.SimpleNamespace(cuda_stream=None))
+    g1, g2 = _k11_layouts(layout)
+    out = k11._hadamard_cuda(g1, g2, None)
+    assert torch.equal(out.re.hi, g1.re.hi[-1]) and torch.equal(out.re.lo, g2.re.hi[-1])
+    assert torch.equal(out.im.hi, g1.im.lo[0]) and torch.equal(out.im.lo, g2.im.lo[0])
+    assert out.re.hi.is_contiguous() and tuple(out.re.hi.shape) == tuple(g1.re.hi.shape[1:])
+    assert seen["s1"][3] == 1  # consecutive threads read consecutive elements of g1
