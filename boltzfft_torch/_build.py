@@ -76,8 +76,9 @@ _ENTRY_ARGS_F32 = {
     "bfft_oz_gmain3": [_P] * 10 + [_I] * 9 + [_P],
     # preslice, 4 matrices, 4 outputs, 10 ints and the stream
     "bfft_oz_gmain12": [_P] * 9 + [_I] * 10 + [_P],
-    # Nx, Ny, the z block and sx: whether K10's block fits in shared memory
-    "bfft_oz_gmain12_fits": [_I] * 4,
+    # Nx, Ny, the z block, sx and the slices kept: whether K10's block fits
+    # in shared memory
+    "bfft_oz_gmain12_fits": [_I] * 5,
     # 8 stream planes, 2 weights, 4 outputs, the node count, 3 dims, 11
     # strides and the stream
     "bfft_oz_hadamard": [_P] * 14 + [_I] * 15 + [_P],
@@ -144,9 +145,36 @@ def build() -> Path:
     failed = [out for rc, out, _s in results if rc != 0]
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    with BUILD_LOG.open("a") as log:
+        log.write(f"# tensor-core instructions (HMMA, HGMMA) per kernel: {tc_counts(nvcc, tmp)}\n")
     os.replace(tmp, LIB_PATH)
     _HASH_PATH.write_text(digest)
     return LIB_PATH
+
+
+def tc_counts(nvcc: str, lib: Path) -> dict:
+    """{kernel: number of tensor-core instructions} of the ds engine's
+    kernels (``oz_*``, ``gmain*``) in the library's SASS (``cuobjdump
+    -sass``, beside nvcc): the check that the exact chunk dots run on the
+    tensor cores.  Empty where cuobjdump is missing or fails."""
+    tool = Path(nvcc).parent / "cuobjdump"
+    if not tool.exists():
+        return {}
+    proc = subprocess.run([str(tool), "-sass", str(lib)], stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        return {}
+    counts, name = {}, None
+    for line in proc.stdout.splitlines():
+        if "Function : " in line:
+            mangled = line.split("Function : ", 1)[1].strip()
+            name = next((k for k in ("oz_contract_kernel", "gmain3_kernel", "gmain12_kernel")
+                         if k in mangled), None)
+            if name is not None:
+                counts.setdefault(name, 0)
+        elif name is not None and ("HMMA" in line or "HGMMA" in line):
+            counts[name] += 1
+    return counts
 
 
 def _run(cmd: list[str]) -> tuple[int, str, float]:

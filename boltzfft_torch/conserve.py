@@ -32,9 +32,11 @@ class ConservePrecomp(NamedTuple):
 
 
 def build_conserve_precomp(
-    cfg: CollisionConfig, temperature: float = 1.0, *, device="cpu"
+    cfg: CollisionConfig, temperature: float = 1.0, *, device="cuda"
 ) -> ConservePrecomp:
-    """Host-f64 basis and Gram build for :func:`project`, on ``device``.
+    """Host-f64 basis and Gram build for :func:`project`, on ``device`` (the
+    card by default, as ``build_ds_precomp``; ``device="cpu"`` for the plain
+    versions).
 
     ``temperature`` sets the Gaussian weight's scale; any positive value
     gives an exact projection (it only shapes where the correction lives).

@@ -10,24 +10,30 @@
 //
 // What bounds it on this card: operations.  Per output element it does
 // (levels' chunk pairs) x K multiply-adds per component pair: at cmax = 6,
-// 28 pairs; at 64^3 a per-node stage is ~1 GFMA.  On the TPU the chunk dots
-// run on the MXU in bf16; here they run as float32 FMAs on the CUDA cores,
-// which are exact for these values, so the arithmetic is right but the rate
-// is the CUDA cores' (a tensor-core version is perf work, ROADMAP).
+// 28 pairs; at 64^3 a per-node stage is ~1 GMAC.  The chunk dots are exact
+// bf16 products, so they run on the tensor cores (oz_common.cuh oz_tile:
+// mma.sync m16n8k16, each k16 step into a zeroed fragment, float32 adds
+// per level); the bound is their bf16 rate plus the fold's float32
+// arithmetic on the CUDA cores.  What is left on the CUDA cores: the chunk
+// cut (or a copy of K7's presliced chunks), the per-step level adds and the
+// fold, and what limits the mma.sync rate here is shared memory: each
+// product reads its A and B fragments (768 bytes) afresh.
 //
-// What the design does about it: one block holds a tile of rows and every
-// output column; it cuts the tile's chunks once into shared memory (or reads
-// K7's presliced chunks), then streams the matrix slices through shared
-// memory one at a time, each thread forming all levels of its output in
-// registers with float4 loads along K, and folding them in the TPU kernel's
-// order.  The per-node matrices (or phase rows) are selected by blockIdx.y;
-// a shared operand (repeat) is read in place for every node.  Phased mode
-// adds ~120 float operations per operand element (four ds products and two
-// ds adds, the TPU kernel's order), done twice, for the row maximum and for
-// the chunks, rather than staged: a few percent of the contraction's
-// chunk-pair arithmetic at K = 32-64.  No atomics touch the result;
-// every sum runs in one thread in a fixed order, so the result is bitwise
-// reproducible and equal to the plain PyTorch version.
+// What the design does about it: a block (OZ_THREADS threads) loads the
+// node's matrix slices once into shared memory (cp.async; a column group
+// of them where all do not fit, oz_common.cuh oz_plan) and walks row tiles
+// of that node (blocks x, x + gridDim.x, ...; as many blocks as fill the
+// card once).  Per tile it cuts the chunks into shared memory as bf16, then
+// each warp forms its 16 x 8 output tiles' level lists level by level,
+// folding each level as it is formed in the TPU kernel's order, with no
+// barrier.  The per-node matrices (or phase rows) are selected by
+// blockIdx.y; a shared operand (repeat) is read in place for every node.
+// Phased mode adds ~120 float operations per operand element (four ds
+// products and two ds adds, the TPU kernel's order), done twice, for the
+// row maximum and for the chunks, rather than staged.  No atomics touch the
+// result; every level sum is exact whatever its order, and every fold runs
+// in one thread in a fixed order, so the result is bitwise reproducible
+// and equal to the plain PyTorch version.
 //
 // The entry point returns cudaGetLastError() of its launch; it launches on
 // the given stream, does not synchronise and allocates nothing.
@@ -43,14 +49,14 @@ struct OzArgs {
   const uint16_t *pre0, *pre1, *mre, *mim;
   const float *prh, *prl, *pih, *pil;  // (n_nodes, K) phase rows, or null
   float *orh, *orl, *oih, *oil;
-  int rows_pn, per_node, x_per_node, K, L, sm, sx, w, fold_tail, merged, conj, tr_rows;
+  int rows_pn, per_node, x_per_node, K, L, sm, sx, w, fold_tail, merged, conj, nsl, nlev;
 };
 
-template <int NLEV>
-__global__ void oz_contract_kernel(const OzArgs a) {
+// Block (x, node, group): the row tiles x, x + gridDim.x, ... of one node,
+// in the column group blockIdx.z, whose slices it loads once.
+__global__ void __launch_bounds__(bfft_oz::OZ_THREADS) oz_contract_kernel(const OzArgs a) {
   extern __shared__ __align__(16) float smem[];
   const int node = blockIdx.y;
-  const int row0 = blockIdx.x * a.tr_rows;
   OzTile t;
   const long long xrow = a.x_per_node ? (long long)node * a.rows_pn : 0;
   const long long xoff = xrow * a.K;
@@ -77,9 +83,6 @@ __global__ void oz_contract_kernel(const OzArgs a) {
   t.orl = a.orl + ooff;
   t.oih = a.oih ? a.oih + ooff : nullptr;
   t.oil = a.oil ? a.oil + ooff : nullptr;
-  t.row0 = row0;
-  t.nrows = min(a.tr_rows, a.rows_pn - row0);
-  t.tr_rows = a.tr_rows;
   t.K = a.K;
   t.L = a.L;
   t.sm = a.sm;
@@ -87,23 +90,37 @@ __global__ void oz_contract_kernel(const OzArgs a) {
   t.w = a.w;
   t.fold_tail = a.fold_tail;
   t.merged = a.merged;
+  t.nsl = a.nsl;
+  t.nlev = a.nlev;
   t.B = 1;
   t.sa = a.L;
   t.sb = 0;
   t.sl = 1;
-  bfft_oz::oz_tile<NLEV>(t, smem);
+  bfft_oz::oz_stage(t, a.rows_pn, blockIdx.x, gridDim.x, blockIdx.z, gridDim.z, smem, 0);
 }
 
-constexpr int kThreads = 512;
-
-template <int NLEV>
 int launch(const OzArgs& a, int n_nodes, cudaStream_t st) {
-  const size_t smem = bfft_oz::tile_smem_bytes(a.K, a.L, a.sx, a.tr_rows);
+  const bfft_oz::OzPlan p = bfft_oz::oz_plan(a.K, a.L, a.sx, a.nsl, a.rows_pn, 0);
+  const size_t smem = bfft_oz::tile_smem_bytes(a.K, p.lg, a.sx, p.tr, a.nsl);
   cudaError_t err = cudaFuncSetAttribute(
-      oz_contract_kernel<NLEV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      oz_contract_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.rows_pn + a.tr_rows - 1) / a.tr_rows, n_nodes);
-  oz_contract_kernel<NLEV><<<grid, a.tr_rows * a.L, smem, st>>>(a);
+  // enough blocks to fill the card once: each walks the row tiles of its
+  // node and column group, loading their slices once
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, oz_contract_kernel,
+                                                           bfft_oz::OZ_THREADS, smem)) != cudaSuccess)
+    return err;
+  const int groups = (a.L + p.lg - 1) / p.lg;
+  const int n_tiles = (a.rows_pn + p.tr - 1) / p.tr;
+  const long long want = ((long long)sms * (per_sm > 0 ? per_sm : 1) + n_nodes * groups - 1)
+                         / ((long long)n_nodes * groups);
+  const int row_blocks = (int)(want < n_tiles ? (want > 0 ? want : 1) : n_tiles);
+  const dim3 grid(row_blocks, n_nodes, groups);
+  oz_contract_kernel<<<grid, bfft_oz::OZ_THREADS, smem, st>>>(a);
   return cudaGetLastError();
 }
 
@@ -120,7 +137,7 @@ extern "C" int bfft_oz_contract(const void* rh, const void* rl, const void* ih,
                                 int per_node, int x_per_node, int K, int L, int sm,
                                 int nlev, int sx, int w, int fold_tail, int flags,
                                 void* stream) {
-  if (n_nodes < 1 || n_nodes > 65535 || rows_pn < 1 || K < 1 || L < 1 || L > kThreads ||
+  if (n_nodes < 1 || n_nodes > 65535 || rows_pn < 1 || K < 1 || L < 1 ||
       sm < 1 || sm > bfft_oz::SM_MAX || sx < 1 || sx > bfft_oz::SX_MAX || nlev < 1 || nlev > 8)
     return cudaErrorInvalidValue;
   OzArgs a;
@@ -156,17 +173,11 @@ extern "C" int bfft_oz_contract(const void* rh, const void* rl, const void* ih,
   a.w = w;
   a.fold_tail = fold_tail;
   a.merged = (flags & 4) ? 1 : 0;
-  a.tr_rows = kThreads / L < rows_pn ? kThreads / L : rows_pn;
-  if (bfft_oz::tile_smem_bytes(K, L, sx, a.tr_rows) > 232448) return cudaErrorInvalidValue;
+  a.nsl = sm < nlev ? sm : nlev;
+  a.nlev = nlev;
+  const bfft_oz::OzPlan p = bfft_oz::oz_plan(K, L, sx, a.nsl, rows_pn, 0);
+  if (bfft_oz::tile_smem_bytes(K, p.lg, sx, p.tr, a.nsl) > bfft_oz::OZ_SMEM_MAX)
+    return cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  switch (nlev) {
-    case 1: return launch<1>(a, n_nodes, st);
-    case 2: return launch<2>(a, n_nodes, st);
-    case 3: return launch<3>(a, n_nodes, st);
-    case 4: return launch<4>(a, n_nodes, st);
-    case 5: return launch<5>(a, n_nodes, st);
-    case 6: return launch<6>(a, n_nodes, st);
-    case 7: return launch<7>(a, n_nodes, st);
-    default: return launch<8>(a, n_nodes, st);
-  }
+  return launch(a, n_nodes, st);
 }

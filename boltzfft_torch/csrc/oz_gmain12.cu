@@ -13,16 +13,19 @@
 // oz_common.cuh); z is a passenger of both, rows are independent, so the
 // result is bitwise equal to the staged K8 chain for every z block.
 //
-// What bounds it on this card: operations, as K8 (the chunk dots on the CUDA
-// cores).  The TPU kernel keeps the stage-1 intermediate in VMEM; here it
-// stays in the block's shared memory (4 float32 planes of Nx * zb * Ny
-// values: 16 KB at 32^3 and 64 KB at 64^3 for zb = 1) beside the tile
-// buffers, so it never reaches device memory.  The z blocking is what gives
-// the card parallelism: C * Nz/(2 zb) blocks, against K9's one block per
-// node (oz_gmain3.cu).  The block's z extent is chosen by
-// boltzfft_torch/oz.py default_zh_block: the fewest z rows that fill a
-// 512-thread tile, among those whose block fits in shared memory
-// (bfft_oz_gmain12_fits, the one count of it).
+// What bounds it on this card: operations, as K8: the chunk dots, on the
+// tensor cores through the shared tile (oz_common.cuh oz_tile), then the
+// fold on the CUDA cores.  The TPU kernel keeps the stage-1 intermediate in
+// VMEM; here it stays in the block's shared memory (4 float32 planes of
+// Nx * zb * Ny values: 16 KB at 32^3 and 64 KB at 64^3 for zb = 1) beside
+// the tile buffers (the stages' slices, loaded once per stage, and the
+// tile's chunks, oz_common.cuh oz_plan sizing them beside it), so it never
+// reaches device memory.  The z blocking is what gives the card
+// parallelism: C * Nz/(2 zb) blocks.  The block's z
+// extent is chosen by boltzfft_torch/oz.py default_zh_block (the fewest z
+// rows that fill a 512-thread tile of the CUDA-core tile this kernel had
+// before, among those whose block fits in shared memory,
+// bfft_oz_gmain12_fits, the one count of it): 1 at 32^3 and 64^3.
 //
 // The entry point returns cudaGetLastError() of its launch; it launches on
 // the given stream, does not synchronise and allocates nothing.
@@ -33,29 +36,14 @@ namespace {
 
 using bfft_oz::OzTile;
 
-constexpr int kThreads = 512;
-
 struct G12Args {
   const uint16_t* pre;  // (Nx*Nzh, sx*2*Ny)
   const uint16_t *myr, *myi, *mxr, *mxi;  // (C, sm, N, N)
   float *orh, *orl, *oih, *oil;           // (C, Nx, Ny, Nzh)
-  int nx, ny, nzh, zb, sm, sx, w, fold_tail;
+  int nx, ny, nzh, zb, sm, sx, w, fold_tail, nsl, nlev;
 };
 
-__host__ __device__ int rows_per_tile(int L) { return L >= kThreads ? 1 : kThreads / L; }
-
-template <int NLEV>
-__device__ void stage(OzTile t, int rows, float* smem) {
-  t.tr_rows = rows_per_tile(t.L) < rows ? rows_per_tile(t.L) : rows;
-  for (int r0 = 0; r0 < rows; r0 += t.tr_rows) {
-    t.row0 = r0;
-    t.nrows = min(t.tr_rows, rows - r0);
-    bfft_oz::oz_tile<NLEV>(t, smem);
-  }
-}
-
-template <int NLEV>
-__global__ void __launch_bounds__(kThreads) gmain12_kernel(const G12Args a) {
+__global__ void __launch_bounds__(bfft_oz::OZ_THREADS) gmain12_kernel(const G12Args a) {
   extern __shared__ __align__(16) float smem[];
   const int c = blockIdx.y;
   const int z0 = blockIdx.x * a.zb;
@@ -69,87 +57,96 @@ __global__ void __launch_bounds__(kThreads) gmain12_kernel(const G12Args a) {
   t.w = a.w;
   t.fold_tail = a.fold_tail;
   t.merged = 1;
-
-  // stage 1 (y): row r = jx*zb + dz reads preslice row jx*Nzh + z0 + dz;
-  // column jy -> s_t[(jy*zb + dz)*Nx + jx]
-  t.rh = t.rl = t.ih = t.il = nullptr;
-  t.pre0 = a.pre + (size_t)z0 * (2 * a.sx * ny);
-  t.pre1 = nullptr;
-  t.iB = zb;
-  t.isa = nzh;
-  t.isb = 1;
-  t.mre = a.myr + (size_t)c * a.sm * ny * ny;
-  t.mim = a.myi + (size_t)c * a.sm * ny * ny;
-  t.orh = s_t;
-  t.orl = s_t + vb;
-  t.oih = s_t + 2 * vb;
-  t.oil = s_t + 3 * vb;
-  t.K = ny;
-  t.L = ny;
-  t.B = zb;
-  t.sa = 1;
-  t.sb = nx;
-  t.sl = (long long)zb * nx;
-  stage<NLEV>(t, nx * zb, tile);
-
-  // stage 2 (x): rows (jy, dz), K = Nx, from shared memory (oz_tile's first
-  // barrier orders stage 1's writes before these reads); column jx ->
-  // out[c, jx, jy, z0 + dz]
-  const long long obase = (long long)c * nx * ny * nzh + z0;
-  t.pre0 = nullptr;
-  t.rh = s_t;
-  t.rl = s_t + vb;
-  t.ih = s_t + 2 * vb;
-  t.il = s_t + 3 * vb;
-  t.iB = 1;
-  t.isa = 1;
-  t.isb = 0;
-  t.mre = a.mxr + (size_t)c * a.sm * nx * nx;
-  t.mim = a.mxi + (size_t)c * a.sm * nx * nx;
-  t.orh = a.orh + obase;
-  t.orl = a.orl + obase;
-  t.oih = a.oih + obase;
-  t.oil = a.oil + obase;
-  t.K = nx;
-  t.L = nx;
-  t.B = zb;
-  t.sa = nzh;
-  t.sb = 1;
-  t.sl = (long long)ny * nzh;
-  stage<NLEV>(t, ny * zb, tile);
+  t.nsl = a.nsl;
+  t.nlev = a.nlev;
+  const size_t inter = sizeof(float) * 4 * (size_t)vb;
+  // one call site of the tile for the two stages (it is inlined)
+  for (int s = 0; s < 2; ++s) {
+    int rows;
+    if (s == 0) {
+      // stage 1 (y): row r = jx*zb + dz reads preslice row jx*Nzh + z0 + dz;
+      // column jy -> s_t[(jy*zb + dz)*Nx + jx]
+      t.rh = t.rl = t.ih = t.il = nullptr;
+      t.pre0 = a.pre + (size_t)z0 * (2 * a.sx * ny);
+      t.pre1 = nullptr;
+      t.iB = zb;
+      t.isa = nzh;
+      t.isb = 1;
+      t.mre = a.myr + (size_t)c * a.sm * ny * ny;
+      t.mim = a.myi + (size_t)c * a.sm * ny * ny;
+      t.orh = s_t;
+      t.orl = s_t + vb;
+      t.oih = s_t + 2 * vb;
+      t.oil = s_t + 3 * vb;
+      t.K = ny;
+      t.L = ny;
+      t.B = zb;
+      t.sa = 1;
+      t.sb = nx;
+      t.sl = (long long)zb * nx;
+      rows = nx * zb;
+    } else {
+      // stage 2 (x): rows (jy, dz), K = Nx, from shared memory (the barriers
+      // of load_slices and oz_tile order stage 1's writes before these
+      // reads); column jx -> out[c, jx, jy, z0 + dz]
+      const long long obase = (long long)c * nx * ny * nzh + z0;
+      t.pre0 = nullptr;
+      t.rh = s_t;
+      t.rl = s_t + vb;
+      t.ih = s_t + 2 * vb;
+      t.il = s_t + 3 * vb;
+      t.iB = 1;
+      t.isa = 1;
+      t.isb = 0;
+      t.mre = a.mxr + (size_t)c * a.sm * nx * nx;
+      t.mim = a.mxi + (size_t)c * a.sm * nx * nx;
+      t.orh = a.orh + obase;
+      t.orl = a.orl + obase;
+      t.oih = a.oih + obase;
+      t.oil = a.oil + obase;
+      t.K = nx;
+      t.L = nx;
+      t.B = zb;
+      t.sa = nzh;
+      t.sb = 1;
+      t.sl = (long long)ny * nzh;
+      rows = ny * zb;
+    }
+    bfft_oz::oz_stage(t, rows, 0, 1, 0, 1, tile, inter);
+  }
 }
 
-constexpr size_t kSmemMax = 232448;  // dynamic shared memory one block may use
-
-size_t smem_bytes(int nx, int ny, int zb, int sx) {
+// The block's shared memory: the stage-1 intermediate, then the larger of
+// its two stages' tiles, each planned beside the intermediate.
+size_t smem_bytes(int nx, int ny, int zb, int sx, int nsl) {
   const size_t inter = sizeof(float) * 4 * (size_t)nx * zb * ny;
   const int dims[2][2] = {{ny, nx * zb}, {nx, ny * zb}};  // (K = L, rows) per stage
   size_t b = 0;
   for (const auto& d : dims) {
-    const int tr = rows_per_tile(d[0]) < d[1] ? rows_per_tile(d[0]) : d[1];
-    const size_t s = bfft_oz::tile_smem_bytes(d[0], d[0], sx, tr);
+    const bfft_oz::OzPlan p = bfft_oz::oz_plan(d[0], d[0], sx, nsl, d[1], inter);
+    const size_t s = bfft_oz::tile_smem_bytes(d[0], p.lg, sx, p.tr, nsl);
     b = s > b ? s : b;
   }
   return inter + b;
 }
 
-template <int NLEV>
 int launch(const G12Args& a, int n_nodes, cudaStream_t st) {
-  const size_t smem = smem_bytes(a.nx, a.ny, a.zb, a.sx);
+  const size_t smem = smem_bytes(a.nx, a.ny, a.zb, a.sx, a.nsl);
   cudaError_t err = cudaFuncSetAttribute(
-      gmain12_kernel<NLEV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      gmain12_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  gmain12_kernel<NLEV><<<dim3(a.nzh / a.zb, n_nodes), kThreads, smem, st>>>(a);
+  gmain12_kernel<<<dim3(a.nzh / a.zb, n_nodes), bfft_oz::OZ_THREADS, smem, st>>>(a);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // 1 when a block of z extent zb (its stage-1 intermediate and the larger of
-// its two stages' tiles) fits in a block's shared memory, else 0.
-extern "C" int bfft_oz_gmain12_fits(int nx, int ny, int zb, int sx) {
-  if (nx < 1 || ny < 1 || zb < 1 || sx < 1) return 0;
-  return smem_bytes(nx, ny, zb, sx) <= kSmemMax ? 1 : 0;
+// its two stages' tiles, nsl matrix slices kept) fits in a block's shared
+// memory, else 0.
+extern "C" int bfft_oz_gmain12_fits(int nx, int ny, int zb, int sx, int nsl) {
+  if (nx < 1 || ny < 1 || zb < 1 || sx < 1 || nsl < 1) return 0;
+  return smem_bytes(nx, ny, zb, sx, nsl) <= bfft_oz::OZ_SMEM_MAX ? 1 : 0;
 }
 
 extern "C" int bfft_oz_gmain12(const void* pre, const void* myr, const void* myi,
@@ -158,11 +155,14 @@ extern "C" int bfft_oz_gmain12(const void* pre, const void* myr, const void* myi
                                int zb, int sm, int nlev, int sx, int w, int fold_tail,
                                void* stream) {
   if (n_nodes < 1 || n_nodes > 65535 || nx < 1 || ny < 1 || nzh < 1 || zb < 1 ||
-      nzh % zb || nx > kThreads || ny > kThreads || sm < 1 || sm > bfft_oz::SM_MAX ||
+      nzh % zb || sm < 1 || sm > bfft_oz::SM_MAX ||
       sx < 1 || sx > bfft_oz::SX_MAX || nlev < 1 || nlev > 8)
     return cudaErrorInvalidValue;
-  if (!bfft_oz_gmain12_fits(nx, ny, zb, sx)) return cudaErrorInvalidValue;
+  const int nsl = sm < nlev ? sm : nlev;
+  if (!bfft_oz_gmain12_fits(nx, ny, zb, sx, nsl)) return cudaErrorInvalidValue;
   G12Args a;
+  a.nsl = nsl;
+  a.nlev = nlev;
   a.pre = (const uint16_t*)pre;
   a.myr = (const uint16_t*)myr;
   a.myi = (const uint16_t*)myi;
@@ -181,14 +181,5 @@ extern "C" int bfft_oz_gmain12(const void* pre, const void* myr, const void* myi
   a.w = w;
   a.fold_tail = fold_tail;
   const cudaStream_t st = (cudaStream_t)stream;
-  switch (nlev) {
-    case 1: return launch<1>(a, n_nodes, st);
-    case 2: return launch<2>(a, n_nodes, st);
-    case 3: return launch<3>(a, n_nodes, st);
-    case 4: return launch<4>(a, n_nodes, st);
-    case 5: return launch<5>(a, n_nodes, st);
-    case 6: return launch<6>(a, n_nodes, st);
-    case 7: return launch<7>(a, n_nodes, st);
-    default: return launch<8>(a, n_nodes, st);
-  }
+  return launch(a, n_nodes, st);
 }

@@ -12,18 +12,31 @@
 // stage's row layout, so the result is bitwise equal to the staged K8 chain
 // with its transposes.
 //
-// What bounds it on this card: operations, as K8 (the chunk dots on the
-// CUDA cores).  On the TPU a node's whole live set sits in VMEM (~178 B per
-// cell).  A CTA here has at most 227 KB of shared memory, so one block per
-// node walks each stage in row tiles through shared memory and keeps the two
-// intermediates (4 float32 planes each, 8 * Nx*Ny*Nz/2 floats per node) in a
-// global scratch buffer, which stays in the 50 MB L2 at 32^3 (24 nodes: 12.6
-// MB).  __syncthreads() between the stages orders the block's global writes
-// before its reads.  One block per node leaves most SMs idle at 32^3 (24
-// nodes): splitting a node across blocks is perf work.
+// What bounds it on this card: operations, as K8: the chunk dots, on the
+// tensor cores through the shared tile (oz_common.cuh oz_tile), then the
+// fold on the CUDA cores.  On the TPU a node's whole live set sits in VMEM
+// (~178 B per cell).  A CTA here has at most 227 KB of shared memory, so
+// each stage is walked in row tiles through shared memory and the two
+// intermediates (4 float32 planes each, 8 * Nx*Ny*Nz/2 floats per node)
+// live in a global scratch buffer, which stays in the 50 MB L2 at 32^3 (24
+// nodes: 12.6 MB).
+//
+// What the design does about it: one thread-block cluster of kCluster CTAs
+// per node (grid C * kCluster, 192 CTAs at 32^3 on 132 SMs).  The row
+// partition, the one place it is stated (kernels/oz_gmain.py
+// cluster_partition mirrors it): stage s of R rows is cut into tiles of the
+// rows oz_common.cuh oz_plan gives it; CTA `rank` of the cluster takes
+// tiles rank, rank + kCluster, rank + 2 kCluster, ... (of every column
+// group), with the stage's slices loaded once.  The share is fixed, so the
+// result does not depend on scheduling.  Between the stages a
+// __threadfence() and the cluster barrier (barrier.cluster arrive.release /
+// wait.acquire) order each CTA's global writes before the next stage's
+// reads by the cluster's other CTAs.
 //
 // The entry point returns cudaGetLastError() of its launch; it launches on
 // the given stream, does not synchronise and allocates nothing.
+
+#include <cooperative_groups.h>
 
 #include "oz_common.cuh"
 
@@ -31,32 +44,28 @@ namespace {
 
 using bfft_oz::OzTile;
 
-constexpr int kThreads = 512;
+constexpr int kCluster = 8;  // CTAs per node: the portable cluster size
 
 struct G3Args {
   const uint16_t* pre;  // (Nx*Nzh, sx*2*Ny)
   const uint16_t *myr, *myi, *mxr, *mxi, *mzr, *mzi;
   float* scratch;       // (C, 8, Nx*Ny*Nzh)
   float *orh, *orl;     // (C, Nx, Ny, Nz)
-  int nx, ny, nz, sm, sx, w, fold_tail;
+  int nx, ny, nz, sm, sx, w, fold_tail, nsl, nlev;
 };
 
-__device__ int rows_per_tile(int L) { return L >= kThreads ? 1 : kThreads / L; }
-
-template <int NLEV>
-__device__ void stage(OzTile t, int rows, float* smem) {
-  t.tr_rows = rows_per_tile(t.L) < rows ? rows_per_tile(t.L) : rows;
-  for (int r0 = 0; r0 < rows; r0 += t.tr_rows) {
-    t.row0 = r0;
-    t.nrows = min(t.tr_rows, rows - r0);
-    bfft_oz::oz_tile<NLEV>(t, smem);
-  }
+// The stage's writes, visible to the cluster's other CTAs before they read.
+__device__ __forceinline__ void cluster_barrier() {
+  __threadfence();
+  cooperative_groups::this_cluster().sync();
 }
 
-template <int NLEV>
-__global__ void __launch_bounds__(kThreads) gmain3_kernel(const G3Args a) {
+// Two blocks an SM: at most 128 registers a thread (nvcc gives it ~230
+// otherwise, one block an SM).
+__global__ void __launch_bounds__(bfft_oz::OZ_THREADS, 2) gmain3_kernel(const G3Args a) {
   extern __shared__ __align__(16) float smem[];
-  const int c = blockIdx.x;
+  const int c = blockIdx.x / kCluster;
+  const int rank = (int)cooperative_groups::this_cluster().block_rank();
   const int nx = a.nx, ny = a.ny, nz = a.nz, nzh = a.nz / 2;
   const long long vol = (long long)nx * ny * nzh;
   float* t1 = a.scratch + (long long)c * 8 * vol;  // (Ny, Nzh, Nx) x 4 planes
@@ -67,84 +76,105 @@ __global__ void __launch_bounds__(kThreads) gmain3_kernel(const G3Args a) {
   t.w = a.w;
   t.fold_tail = a.fold_tail;
   t.merged = 1;
-
-  // stage 1 (y): rows (jx, jzh), col jy -> t1[(jy*Nzh + jzh)*Nx + jx]
-  t.rh = t.rl = t.ih = t.il = nullptr;
-  t.pre0 = a.pre;
-  t.pre1 = nullptr;
-  t.mre = a.myr + (size_t)c * a.sm * ny * ny;
-  t.mim = a.myi + (size_t)c * a.sm * ny * ny;
-  t.orh = t1;
-  t.orl = t1 + vol;
-  t.oih = t1 + 2 * vol;
-  t.oil = t1 + 3 * vol;
-  t.K = ny;
-  t.L = ny;
-  t.B = nzh;
-  t.sa = 1;
-  t.sb = nx;
-  t.sl = (long long)nzh * nx;
-  stage<NLEV>(t, nx * nzh, smem);
-  __syncthreads();
-
-  // stage 2 (x): rows (jy, jzh), K = Nx, col jx -> t2[(jx*Ny + jy)*Nzh + jzh]
-  t.pre0 = nullptr;
-  t.rh = t1;
-  t.rl = t1 + vol;
-  t.ih = t1 + 2 * vol;
-  t.il = t1 + 3 * vol;
-  t.mre = a.mxr + (size_t)c * a.sm * nx * nx;
-  t.mim = a.mxi + (size_t)c * a.sm * nx * nx;
-  t.orh = t2;
-  t.orl = t2 + vol;
-  t.oih = t2 + 2 * vol;
-  t.oil = t2 + 3 * vol;
-  t.K = nx;
-  t.L = nx;
-  t.B = nzh;
-  t.sa = nzh;
-  t.sb = 1;
-  t.sl = (long long)ny * nzh;
-  stage<NLEV>(t, ny * nzh, smem);
-  __syncthreads();
-
-  // stage 3 (half z, real output): rows (jx, jy), K = Nzh, col jz
-  t.rh = t2;
-  t.rl = t2 + vol;
-  t.ih = t2 + 2 * vol;
-  t.il = t2 + 3 * vol;
-  t.mre = a.mzr + (size_t)c * a.sm * nzh * nz;
-  t.mim = a.mzi + (size_t)c * a.sm * nzh * nz;
-  t.orh = a.orh + (long long)c * nx * ny * nz;
-  t.orl = a.orl + (long long)c * nx * ny * nz;
-  t.oih = t.oil = nullptr;
-  t.K = nzh;
-  t.L = nz;
-  t.B = 1;
-  t.sa = nz;
-  t.sb = 0;
-  t.sl = 1;
-  stage<NLEV>(t, nx * ny, smem);
+  t.nsl = a.nsl;
+  t.nlev = a.nlev;
+  // one call site of the tile for the three stages (it is inlined)
+  for (int s = 0; s < 3; ++s) {
+    int rows;
+    if (s == 0) {
+      // stage 1 (y): rows (jx, jzh), col jy -> t1[(jy*Nzh + jzh)*Nx + jx]
+      t.rh = t.rl = t.ih = t.il = nullptr;
+      t.pre0 = a.pre;
+      t.pre1 = nullptr;
+      t.mre = a.myr + (size_t)c * a.sm * ny * ny;
+      t.mim = a.myi + (size_t)c * a.sm * ny * ny;
+      t.orh = t1;
+      t.orl = t1 + vol;
+      t.oih = t1 + 2 * vol;
+      t.oil = t1 + 3 * vol;
+      t.K = ny;
+      t.L = ny;
+      t.B = nzh;
+      t.sa = 1;
+      t.sb = nx;
+      t.sl = (long long)nzh * nx;
+      rows = nx * nzh;
+    } else if (s == 1) {
+      // stage 2 (x): rows (jy, jzh), K = Nx, col jx -> t2[(jx*Ny + jy)*Nzh + jzh]
+      t.pre0 = nullptr;
+      t.rh = t1;
+      t.rl = t1 + vol;
+      t.ih = t1 + 2 * vol;
+      t.il = t1 + 3 * vol;
+      t.mre = a.mxr + (size_t)c * a.sm * nx * nx;
+      t.mim = a.mxi + (size_t)c * a.sm * nx * nx;
+      t.orh = t2;
+      t.orl = t2 + vol;
+      t.oih = t2 + 2 * vol;
+      t.oil = t2 + 3 * vol;
+      t.K = nx;
+      t.L = nx;
+      t.B = nzh;
+      t.sa = nzh;
+      t.sb = 1;
+      t.sl = (long long)ny * nzh;
+      rows = ny * nzh;
+    } else {
+      // stage 3 (half z, real output): rows (jx, jy), K = Nzh, col jz
+      t.rh = t2;
+      t.rl = t2 + vol;
+      t.ih = t2 + 2 * vol;
+      t.il = t2 + 3 * vol;
+      t.mre = a.mzr + (size_t)c * a.sm * nzh * nz;
+      t.mim = a.mzi + (size_t)c * a.sm * nzh * nz;
+      t.orh = a.orh + (long long)c * nx * ny * nz;
+      t.orl = a.orl + (long long)c * nx * ny * nz;
+      t.oih = t.oil = nullptr;
+      t.K = nzh;
+      t.L = nz;
+      t.B = 1;
+      t.sa = nz;
+      t.sb = 0;
+      t.sl = 1;
+      rows = nx * ny;
+    }
+    // this CTA's share: tiles rank, rank + kCluster, ...
+    bfft_oz::oz_stage(t, rows, rank, kCluster, 0, 1, smem, 0);
+    if (s < 2) cluster_barrier();
+  }
 }
 
-size_t smem_bytes(int nx, int ny, int nz, int sx) {
+size_t smem_bytes(int nx, int ny, int nz, int sx, int nsl) {
   size_t b = 0;
-  const int dims[3][2] = {{ny, ny}, {nx, nx}, {nz / 2, nz}};  // (K, L) per stage
+  const int nzh = nz / 2;
+  const int dims[3][3] = {{ny, ny, nx * nzh}, {nx, nx, ny * nzh}, {nzh, nz, nx * ny}};  // K, L, rows
   for (const auto& d : dims) {
-    const int tr = d[1] >= kThreads ? 1 : kThreads / d[1];
-    const size_t s = bfft_oz::tile_smem_bytes(d[0], d[1], sx, tr);
+    const bfft_oz::OzPlan p = bfft_oz::oz_plan(d[0], d[1], sx, nsl, d[2], 0);
+    const size_t s = bfft_oz::tile_smem_bytes(d[0], p.lg, sx, p.tr, nsl);
     b = s > b ? s : b;
   }
   return b;
 }
 
-template <int NLEV>
 int launch(const G3Args& a, int n_nodes, cudaStream_t st) {
-  const size_t smem = smem_bytes(a.nx, a.ny, a.nz, a.sx);
+  const size_t smem = smem_bytes(a.nx, a.ny, a.nz, a.sx, a.nsl);
   cudaError_t err = cudaFuncSetAttribute(
-      gmain3_kernel<NLEV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      gmain3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  gmain3_kernel<NLEV><<<n_nodes, kThreads, smem, st>>>(a);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_nodes * kCluster);
+  cfg.blockDim = dim3(bfft_oz::OZ_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, gmain3_kernel, a);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -155,12 +185,15 @@ extern "C" int bfft_oz_gmain3(const void* pre, const void* myr, const void* myi,
                               const void* mzi, void* scratch, void* orh, void* orl,
                               int n_nodes, int nx, int ny, int nz, int sm, int nlev,
                               int sx, int w, int fold_tail, void* stream) {
-  if (n_nodes < 1 || nx < 1 || ny < 1 || nz < 2 || nz % 2 || nx > kThreads ||
-      ny > kThreads || nz > kThreads || sm < 1 || sm > bfft_oz::SM_MAX || sx < 1 ||
+  if (n_nodes < 1 || nx < 1 || ny < 1 || nz < 2 || nz % 2 || sm < 1 ||
+      sm > bfft_oz::SM_MAX || sx < 1 ||
       sx > bfft_oz::SX_MAX || nlev < 1 || nlev > 8)
     return cudaErrorInvalidValue;
-  if (smem_bytes(nx, ny, nz, sx) > 232448) return cudaErrorInvalidValue;
+  const int nsl = sm < nlev ? sm : nlev;
+  if (smem_bytes(nx, ny, nz, sx, nsl) > bfft_oz::OZ_SMEM_MAX) return cudaErrorInvalidValue;
   G3Args a;
+  a.nsl = nsl;
+  a.nlev = nlev;
   a.pre = (const uint16_t*)pre;
   a.myr = (const uint16_t*)myr;
   a.myi = (const uint16_t*)myi;
@@ -179,14 +212,5 @@ extern "C" int bfft_oz_gmain3(const void* pre, const void* myr, const void* myi,
   a.w = w;
   a.fold_tail = fold_tail;
   const cudaStream_t st = (cudaStream_t)stream;
-  switch (nlev) {
-    case 1: return launch<1>(a, n_nodes, st);
-    case 2: return launch<2>(a, n_nodes, st);
-    case 3: return launch<3>(a, n_nodes, st);
-    case 4: return launch<4>(a, n_nodes, st);
-    case 5: return launch<5>(a, n_nodes, st);
-    case 6: return launch<6>(a, n_nodes, st);
-    case 7: return launch<7>(a, n_nodes, st);
-    default: return launch<8>(a, n_nodes, st);
-  }
+  return launch(a, n_nodes, st);
 }

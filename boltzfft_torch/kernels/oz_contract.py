@@ -23,9 +23,12 @@ levels ``>= t`` in plain float32 before one compensated add.
 The plain version forms the levels with float64 matmuls of the chunks
 (exact: integer-valued sums far below 2^53, whatever the order) and converts
 them to float32 (exact below 2^24 units, the bound :func:`oz.merge_ok` and
-:func:`oz.unmerged_ok` check); the kernel forms them in float32 (exact for the
-same reason).  Both then fold with the same float32 operations in the same
-order, so they give the same bits.
+:func:`oz.unmerged_ok` check).  The kernel forms them on the tensor cores:
+per level, chunk pair and k16 block one bf16 product into a zeroed float32
+fragment (at most 32 products of at most 2^14 units: exact), then float32
+adds into the level (exact below 2^24 units, the same bound;
+:func:`edge_operands` are the operands at its edge).  Both then fold with
+the same float32 operations in the same order, so they give the same bits.
 
 Phased mode (``_phased_contract``): the operand is ``t = phase[c] * x`` in
 ds (``conj(phase[c])`` with ``conj``), formed in the tile load with the TPU
@@ -294,19 +297,7 @@ def contract_plain(planes, x_pre, m, *, cmax, w, real_out, merged, fold_tail,
     mim = m.im.to(f64).reshape(-1, sm, k, ell)
     n_fold = min(nlev, sx + sm - 1)
     ft = n_fold if fold_tail is None else max(1, min(fold_tail, n_fold))
-
-    def levels(chunks, mats):
-        out = []
-        for d in range(n_fold):
-            acc = None
-            for i in range(min(d, sx - 1), -1, -1):
-                j = d - i
-                if j >= sm:
-                    continue
-                p = torch.matmul(chunks[i], mats[:, j])
-                acc = p if acc is None else acc + p
-            out.append(acc)
-        return out
+    levels = lambda chunks, mats: plain_levels(chunks, mats, n_fold)
 
     if merged:
         combos = [([a - b for a, b in zip(levels(cr, mre), levels(ci, mim))], 1.0, 0)]
@@ -337,6 +328,94 @@ def contract_plain(planes, x_pre, m, *, cmax, w, real_out, merged, fold_tail,
         acc[which] = [hi, lo]
     (reh, rel), (imh, iml) = acc
     return (reh, rel, None, None) if real_out else (reh, rel, imh, iml)
+
+
+def plain_levels(chunks, mats, n_fold: int) -> list:
+    """The plain version's level sums: level ``d`` (of ``n_fold``) is
+    ``sum_{i + j = d} chunks[i] @ mats[:, j]`` in float64, exact whatever
+    the order (integers of one unit, far below 2^53).  ``chunks``: ``sx``
+    float64 ``(lead, R, K)`` tensors; ``mats``: float64 ``(lead, sm, K, L)``."""
+    sx, sm = len(chunks), mats.shape[1]
+    out = []
+    for d in range(n_fold):
+        acc = None
+        for i in range(min(d, sx - 1), -1, -1):
+            j = d - i
+            if j >= sm:
+                continue
+            p = torch.matmul(chunks[i], mats[:, j])
+            acc = p if acc is None else acc + p
+        out.append(acc)
+    return out
+
+
+#: Warps of the kernel's block (``csrc/oz_common.cuh`` ``OZ_WARPS``) and the
+#: shared memory a block may use (``OZ_SMEM_MAX``).
+TILE_WARPS = 8
+SMEM_MAX = 232448
+
+
+def tile_rows(lg: int) -> int:
+    """Rows of a full tile of the kernel for ``lg`` output columns, as
+    ``csrc/oz_common.cuh`` ``tile_rows`` counts them: 16-row strips, as many
+    as keep every warp on one 16 x 16 output tile."""
+    nt = (lg + 15) // 16
+    return 16 * (1 if nt >= TILE_WARPS else TILE_WARPS // nt)
+
+
+def tile_smem_bytes(k: int, lg: int, sx: int, tr: int, nsl: int) -> int:
+    """The tile's shared memory (``oz_common.cuh`` ``tile_smem_bytes``)."""
+    kp = -(-k // 16) * 16
+    lp = -(-lg // 16) * 16
+    return 2 * (2 * nsl * kp * (lp + 8) + 2 * sx * tr * (kp + 8)) + 8 * tr
+
+
+def plan(k: int, ell: int, sx: int, nsl: int, rows: int, extra: int = 0):
+    """``(lg, tr)``: how a stage of ``rows`` rows and ``ell`` columns is cut
+    (``oz_common.cuh`` ``oz_plan``): column groups of ``lg`` columns, halved
+    (in multiples of 8) while the slices do not fit beside ``extra`` bytes,
+    and row tiles of ``tr`` rows, a full tile or all the rows rounded up to
+    16, halved down to 16 while the tile does not fit."""
+    lg = ell
+    while lg > 8 and extra + tile_smem_bytes(k, lg, sx, 16, nsl) > SMEM_MAX:
+        lg = ((lg + 1) // 2 + 7) & ~7
+    tr = min(tile_rows(lg), -(-rows // 16) * 16)
+    while tr > 16 and extra + tile_smem_bytes(k, lg, sx, tr, nsl) > SMEM_MAX:
+        tr = (tr // 2 + 15) & ~15
+    return lg, tr
+
+
+def edge_operands(k: int, ell: int, rows: int, n_nodes: int, merged: bool,
+                  im_list: bool = False, device="cpu", w: int = _oz.DEFAULT_W,
+                  sx: int = _oz.DEFAULT_SLICES_X, sm: int = 7):
+    """Operands at the edge of the level sums' exactness, for
+    :func:`contract_last_oz_nodemat` with ``repeat=True``: every chunk of
+    every row at 127 units (chunk ``i`` = ``127 * 2^(-w(i+1))``, row scale
+    1) and every matrix slice at 127 units, of one sign per component, so
+    that every product of a list has the same sign and a level of ``p``
+    chunk pairs sums ``K * p * 127^2`` units (merged ``2K``: 14.45 M of the
+    2^24 at ``K = 64``, ``sx = sm = 7``, ``cmax = 6``).  Signs: the
+    merged re list ``cr mre - ci mim`` is the extreme one (``mim < 0``), or
+    with ``im_list`` the im list ``cr mim + ci mre`` (all positive).
+    Returns ``(x, m, x_pre)``: a zero CDS of shape ``(rows, K)`` (the
+    wrapper reads its shape), the ``(C, sm, K, L)`` slices and the
+    presliced chunks (merged or not)."""
+    unit = lambda i: 127.0 * 2.0 ** (-w * (i + 1))
+    chunk = torch.tensor([unit(i) for i in range(sx)], dtype=torch.float32)
+    row = chunk[:, None].expand(sx, k)  # (sx, K)
+    if merged:
+        full = torch.cat((row, row), dim=1).reshape(1, -1).expand(rows, -1)
+        x_pre = _oz.PreslicedM(full.to(torch.bfloat16).contiguous().to(device))
+    else:
+        flat = row.reshape(1, -1).expand(rows, -1).to(torch.bfloat16).contiguous().to(device)
+        x_pre = _oz.PreslicedCDS(flat, flat.clone())
+    sl = torch.tensor([unit(j) for j in range(sm)], dtype=torch.float32)
+    mre = sl[None, :, None, None].expand(n_nodes, sm, k, ell)
+    mim = mre if im_list else -mre
+    m = _oz.CSlicedMatrix(*(a.to(torch.bfloat16).contiguous().to(device) for a in (mre, mim)))
+    z = torch.zeros((rows, k), dtype=torch.float32, device=device)
+    x = CDS(DS(z, z), DS(z, z))
+    return x, m, x_pre
 
 
 def check_exact(k: int, sm: int, cmax: int, w: int, merged: bool) -> None:

@@ -16,6 +16,11 @@ so the result is bitwise equal to the staged K8 chain
 (``ds_operator._g_main_half`` with ``fused=False``) and to
 :func:`gmain3_reference`, which is that chain on the plain version.
 ``fused="12"`` is K10 (``kernels.oz_gmain12``).
+
+The kernel runs each node on a thread-block cluster of :data:`CLUSTER` CTAs
+that split every stage's row tiles by a fixed rule
+(:func:`cluster_partition`, the mirror of ``csrc/oz_gmain3.cu``'s), with a
+cluster barrier between the stages.
 """
 
 from __future__ import annotations
@@ -26,12 +31,36 @@ import torch
 
 from .. import oz as _oz
 from ..ds import DS
-from .oz_contract import contract_plain
+from .oz_contract import contract_plain, plan
 
 #: Launches of the CUDA kernel (one per :func:`gmain3_nodemat` call on CUDA).
 LAUNCHES = 0
 #: Calls of the plain PyTorch version.
 REFERENCE_CALLS = 0
+
+
+#: CTAs of a node's thread-block cluster (``csrc/oz_gmain3.cu`` ``kCluster``).
+CLUSTER = 8
+
+
+def cluster_partition(grid_shape, cmax: int = 6, sm: int = _oz.DEFAULT_SLICES_M):
+    """K9's static row partition as ``csrc/oz_gmain3.cu`` states it: each of
+    the three stages ``(K, L, rows)`` = ``(Ny, Ny, Nx*Nz/2)``, ``(Nx, Nx,
+    Ny*Nz/2)``, ``(Nz/2, Nz, Nx*Ny)`` is cut into tiles of the rows
+    :func:`oz_contract.plan` gives it, and CTA ``rank`` of a node's cluster
+    takes tiles ``rank, rank + CLUSTER, ...`` (of every column group).
+    Returns, per stage and per rank, the ``(row0, nrows)`` of its tiles."""
+    nx, ny, nz = grid_shape
+    nzh = nz // 2
+    sx = min(_oz.DEFAULT_SLICES_X, cmax + 1)
+    nsl = min(sm, cmax + 1)
+    out = []
+    for k, ell, rows in ((ny, ny, nx * nzh), (nx, nx, ny * nzh), (nzh, nz, nx * ny)):
+        tr = plan(k, ell, sx, nsl, rows)[1]
+        n_tiles = -(-rows // tr)
+        out.append([[(t * tr, min(tr, rows - t * tr)) for t in range(rank, n_tiles, CLUSTER)]
+                    for rank in range(CLUSTER)])
+    return out
 
 
 def _check(m_y, m_x, m_zh, grid_shape, cmax, w):

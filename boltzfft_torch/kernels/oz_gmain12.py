@@ -36,14 +36,14 @@ LAUNCHES = 0
 REFERENCE_CALLS = 0
 
 
-def block_fits(nx: int, ny: int, zh_block: int, sx: int = _oz.DEFAULT_SLICES_X) -> bool:
-    """Whether a K10 block of ``zh_block`` z rows fits in a block's shared
-    memory on the card.  The kernel's source holds the one count of its
-    shared memory (``bfft_oz_gmain12_fits``), so this needs the built
-    library."""
+def block_fits(nx: int, ny: int, zh_block: int, sx: int, nslices: int) -> bool:
+    """Whether a K10 block of ``zh_block`` z rows, keeping ``nslices`` matrix
+    slices (``min(sm, cmax + 1)``) in shared memory, fits there on the card.
+    The kernel's source holds the one count of its shared memory
+    (``bfft_oz_gmain12_fits``), so this needs the built library."""
     from .._build import load_library
 
-    return bool(load_library().bfft_oz_gmain12_fits(nx, ny, int(zh_block), sx))
+    return bool(load_library().bfft_oz_gmain12_fits(nx, ny, int(zh_block), sx, int(nslices)))
 
 
 def gmain12_nodemat(
@@ -70,7 +70,8 @@ def gmain12_nodemat(
     if zh_block is not None:
         zb = int(zh_block)
     elif dev.type == "cuda":
-        zb = _oz.default_zh_block(nx, nzh, ny, fits=lambda d: block_fits(nx, ny, d, sx))
+        nsl = min(m_y.re.shape[-3], cmax + 1)
+        zb = _oz.default_zh_block(nx, nzh, ny, fits=lambda d: block_fits(nx, ny, d, sx, nsl))
     else:  # the plain version gives the same bits for every block
         zb = _oz.default_zh_block(nx, nzh, ny)
     if zb < 1 or nzh % zb:
@@ -122,7 +123,7 @@ def _gmain12_cuda(x_pre, m_y, m_x, grid_shape, cmax, w, fold_tail, zb) -> CDS:
     pre = x_pre.full.contiguous()
     if tuple(pre.shape) != (nx * nzh, sx * 2 * ny):
         raise ValueError(f"gmain12: x_pre {tuple(pre.shape)}, expected {(nx * nzh, sx * 2 * ny)}")
-    if not block_fits(nx, ny, zb, sx):
+    if not block_fits(nx, ny, zb, sx, min(sm, nlev)):
         raise ValueError(f"gmain12: a block of zh_block {zb} does not fit in shared memory")
     dev = pre.device
     mats = [t.contiguous() for mm in (m_y, m_x) for t in (mm.re, mm.im)]

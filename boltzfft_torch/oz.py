@@ -366,7 +366,9 @@ def transform3_oz_nodemat(
 # K10's z blocking
 # ---------------------------------------------------------------------------
 
-_THREADS = 512  # threads of a K10 block (csrc/oz_gmain12.cu)
+# The 512-thread tile of K10's first, CUDA-core version.  The rule
+# stays: every z block gives the same bits, and it gives 1 at 32^3-64^3.
+_THREADS = 512
 
 
 def default_zh_block(nx: int, nzh: int, ny: Optional[int] = None,

@@ -219,11 +219,12 @@ def sod_initial_condition(
     rho_right: float = 0.125,
     t_left: float = 1.0,
     t_right: float = 0.8,
-    device="cpu",
+    device="cuda",
 ) -> torch.Tensor:
     """Sod-type Riemann initial data: two half-domains of Maxwellians with
     different density/temperature, zero bulk velocity.  Returns
-    ``(nx, Nvx, Nvy, Nvz)`` on ``device``."""
+    ``(nx, Nvx, Nvy, Nvz)`` on ``device`` (the card by default;
+    ``device="cpu"`` for the plain versions)."""
     rsq = cfg.velocity_grid.r_squared()
     m_left = maxwellian(rsq, density=rho_left, temperature=t_left)
     m_right = maxwellian(rsq, density=rho_right, temperature=t_right)

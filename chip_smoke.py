@@ -5,7 +5,9 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: a CUDA card must be present; prints its name and power limit;
-2. build: compiles the port's CUDA kernels from ``boltzfft_torch/csrc``;
+2. build: compiles the port's CUDA kernels from ``boltzfft_torch/csrc``, and
+   counts the tensor-core instructions (HMMA, HGMMA) in the SASS of the ds
+   engine's tile kernels (K8, K9, K10), which must all have some;
 3. each kernel against its plain PyTorch version on the card (float64 within
    1e-12 of the plain result's max, float32 within 1e-5, 4e-5 below 32^3,
    see ``TOL``): K1 (``fused_collide``), K3 (``fused_gain_kron``), K2 and K4
@@ -46,13 +48,16 @@ Phases, in order; any failure raises and the script exits non-zero:
 11. times (CUDA events, 2 warm-ups, 10 trials, a plain version 1 and 5;
     median and mean): K1 at 32^3
     and 64^3; K2, K4, K5, K6 at the main paths' shapes with their bounds,
-    plain versions and K5's library yardstick; ``collide`` through each route
+    plain versions and K5's and K6's library yardsticks; ``collide`` through each route
     (K1, staged rfft and c2c, rfft + use_pallas, K2 + hook, K4, dft at
     32^3) at 32^3 and 64^3; K3 (first held to its plain
     version there), its plain version and K1 on the 256-cell TG-2D batch;
     the TG-2D step; and a ``torch.profiler`` window over TG-2D steps (device
     time by kernel family and the card's idle share);
-12. the ds engine's kernels against their plain versions at the main path's
+12. K8 on edge operands (every chunk and slice at 127 units, K = 64,
+    merged and unmerged, real and complex output: the level sums at the
+    edge of float32's exactness) bitwise equal to its plain version; the ds
+    engine's kernels against their plain versions at the main path's
     shapes, 32^3 and 64^3, Ns=12 (real tables from
     ``make_ds_collision_operator``, f_hat of the BKW state): K7 merged and
     unmerged, K8 in every mode the default route launches (shared matrix
@@ -74,7 +79,9 @@ Phases, in order; any failure raises and the script exits non-zero:
     shapes against their plain versions, their bounds (chunk-pair dots at the
     bf16 tensor-core peak plus the fold at the float32 CUDA-core peak, or
     bytes) and, for K8, a complex128 ``torch.bmm``/``matmul`` yardstick, for
-    K9 a complex128 ``einsum`` of its three stages;
+    K9 a complex128 ``einsum`` of its three stages, and each kernel's device
+    time per launch from ``torch.profiler`` (events around one call time the
+    wrapper's host work where it is the longer);
 17. the oz engine's other routes' kernels against their plain versions at
     their shapes, 32^3 and 64^3, Ns=12: K8's phased mode (the three stages of
     ``transform3_oz_phased`` on the first sub-batch of 2 nodes, tables from
@@ -94,7 +101,8 @@ Phases, in order; any failure raises and the script exits non-zero:
     profile of one eval; K8 phased, K11 and K10 against their plain
     versions, bounds and complex128 ``einsum`` yardsticks, with
     their launches per eval; the 32^3 main block through K9, K10 + the half-z
-    K8 call, and the staged K8 chain, on the same nodes.
+    K8 call, and the staged K8 chain, on the same nodes: bitwise equal, then
+    timed in 5 paired rounds, the order reversed every other round.
 
 A ``[N total]`` line after phases 3-11, 16 and 20 gives the seconds since the
 device check.  The last two lines are a JSON summary of the kernels and
@@ -103,6 +111,7 @@ device check.  The last two lines are a JSON summary of the kernels and
 
 from __future__ import annotations
 
+import ast
 import contextlib
 import dataclasses
 import io
@@ -164,7 +173,7 @@ SCHEME_TRIALS = 5
 MASS_TOL = 1e-2
 H_TOL = 0.01
 # Peaks of an H100 SXM at 700 W (NVIDIA's data sheet): CUDA-core FLOP/s in
-# float32 and float64 (the kernels use no tensor cores), device memory bytes/s.
+# float32 and float64 (K1-K6 use no tensor cores), device memory bytes/s.
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 PEAK_BYTES = 3.35e12
 # The homogeneous main paths: (label, CollisionConfig kwargs, hook, grids,
@@ -423,6 +432,12 @@ PEAK_BF16 = 989e12  # dense bf16 tensor-core FLOP/s of an H100 SXM at 700 W
 # the ds kernels as the profiler names them (the default route's four first)
 DS_FAMILIES = ("oz_contract_kernel", "gmain3_kernel", "hwh_kernel", "preslice_kernel",
                "gmain12_kernel", "hadamard_wsum_kernel")
+DS_KERNEL_NAMES = {  # kernels-line name -> the profiler's
+    "preslice_rows": "preslice_kernel", "oz_contract": "oz_contract_kernel",
+    "oz_contract_phased": "oz_contract_kernel", "gmain3_nodemat": "gmain3_kernel",
+    "gmain12_nodemat": "gmain12_kernel", "hadamard_wsum": "hadamard_wsum_kernel",
+    "hadamard_wsum_half": "hwh_kernel",
+}
 
 
 def oz_pairs(cmax):
@@ -496,6 +511,28 @@ def profile_eval(fn, families):
     return fam, wall_us
 
 
+def profile_calls(fn, families, calls, tries=3):
+    """``profile_eval`` over ``calls`` calls of ``fn`` after one warm-up.  The
+    profiler can miss a window's kernels: up to ``tries`` windows until it
+    sees a launch of ``families[0]``; None if it never does."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        fam, _ = profile_eval(lambda: [fn() for _ in range(calls)], families)
+        if fam[families[0]][1] > 0:
+            return fam
+    print(f"  the profiler saw no {families[0]} launch in {tries} windows: not measured")
+    return None
+
+
+def device_ms(fn, family, calls=10):
+    """The kernel's own device time per launch (ms), from ``torch.profiler``
+    (``profile_calls``), or None: where the wrapper's host time exceeds the
+    kernel's, CUDA events around a call time the host."""
+    fam = profile_calls(fn, (family,), calls)
+    return None if fam is None else fam[family][0] / fam[family][1] / 1e3
+
+
 def print_profile(label, fam, wall_us, card, phase):
     busy = max(sum(v[0] for v in fam.values()), 1e-9)  # us; 0 if the profiler saw no device
     print(f"[{phase} profile] {label}: device {busy / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms"
@@ -534,6 +571,19 @@ def ds_phases(bt, dev, card, ks, q_c2c, entry, report):
 
     # ---- 12. kernels against their plain versions, 32^3 and 64^3, Ns=12 --
     parity = partial(parity_check, max_err)
+    # the tensor-core tile at the edge of exactness: every chunk and slice at
+    # 127 units, K = 64, sx = sm = 7, cmax = 6 (a merged level sums 14.45 M
+    # of float32's 2^24 units), the re list or the im list at its extreme
+    print(f"[12 ds parity] K8 on edge operands, K = 64, 256 rows x L 64, C = 2 | {card}")
+    for merged in (True, False):
+        for real_out in (False, True):
+            for im_list in (False, True):
+                x, m, xp = k8.edge_operands(64, 64, 256, 2, merged, im_list=im_list, device=dev)
+                kw = dict(cmax=6, repeat=True, x_pre=xp, merged=merged, real_out=real_out)
+                parity(f"K8 edge merged={merged} real_out={real_out} extreme"
+                       f" {'im' if im_list else 're'} list", ("k8", big),
+                       lambda: k8.contract_last_oz_nodemat(x, m, **kw),
+                       lambda: k8.contract_last_oz_nodemat_reference(x, m, **kw))
     inputs = {}
     for n in grids:
         cfg = bt.CollisionConfig(nv=n, ns=12, impl="c2c", dtype="float32")
@@ -697,14 +747,17 @@ def ds_phases(bt, dev, card, ks, q_c2c, entry, report):
     def row(name, key, n, kname, fn, ref, b, lib=None, lib_label="complex128 matmul"):
         ms, pms = time_ms(fn), time_ms(ref, PLAIN_TRIALS, 1)
         lms = time_ms(lib) if lib is not None else None
+        dms = device_ms(fn, DS_KERNEL_NAMES[kname])
         report(f"{name} kernel", ms, "call", 16)
         report(f"{name} plain", pms, "call", 16)
         if lms is not None:
             report(f"{name} library yardstick ({lib_label})", lms, "call", 16)
+        dev_txt = "not measured" if dms is None else f"{dms:.4f} ms = {dms / b[0]:.1f}x the bound"
         print(f"[16 bound] {name}: {b[0]:.4f} ms ({b[1]}); kernel median"
-              f" {statistics.median(ms) / b[0]:.1f}x the bound")
+              f" {statistics.median(ms) / b[0]:.1f}x the bound; device time per launch"
+              f" (profiler) {dev_txt} | {card}")
         entry(name, kname, "float32", ds_counts[n][key], ds_counts[n][key + "_plain"],
-              max_err[(key, n)], ms, pms, b[0], b[1], lms)
+              max_err[(key, n)], ms, pms, b[0], b[1], lms, dms)
 
     sx = 7
     for n in grids:
@@ -844,7 +897,7 @@ def ds_route_phases(bt, dev, card, ks, q_c2c, entry, report, st):
         g12 = parity(f"K10 {n}^3 C={c} zh_block={zb0} (the default)", ("k10", n),
                      lambda: k10.gmain12_nodemat(v["x_pre"], v["m_y"], v["m_x"], grid, cmax=6),
                      lambda: k10.gmain12_reference(v["x_pre"], v["m_y"], v["m_x"], grid, cmax=6))
-        for zb in (d for d in (2, 4) if (n // 2) % d == 0 and k10.block_fits(n, n, d)):
+        for zb in (d for d in (2, 4) if (n // 2) % d == 0 and k10.block_fits(n, n, d, 7, 7)):
             other = k10.gmain12_nodemat(v["x_pre"], v["m_y"], v["m_x"], grid, cmax=6, zh_block=zb)
             torch.cuda.synchronize()
             print(f"  K10 {n}^3 zh_block={zb} bitwise equal to zh_block={zb0}: {same(other, g12)}")
@@ -923,13 +976,16 @@ def ds_route_phases(bt, dev, card, ks, q_c2c, entry, report, st):
     def row(name, kname, key, launches, fn, ref, b, lib=None, lib_label="complex128 einsum"):
         ms, pms = time_ms(fn), time_ms(ref, PLAIN_TRIALS, 1)
         lms = time_ms(lib) if lib is not None else None
+        dms = device_ms(fn, DS_KERNEL_NAMES[kname])
         report(f"{name} kernel", ms, "call", 20)
         report(f"{name} plain", pms, "call", 20)
         if lms is not None:
             report(f"{name} library yardstick ({lib_label})", lms, "call", 20)
+        dev_txt = "not measured" if dms is None else f"{dms:.4f} ms = {dms / b[0]:.1f}x the bound"
         print(f"[20 bound] {name}: {b[0]:.4f} ms ({b[1]}); kernel median"
-              f" {statistics.median(ms) / b[0]:.1f}x the bound; {launches} launches per eval")
-        entry(name, kname, "float32", launches, 0, max_err[key], ms, pms, b[0], b[1], lms)
+              f" {statistics.median(ms) / b[0]:.1f}x the bound; device time per launch"
+              f" (profiler) {dev_txt}; {launches} launches per eval | {card}")
+        entry(name, kname, "float32", launches, 0, max_err[key], ms, pms, b[0], b[1], lms, dms)
         return ms
 
     sx = 7
@@ -973,18 +1029,35 @@ def ds_route_phases(bt, dev, card, ks, q_c2c, entry, report, st):
                    lambda: k10.gmain12_reference(v["x_pre"], v["m_y"], v["m_x"], grid, cmax=6),
                    b10, lambda: torch.einsum("xzy,cyj,cxi->cijz", *e10))
         if n == small:
-            # K10 against K9 on the same nodes: the main block of each route
-            main = dict(
-                K9=lambda: dso._g_main_half(v["fhs"], v["x_pre"], v["m_y"], v["m_x"], v["m_zh"], 6,
-                                            7, None, merged=True, grid_shape=grid, fused="3"),
-                **{"K10 + K8 half-z": lambda: dso._g_main_half(
-                    v["fhs"], v["x_pre"], v["m_y"], v["m_x"], v["m_zh"], 6, 7, None, merged=True,
-                    grid_shape=grid, fused="12")},
-                **{"staged K8 x3": lambda: dso._g_main_half(
-                    v["fhs"], v["x_pre"], v["m_y"], v["m_x"], v["m_zh"], 6, 7, None, merged=True,
-                    grid_shape=grid, fused=False)})
-            for label in ("K9", "K10 + K8 half-z", "staged K8 x3", "K10 + K8 half-z", "K9"):
-                report(f"main block {n}^3 C={c} through {label}", time_ms(main[label]), "call", 20)
+            # K9 against K10 + the half-z K8 call and the staged K8 chain on
+            # the same nodes (the main block of each route), paired: 5 rounds,
+            # the order reversed every other round
+            main = {fused: (lambda f_=fused: dso._g_main_half(
+                v["fhs"], v["x_pre"], v["m_y"], v["m_x"], v["m_zh"], 6, 7, None, merged=True,
+                grid_shape=grid, fused=f_)) for fused in ("3", "12", False)}
+            label = {"3": "K9 (one cluster per node)", "12": "K10 + K8 half-z", False: "staged K8 x3"}
+            outs = {f: main[f]() for f in main}
+            torch.cuda.synchronize()
+            check(same(outs["3"], outs[False]) and same(outs["12"], outs[False]),
+                  f"main block {n}^3: K9 / K10 route != the staged K8 chain")
+            print(f"[20 main block] {n}^3 C={c}: K9 and K10 + K8 bitwise equal to the staged"
+                  f" K8 chain: True | {card}")
+            paired = {f: [] for f in main}
+            order = list(main)
+            for rnd in range(5):
+                for f in (order if rnd % 2 == 0 else order[::-1]):
+                    paired[f] += time_ms(main[f])
+            for f in order:
+                report(f"main block {n}^3 C={c} through {label[f]}, 5 paired rounds",
+                       paired[f], "call", 20)
+            first = {"3": "gmain3_kernel", "12": "gmain12_kernel", False: "oz_contract_kernel"}
+            for f in order:  # device time of each path's kernels, transposes included
+                fams = (first[f],) + tuple(k for k in first.values() if k != first[f])
+                fam = profile_calls(main[f], fams, 5)
+                if fam is not None:
+                    parts = ", ".join(f"{k} {v[0] / 5e3:.4f} ms" for k, v in fam.items() if v[1])
+                    print(f"  {label[f]}: device {sum(v[0] for v in fam.values()) / 5e3:.4f} ms per"
+                          f" main block (profiler, 5 calls): {parts} | {card}")
             print(f"[20 K10 vs K9] {n}^3 C={c}: K10 alone (stages y, x) median"
                   f" {statistics.median(ms10):.4f} ms | {card}")
 
@@ -1041,11 +1114,20 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.load_library()
     print(f"[2 build] {_build.LIB_PATH} in {time.perf_counter() - t0:.1f} s")
+    tc = None
     for line in _build.BUILD_LOG.read_text().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
         elif line.startswith("# build seconds"):
             print("  per compile, then link, then wall:", line[2:])
+        elif line.startswith("# tensor-core instructions"):
+            tc = line
+    # the exact chunk dots on the tensor cores: HMMA/HGMMA in every oz tile kernel
+    print(f"[2 sass] {tc[2:] if tc else 'no cuobjdump count in build.log'}")
+    counts_tc = ast.literal_eval(tc.split(": ", 1)[1]) if tc else {}
+    check(all(counts_tc.get(k, 0) > 0 for k in ("oz_contract_kernel", "gmain3_kernel",
+                                                "gmain12_kernel")),
+          f"tensor-core instructions missing from the oz kernels: {counts_tc}")
 
     # ---- 3. kernels against their plain versions on the card -----------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1464,7 +1546,8 @@ def main() -> int:
               f" ms/{unit} (mean {statistics.mean(rates):.4f} min {min(rates):.4f}"
               f" stdev {statistics.stdev(rates):.4f} {unit}s/s, {len(ms)} trials) | {card}")
 
-    def entry(name, key, dtype, launches_, plain_, err, ms, plain_ms, b_ms, b_by, lib_ms=None):
+    def entry(name, key, dtype, launches_, plain_, err, ms, plain_ms, b_ms, b_by, lib_ms=None,
+              dev_ms=None):
         source, replaces = KERNEL_SOURCES[key]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1472,6 +1555,7 @@ def main() -> int:
             "ms": statistics.median(ms), "ms_mean": statistics.mean(ms),
             "plain_ms": statistics.median(plain_ms), "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None if lib_ms is None else statistics.median(lib_ms),
+            **({} if dev_ms is None else {"device_ms": dev_ms}),
         })
 
     for n in (32, 64):
@@ -1497,17 +1581,23 @@ def main() -> int:
             pre_p = bt.build_precomp(cfg_p, dev)
             k6_args, k5_args, k5_kw = k56_inputs(op, k6, cfg_p, pre_p, f)
             w = k5.node_weights(*k5_args[1:], dtype=cfg.real_dtype, **k5_kw).to(cfg.complex_dtype)
+            # K6's yardstick: one broadcasting multiply by the precomputed
+            # alpha of both streams, (2, B, N, M2) x (N, M2)
+            a6 = k6_args[0][:, :, None] * k6_args[1][:, None, :]
+            alpha = torch.stack((a6, a6.conj()))
             for key, label, fn in (
                 ("k6", "kernel", lambda: k6.alpha_multiply(*k6_args)),
                 ("k6", "plain", lambda: k6.alpha_multiply_reference(*k6_args)),
+                ("k6", "library", lambda: torch.mul(alpha, k6_args[2])),
                 ("k5", "kernel", lambda: k5.gain_reduce(*k5_args, **k5_kw)),
                 ("k5", "plain", lambda: k5.gain_reduce_reference(*k5_args, **k5_kw)),
                 ("k5", "library", lambda: torch.einsum("bm,bm->m", w, k5_args[0])),
             ):
                 ms = time_ms(fn, *((PLAIN_TRIALS, 1) if label == "plain" else ()))
                 times[(key, n, dtype, label)] = ms
-                tag = "torch.einsum('bm,bm->m') on precomputed weights (library yardstick)" \
-                    if label == "library" else label
+                tag = {"k5": "torch.einsum('bm,bm->m') on precomputed weights (library yardstick)",
+                       "k6": "torch.mul by the precomputed alpha of both streams (library yardstick)"
+                       }[key] if label == "library" else label
                 report(f"{key.upper()} {n}^3 Ns=12 {dtype} chunk of {k6_args[0].shape[0]} nodes {tag}",
                        ms, "call")
             csize = 8 if dtype == "float64" else 4

@@ -109,7 +109,24 @@ def test_k8_nodemat_matches_plain(cuda_device, repeat, x_pre, merged, real_out):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("grid", GRIDS)
+@pytest.mark.parametrize("im_list", [False, True])
+@pytest.mark.parametrize("real_out", [False, True])
+@pytest.mark.parametrize("merged", [True, False])
+def test_k8_edge_operands_match_plain(cuda_device, merged, real_out, im_list):
+    """The tensor-core tile at the edge of exactness: every chunk and slice
+    at 127 units, K = 64, sx = sm = 7, cmax = 6 (a merged level sums 14.45 M
+    of the 2^24 units of float32)."""
+    x, m, x_pre = k8.edge_operands(64, 64, 40, 2, merged, im_list=im_list, device=cuda_device)
+    kw = dict(cmax=6, repeat=True, x_pre=x_pre, merged=merged, real_out=real_out)
+    a = k8.contract_last_oz_nodemat(x, m, **kw)
+    b = k8.contract_last_oz_nodemat(x, m, **kw)
+    ref = k8.contract_last_oz_nodemat(_to(x, "cpu"), _to(m, "cpu"), **{**kw, "x_pre": _to(x_pre, "cpu")})
+    torch.cuda.synchronize()
+    assert _same(a, ref) and _same(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", GRIDS + [(32, 32, 32)])
 def test_k9_matches_plain_and_k8_chain(cuda_device, grid):
     from boltzfft_torch.ds_operator import _g_main_half
 

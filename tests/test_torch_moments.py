@@ -64,7 +64,7 @@ def test_entropy_matches_boltzfft():
 def test_conserve_precomp_and_project_match_boltzfft():
     kw = dict(nv=8, nvy=10, nvz=12, ns=6)
     cp_j = bz.build_conserve_precomp(bz.CollisionConfig(**kw), temperature=2.0)
-    cp_t = bt.build_conserve_precomp(bt.CollisionConfig(**kw), temperature=2.0)
+    cp_t = bt.build_conserve_precomp(bt.CollisionConfig(**kw), temperature=2.0, device="cpu")
     for name in ("psi", "corr"):
         assert np.array_equal(getattr(cp_t, name).numpy(), np.asarray(getattr(cp_j, name)))
     q = _random_f((2, 8, 10, 12))
@@ -75,7 +75,7 @@ def test_conserve_precomp_and_project_match_boltzfft():
 
 def test_conserved_moments_vanish_to_roundoff():
     cfg, g, q = _q()
-    qp = bt.project(q, bt.build_conserve_precomp(cfg))
+    qp = bt.project(q, bt.build_conserve_precomp(cfg, device="cpu"))
     m0, m = bt.moments(q, g.v, g.dv), bt.moments(qp, g.v, g.dv)
     defect = abs(float(m0.energy))
     assert defect > 1e-2
@@ -86,7 +86,7 @@ def test_conserved_moments_vanish_to_roundoff():
 
 def test_projection_is_idempotent_and_linear():
     cfg, _, q = _q()
-    cp = bt.build_conserve_precomp(cfg)
+    cp = bt.build_conserve_precomp(cfg, device="cpu")
     qp = bt.project(q, cp)
     np.testing.assert_allclose(bt.project(qp, cp).numpy(), qp.numpy(),
                                atol=1e-14 * float(q.abs().max()))
@@ -95,7 +95,7 @@ def test_projection_is_idempotent_and_linear():
 
 def test_projection_batch_broadcast():
     cfg, _, q = _q()
-    cp = bt.build_conserve_precomp(cfg)
+    cp = bt.build_conserve_precomp(cfg, device="cpu")
     qb = bt.project(torch.stack([q, 3.0 * q]), cp)
     np.testing.assert_allclose(qb[0].numpy(), bt.project(q, cp).numpy(), rtol=1e-12)
     np.testing.assert_allclose(qb[1].numpy(), 3.0 * bt.project(q, cp).numpy(), rtol=1e-12)
@@ -104,7 +104,7 @@ def test_projection_batch_broadcast():
 def test_conservative_wrapper():
     cfg = bt.CollisionConfig(nv=8, ns=6, impl="fused")
     collide, pre = bt.make_collision_operator(cfg, "cpu")
-    cp = bt.build_conserve_precomp(cfg)
+    cp = bt.build_conserve_precomp(cfg, device="cpu")
     f = torch.as_tensor(bt.bkw_f(cfg.velocity_grid.r_squared(), 6.5))
     fs = torch.stack([f, 0.5 * f])
     assert torch.equal(bt.conservative(collide, cp)(fs, pre), bt.project(collide(fs, pre), cp))

@@ -79,7 +79,7 @@ def test_sod_initial_condition_and_density_match_boltzfft():
     kw = small_kw()
     cfg_j, cfg_t = bz.CollisionConfig(**kw), bt.CollisionConfig(**kw)
     a = np.asarray(bz_tr.sod_initial_condition(cfg_j, 6))
-    b = bt_tr.sod_initial_condition(cfg_t, 6)
+    b = bt_tr.sod_initial_condition(cfg_t, 6, device="cpu")
     assert b.dtype == torch.float64 and np.array_equal(a, b.numpy())
     dv = cfg_t.velocity_grid.dv
     np.testing.assert_allclose(bt_tr.density_profile(b, dv).numpy(),
@@ -142,7 +142,7 @@ def test_collisionless_step_conserves_exactly():
     g = cfg.velocity_grid
     collide_fn, pre = bt.make_collision_operator(cfg, "cpu")
     nx = 8
-    f = bt_tr.sod_initial_condition(cfg, nx)
+    f = bt_tr.sod_initial_condition(cfg, nx, device="cpu")
     dx = 1.0 / nx
     dt = bt_tr.cfl_dt(float(np.abs(g.v).max()), dx)
     step = bt_tr.make_inhomogeneous_step(cfg, collide_fn, dx=dx, dt=dt, knudsen=1e30)
