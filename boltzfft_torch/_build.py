@@ -20,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -65,8 +66,11 @@ _ENTRY_ARGS = {
     # 4 inputs, 1 output, 3 ints, 3 reals and the stream
     "bfft_gain_reduce": [_P] * 4 + [_P] + [_I] * 3 + [_D] * 3 + [_P],
 }
-#: argtypes of the float32-only entry points (the ds engine).
+#: argtypes of the entry points without an f32/f64 pair (the ds engine's,
+#: and K1's plan).
 _ENTRY_ARGS_F32 = {
+    # Nx, Ny, Nz, is_f64 and the 14-int output: K1's shared-memory plan
+    "bfft_k1_plan": [_I] * 4 + [_P],
     # 4 inputs, 2 outputs, 5 ints and the stream
     "bfft_oz_preslice": [_P] * 6 + [_I] * 5 + [_P],
     # 4 planes, 2 presliced, 2 matrices, 4 phase planes, 4 outputs, 12 ints
@@ -146,16 +150,22 @@ def build() -> Path:
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     with BUILD_LOG.open("a") as log:
-        log.write(f"# tensor-core instructions (HMMA, HGMMA) per kernel: {tc_counts(nvcc, tmp)}\n")
+        log.write(f"# tensor-core instructions (HMMA, HGMMA, DMMA) per kernel: {tc_counts(nvcc, tmp)}\n")
     os.replace(tmp, LIB_PATH)
     _HASH_PATH.write_text(digest)
     return LIB_PATH
 
 
+#: Kernels whose tensor-core instructions ``tc_counts`` reports: the ds
+#: engine's tile kernels, and K1's (K2's, K4's, K3's x leg) axis transforms,
+#: whose float and double instances are told apart.
+TC_KERNELS = ("oz_contract_kernel", "gmain3_kernel", "gmain12_kernel")
+TC_TRANSFORMS = ("line_dft_kernel", "plane_dft_kernel")
+
+
 def tc_counts(nvcc: str, lib: Path) -> dict:
-    """{kernel: number of tensor-core instructions} of the ds engine's
-    kernels (``oz_*``, ``gmain*``) in the library's SASS (``cuobjdump
-    -sass``, beside nvcc): the check that the exact chunk dots run on the
+    """``count_tc`` of the library's SASS (``cuobjdump -sass``, beside nvcc):
+    the check that the exact chunk dots and K1's transforms run on the
     tensor cores.  Empty where cuobjdump is missing or fails."""
     tool = Path(nvcc).parent / "cuobjdump"
     if not tool.exists():
@@ -164,16 +174,30 @@ def tc_counts(nvcc: str, lib: Path) -> dict:
                           stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
         return {}
+    return count_tc(proc.stdout)
+
+
+def count_tc(sass: str) -> dict:
+    """{kernel: {instruction: count}} of the tensor-core instructions (HMMA,
+    HGMMA, DMMA) in ``cuobjdump -sass`` text, summed over the instances of
+    each kernel of ``TC_KERNELS`` and, per element type
+    (``line_dft_kernel<double>``, ...), of ``TC_TRANSFORMS``."""
     counts, name = {}, None
-    for line in proc.stdout.splitlines():
+    for line in sass.splitlines():
         if "Function : " in line:
             mangled = line.split("Function : ", 1)[1].strip()
-            name = next((k for k in ("oz_contract_kernel", "gmain3_kernel", "gmain12_kernel")
-                         if k in mangled), None)
+            name = next((k for k in TC_KERNELS if k in mangled), None)
+            for k in TC_TRANSFORMS:
+                at = mangled.find(k)
+                if at >= 0 and mangled[at + len(k):at + len(k) + 2] in ("Id", "If"):
+                    elem = "double" if mangled[at + len(k) + 1] == "d" else "float"
+                    name = f"{k}<{elem}>"
             if name is not None:
-                counts.setdefault(name, 0)
-        elif name is not None and ("HMMA" in line or "HGMMA" in line):
-            counts[name] += 1
+                counts.setdefault(name, {"HMMA": 0, "HGMMA": 0, "DMMA": 0})
+        elif name is not None:
+            m = re.search(r"\b(DMMA|HGMMA|HMMA)\b", line)
+            if m:
+                counts[name][m.group(1)] += 1
     return counts
 
 

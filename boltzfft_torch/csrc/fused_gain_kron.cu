@@ -40,8 +40,9 @@
 //    phased copy of f_hat is ever written.  The M (row) tiles run on
 //    gridDim.x, so 98,304 streams (512 cells x 96 nodes x 2) fit one launch.
 //    The group forward's y/z leg is the same kernel against Ny Nz conj K.
-//  * The x leg, the group sum and the beta1 accumulation are K1's kernels
-//    (spectral_common.cuh), whose math is the same.
+//  * The x leg runs the axis transform of spectral_common.cuh (K1's line
+//    kernel: DMMA in double, 3xTF32 in float); the group sum and the beta1
+//    accumulation are element-wise kernels there, whose math is K1's.
 //  * Nodes go in chunks of whole radial groups sized by the caller from the
 //    free device memory; 6 launches per chunk and one memset per call.
 //  * No float atomics: every sum runs in one thread in a fixed order, so a

@@ -20,7 +20,11 @@ Both compute, per distribution f (Nx, Ny, Nz), with per-axis DFT matrices:
   beta1 = 4 pi b_gamma sin(a)/a with a = pi rho |l| / (2L) + eps;
 * Q = Re IDFT(Q_gain_hat) - Re IDFT(beta2 f_hat) f.
 
-Every transform runs the axes in the order x, y, z.
+The plain version runs every transform's axes in the order x, y, z; the
+kernel runs z, y, then x (fused with the group sum or the beta1 sum), on the
+tensor cores (DMMA in float64, 3xTF32 in float32).  The two agree to
+rounding: within 1e-12 max|Q| in float64 and 1e-5 in float32 (4e-5 at 16^3,
+where the gain and loss terms cancel).
 """
 
 from __future__ import annotations
@@ -34,9 +38,18 @@ LAUNCHES = 0
 #: Calls of the plain PyTorch version.
 REFERENCE_CALLS = 0
 
-# Shared memory an H100 block may use (bytes), and the kernel's line tile.
-_SMEM_LIMIT = 232_448
-_TILE = 32
+# Mirror of the shared-memory plan of ``csrc/spectral_common.cuh``
+# (``k1_plan``, the one count; the tests hold these constants to the source
+# and, on the card, the plan to ``bfft_k1_plan``).
+_PAD = 16            # kPad: every transformed axis is padded to this
+_SMEM_LIMIT = 232_448  # kSmemLimit: shared memory an H100 block may use
+_PLANE_ELEMS = 2048  # kPlaneElems: most padded points of a plane block
+_MAT_PAD = 4         # kMatPad
+_RAW_PAD = 4         # kRawPad
+_LINE_PAD32 = 8      # kLinePad32
+#: k1_plan's routes: 1 the plane route (y and z of a block of x planes in one
+#: launch), 2 the last-pass route (y and z as line passes), 0 none.
+ROUTES = {1: "plane", 2: "last pass"}
 
 
 def _cplx(stack: torch.Tensor) -> torch.Tensor:
@@ -44,11 +57,87 @@ def _cplx(stack: torch.Tensor) -> torch.Tensor:
     return torch.complex(stack[0], stack[1])
 
 
-def _kernel_smem_bytes(n: int, dtype: torch.dtype) -> int:
-    """Shared memory of one axis-DFT block along an axis of length ``n``:
-    the (n, n) complex matrix and an (n, 33) complex line tile."""
+def _pad16(n: int) -> int:
+    return -(-n // _PAD) * _PAD
+
+
+def mat_bytes(n: int) -> int:
+    """One padded (n, n) matrix, 16 bytes a point (double re/im planes, or
+    float hi/lo splits of re and im)."""
+    return _pad16(n) * (_pad16(n) + _MAT_PAD) * 16
+
+
+def line_smem(n, streams, acc_bytes, csize, lines, nbuf) -> int:
+    """A line-kernel block: the matrix, nbuf x streams tiles of
+    pad16(n) x lines complex points, an accumulator of acc_bytes a point."""
+    ld = lines + (_LINE_PAD32 if csize == 8 else 0)
+    return mat_bytes(n) + nbuf * streams * _pad16(n) * ld * csize + _pad16(n) * lines * acc_bytes
+
+
+def line_plan(n, streams, acc_bytes, csize):
+    """(lines per tile, buffers, bytes): the first of (32, 2), (16, 2),
+    (16, 1) that fits; lines 0 if none does."""
+    for lines, nbuf in ((32, 2), (16, 2), (16, 1)):
+        b = line_smem(n, streams, acc_bytes, csize, lines, nbuf)
+        if b <= _SMEM_LIMIT:
+            return lines, nbuf, b
+    return 0, 1, line_smem(n, streams, acc_bytes, csize, 16, 1)
+
+
+def plane_smem(nx, ny, nz, csize, planes) -> int:
+    """A plane-kernel block: the z matrix (and the y one unless ny == nz),
+    then ``planes`` input planes and z-pass planes, and a unit's phase rows."""
+    mats = mat_bytes(nz) + (0 if ny == nz else mat_bytes(ny))
+    ld_raw = _pad16(nz) + _RAW_PAD
+    ld_mid = _pad16(nz) + (_LINE_PAD32 if csize == 8 else 0)
+    return mats + planes * _pad16(ny) * (ld_raw + ld_mid) * csize + (nx + ny + _pad16(nz)) * csize
+
+
+def plane_count(nx, ny, nz, csize) -> int:
+    """x planes per plane block: the largest divisor of nx that holds at
+    most _PLANE_ELEMS padded points and fits; 0 if one plane does not fit."""
+    best = 0
+    for p in range(1, nx + 1):
+        if nx % p:
+            continue
+        if p > 1 and p * _pad16(ny) * _pad16(nz) > _PLANE_ELEMS:
+            break
+        if plane_smem(nx, ny, nz, csize, p) > _SMEM_LIMIT:
+            break
+        best = p
+    return best
+
+
+def plan(shape, dtype: torch.dtype) -> list:
+    """``k1_plan`` of the source, 14 ints: the route (see ``ROUTES``), the
+    planes per block, (lines, buffers) of the x gain, x beta1, x store, y
+    store and z store passes (0 where unused), the first axis no tile fits
+    (-1: none) and the bytes it needs."""
+    nx, ny, nz = (int(n) for n in shape)
     csize = 16 if dtype == torch.float64 else 8
-    return n * n * csize + n * (_TILE + 1) * csize
+    out = [0] * 14
+    out[12] = -1
+    passes = (line_plan(nx, 2, csize // 2, csize), line_plan(nx, 1, csize, csize),
+              line_plan(nx, 1, 0, csize))
+    for i, (lines, nbuf, b) in enumerate(passes):
+        out[2 + 2 * i], out[3 + 2 * i] = lines, nbuf
+        if lines == 0 and out[12] < 0:
+            out[12], out[13] = 0, b
+    p = plane_count(nx, ny, nz, csize)
+    out[1] = p
+    if p == 0:
+        for axis, n, slot in ((1, ny, 8), (2, nz, 10)):
+            lines, nbuf, b = line_plan(n, 1, 0, csize)
+            out[slot], out[slot + 1] = lines, nbuf
+            if lines == 0 and out[12] < 0:
+                out[12], out[13] = axis, b
+    out[0] = 0 if out[12] >= 0 else (1 if p > 0 else 2)
+    return out
+
+
+def route(shape, dtype: torch.dtype):
+    """"plane", "last pass", or None where the kernel cannot take the grid."""
+    return ROUTES.get(plan(shape, dtype)[0])
 
 
 def check_grid(shape, dtype: torch.dtype) -> None:
@@ -58,12 +147,14 @@ def check_grid(shape, dtype: torch.dtype) -> None:
     for n in shape:
         if n % 2:
             raise ValueError(f"fused_collide: grid axes must be even, got {tuple(shape)}")
-        if _kernel_smem_bytes(n, dtype) > _SMEM_LIMIT:
-            raise ValueError(
-                f"fused_collide: an axis of {n} points needs "
-                f"{_kernel_smem_bytes(n, dtype)} B of shared memory for its DFT "
-                f"matrix tile (limit {_SMEM_LIMIT} B); use impl='rfft' or 'c2c'"
-            )
+    out = plan(shape, dtype)
+    if out[0] == 0:
+        n = tuple(shape)[out[12]]
+        raise ValueError(
+            f"fused_collide: an axis of {n} points needs "
+            f"{out[13]} B of shared memory for its DFT "
+            f"matrix tile (limit {_SMEM_LIMIT} B); use impl='rfft' or 'c2c'"
+        )
 
 
 def fused_collide(

@@ -5,9 +5,12 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: a CUDA card must be present; prints its name and power limit;
-2. build: compiles the port's CUDA kernels from ``boltzfft_torch/csrc``, and
-   counts the tensor-core instructions (HMMA, HGMMA) in the SASS of the ds
-   engine's tile kernels (K8, K9, K10), which must all have some;
+2. build: compiles the port's CUDA kernels from ``boltzfft_torch/csrc``
+   (the build seconds), and counts the tensor-core instructions (HMMA,
+   HGMMA, DMMA) in the SASS: the ds engine's tile kernels (K8, K9, K10)
+   must all have some, and K1's axis transforms (``line_dft_kernel``,
+   ``plane_dft_kernel``; K2, K4 and K3's x leg too) DMMA in double and
+   HMMA (3xTF32) in float;
 3. each kernel against its plain PyTorch version on the card (float64 within
    1e-12 of the plain result's max, float32 within 1e-5, 4e-5 below 32^3,
    see ``TOL``): K1 (``fused_collide``), K3 (``fused_gain_kron``), K2 and K4
@@ -53,7 +56,11 @@ Phases, in order; any failure raises and the script exits non-zero:
     32^3) at 32^3 and 64^3; K3 (first held to its plain
     version there), its plain version and K1 on the 256-cell TG-2D batch;
     the TG-2D step; and a ``torch.profiler`` window over TG-2D steps (device
-    time by kernel family and the card's idle share);
+    time by kernel family and the card's idle share); K1's bound on the
+    tensor cores beside its CUDA-core bound, and its stream stage's device
+    time beside one ``torch.fft.ifftn`` over the same 2 x n_nodes grids;
+    the homogeneous routes (K1, rfft + use_pallas, K2 + hook, K4) are timed
+    in turns;
 12. K8 on edge operands (every chunk and slice at 127 units, K = 64,
     merged and unmerged, real and complex output: the level sums at the
     edge of float32's exactness) bitwise equal to its plain version; the ds
@@ -173,9 +180,16 @@ SCHEME_TRIALS = 5
 MASS_TOL = 1e-2
 H_TOL = 0.01
 # Peaks of an H100 SXM at 700 W (NVIDIA's data sheet): CUDA-core FLOP/s in
-# float32 and float64 (K1-K6 use no tensor cores), device memory bytes/s.
+# float32 and float64 (K3's GEMM, K5, K6), device memory bytes/s, and the
+# tensor cores' dense rates that K1's transforms run at (K1, K2, K4; K3's x
+# leg): DMMA in float64, TF32 in float32, where 3xTF32 does 3 products for
+# each one.
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 PEAK_BYTES = 3.35e12
+PEAK_TC = {"float64": 67e12, "float32": 495e12}
+TC_PASSES = {"float64": 1, "float32": 3}
+TC_UNIT = {"float64": "DMMA f64 tensor cores, 67 TFLOP/s",
+           "float32": "3xTF32 tensor cores, 3 x 495 TFLOP/s"}
 # The homogeneous main paths: (label, CollisionConfig kwargs, hook, grids,
 # the counts that must be > 0).  The hook is the single-device stand-in for
 # the node-sharded operator's all-reduce.
@@ -301,9 +315,20 @@ def k3_kron_flops(shape, n_nodes, n_groups, batch=1):
 
 def bound(flops, nbytes, dtype):
     """(bound_ms, bound_by): the larger of FLOPs over the CUDA-core peak and
-    bytes over the memory rate."""
+    bytes over the memory rate (``tc_bound`` for the tensor-core kernels)."""
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def tc_bound(flops, nbytes, dtype):
+    """(bound_ms, bound_by, the CUDA-core bound_ms) of K1, K2 or K4: the larger
+    of the transforms' FLOPs on the tensor cores (``TC_PASSES`` products at
+    ``PEAK_TC``) and bytes over the memory rate; the same work's bound on the
+    CUDA cores (``bound``) beside it, for comparison with earlier rows."""
+    t_ops = TC_PASSES[dtype] * flops / PEAK_TC[dtype]
+    t_bytes = nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            bound(flops, nbytes, dtype)[0])
 
 
 def time_ms(fn, trials=TRIALS, warmup=2):
@@ -1122,12 +1147,19 @@ def main() -> int:
             print("  per compile, then link, then wall:", line[2:])
         elif line.startswith("# tensor-core instructions"):
             tc = line
-    # the exact chunk dots on the tensor cores: HMMA/HGMMA in every oz tile kernel
+    # the exact chunk dots on the tensor cores: HMMA/HGMMA in every oz tile
+    # kernel; K1's transforms: DMMA in double, HMMA (TF32) in float
     print(f"[2 sass] {tc[2:] if tc else 'no cuobjdump count in build.log'}")
     counts_tc = ast.literal_eval(tc.split(": ", 1)[1]) if tc else {}
-    check(all(counts_tc.get(k, 0) > 0 for k in ("oz_contract_kernel", "gmain3_kernel",
-                                                "gmain12_kernel")),
+    none = {"HMMA": 0, "HGMMA": 0, "DMMA": 0}
+    check(all(counts_tc.get(k, none)["HMMA"] + counts_tc.get(k, none)["HGMMA"] > 0
+              for k in ("oz_contract_kernel", "gmain3_kernel", "gmain12_kernel")),
           f"tensor-core instructions missing from the oz kernels: {counts_tc}")
+    for k in ("line_dft_kernel", "plane_dft_kernel"):
+        dmma = counts_tc.get(f"{k}<double>", none)["DMMA"]
+        hmma = counts_tc.get(f"{k}<float>", none)["HMMA"]
+        print(f"[2 sass] {k}: DMMA {dmma} (double), HMMA {hmma} (float, 3xTF32)")
+        check(dmma > 0 and hmma > 0, f"K1's {k} is not on the tensor cores: {counts_tc}")
 
     # ---- 3. kernels against their plain versions on the card -----------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1547,7 +1579,7 @@ def main() -> int:
               f" stdev {statistics.stdev(rates):.4f} {unit}s/s, {len(ms)} trials) | {card}")
 
     def entry(name, key, dtype, launches_, plain_, err, ms, plain_ms, b_ms, b_by, lib_ms=None,
-              dev_ms=None):
+              dev_ms=None, **extra):
         source, replaces = KERNEL_SOURCES[key]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1555,8 +1587,13 @@ def main() -> int:
             "ms": statistics.median(ms), "ms_mean": statistics.mean(ms),
             "plain_ms": statistics.median(plain_ms), "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None if lib_ms is None else statistics.median(lib_ms),
-            **({} if dev_ms is None else {"device_ms": dev_ms}),
+            **({} if dev_ms is None else {"device_ms": dev_ms}), **extra,
         })
+
+    # K1's stream stage (the node streams' y/z plane pass and the x pass
+    # fused with the group sum) by the profiler, beside one torch.fft.ifftn
+    # over the same 2 x n_nodes grids: the transforms' library time
+    stream_stage = {}
 
     for n in (32, 64):
         for dtype in ("float32", "float64"):
@@ -1568,6 +1605,21 @@ def main() -> int:
                 ms = time_ms(lambda: fn(*args, **kw), *((PLAIN_TRIALS, 1) if label == "plain" else ()))
                 times[("k1", n, dtype, label)] = ms
                 report(f"K1 {n}^3 Ns=12 {dtype} {label}", ms)
+            elem = "double" if dtype == "float64" else "float"
+            fams = (f"plane_dft_kernel<{elem}, false>", f"line_dft_kernel<{elem}, false, 2, 1>")
+            fam = profile_calls(lambda: k1.fused_collide(*args, **kw), fams, 3)
+            x = torch.randn((2 * cfg.n_nodes, n, n, n), dtype=cfg.complex_dtype, device=dev)
+            ifft_ms = statistics.median(time_ms(lambda: torch.fft.ifftn(x, dim=(-3, -2, -1)), 5, 1))
+            del x
+            parts = None if fam is None else [fam[k][0] / 3e3 for k in fams]
+            stage = None if parts is None else sum(parts)
+            stream_stage[(n, dtype)] = (stage, ifft_ms)
+            said = "not measured" if parts is None else (
+                f"{stage:.4f} ms (y/z plane pass {parts[0]:.4f}, x pass with the group sum"
+                f" {parts[1]:.4f})")
+            print(f"[11 stream stage] K1 {n}^3 {dtype}: the node streams {said}, profiler,"
+                  f" per eval; torch.fft.ifftn over the {2 * cfg.n_nodes} grids"
+                  f" {ifft_ms:.4f} ms (library yardstick) | {card}")
             # K2 and K4 at the same shape, on this f's spectrum
             args, kw = k24_inputs(op, cfg, pre, f)
             for key, scheme in (("k2", "ct"), ("k4", "transpose")):
@@ -1607,10 +1659,11 @@ def main() -> int:
                          csize * 2 * (c6 * n + c6 * m2 + n * m2 + 2 * c6 * n * m2), dtype)
             m = n * m2
             b_k5 = bound(10.0 * c6 * m, csize * (2 * c6 * m + m + 2 * c6 + 2 * m), dtype)
-            b_k24 = bound(k3_flops((n, n, n), b, cfg.n_gl),
+            b_k24 = tc_bound(k3_flops((n, n, n), b, cfg.n_gl),
                           csize * (2 * n3 * 2 + n3 + 2 * b + 2 * 3 * b * n + 6 * 2 * n * n), dtype)
-            print(f"[11 bound] {n}^3 {dtype}: K2/K4 {b_k24[0]:.4f} ms ({b_k24[1]}), K6"
-                  f" {b_k6[0]:.4f} ms ({b_k6[1]}), K5 {b_k5[0]:.4f} ms ({b_k5[1]})")
+            print(f"[11 bound] {n}^3 {dtype}: K2/K4 {b_k24[0]:.4f} ms ({b_k24[1]}, {TC_UNIT[dtype]};"
+                  f" CUDA cores {b_k24[2]:.4f}), K6 {b_k6[0]:.4f} ms ({b_k6[1]}), K5"
+                  f" {b_k5[0]:.4f} ms ({b_k5[1]})")
             for key, kname, b_ms, route_label in (
                 ("k2", "fused_gain_ct", b_k24, ROUTES[1][0]),
                 ("k4", "fused_gain_transpose", b_k24, ROUTES[2][0]),
@@ -1618,17 +1671,22 @@ def main() -> int:
                 ("k5", "gain_reduce", b_k5, ROUTES[0][0]),
             ):
                 rc_ = route_counts[(route_label, dtype, n)]
+                tc = {} if len(b_ms) == 2 else {"bound_unit": TC_UNIT[dtype],
+                                                "cuda_core_bound_ms": b_ms[2]}
                 entry(f"{kname}[{dtype},{n}^3,Ns=12]", kname, dtype, rc_[key], rc_[key + "_plain"],
                       max_err[(key, dtype, n)], times[(key, n, dtype, "kernel")],
                       times[(key, n, dtype, "plain")], b_ms[0], b_ms[1],
-                      times.get((key, n, dtype, "library")))
+                      times.get((key, n, dtype, "library")), **tc)
     # the whole eval through each route, as a user calls it
     route_cfgs = [("K1 (fused)", dict(impl="fused"), False),
                   ("staged rfft", dict(impl="rfft"), False),
                   ("staged c2c", dict(impl="c2c"), False)] + [
         (label, kw, hook) for label, kw, hook, _, _ in ROUTES]
+    # in turns: every route once forward and once backward, half the trials
+    # each time
     for n in (32, 64):
         for dtype in ("float32", "float64"):
+            runs = []
             for label, kw, hook in route_cfgs:
                 if kw.get("impl") == "dft" and n == 64:
                     continue
@@ -1636,9 +1694,14 @@ def main() -> int:
                 pre = bt.build_precomp(cfg, dev)
                 _, _, f = bkw(bt, cfg, dev)
                 red = (lambda x: x) if hook else None
-                ms = time_ms(lambda: bt.collide(cfg, pre, f, red))
-                report(f"route {label}, collide at {n}^3 Ns=12 {dtype}", ms)
-                del pre
+                runs.append((label, partial(bt.collide, cfg, pre, f, red)))
+            route_ms = {label: [] for label, _ in runs}
+            for order in (runs, runs[::-1]):
+                for label, fn in order:
+                    route_ms[label] += time_ms(fn, TRIALS // 2, 1)
+            for label, _ in runs:
+                report(f"route {label}, collide at {n}^3 Ns=12 {dtype} (in turns)", route_ms[label])
+            del runs
     tg2d = {}
     for dtype in ("float32", "float64"):
         cfg, collide, pre, step2, f2 = solvers[dtype]
@@ -1657,6 +1720,11 @@ def main() -> int:
         tg2d[dtype] = dict(k3=ms_k3, plain=ms_plain, k1=ms_k1, step=ms_step,
                            batch=cells.shape[0], nodes=pre.rho.shape[0],
                            groups=-(-pre.rho.shape[0] // cfg.ns_eff))
+        t = tg2d[dtype]
+        b1 = tc_bound(k1_flops((16, 16, 16), t["nodes"], t["groups"], batch=t["batch"]),
+                      (8 if dtype == "float64" else 4) * 4096 * (2 * t["batch"] + 2), dtype)
+        print(f"[11 bound] K1 {dtype} TG-2D batch: {b1[0]:.4f} ms ({b1[1]}, {TC_UNIT[dtype]});"
+              f" on the CUDA cores {b1[2]:.4f} ms; kernel median {statistics.median(ms_k1):.4f} ms")
 
     # where a TG-2D step's device time goes (the K1 route)
     for dtype in ("float64", "float32"):
@@ -1674,8 +1742,8 @@ def main() -> int:
                 step2(f2, pre)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        fam = {"K1 axis DFT (axis_dft_kernel)": 0.0,
-               "K1 group sum, beta1, init, assemble": 0.0,
+        fam = {"K1 transforms (plane_dft_kernel, line_dft_kernel)": 0.0,
+               "K1 init, assemble": 0.0,
                "cuFFT": 0.0, "elementwise (advection, RK2, casts, phases)": 0.0}
         for e in prof.key_averages():
             if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -1683,10 +1751,10 @@ def main() -> int:
             t = getattr(e, "self_device_time_total", None)
             t = t if t is not None else e.self_cuda_time_total
             nm = e.key.lower()
-            if "axis_dft" in nm:
-                fam["K1 axis DFT (axis_dft_kernel)"] += t
-            elif any(s in nm for s in ("group_sum", "beta1_acc", "init_kernel", "assemble_kernel")):
-                fam["K1 group sum, beta1, init, assemble"] += t
+            if "dft_kernel" in nm:
+                fam["K1 transforms (plane_dft_kernel, line_dft_kernel)"] += t
+            elif any(s in nm for s in ("init_kernel", "assemble_kernel")):
+                fam["K1 init, assemble"] += t
             elif "fft" in nm:
                 fam["cuFFT"] += t
             else:
@@ -1703,11 +1771,17 @@ def main() -> int:
             cfg = bt.CollisionConfig(nv=n, ns=12, impl="fused", dtype=dtype)
             csize = 8 if dtype == "float64" else 4
             n3 = n ** 3
-            b_ms, b_by = bound(k1_flops((n, n, n), cfg.n_nodes, cfg.n_gl),
-                               csize * n3 * 4, dtype)  # f, beta2, |l| in; Q out
+            b_ms, b_by, b_cc = tc_bound(k1_flops((n, n, n), cfg.n_nodes, cfg.n_gl),
+                                        csize * n3 * 4, dtype)  # f, beta2, |l| in; Q out
+            stage, ifft_ms = stream_stage[(n, dtype)]
+            print(f"[11 bound] K1 {n}^3 {dtype}: {b_ms:.4f} ms ({b_by}, {TC_UNIT[dtype]});"
+                  f" on the CUDA cores {b_cc:.4f} ms; kernel median"
+                  f" {statistics.median(times[('k1', n, dtype, 'kernel')]):.4f} ms")
             entry(f"fused_collide[{dtype},{n}^3,Ns=12]", "fused_collide", dtype,
                   launches[("k1", dtype, n)], c4["k1_plain"], max_err[("k1", dtype, n)],
-                  times[("k1", n, dtype, "kernel")], times[("k1", n, dtype, "plain")], b_ms, b_by)
+                  times[("k1", n, dtype, "kernel")], times[("k1", n, dtype, "plain")], b_ms, b_by,
+                  bound_unit=TC_UNIT[dtype], cuda_core_bound_ms=b_cc,
+                  stream_stage_ms=stage, stream_stage_ifftn_ms=ifft_ms)
     for dtype in ("float64", "float32"):
         t = tg2d[dtype]
         csize = 8 if dtype == "float64" else 4

@@ -167,6 +167,10 @@ CUDA_CASES = [  # (config kwargs, batch, tolerance in max|Q|)
     (dict(nv=8, ns=12, node_chunk=5), 1, 1e-12),  # padded nodes (gain_w = 0)
     (dict(nv=32, ns=12, dtype="float32"), 1, 1e-5),
     (dict(nv=8, nvy=10, nvz=12, ns=6, dtype="float32"), 2, 2e-5),
+    (dict(nv=64, ns=12), 1, 1e-12),
+    (dict(nv=64, ns=12, dtype="float32"), 1, 1e-5),
+    # y and z planes too large for shared memory: the last-pass route
+    (dict(nv=16, nvy=72, nvz=72, ns=6), 1, 1e-12),
 ]
 
 
@@ -211,3 +215,19 @@ def test_kernel_chunking_is_bitwise_invariant_on_card(cuda_device, monkeypatch):
     q_one = collide(fs, pre)
     monkeypatch.setattr(k1, "_chunk_nodes", lambda n_nodes, group, *a: group)
     assert torch.equal(collide(fs, pre), q_one)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_kernel_cell_stack_batch_equals_per_item_on_card(cuda_device, dtype):
+    # the TG-2D collision substep: 256 cells of 16^3, Ns=12, in one call
+    cfg = bt.CollisionConfig(nv=16, ns=12, impl="fused", fused_scheme="ct", dtype=dtype)
+    pre = bt.build_precomp(cfg, cuda_device)
+    f = torch.as_tensor(_bkw_f(cfg), dtype=cfg.real_dtype, device=cuda_device)
+    cells = torch.stack([f * (1.0 - 0.5 * i / 256) for i in range(256)])
+    args, kw = _k1_args(cfg, pre, cells)
+    q = k1.fused_collide(*args, **kw)
+    for i in (0, 97, 255):
+        one = list(args)
+        one[5] = cells[i]
+        assert torch.equal(k1.fused_collide(*one, **kw), q[i])

@@ -191,6 +191,9 @@ CUDA_CASES = [  # (scheme, config kwargs, batch, tolerance in max|Q_gain_hat|)
     ("ct", dict(nv=8, ns=12, node_chunk=5), 1, 1e-12),  # padded nodes (gain_w = 0)
     ("transpose", dict(nv=24, ns=6), 1, 1e-12),
     ("ct", dict(nv=32, ns=12, dtype="float32"), 1, 1e-5),
+    ("ct", dict(nv=64, ns=12), 1, 1e-12),
+    ("transpose", dict(nv=64, ns=12, dtype="float32"), 1, 1e-5),
+    ("ct", dict(nv=16, nvy=72, nvz=72, ns=6), 1, 1e-12),  # the last-pass route
 ]
 
 
@@ -209,6 +212,22 @@ def test_kernel_matches_plain_on_card(cuda_device, scheme, kw, batch, tol):
     assert torch.equal(q, k24.fused_gain_dft(*args, scheme=scheme, **gkw))
     q_ref = k24.fused_gain_dft_reference(*args, **gkw)
     assert float((q - q_ref).abs().max()) <= tol * float(q_ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["ct", "transpose"])
+def test_kernel_cell_stack_batch_equals_per_item_on_card(cuda_device, scheme):
+    # the TG-2D cell stack: 256 spectra of 16^3, Ns=12, in one call
+    cfg = bt.CollisionConfig(nv=16, ns=12, impl="fused", fused_scheme=scheme)
+    pre = bt.build_precomp(cfg, cuda_device)
+    f = torch.as_tensor(_bkw_f(cfg), dtype=cfg.real_dtype, device=cuda_device)
+    fh = _spectrum(torch.stack([f * (1.0 - 0.5 * i / 256) for i in range(256)]), cfg)
+    args, gkw = _gain_args(cfg, pre, fh)
+    q = k24.fused_gain_dft(*args, scheme=scheme, **gkw)
+    for i in (0, 97, 255):
+        one = list(args)
+        one[5] = fh[i]
+        assert torch.equal(k24.fused_gain_dft(*one, scheme=scheme, **gkw), q[i])
 
 
 @pytest.mark.cuda
