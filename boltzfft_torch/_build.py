@@ -69,7 +69,7 @@ _ENTRY_ARGS = {
 #: argtypes of the entry points without an f32/f64 pair (the ds engine's,
 #: and K1's plan).
 _ENTRY_ARGS_F32 = {
-    # Nx, Ny, Nz, is_f64 and the 14-int output: K1's shared-memory plan
+    # Nx, Ny, Nz, is_f64 and the 3-int output: K1's shared-memory plan
     "bfft_k1_plan": [_I] * 4 + [_P],
     # 4 inputs, 2 outputs, 5 ints and the stream
     "bfft_oz_preslice": [_P] * 6 + [_I] * 5 + [_P],

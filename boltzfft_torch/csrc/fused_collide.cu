@@ -52,7 +52,9 @@
 //    are read.
 //  * A transform of a batch of grids is two launches: plane_dft_kernel runs
 //    y and z on blocks of x planes in shared memory, line_dft_kernel runs x.
-//    Where a plane does not fit (k1_plan), y and z are line passes too.
+//    Where a plane does not fit (k1_plan), y and z are line passes too; along
+//    an axis over 96 points the line passes read the matrix from device
+//    memory instead of keeping it resident.
 //  * The node streams' x axis is fused with the Hadamard product and the
 //    group sum (kGain): per (entry, radial group, tile of lines) a block
 //    transforms both streams of each node of the group, in node order, and
@@ -257,7 +259,7 @@ cudaError_t gain_loop(const Grid& g, const typename Cplx<T>::type* fh,
 
 template <typename T>
 Grid make_grid(int nx, int ny, int nz) {
-  int plan[14];
+  int plan[3];
   bfft::k1_plan(nx, ny, nz, (int)sizeof(typename Cplx<T>::type), plan);
   return Grid{nx, ny, nz, plan[0] == 1};
 }
@@ -374,7 +376,7 @@ BFFT_ENTRY(bfft_fused_collide_f64, double, double2)
 BFFT_GAIN_ENTRY(bfft_fused_gain_f32, float, float2)
 BFFT_GAIN_ENTRY(bfft_fused_gain_f64, double, double2)
 
-// K1's shared-memory plan for a grid (bfft::k1_plan: 14 ints into out), for
+// K1's shared-memory plan for a grid (bfft::k1_plan: 3 ints into out), for
 // the wrapper's mirror to be checked against on the card.
 extern "C" int bfft_k1_plan(int nx, int ny, int nz, int is_f64, void* out) {
   bfft::k1_plan(nx, ny, nz, is_f64 ? 16 : 8, static_cast<int*>(out));

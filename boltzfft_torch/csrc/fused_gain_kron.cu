@@ -24,10 +24,10 @@
 // the function needs: separable per-axis DFTs do it in Nx Ny Nz (Nx + Ny + Nz)
 // multiply-adds per transform, 2B + G transforms (G radial groups), 0.33 GFLOP
 // per spectrum at 16^3, and that is the bound chip_smoke.py reports.  The node streams
-// make two round trips through device memory (written by the y/z product,
-// read and written by the x leg, read by the group sum): 4 * 2B Nx Ny Nz
-// complex words, 50 MB per spectrum in double, 37 FLOP per byte against a
-// ridge of 10 (double; 74 against 20 in float).
+// make one round trip through device memory (written by the y/z product,
+// read by the x leg, which forms the group sums): 2 * 2B Nx Ny Nz complex
+// words, 25 MB per spectrum in double, 74 FLOP per byte against a ridge of
+// 10 (double; 148 against 20 in float).
 // The TPU kernel keeps a node block's streams in VMEM; here the streams go
 // through device memory, as in K1.
 //
@@ -40,11 +40,14 @@
 //    phased copy of f_hat is ever written.  The M (row) tiles run on
 //    gridDim.x, so 98,304 streams (512 cells x 96 nodes x 2) fit one launch.
 //    The group forward's y/z leg is the same kernel against Ny Nz conj K.
-//  * The x leg runs the axis transform of spectral_common.cuh (K1's line
-//    kernel: DMMA in double, 3xTF32 in float); the group sum and the beta1
-//    accumulation are element-wise kernels there, whose math is K1's.
+//  * The x leg is K1's x pass of spectral_common.cuh (line_dft_kernel, DMMA
+//    in double, 3xTF32 in float): both streams of each node of a radial
+//    group, the Hadamard product and the group sum in node order, only the
+//    sum written.  The group forward's x leg is the same kernel's plain
+//    store; the beta1 accumulation is an element-wise kernel there, whose
+//    math is K1's.
 //  * Nodes go in chunks of whole radial groups sized by the caller from the
-//    free device memory; 6 launches per chunk and one memset per call.
+//    free device memory; 5 launches per chunk and one memset per call.
 //  * No float atomics: every sum runs in one thread in a fixed order, so a
 //    call is bitwise reproducible and a batched call is bitwise equal to
 //    per-item calls.  Padded nodes carry gain_w = 0 and add 0.
@@ -200,23 +203,35 @@ int fused_gain_kron(const typename Cplx<T>::type* fh, const T* rho,
     err = kron_gemm<T>(fh, 2 * cn, nx, ayz + (long long)n0 * nyz, cn, kinv, t1,
                        streams * nx, nyz, st);
     if (err != cudaSuccess) return err;
-    // x inverse with the ax phase folded in: t2
-    err = bfft::axis_dft<T, false>(t1, n3, 1, t2, streams, 1, nx, nyz, vx,
-                                   ax + (long long)n0 * nx, cn, st);
+    // x inverse with the ax phase folded in, the Hadamard product and the
+    // real group sums (K1's kGain pass): s in t2
+    T* s = reinterpret_cast<T*>(t2);
+    bfft::LineArgs<T> p{};
+    p.in = t1;
+    p.in_grid = n3;
+    p.in_div = 1;
+    p.out_real = s;
+    p.a = 1;
+    p.n = nx;
+    p.c = nyz;
+    p.mat = vx;
+    p.phase = ax + (long long)n0 * nx;
+    p.phase_rows = cn;
+    p.w = gain_w + n0;
+    p.cn = cn;
+    p.gs = gs;
+    p.ng = ng;
+    err = bfft::line_dft<T, false, 2, bfft::kGain>(p, (long long)ne * ng, st);
     if (err != cudaSuccess) return err;
-    // real group sums into t1, forward x into t2, forward y/z into t1
-    T* s = reinterpret_cast<T*>(t1);
-    bfft::group_sum_kernel<T><<<dim3(pblocks, ne * ng), pt, 0, st>>>(
-        t2, gain_w + n0, s, n3, cn, gs, ng);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    err = bfft::axis_dft<T, true>(s, n3, 1, t2, (long long)ne * ng, 1, nx, nyz,
+    // forward x into t1, forward y/z into t2
+    err = bfft::axis_dft<T, true>(s, n3, 1, t1, (long long)ne * ng, 1, nx, nyz,
                                   fx, nullptr, 1, st);
     if (err != cudaSuccess) return err;
-    err = kron_gemm<T>(t2, 1, nx, nullptr, 1, kfwd, t1,
+    err = kron_gemm<T>(t1, 1, nx, nullptr, 1, kfwd, t2,
                        (long long)ne * ng * nx, nyz, st);
     if (err != cudaSuccess) return err;
     bfft::beta1_acc_kernel<T><<<dim3(pblocks, ne), pt, 0, st>>>(
-        t1, rho + n0, norm_l, out, n3, n3, ng, gs, (T)coef, (T)amp, (T)eps);
+        t2, rho + n0, norm_l, out, n3, n3, ng, gs, (T)coef, (T)amp, (T)eps);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   return cudaSuccess;

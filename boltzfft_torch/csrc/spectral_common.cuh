@@ -1,7 +1,6 @@
 // Device code shared by the port's spectral kernels (fused_collide.cu: K1,
 // K2 and K4; fused_gain_kron.cu: K3's x leg): complex helpers, the axis
-// transforms on the tensor cores, the real group sum and the ordered beta1
-// accumulation (K3).
+// transforms on the tensor cores and the ordered beta1 accumulation (K3).
 //
 // Every transform of K1, K2 and K4 is a dense complex matrix times a tile of
 // lines, out = M diag(phase) X, the product the TPU kernels send to the MXU
@@ -26,7 +25,11 @@
 //  * The matrix goes into shared memory once per block (zero-padded to a
 //    multiple of 16, pre-split for float) and the block walks many tiles
 //    in a persistent loop; tiles are double-buffered with cp.async where
-//    shared memory allows, so loads overlap the products.
+//    shared memory allows, so loads overlap the products.  Along an axis
+//    whose matrix and tile do not fit together (over 96 points), the line
+//    kernel reads its A fragments from the matrix in device memory instead
+//    (L2-resident; split per fragment in float, the same bits), with the
+//    same k loop and so the same result.
 //  * The node phase costs no pass of its own on the plane route: az is
 //    folded into the z pass's B fragments, ax ay into its output (diagonal,
 //    they commute with the z transform).  A line pass that takes a phase
@@ -38,7 +41,8 @@
 //    beta1 sum over groups (kBeta1: into the gain spectrum).
 //  * k1_plan below is the one count of their shared memory
 //    (kernels.fused_collide.plan mirrors it): the plane route where a plane
-//    block fits, else y and z as line passes (the last-pass route).
+//    block fits, else y and z as line passes (the last-pass route), and
+//    which axis fits no tile at all.
 // Every output's accumulation order is fixed by the tile's k loop and the
 // node and group loops, never by the grid, the batch or the node chunk, and
 // no reduction uses float atomics: results are bitwise reproducible, a batch
@@ -123,30 +127,36 @@ __host__ __device__ inline long long mat_bytes(int n) {
 }
 
 struct LinePlan {
-  int lines;  // lines per tile (0: no tile fits)
-  int nbuf;   // tile buffers (2: double-buffered by cp.async)
+  int lines;      // lines per tile (0: no tile fits)
+  int nbuf;       // tile buffers (2: double-buffered by cp.async)
+  bool resident;  // the matrix in shared memory (else read from device memory)
   long long smem;
 };
 
-// A line-kernel block along an axis of n points: the matrix, nbuf x S
-// complex tiles (n_pad x lines), and an n_pad x lines accumulator of
-// acc_bytes a point (0 for the plain store, the real for kGain, the complex
-// for kBeta1).  csize: 8 (float) or 16 (double).
+// A line-kernel block along an axis of n points: the matrix if resident,
+// nbuf x S complex tiles (n_pad x lines), and an n_pad x lines accumulator
+// of acc_bytes a point (0 for the plain store, the real for kGain, the
+// complex for kBeta1).  csize: 8 (float) or 16 (double).
 __host__ __device__ inline long long line_smem(int n, int streams, int acc_bytes,
-                                               int csize, int lines, int nbuf) {
+                                               int csize, int lines, int nbuf,
+                                               bool resident) {
   const int ld = lines + (csize == 8 ? kLinePad32 : 0);
-  return mat_bytes(n) + (long long)nbuf * streams * pad16(n) * ld * csize +
+  return (resident ? mat_bytes(n) : 0) +
+         (long long)nbuf * streams * pad16(n) * ld * csize +
          (long long)pad16(n) * lines * acc_bytes;
 }
 
+// The first tile that fits, with the matrix resident, else without it.
 __host__ __device__ inline LinePlan line_plan(int n, int streams, int acc_bytes,
                                               int csize) {
   const int cand[3][2] = {{32, 2}, {16, 2}, {16, 1}};
-  for (int c = 0; c < 3; ++c) {
-    const long long b = line_smem(n, streams, acc_bytes, csize, cand[c][0], cand[c][1]);
-    if (b <= kSmemLimit) return LinePlan{cand[c][0], cand[c][1], b};
-  }
-  return LinePlan{0, 1, line_smem(n, streams, acc_bytes, csize, 16, 1)};
+  for (int r = 1; r >= 0; --r)
+    for (int c = 0; c < 3; ++c) {
+      const long long b =
+          line_smem(n, streams, acc_bytes, csize, cand[c][0], cand[c][1], r == 1);
+      if (b <= kSmemLimit) return LinePlan{cand[c][0], cand[c][1], r == 1, b};
+    }
+  return LinePlan{0, 1, false, line_smem(n, streams, acc_bytes, csize, 16, 1, false)};
 }
 
 // A plane-kernel block: the z matrix (and the y matrix unless ny == nz: the
@@ -175,43 +185,31 @@ __host__ __device__ inline int plane_count(int nx, int ny, int nz, int csize) {
   return best;
 }
 
+// Record axis as the first that fits no tile (out[1], out[2]).
+__host__ __device__ inline void plan_fit(int axis, const LinePlan& lp, int* out) {
+  if (lp.lines == 0 && out[1] < 0) {
+    out[1] = axis;
+    out[2] = (int)lp.smem;
+  }
+}
+
 // K1's plan for a grid: out[0] the route (1 plane, 2 last pass, 0 none),
-// out[1] the planes per block, out[2..3] the x gain pass's lines and buffers,
-// out[4..5] the x beta1 pass's, out[6..7] the x store pass's, out[8..9] the
-// y store pass's, out[10..11] the z store pass's (0 where unused), out[12]
-// the first axis that fits no tile (-1: none), out[13] the bytes it needs.
+// out[1] the first axis that fits no tile (-1: none), out[2] the bytes its
+// smallest tile needs.  x runs the gain, beta1 and store passes; y and z run
+// store passes where a plane does not fit.
 __host__ __device__ inline void k1_plan(int nx, int ny, int nz, int csize, int* out) {
-  for (int i = 0; i < 14; ++i) out[i] = 0;
-  out[12] = -1;
-  const int real_bytes = csize / 2;
-  const LinePlan lp[3] = {line_plan(nx, 2, real_bytes, csize),
-                          line_plan(nx, 1, csize, csize), line_plan(nx, 1, 0, csize)};
-  for (int i = 0; i < 3; ++i) {
-    out[2 + 2 * i] = lp[i].lines;
-    out[3 + 2 * i] = lp[i].nbuf;
-    if (lp[i].lines == 0 && out[12] < 0) {
-      out[12] = 0;
-      out[13] = (int)lp[i].smem;
-    }
+  out[0] = 0;
+  out[1] = -1;
+  out[2] = 0;
+  plan_fit(0, line_plan(nx, 2, csize / 2, csize), out);
+  plan_fit(0, line_plan(nx, 1, csize, csize), out);
+  plan_fit(0, line_plan(nx, 1, 0, csize), out);
+  const bool planes = plane_count(nx, ny, nz, csize) > 0;
+  if (!planes) {
+    plan_fit(1, line_plan(ny, 1, 0, csize), out);
+    plan_fit(2, line_plan(nz, 1, 0, csize), out);
   }
-  const int p = plane_count(nx, ny, nz, csize);
-  out[1] = p;
-  if (p == 0) {
-    const LinePlan ly = line_plan(ny, 1, 0, csize), lz = line_plan(nz, 1, 0, csize);
-    out[8] = ly.lines;
-    out[9] = ly.nbuf;
-    out[10] = lz.lines;
-    out[11] = lz.nbuf;
-    if (ly.lines == 0 && out[12] < 0) {
-      out[12] = 1;
-      out[13] = (int)ly.smem;
-    }
-    if (lz.lines == 0 && out[12] < 0) {
-      out[12] = 2;
-      out[13] = (int)lz.smem;
-    }
-  }
-  out[0] = out[12] >= 0 ? 0 : (p > 0 ? 1 : 2);
+  out[0] = out[1] >= 0 ? 0 : (planes ? 1 : 2);
 }
 
 // ---------------------------------------------------------------------------
@@ -320,10 +318,13 @@ __device__ __forceinline__ typename Cplx<T>::type to_cplx(T x) {
 }
 
 // acc[s] = M B_s for the warp's tile at rows i0, columns n0, where M is the
-// staged (n_mat, n_mat) matrix and B_s[k, n] = kph[k] bcol(s, n)[k * sk]
-// (complex or real; kph, a phase along k in shared memory padded with zeros
-// to pad16(n_mat), is optional).  The k loop runs in order; the fragments of
-// step k + 1 are read while step k multiplies.
+// (n_mat, n_mat) matrix and B_s[k, n] = kph[k] bcol(s, n)[k * sk] (complex or
+// real; kph, a phase along k in shared memory padded with zeros to
+// pad16(n_mat), is optional).  a_src is the matrix staged by stage_matrix in
+// shared memory, or (kGlobalA) the (n_mat, n_mat) complex matrix in device
+// memory, read per fragment (zero outside it, split in float exactly as
+// stage_matrix splits it, so both give the same bits).  The k loop runs in
+// order; the fragments of step k + 1 are read while step k multiplies.
 template <typename T, int S> struct Frags;
 template <int S> struct Frags<double, S> {
   double ar[Tc<double>::kWM], ai[Tc<double>::kWM];
@@ -334,21 +335,38 @@ template <int S> struct Frags<float, S> {
   float2 b[S][Tc<float>::kWN][2];
 };
 
-template <typename T, int S, typename In>
-__device__ __forceinline__ void load_frags(const unsigned char* sm_mat, int plane,
-                                           int a_off, int ld, int k0,
+// Element (i, k) of the (n, n) complex matrix m in device memory, 0 outside.
+template <typename C2>
+__device__ __forceinline__ C2 mat_at(const C2* m, int n, int i, int k) {
+  C2 v;
+  v.x = 0;
+  v.y = 0;
+  if (i < n && k < n) v = __ldg(m + (long long)i * n + k);
+  return v;
+}
+
+template <typename T, int S, typename In, bool kGlobalA>
+__device__ __forceinline__ void load_frags(const void* a_src, int n_mat, int plane,
+                                           int a_row, int ld, int k0,
                                            const In* (&bp)[S][Tc<T>::kWN], int sk,
                                            const typename Cplx<T>::type* kph,
                                            Frags<T, S>& f) {
   using TC = Tc<T>;
   using C2 = typename Cplx<T>::type;
   const int t = threadIdx.x & 3;
+  const C2* gm = static_cast<const C2*>(a_src);
   if constexpr (sizeof(T) == 8) {
-    const double* mr = reinterpret_cast<const double*>(sm_mat) + a_off + k0;
+    const double* mr = static_cast<const double*>(a_src) + a_row * ld + t + k0;
 #pragma unroll
     for (int a = 0; a < TC::kWM; ++a) {
-      f.ar[a] = mr[a * TC::kM * ld];
-      f.ai[a] = mr[plane + a * TC::kM * ld];
+      if constexpr (kGlobalA) {
+        const C2 v = mat_at(gm, n_mat, a_row + a * TC::kM, k0 + t);
+        f.ar[a] = v.x;
+        f.ai[a] = v.y;
+      } else {
+        f.ar[a] = mr[a * TC::kM * ld];
+        f.ai[a] = mr[plane + a * TC::kM * ld];
+      }
     }
 #pragma unroll
     for (int s = 0; s < S; ++s)
@@ -359,14 +377,20 @@ __device__ __forceinline__ void load_frags(const unsigned char* sm_mat, int plan
         f.b[s][b] = v;
       }
   } else {
-    const uint32_t* mp = reinterpret_cast<const uint32_t*>(sm_mat) + a_off + k0;
+    const uint32_t* mp = static_cast<const uint32_t*>(a_src) + a_row * ld + t + k0;
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      const int off = (q & 1) * 8 * ld + (q >> 1) * 4;
-      f.arh[q] = mp[off];
-      f.arl[q] = mp[plane + off];
-      f.aih[q] = mp[2 * plane + off];
-      f.ail[q] = mp[3 * plane + off];
+      if constexpr (kGlobalA) {
+        const C2 v = mat_at(gm, n_mat, a_row + (q & 1) * 8, k0 + t + (q >> 1) * 4);
+        tf32_split(v.x, f.arh[q], f.arl[q]);
+        tf32_split(v.y, f.aih[q], f.ail[q]);
+      } else {
+        const int off = (q & 1) * 8 * ld + (q >> 1) * 4;
+        f.arh[q] = mp[off];
+        f.arl[q] = mp[plane + off];
+        f.aih[q] = mp[2 * plane + off];
+        f.ail[q] = mp[3 * plane + off];
+      }
     }
 #pragma unroll
     for (int s = 0; s < S; ++s)
@@ -449,9 +473,9 @@ __device__ __forceinline__ void mma_frags(const Frags<T, S>& f, TileAcc<T, S>& a
   }
 }
 
-template <typename T, int S, typename In, class BCol>
-__device__ __forceinline__ void tile_product(const unsigned char* sm_mat, int n_mat,
-                                             int i0, int n0, BCol bcol, int sk,
+template <typename T, int S, typename In, bool kGlobalA = false, class BCol>
+__device__ __forceinline__ void tile_product(const void* a_src, int n_mat, int i0,
+                                             int n0, BCol bcol, int sk,
                                              TileAcc<T, S>& acc,
                                              const typename Cplx<T>::type* kph = nullptr) {
   using TC = Tc<T>;
@@ -466,7 +490,7 @@ __device__ __forceinline__ void tile_product(const unsigned char* sm_mat, int n_
 #pragma unroll
         for (int r = 0; r < TC::kAcc; ++r) acc.re[s][a][b][r] = acc.im[s][a][b][r] = 0;
   // this lane's A row and B columns, fixed over the k loop
-  const int a_off = (i0 + g) * ld + t;
+  const int a_row = i0 + g;
   const In* bp[S][TC::kWN];
 #pragma unroll
   for (int s = 0; s < S; ++s)
@@ -474,13 +498,15 @@ __device__ __forceinline__ void tile_product(const unsigned char* sm_mat, int n_
     for (int b = 0; b < TC::kWN; ++b) bp[s][b] = bcol(s, n0 + b * TC::kN + g) + t * sk;
   // np is a multiple of 16, so of 2 kK: the steps go in pairs
   Frags<T, S> f0, f1;
-  load_frags<T, S, In>(sm_mat, plane, a_off, ld, 0, bp, sk, kph, f0);
+  load_frags<T, S, In, kGlobalA>(a_src, n_mat, plane, a_row, ld, 0, bp, sk, kph, f0);
 #pragma unroll 1
   for (int k0 = 0; k0 < np; k0 += 2 * TC::kK) {
-    load_frags<T, S, In>(sm_mat, plane, a_off, ld, k0 + TC::kK, bp, sk, kph, f1);
+    load_frags<T, S, In, kGlobalA>(a_src, n_mat, plane, a_row, ld, k0 + TC::kK, bp, sk,
+                                   kph, f1);
     mma_frags<T, S>(f0, acc);
     if (k0 + 2 * TC::kK < np)
-      load_frags<T, S, In>(sm_mat, plane, a_off, ld, k0 + 2 * TC::kK, bp, sk, kph, f0);
+      load_frags<T, S, In, kGlobalA>(a_src, n_mat, plane, a_row, ld, k0 + 2 * TC::kK, bp,
+                                     sk, kph, f0);
     mma_frags<T, S>(f1, acc);
   }
 }
@@ -536,7 +562,9 @@ struct LineArgs {
   int n_tiles, lines, nbuf;
 };
 
-template <typename T, bool kRealIn, int S, int kMode>
+// kGlobalA: the matrix is not staged; the products read it from device
+// memory (an axis whose matrix and tile do not fit together).
+template <typename T, bool kRealIn, int S, int kMode, bool kGlobalA>
 __global__ void __launch_bounds__(kTcWarps * 32) line_dft_kernel(const LineArgs<T> p) {
   using C2 = typename Cplx<T>::type;
   using In = typename std::conditional<kRealIn, T, C2>::type;
@@ -545,9 +573,10 @@ __global__ void __launch_bounds__(kTcWarps * 32) line_dft_kernel(const LineArgs<
   const int L = p.lines;
   const int ld = L + (sizeof(T) == 4 ? kLinePad32 : 0);
   const long long tile_elems = (long long)np * ld;
-  unsigned char* sm_mat = smem;
-  In* raw = reinterpret_cast<In*>(smem + mat_bytes(p.n));
-  T* acc_sm = reinterpret_cast<T*>(smem + mat_bytes(p.n) +
+  const long long mat_sm = kGlobalA ? 0 : mat_bytes(p.n);
+  const void* a_src = kGlobalA ? static_cast<const void*>(p.mat) : smem;
+  In* raw = reinterpret_cast<In*>(smem + mat_sm);
+  T* acc_sm = reinterpret_cast<T*>(smem + mat_sm +
                                    (long long)p.nbuf * S * tile_elems * sizeof(C2));
   const int n_lines = p.a * p.c;
   const long long grid_elems = (long long)n_lines * p.n;
@@ -556,7 +585,7 @@ __global__ void __launch_bounds__(kTcWarps * 32) line_dft_kernel(const LineArgs<
 
   // zero every tile (the padded rows are never loaded), stage the matrix
   for (long long e = tid; e < p.nbuf * S * tile_elems; e += blockDim.x) raw[e] = In{};
-  stage_matrix<T>(sm_mat, p.mat, p.n);
+  if (!kGlobalA) stage_matrix<T>(smem, p.mat, p.n);
   __syncthreads();
 
   // Everything an item (step q of unit u) needs, worked out once.
@@ -662,7 +691,7 @@ __global__ void __launch_bounds__(kTcWarps * 32) line_dft_kernel(const LineArgs<
     for (int tg = warp; tg < groups; tg += nwarps) {
       const int i0 = (tg / groups_n) * 16, n0 = (tg % groups_n) * 16;
       TileAcc<T, S> acc;
-      tile_product<T, S, In>(sm_mat, p.n, i0, n0, bcol, ld, acc);
+      tile_product<T, S, In, kGlobalA>(a_src, p.n, i0, n0, bcol, ld, acc);
 #pragma unroll
       for (int b = 0; b < Tc<T>::kWN; ++b)
 #pragma unroll
@@ -752,7 +781,8 @@ cudaError_t line_dft(LineArgs<T> p, long long units_per_tile, cudaStream_t st) {
   if (p.n_units == 0) return cudaSuccess;
   const int groups = (pad16(p.n) / 16) * (lp.lines / 16);
   const int threads = 32 * std::min(kTcWarps, groups);
-  auto kernel = line_dft_kernel<T, kRealIn, S, kMode>;
+  auto kernel = lp.resident ? line_dft_kernel<T, kRealIn, S, kMode, false>
+                            : line_dft_kernel<T, kRealIn, S, kMode, true>;
   int blocks = 0;
   cudaError_t err = persistent_grid(kernel, threads, lp.smem, p.n_units, &blocks);
   if (err != cudaSuccess) return err;
@@ -963,32 +993,8 @@ cudaError_t plane_dft(PlaneArgs<T> p, long long nbatch, cudaStream_t st) {
 }
 
 // ---------------------------------------------------------------------------
-// K3's element-wise stages
+// K3's element-wise stage
 // ---------------------------------------------------------------------------
-
-// s[e, g] = sum_{b in group g} w_b (Re g1_b Re g2_b - Im g1_b Im g2_b), nodes
-// in order; the streams are laid out j = ((e * n_nodes) + b) * 2 + {0, 1}.
-template <typename T>
-__global__ void group_sum_kernel(const typename Cplx<T>::type* __restrict__ g,
-                                 const T* __restrict__ w, T* __restrict__ s,
-                                 long long n3, int n_nodes, int gs,
-                                 int n_groups) {
-  using C2 = typename Cplx<T>::type;
-  const long long p = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (p >= n3) return;
-  const int eg = blockIdx.y;
-  const int e = eg / n_groups;
-  const int b0 = (eg % n_groups) * gs;
-  const int b1 = min(b0 + gs, n_nodes);
-  T acc = 0;
-  for (int b = b0; b < b1; ++b) {
-    const long long jj = ((long long)e * n_nodes + b) * 2;
-    const C2 g1 = g[jj * n3 + p];
-    const C2 g2 = g[(jj + 1) * n3 + p];
-    acc = acc + w[b] * (g1.x * g2.x - g1.y * g2.y);
-  }
-  s[eg * n3 + p] = acc;
-}
 
 // y[e * y_stride + p] += sum_g beta1(rho_g, |l|) sh[e, g, p], groups in order
 template <typename T>

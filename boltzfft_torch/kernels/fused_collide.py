@@ -67,21 +67,24 @@ def mat_bytes(n: int) -> int:
     return _pad16(n) * (_pad16(n) + _MAT_PAD) * 16
 
 
-def line_smem(n, streams, acc_bytes, csize, lines, nbuf) -> int:
-    """A line-kernel block: the matrix, nbuf x streams tiles of
-    pad16(n) x lines complex points, an accumulator of acc_bytes a point."""
+def line_smem(n, streams, acc_bytes, csize, lines, nbuf, resident) -> int:
+    """A line-kernel block: the matrix if ``resident``, nbuf x streams tiles
+    of pad16(n) x lines complex points, an accumulator of acc_bytes a point."""
     ld = lines + (_LINE_PAD32 if csize == 8 else 0)
-    return mat_bytes(n) + nbuf * streams * _pad16(n) * ld * csize + _pad16(n) * lines * acc_bytes
+    return ((mat_bytes(n) if resident else 0) + nbuf * streams * _pad16(n) * ld * csize
+            + _pad16(n) * lines * acc_bytes)
 
 
 def line_plan(n, streams, acc_bytes, csize):
-    """(lines per tile, buffers, bytes): the first of (32, 2), (16, 2),
-    (16, 1) that fits; lines 0 if none does."""
-    for lines, nbuf in ((32, 2), (16, 2), (16, 1)):
-        b = line_smem(n, streams, acc_bytes, csize, lines, nbuf)
-        if b <= _SMEM_LIMIT:
-            return lines, nbuf, b
-    return 0, 1, line_smem(n, streams, acc_bytes, csize, 16, 1)
+    """(lines per tile, buffers, resident, bytes): the first of (32, 2),
+    (16, 2), (16, 1) that fits with the matrix resident in shared memory,
+    else without it (read from device memory); lines 0 if none fits."""
+    for resident in (True, False):
+        for lines, nbuf in ((32, 2), (16, 2), (16, 1)):
+            b = line_smem(n, streams, acc_bytes, csize, lines, nbuf, resident)
+            if b <= _SMEM_LIMIT:
+                return lines, nbuf, resident, b
+    return 0, 1, False, line_smem(n, streams, acc_bytes, csize, 16, 1, False)
 
 
 def plane_smem(nx, ny, nz, csize, planes) -> int:
@@ -109,30 +112,22 @@ def plane_count(nx, ny, nz, csize) -> int:
 
 
 def plan(shape, dtype: torch.dtype) -> list:
-    """``k1_plan`` of the source, 14 ints: the route (see ``ROUTES``), the
-    planes per block, (lines, buffers) of the x gain, x beta1, x store, y
-    store and z store passes (0 where unused), the first axis no tile fits
-    (-1: none) and the bytes it needs."""
+    """``k1_plan`` of the source, 3 ints: the route (see ``ROUTES``; 0 none),
+    the first axis that fits no tile (-1: none) and the bytes its smallest
+    tile needs.  x runs the gain (2 streams, a real accumulator), beta1 (a
+    complex accumulator) and store passes; y and z run store passes where a
+    plane does not fit."""
     nx, ny, nz = (int(n) for n in shape)
     csize = 16 if dtype == torch.float64 else 8
-    out = [0] * 14
-    out[12] = -1
-    passes = (line_plan(nx, 2, csize // 2, csize), line_plan(nx, 1, csize, csize),
-              line_plan(nx, 1, 0, csize))
-    for i, (lines, nbuf, b) in enumerate(passes):
-        out[2 + 2 * i], out[3 + 2 * i] = lines, nbuf
-        if lines == 0 and out[12] < 0:
-            out[12], out[13] = 0, b
-    p = plane_count(nx, ny, nz, csize)
-    out[1] = p
-    if p == 0:
-        for axis, n, slot in ((1, ny, 8), (2, nz, 10)):
-            lines, nbuf, b = line_plan(n, 1, 0, csize)
-            out[slot], out[slot + 1] = lines, nbuf
-            if lines == 0 and out[12] < 0:
-                out[12], out[13] = axis, b
-    out[0] = 0 if out[12] >= 0 else (1 if p > 0 else 2)
-    return out
+    passes = [(0, line_plan(nx, 2, csize // 2, csize)), (0, line_plan(nx, 1, csize, csize)),
+              (0, line_plan(nx, 1, 0, csize))]
+    planes = plane_count(nx, ny, nz, csize) > 0
+    if not planes:
+        passes += [(1, line_plan(ny, 1, 0, csize)), (2, line_plan(nz, 1, 0, csize))]
+    for axis, (lines, _nbuf, _resident, b) in passes:
+        if lines == 0:
+            return [0, axis, b]
+    return [1 if planes else 2, -1, 0]
 
 
 def route(shape, dtype: torch.dtype):
@@ -147,12 +142,12 @@ def check_grid(shape, dtype: torch.dtype) -> None:
     for n in shape:
         if n % 2:
             raise ValueError(f"fused_collide: grid axes must be even, got {tuple(shape)}")
-    out = plan(shape, dtype)
-    if out[0] == 0:
-        n = tuple(shape)[out[12]]
+    route_, axis, nbytes = plan(shape, dtype)
+    if route_ == 0:
+        n = tuple(shape)[axis]
         raise ValueError(
             f"fused_collide: an axis of {n} points needs "
-            f"{out[13]} B of shared memory for its DFT "
+            f"{nbytes} B of shared memory for its DFT "
             f"matrix tile (limit {_SMEM_LIMIT} B); use impl='rfft' or 'c2c'"
         )
 
@@ -268,11 +263,10 @@ def _chunk_nodes(n_nodes: int, group: int, n_batch: int, n3: int,
                  csize: int, device) -> int:
     """Nodes per kernel chunk: whole radial groups whose two stream buffers
     (2 buffers x E x 2 streams x N^3 complex per node) fit half the free
-    device memory, with at most 65535 (entry, group) pairs per launch (the
-    group-sum kernel's gridDim.y)."""
+    device memory."""
     free, _total = torch.cuda.mem_get_info(device)
     per_node = 2 * n_batch * 2 * n3 * csize
-    cap = min(n_nodes, (free // 2) // per_node, (65535 // n_batch) * group)
+    cap = min(n_nodes, (free // 2) // per_node)
     return max(group, (cap // group) * group)
 
 

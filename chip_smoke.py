@@ -1606,7 +1606,8 @@ def main() -> int:
                 times[("k1", n, dtype, label)] = ms
                 report(f"K1 {n}^3 Ns=12 {dtype} {label}", ms)
             elem = "double" if dtype == "float64" else "float"
-            fams = (f"plane_dft_kernel<{elem}, false>", f"line_dft_kernel<{elem}, false, 2, 1>")
+            # the x pass in either matrix variant (the last template argument)
+            fams = (f"plane_dft_kernel<{elem}, false>", f"line_dft_kernel<{elem}, false, 2, 1, ")
             fam = profile_calls(lambda: k1.fused_collide(*args, **kw), fams, 3)
             x = torch.randn((2 * cfg.n_nodes, n, n, n), dtype=cfg.complex_dtype, device=dev)
             ifft_ms = statistics.median(time_ms(lambda: torch.fft.ifftn(x, dim=(-3, -2, -1)), 5, 1))
@@ -1671,8 +1672,7 @@ def main() -> int:
                 ("k5", "gain_reduce", b_k5, ROUTES[0][0]),
             ):
                 rc_ = route_counts[(route_label, dtype, n)]
-                tc = {} if len(b_ms) == 2 else {"bound_unit": TC_UNIT[dtype],
-                                                "cuda_core_bound_ms": b_ms[2]}
+                tc = {} if len(b_ms) == 2 else {"bound_unit": TC_UNIT[dtype]}
                 entry(f"{kname}[{dtype},{n}^3,Ns=12]", kname, dtype, rc_[key], rc_[key + "_plain"],
                       max_err[(key, dtype, n)], times[(key, n, dtype, "kernel")],
                       times[(key, n, dtype, "plain")], b_ms[0], b_ms[1],
@@ -1780,7 +1780,7 @@ def main() -> int:
             entry(f"fused_collide[{dtype},{n}^3,Ns=12]", "fused_collide", dtype,
                   launches[("k1", dtype, n)], c4["k1_plain"], max_err[("k1", dtype, n)],
                   times[("k1", n, dtype, "kernel")], times[("k1", n, dtype, "plain")], b_ms, b_by,
-                  bound_unit=TC_UNIT[dtype], cuda_core_bound_ms=b_cc,
+                  bound_unit=TC_UNIT[dtype],
                   stream_stage_ms=stage, stream_stage_ifftn_ms=ifft_ms)
     for dtype in ("float64", "float32"):
         t = tg2d[dtype]

@@ -131,8 +131,11 @@ def test_dispatch_on_device():
 def test_check_grid():
     k1.check_grid((64, 64, 64), torch.float64)
     k1.check_grid((96, 32, 48), torch.float64)
+    # over 96 points the matrix is read from device memory: 128^3 fits, and
+    # an axis of 368 points leaves no room for a tile of two streams
+    k1.check_grid((128, 128, 128), torch.float64)
     with pytest.raises(ValueError, match="shared memory"):
-        k1.check_grid((128, 128, 128), torch.float64)
+        k1.check_grid((368, 368, 368), torch.float64)
     with pytest.raises(ValueError, match="even"):
         k1.check_grid((8, 9, 8), torch.float32)
     with pytest.raises(TypeError, match="float32/float64"):
@@ -171,6 +174,10 @@ CUDA_CASES = [  # (config kwargs, batch, tolerance in max|Q|)
     (dict(nv=64, ns=12, dtype="float32"), 1, 1e-5),
     # y and z planes too large for shared memory: the last-pass route
     (dict(nv=16, nvy=72, nvz=72, ns=6), 1, 1e-12),
+    # x and z over 96 points: those line passes read the matrix from device
+    # memory
+    (dict(nv=104, nvy=8, nvz=104, ns=6), 1, 1e-12),
+    (dict(nv=128, nvy=8, nvz=128, ns=6, dtype="float32"), 1, 2e-5),
 ]
 
 

@@ -194,6 +194,7 @@ CUDA_CASES = [  # (scheme, config kwargs, batch, tolerance in max|Q_gain_hat|)
     ("ct", dict(nv=64, ns=12), 1, 1e-12),
     ("transpose", dict(nv=64, ns=12, dtype="float32"), 1, 1e-5),
     ("ct", dict(nv=16, nvy=72, nvz=72, ns=6), 1, 1e-12),  # the last-pass route
+    ("ct", dict(nv=104, nvy=8, nvz=104, ns=6), 1, 1e-12),  # the matrix not resident
 ]
 
 

@@ -184,34 +184,56 @@ def test_plan_constants_mirror_the_source():
     ((16, 72, 72), torch.float64, "last pass"),
     ((80, 80, 80), torch.float64, "last pass"),
     ((16, 96, 96), torch.float32, "last pass"),
+    ((104, 8, 104), torch.float64, "last pass"),
+    ((128, 8, 128), torch.float32, "last pass"),
+    ((104, 8, 8), torch.float64, "plane"),
 ])
 def test_plan_routes(shape, dtype, want):
-    out = k1.plan(shape, dtype)
+    assert k1.plan(shape, dtype)[1:] == [-1, 0]
     assert k1.route(shape, dtype) == want
     csize = 16 if dtype == torch.float64 else 8
     nx, ny, nz = shape
+    p = k1.plane_count(nx, ny, nz, csize)
     if want == "plane":
-        p = out[1]
         assert p >= 1 and nx % p == 0
         assert k1.plane_smem(nx, ny, nz, csize, p) <= k1._SMEM_LIMIT
-        assert out[8:12] == [0, 0, 0, 0]
     else:
-        assert out[1] == 0 and k1.plane_smem(nx, ny, nz, csize, 1) > k1._SMEM_LIMIT
-        assert out[8] and out[10]  # y and z run as line passes
-    # every x pass fits: gain (2 streams, a real accumulator), beta1 (a
-    # complex accumulator), store
-    for slot, streams, acc in ((2, 2, csize // 2), (4, 1, csize), (6, 1, 0)):
-        lines, nbuf = out[slot], out[slot + 1]
+        assert p == 0 and k1.plane_smem(nx, ny, nz, csize, 1) > k1._SMEM_LIMIT
+    # every pass fits: x gain (2 streams, a real accumulator), beta1 (a
+    # complex accumulator) and store; y and z stores on the last-pass route
+    passes = [(nx, 2, csize // 2), (nx, 1, csize), (nx, 1, 0)]
+    if want != "plane":
+        passes += [(ny, 1, 0), (nz, 1, 0)]
+    for n, streams, acc in passes:
+        lines, nbuf, resident, b = k1.line_plan(n, streams, acc, csize)
         assert lines in (16, 32) and nbuf in (1, 2)
-        assert k1.line_smem(nx, streams, acc, csize, lines, nbuf) <= k1._SMEM_LIMIT
+        assert b == k1.line_smem(n, streams, acc, csize, lines, nbuf, resident)
+        assert b <= k1._SMEM_LIMIT
+        # the matrix stays in shared memory up to 96 points
+        assert resident or n > 96
 
 
-@pytest.mark.parametrize("shape,dtype", [((128, 128, 128), torch.float64),
-                                         ((112, 16, 16), torch.float32),
-                                         ((16, 16, 128), torch.float64)])
-def test_check_grid_raises_where_no_tile_fits(shape, dtype):
-    out = k1.plan(shape, dtype)
-    assert out[0] == 0 and out[12] >= 0 and out[13] > k1._SMEM_LIMIT
+def test_every_axis_the_cuda_core_kernel_took_still_fits():
+    # The CUDA-core kernel before the tensor-core one took every even axis
+    # whose (n, n) matrix and (n, 33) tile fit: n <= 104 in float64, 154 in
+    # float32.  Over 96 points the line passes read the matrix from device
+    # memory, so each of those grids still has a route.
+    for dtype, top in ((torch.float64, 104), (torch.float32, 154)):
+        csize = 16 if dtype == torch.float64 else 8
+        for n in range(2, top + 1, 2):
+            for shape in ((n, n, n), (n, 8, 8), (8, 8, n), (8, n, 16)):
+                assert k1.route(shape, dtype) is not None, (shape, dtype)
+                k1.check_grid(shape, dtype)
+        assert k1.line_plan(96, 2, csize // 2, csize)[2]
+        assert not k1.line_plan(top, 2, csize // 2, csize)[2]
+
+
+@pytest.mark.parametrize("shape,dtype,axis", [((368, 16, 16), torch.float64, 0),
+                                              ((528, 16, 16), torch.float32, 0),
+                                              ((16, 16, 912), torch.float64, 2)])
+def test_check_grid_raises_where_no_tile_fits(shape, dtype, axis):
+    route_, failed, nbytes = k1.plan(shape, dtype)
+    assert route_ == 0 and failed == axis and nbytes > k1._SMEM_LIMIT
     with pytest.raises(ValueError, match="shared memory"):
         k1.check_grid(shape, dtype)
 
@@ -219,7 +241,7 @@ def test_check_grid_raises_where_no_tile_fits(shape, dtype):
 def test_plane_blocks_stay_under_the_point_budget():
     for n in (8, 12, 16, 24, 32, 40, 48, 64):
         for dtype in (torch.float32, torch.float64):
-            p = k1.plan((n, n, n), dtype)[1]
+            p = k1.plane_count(n, n, n, 16 if dtype == torch.float64 else 8)
             assert p >= 1 and n % p == 0
             assert p == 1 or p * k1._pad16(n) ** 2 <= k1._PLANE_ELEMS
 
@@ -273,9 +295,10 @@ def test_plan_mirror_matches_the_library(cuda_device):
     lib = _build.load_library()
     for shape in [(16, 16, 16), (32, 32, 32), (64, 64, 64), (32, 16, 48), (12, 12, 12),
                   (8, 10, 12), (96, 32, 48), (16, 72, 72), (16, 96, 96), (80, 80, 80),
-                  (112, 16, 16), (128, 128, 128)]:
+                  (112, 16, 16), (128, 128, 128), (104, 8, 104), (128, 8, 128),
+                  (368, 16, 16), (528, 16, 16), (16, 16, 912)]:
         for dtype in (torch.float32, torch.float64):
-            out = (ctypes.c_int * 14)()
+            out = (ctypes.c_int * 3)()
             assert lib.bfft_k1_plan(*shape, int(dtype == torch.float64),
                                     ctypes.cast(out, ctypes.c_void_p)) == 0
             assert list(out) == k1.plan(shape, dtype), (shape, dtype)
