@@ -23,10 +23,11 @@ import numpy as np
 
 
 def taylor_green_f0(cfg, nc: int, *, u0: float, temperature: float,
-                    length: float = 1.0, device="cpu"):
+                    length: float = 1.0, device="cuda"):
     """Per-cell Maxwellian initial data with the Taylor-Green bulk field.
 
-    Returns ``(nc, nc, Nvx, Nvy, Nvz)`` on ``device``.
+    Returns ``(nc, nc, Nvx, Nvy, Nvz)`` on ``device`` (the card by default;
+    ``device="cpu"`` for the plain versions).
     """
     import torch
 

@@ -24,10 +24,11 @@ import numpy as np
 
 
 def taylor_green_f0_3d(cfg, nc: int, *, u0: float, temperature: float,
-                       length: float = 1.0, device="cpu"):
+                       length: float = 1.0, device="cuda"):
     """Per-cell Maxwellian initial data with the 3D Taylor-Green bulk field.
 
-    Returns ``(nc, nc, nc, Nvx, Nvy, Nvz)`` on ``device``.
+    Returns ``(nc, nc, nc, Nvx, Nvy, Nvz)`` on ``device`` (the card by default;
+    ``device="cpu"`` for the plain versions).
     """
     import torch
 

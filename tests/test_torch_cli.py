@@ -2,9 +2,12 @@
 the runs pass their gates and print boltzfft's lines, ``--impl auto``
 resolves by device, and what is not ported yet raises."""
 
+import inspect
+
 import pytest
 import torch
 
+from boltzfft_torch import CollisionConfig
 from boltzfft_torch.cli import resolve_impl, sod_1d3v, taylor_green_2d3v, taylor_green_3d3v
 
 SMALL = ["--Nv", "8", "--Ns", "6", "--steps", "2", "--n-radial", "4", "--device", "cpu"]
@@ -54,3 +57,16 @@ def test_cuda_without_card_raises():
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="is_available"):
         taylor_green_2d3v.main(["--Nv", "8", "--Ns", "6", "--cells", "2"])
+
+
+@pytest.mark.parametrize("make,cells", [
+    (taylor_green_2d3v.taylor_green_f0, (3, 3)),
+    (taylor_green_3d3v.taylor_green_f0_3d, (3, 3, 3)),
+])
+def test_initial_data_defaults_to_the_card(make, cells):
+    # an entry point runs on the card unless asked for the CPU
+    assert inspect.signature(make).parameters["device"].default == "cuda"
+    cfg = CollisionConfig(nv=8, ns=6)
+    f = make(cfg, 3, u0=0.8, temperature=3.0, device="cpu")
+    assert f.device.type == "cpu" and tuple(f.shape) == cells + (8, 8, 8)
+    assert f.dtype == cfg.real_dtype and bool((f > 0).all())
