@@ -57,8 +57,8 @@ _D = ctypes.c_double
 _ENTRY_ARGS = {
     # 14 inputs, 5 buffers, 7 ints, 3 reals and the stream
     "bfft_fused_collide": [_P] * 14 + [_P] * 5 + [_I] * 7 + [_D] * 3 + [_P],
-    # 10 inputs, 3 buffers, 6 ints, 3 reals and the stream
-    "bfft_fused_gain_kron": [_P] * 10 + [_P] * 3 + [_I] * 6 + [_D] * 3 + [_P],
+    # 10 inputs, 4 buffers, 6 ints, 3 reals and the stream
+    "bfft_fused_gain_kron": [_P] * 10 + [_P] * 4 + [_I] * 6 + [_D] * 3 + [_P],
     # 13 inputs, 3 buffers, 7 ints, 3 reals and the stream
     "bfft_fused_gain": [_P] * 13 + [_P] * 3 + [_I] * 7 + [_D] * 3 + [_P],
     # 3 inputs, 2 outputs, 3 ints and the stream
@@ -71,6 +71,8 @@ _ENTRY_ARGS = {
 _ENTRY_ARGS_F32 = {
     # Nx, Ny, Nz, is_f64 and the 3-int output: K1's shared-memory plan
     "bfft_k1_plan": [_I] * 4 + [_P],
+    # Ny Nz and the 4-int output: K3's GEMM plan
+    "bfft_kron_plan": [_I] + [_P],
     # 4 inputs, 2 outputs, 5 ints and the stream
     "bfft_oz_preslice": [_P] * 6 + [_I] * 5 + [_P],
     # 4 planes, 2 presliced, 2 matrices, 4 phase planes, 4 outputs, 12 ints
@@ -157,16 +159,16 @@ def build() -> Path:
 
 
 #: Kernels whose tensor-core instructions ``tc_counts`` reports: the ds
-#: engine's tile kernels, and K1's (K2's, K4's, K3's x leg) axis transforms,
-#: whose float and double instances are told apart.
+#: engine's tile kernels, and K1's (K2's, K4's, K3's x leg) axis transforms
+#: and K3's y/z GEMM, whose float and double instances are told apart.
 TC_KERNELS = ("oz_contract_kernel", "gmain3_kernel", "gmain12_kernel")
-TC_TRANSFORMS = ("line_dft_kernel", "plane_dft_kernel")
+TC_TRANSFORMS = ("line_dft_kernel", "plane_dft_kernel", "kron_gemm_kernel")
 
 
 def tc_counts(nvcc: str, lib: Path) -> dict:
     """``count_tc`` of the library's SASS (``cuobjdump -sass``, beside nvcc):
-    the check that the exact chunk dots and K1's transforms run on the
-    tensor cores.  Empty where cuobjdump is missing or fails."""
+    the check that the exact chunk dots, K1's transforms and K3's GEMM run
+    on the tensor cores.  Empty where cuobjdump is missing or fails."""
     tool = Path(nvcc).parent / "cuobjdump"
     if not tool.exists():
         return {}

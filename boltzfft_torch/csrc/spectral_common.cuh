@@ -1,6 +1,7 @@
 // Device code shared by the port's spectral kernels (fused_collide.cu: K1,
-// K2 and K4; fused_gain_kron.cu: K3's x leg): complex helpers, the axis
-// transforms on the tensor cores and the ordered beta1 accumulation (K3).
+// K2 and K4; fused_gain_kron.cu: K3): complex helpers, the tensor-core
+// units (DMMA, the 3xTF32 step), the axis transforms on the tensor cores
+// and the ordered beta1 accumulation (K3).
 //
 // Every transform of K1, K2 and K4 is a dense complex matrix times a tile of
 // lines, out = M diag(phase) X, the product the TPU kernels send to the MXU
@@ -66,12 +67,6 @@ template <> struct Cplx<double> { using type = double2; };
 
 __device__ __forceinline__ float dev_sin(float x) { return sinf(x); }
 __device__ __forceinline__ double dev_sin(double x) { return sin(x); }
-__device__ __forceinline__ float dev_fma(float a, float b, float c) {
-  return fmaf(a, b, c);
-}
-__device__ __forceinline__ double dev_fma(double a, double b, double c) {
-  return fma(a, b, c);
-}
 
 template <typename C2>
 __device__ __forceinline__ C2 cmul(C2 a, C2 b) {
@@ -79,30 +74,6 @@ __device__ __forceinline__ C2 cmul(C2 a, C2 b) {
   r.x = a.x * b.x - a.y * b.y;
   r.y = a.x * b.y + a.y * b.x;
   return r;
-}
-
-// acc += a * x as four fmas (the complex multiply-add of K3's GEMM)
-template <typename C2>
-__device__ __forceinline__ void cmac(C2& acc, C2 a, C2 x) {
-  acc.x = dev_fma(a.x, x.x, acc.x);
-  acc.x = dev_fma(-a.y, x.y, acc.x);
-  acc.y = dev_fma(a.x, x.y, acc.y);
-  acc.y = dev_fma(a.y, x.x, acc.y);
-}
-
-// The phase of batch entry j: row (j >> 1) % phase_rows of the table,
-// conjugated for odd j (the g1/g2 stream pair); (1, 0) without a table.
-template <typename C2>
-__device__ __forceinline__ C2 stream_phase(const C2* phase, int phase_rows,
-                                           long long j, int n, int m) {
-  C2 p;
-  p.x = 1;
-  p.y = 0;
-  if (phase != nullptr) {
-    p = phase[((j >> 1) % phase_rows) * n + m];
-    if (j & 1) p.y = -p.y;
-  }
-  return p;
 }
 
 // ---------------------------------------------------------------------------
@@ -234,6 +205,16 @@ __device__ __forceinline__ void mma_dmma(double (&d)[2], double a, double b) {
       : "d"(a), "d"(b));
 }
 
+// The m16n8k8 shape of DMMA (sm_90): fragments laid out as mma_tf32's.
+__device__ __forceinline__ void mma_dmma16(double (&d)[4], const double (&a)[4],
+                                           const double (&b)[2]) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
+
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
   asm(
@@ -241,6 +222,16 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d = a b into a fresh fragment (the C operand zero)
+__device__ __forceinline__ void mma_tf32_zero(float (&d)[4], const uint32_t (&a)[4],
+                                              const uint32_t (&b)[2]) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.f));
 }
 
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
@@ -253,6 +244,36 @@ __device__ __forceinline__ uint32_t tf32_rna(float x) {
 __device__ __forceinline__ void tf32_split(float a, uint32_t& hi, uint32_t& lo) {
   hi = tf32_rna(a);
   lo = tf32_rna(a - __uint_as_float(hi));
+}
+
+// One m16n8k8 step of a complex product by 3xTF32: re += Ar Br - Ai Bi,
+// im += Ar Bi + Ai Br, every operand split hi/lo (tf32 bits; nai* = -ai*).
+// The tensor core's adder truncates: each hi*hi product goes into a zeroed
+// fragment of its own, the four small ones (2^-11 of it) are chained into a
+// third, and float adds gather them.
+__device__ __forceinline__ void tf32_cmac(
+    float (&re)[4], float (&im)[4], const uint32_t (&arh)[4], const uint32_t (&arl)[4],
+    const uint32_t (&aih)[4], const uint32_t (&ail)[4], const uint32_t (&naih)[4],
+    const uint32_t (&nail)[4], const uint32_t (&brh)[2], const uint32_t (&brl)[2],
+    const uint32_t (&bih)[2], const uint32_t (&bil)[2]) {
+  float r1[4], r2[4], rs[4], i1[4], i2[4], is[4];
+  mma_tf32_zero(rs, arl, brh);
+  mma_tf32(rs, arh, brl);
+  mma_tf32(rs, nail, bih);
+  mma_tf32(rs, naih, bil);
+  mma_tf32_zero(r1, arh, brh);
+  mma_tf32_zero(r2, naih, bih);
+  mma_tf32_zero(is, arl, bih);
+  mma_tf32(is, arh, bil);
+  mma_tf32(is, ail, brh);
+  mma_tf32(is, aih, brl);
+  mma_tf32_zero(i1, arh, bih);
+  mma_tf32_zero(i2, aih, brh);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    re[r] = ((re[r] + r1[r]) + r2[r]) + rs[r];
+    im[r] = ((im[r] + i1[r]) + i2[r]) + is[r];
+  }
 }
 
 template <int kBytes>
@@ -446,29 +467,8 @@ __device__ __forceinline__ void mma_frags(const Frags<T, S>& f, TileAcc<T, S>& a
           tf32_split(f.b[s][b][q].x, brh[q], brl[q]);
           tf32_split(f.b[s][b][q].y, bih[q], bil[q]);
         }
-        // The tensor core's adder truncates: each hi*hi product goes into
-        // a zeroed fragment of its own, the four small ones (2^-11 of it)
-        // are chained into a third, and float adds gather them.
-        float r1[4] = {0.f, 0.f, 0.f, 0.f}, r2[4] = {0.f, 0.f, 0.f, 0.f};
-        float rs[4] = {0.f, 0.f, 0.f, 0.f}, i1[4] = {0.f, 0.f, 0.f, 0.f};
-        float i2[4] = {0.f, 0.f, 0.f, 0.f}, is[4] = {0.f, 0.f, 0.f, 0.f};
-        mma_tf32(rs, f.arl, brh);
-        mma_tf32(rs, f.arh, brl);
-        mma_tf32(rs, nail, bih);
-        mma_tf32(rs, naih, bil);
-        mma_tf32(r1, f.arh, brh);
-        mma_tf32(r2, naih, bih);
-        mma_tf32(is, f.arl, bih);
-        mma_tf32(is, f.arh, bil);
-        mma_tf32(is, f.ail, brh);
-        mma_tf32(is, f.aih, brl);
-        mma_tf32(i1, f.arh, bih);
-        mma_tf32(i2, f.aih, brh);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          acc.re[s][0][b][r] = ((acc.re[s][0][b][r] + r1[r]) + r2[r]) + rs[r];
-          acc.im[s][0][b][r] = ((acc.im[s][0][b][r] + i1[r]) + i2[r]) + is[r];
-        }
+        tf32_cmac(acc.re[s][0][b], acc.im[s][0][b], f.arh, f.arl, f.aih, f.ail, naih, nail,
+                  brh, brl, bih, bil);
       }
   }
 }

@@ -33,7 +33,7 @@ import math
 
 import torch
 
-from .fused_collide import _chunk_nodes, _cplx
+from .fused_collide import _MAT_PAD, _SMEM_LIMIT, _chunk_nodes, _cplx, _pad16, line_plan
 from .fused_gain_dft import fused_gain_dft
 
 #: Launches of the CUDA kernel (one per :func:`fused_gain_kron` call on CUDA).
@@ -68,6 +68,42 @@ def kron_tables(ax, ay, az, dft_inv, dft_fwd) -> KronTables:
     )
 
 
+# Mirror of the GEMM plan of ``csrc/fused_gain_kron.cu`` (``kron_plan``, the
+# one count of its shared memory; the tests hold these constants to the
+# source and, on the card, the plan to ``bfft_kron_plan``).
+_RESIDENT_K = 64  # kResidentK: the matrix stays in shared memory up to pad16(Ny Nz) = 64
+
+
+def kron_plan(nyz: int) -> list:
+    """``kron_plan`` of the source, 4 ints for a y/z plane of ``nyz``
+    points: 1 when the matrix stays in a block's shared memory, else 0 (its
+    chunks stream through L2); a block's shared-memory bytes; the column
+    tiles; ``kp``, nyz padded to whole chunks (the split planes are (kp,
+    kp)).  A complex point takes 16 bytes in both precisions; a block's unit
+    is 128 x 64 by 16 deep (resident) or 64 x 128 by 32 (streamed)."""
+    resident = _pad16(nyz) <= _RESIDENT_K
+    bm, bn, bk = (128, 64, 16) if resident else (64, 128, 32)
+    ld, kp = bk + _MAT_PAD, -(-nyz // bk) * bk
+    b = kp * (kp + _MAT_PAD) * 16 if resident else 2 * bn * ld * 16
+    a = 2 * bm * ld * 16
+    rows = 2 * bm * (8 + 4)
+    return [int(resident), b + a + rows, 1 if resident else -(-kp // bn), kp]
+
+
+def check_kron_grid(shape, dtype: torch.dtype) -> None:
+    """Raise if K3 cannot take a grid of this shape and dtype: the x leg's
+    line tile (K1's x pass, both streams and a real accumulator) does not
+    fit in a block's shared memory.  The GEMM's tile always fits: its
+    streamed unit does not grow with Ny Nz (``kron_plan``)."""
+    nx = int(shape[0])
+    csize = 16 if dtype == torch.float64 else 8
+    lines, _, _, nbytes = line_plan(nx, 2, csize // 2, csize)
+    if lines == 0:
+        raise ValueError(
+            f"fused_gain_kron: an x axis of {nx} points needs {nbytes} B of shared memory "
+            f"for its DFT matrix tile (limit {_SMEM_LIMIT} B); use fused_scheme='ct'")
+
+
 #: The largest y/z plane (Ny * Nz) on which ``fused_scheme="auto"`` takes K3.
 KRON_MAX_NYZ = 64
 
@@ -80,32 +116,32 @@ def pick_scheme(nx: int, ny: int, nz: int) -> str:
 
     It follows the whole Q of E BKW distributions at Ns=12 through K1
     against the kron route (K3 plus its cuFFT finale), ``chip_smoke.py``
-    phase 4, NVIDIA H100 80GB HBM3 at 700 W, medians of 20 trials in ms
-    (f64 / f32), one run:
+    phase 4, NVIDIA H100 80GB HBM3 at 700 W, both kernels on the tensor
+    cores (K3's y/z GEMM since its redesign); the mean of two runs' medians
+    of 20 trials, in ms (f64 / f32):
 
     ====  =====  ===============  ===============
     grid  E      K1               kron route
     ====  =====  ===============  ===============
-    8^3   1      1.727 / 1.060    1.749 / 0.746
-    8^3   32     1.725 / 0.928    1.623 / 0.612
-    8^3   256    2.477 / 1.454    3.628 / 0.929
-    8^3   512    3.010 / 2.128    2.588 / 1.491
-    12^3  1      1.073 / 0.992    0.611 / 0.748
-    12^3  32     1.487 / 1.355    1.788 / 1.224
-    12^3  256    5.982 / 4.674    10.89 / 6.111
-    12^3  512    10.96 / 8.556    20.83 / 15.41
-    16^3  1      1.046 / 2.288    0.670 / 1.300
-    16^3  32     2.975 / 2.810    5.977 / 3.504
-    16^3  256    14.79 / 11.30    40.24 / 20.94
-    16^3  512    27.95 / 20.93    79.21 / 40.53
+    8^3   1      1.143 / 0.891    0.866 / 0.381
+    8^3   32     1.031 / 0.779    0.654 / 0.390
+    8^3   256    1.922 / 1.736    0.986 / 0.843
+    8^3   512    2.992 / 2.847    1.683 / 1.198
+    12^3  1      1.245 / 0.901    1.972 / 0.624
+    12^3  32     2.310 / 1.185    1.422 / 1.157
+    12^3  256    5.252 / 4.016    6.624 / 6.270
+    12^3  512    8.408 / 7.030    12.97 / 12.08
+    16^3  1      1.030 / 1.175    0.898 / 1.132
+    16^3  32     1.751 / 1.717    2.497 / 3.868
+    16^3  256    7.689 / 6.658    16.22 / 15.55
+    16^3  512    14.52 / 12.81    31.52 / 30.52
     ====  =====  ===============  ===============
 
-    At 8^3 every eval is a few ms of launches and host glue; the kron route
-    was faster in 22 of the 24 (dtype, E) pairs over three runs (in the two
-    others at every E in both dtypes), so the rule keeps it there.  From 12^3
-    on it wins only for one or a few distributions, by under 0.5 ms (1 ms
-    once); K1 is 1.3-2.8x faster on the 256- and 512-cell solver stacks,
-    where the time goes, so the rule takes K1 there.
+    At 8^3 the kron route was faster in every (dtype, E) pair of both runs
+    (1.3-2.6x), so the rule keeps it there.  From 12^3 on K1 wins the 256-
+    and 512-cell solver stacks, where the time goes, in both dtypes and both
+    runs (1.2-2.5x), so the rule takes K1 there; below 256 cells either
+    route wins by up to 1.7 ms, and not the same one in both runs.
     """
     del nx
     return "kron" if ny * nz <= KRON_MAX_NYZ else "ct"
@@ -157,6 +193,17 @@ def fused_gain_kron(
 # --------------------------------------------------------------------------
 
 
+def _yz_product(a, k):
+    """The y/z leg: rows a (..., Ny Nz) times the (Ny Nz, Ny Nz) matrix k,
+    the kernel's GEMM."""
+    return a @ k
+
+
+def _x_product(m, t):
+    """The x leg: the (Nx, Nx) matrix m along axis 1 of t (C, Nx, Ny Nz)."""
+    return torch.einsum("xm,bmk->bxk", m, t)
+
+
 def _reference_one(rho, gain_w, t: KronTables, fh, norm_l,
                    *, length, b_gamma, radial_group):
     """One spectrum fh (Nx, NyNz): every node at once, then the group sums
@@ -169,8 +216,8 @@ def _reference_one(rho, gain_w, t: KronTables, fh, norm_l,
     n_groups = -(-n_nodes // gs)
 
     def stream(ayz, ax):
-        yz = (ayz[:, None, :] * fh[None]) @ t.kinv  # (B, Nx, NyNz)
-        return torch.einsum("xm,bmk->bxk", t.vx, ax[:, :, None] * yz)
+        yz = _yz_product(ayz[:, None, :] * fh[None], t.kinv)  # (B, Nx, NyNz)
+        return _x_product(t.vx, ax[:, :, None] * yz)
 
     g1 = stream(t.ayz, t.ax)
     g2 = stream(t.ayz.conj(), t.ax.conj())
@@ -182,7 +229,7 @@ def _reference_one(rho, gain_w, t: KronTables, fh, norm_l,
     s = torch.zeros_like(h[:, 0])
     for k in range(gs):
         s = s + w[:, k, None, None] * h[:, k]
-    sh = torch.einsum("xm,gmk->gxk", t.fx, s.to(fh.dtype)) @ t.kfwd
+    sh = _yz_product(_x_product(t.fx, s.to(fh.dtype)), t.kfwd)
     arg = (coef * rho[::gs])[:, None, None] * norm_l + eps
     beta1 = amp * torch.sin(arg) / arg
     acc = torch.zeros_like(fh)
@@ -261,12 +308,16 @@ def _fused_gain_kron_cuda(
         arg(tables.kfwd, (nyz, nyz), cd),
         arg(norm_l, (nx, ny, nz), rd),
     ]
+    check_kron_grid((nx, ny, nz), rd)
     n3 = nx * nyz
     csize = 16 if rd == torch.float64 else 8
     # the same two stream buffers per node as K1's, sized by K1's rule
     chunk = _chunk_nodes(n_nodes, radial_group, n_batch, n3, csize, dev)
     t1 = torch.empty((2 * n_batch * chunk, n3), dtype=cd, device=dev)
     t2 = torch.empty_like(t1)
+    # kinv and kfwd split into planes for the GEMM, 16 bytes a point
+    kp = kron_plan(nyz)[3]
+    ksplit = torch.empty((2, kp, kp), dtype=torch.complex128, device=dev)
     out = torch.empty_like(fb)
 
     lib = load_library()
@@ -275,7 +326,7 @@ def _fused_gain_kron_cuda(
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = entry(
             *[t.data_ptr() for t in ins],
-            t1.data_ptr(), t2.data_ptr(), out.data_ptr(),
+            t1.data_ptr(), t2.data_ptr(), ksplit.data_ptr(), out.data_ptr(),
             n_batch, nx, nyz, n_nodes, radial_group, chunk,
             math.pi / (2.0 * length), 4.0 * math.pi * b_gamma,
             float(torch.finfo(rd).eps), stream,

@@ -9,8 +9,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    (the build seconds), and counts the tensor-core instructions (HMMA,
    HGMMA, DMMA) in the SASS: the ds engine's tile kernels (K8, K9, K10)
    must all have some, and K1's axis transforms (``line_dft_kernel``,
-   ``plane_dft_kernel``; K2, K4 and K3's x leg too) DMMA in double and
-   HMMA (3xTF32) in float;
+   ``plane_dft_kernel``; K2, K4 and K3's x leg too) and K3's y/z GEMM
+   (``kron_gemm_kernel``) DMMA in double and HMMA (3xTF32) in float;
 3. each kernel against its plain PyTorch version on the card (float64 within
    1e-12 of the plain result's max, float32 within 1e-5, 4e-5 below 32^3,
    see ``TOL``): K1 (``fused_collide``), K3 (``fused_gain_kron``), K2 and K4
@@ -41,8 +41,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 7. determinism (bitwise run to run and batched against per item, for K1,
    for the TG-2D step, and for the K1 and K3 collides of the TG-2D, TG-3D
    and Sod cell stacks), K1 and K3 against their plain versions on the
-   TG-3D (512 cells) and Sod (32 cells) stacks, and dispatch (each main path
-   launched its kernels and never a plain version);
+   TG-3D (512 cells) and Sod (32 cells) stacks, the default route at 8^3
+   (``impl="fused"``, K3) on a 256-cell stack against the staged c2c, and
+   dispatch (each main path launched its kernels and never a plain version);
 8. ``maxwell_bkw --steps 10 --Nv 32 --Ns 12`` (RK4 relaxation through K1,
    float64) and the same relaxation through c2c (1e-12 relative);
 9. ``health.selfcheck`` on the card for fused, rfft + use_pallas and dft,
@@ -54,7 +55,11 @@ Phases, in order; any failure raises and the script exits non-zero:
     plain versions and K5's and K6's library yardsticks; ``collide`` through each route
     (K1, staged rfft and c2c, rfft + use_pallas, K2 + hook, K4, dft at
     32^3) at 32^3 and 64^3; K3 (first held to its plain
-    version there), its plain version and K1 on the 256-cell TG-2D batch;
+    version there), its plain version and K1 on the 256-cell TG-2D batch,
+    and K3 on the 8^3 256-cell stack (the default kron route); K3's bound on
+    the tensor cores beside the dense kron product's and the CUDA-core one,
+    and its y/z stage's device time beside one complex ``torch.matmul`` at
+    the stage's shape (cuBLAS, TF32 off);
     the TG-2D step; and a ``torch.profiler`` window over TG-2D steps (device
     time by kernel family and the card's idle share); K1's bound on the
     tensor cores beside its CUDA-core bound, and its stream stage's device
@@ -143,7 +148,8 @@ SHAPES_K3 = [  # (grid, ns, batch)
     ((16, 16, 16), 12, 1),
     ((16, 16, 16), 12, 3),
     ((8, 12, 16), 6, 1),
-    ((16, 16, 48), 12, 1),
+    ((16, 16, 48), 12, 1),  # the matrix streamed in 6 column tiles
+    ((8, 8, 8), 12, 256),   # the default kron route on a cell stack (matrix resident)
 ]
 SHAPES_K24 = [  # (scheme, grid, ns, batch)
     ("ct", (16, 16, 16), 12, 1),
@@ -180,10 +186,10 @@ SCHEME_TRIALS = 5
 MASS_TOL = 1e-2
 H_TOL = 0.01
 # Peaks of an H100 SXM at 700 W (NVIDIA's data sheet): CUDA-core FLOP/s in
-# float32 and float64 (K3's GEMM, K5, K6), device memory bytes/s, and the
-# tensor cores' dense rates that K1's transforms run at (K1, K2, K4; K3's x
-# leg): DMMA in float64, TF32 in float32, where 3xTF32 does 3 products for
-# each one.
+# float32 and float64 (K5, K6; the earlier CUDA-core bounds), device memory
+# bytes/s, and the tensor cores' dense rates that K1-K4's transforms run at:
+# DMMA in float64, TF32 in float32, where 3xTF32 does 3 products for each
+# one.
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 PEAK_BYTES = 3.35e12
 PEAK_TC = {"float64": 67e12, "float32": 495e12}
@@ -362,6 +368,56 @@ def k3_batch_parity(op, k3, cfg, pre, cells, label):
           f" max|Q_gain_hat| (tol {TOL[dtype]:g}) {'ok' if ok else 'FAIL'}")
     check(ok, f"K3 != plain version on the {label} batch ({dtype})")
     return err, (args, kw)
+
+
+def k3_yz_stage(k3, args, kw, cfg, card):
+    """K3's y/z stage: the device time of both GEMM launches of one call
+    (``kron_gemm_kernel``, profiler, ms), one complex ``torch.matmul`` over
+    the same rows, (2 E B + E G) Nx x (Ny Nz) times (Ny Nz, Ny Nz) (cuBLAS
+    ZGEMM / CGEMM, TF32 off): the stage's library yardstick, which the port
+    never calls; and the device time of the whole call (every kernel it
+    launches; CUDA events around a call also time the wrapper's host work
+    where that is the longer)."""
+    f_hat, tables = args[3], args[2]
+    e = f_hat.shape[0] if f_hat.dim() == 4 else 1
+    nx, ny, nz = f_hat.shape[-3:]
+    b = args[0].shape[0]
+    rows = (2 * e * b + e * -(-b // kw["radial_group"])) * nx
+    fam = profile_calls(lambda: k3.fused_gain_kron(*args, **kw), ("kron_gemm_kernel",), 3)
+    stage = None if fam is None else fam["kron_gemm_kernel"][0] / 3e3
+    device = None if fam is None else sum(v[0] for v in fam.values()) / 3e3
+    x = torch.randn((rows, ny * nz), dtype=cfg.complex_dtype, device=f_hat.device)
+    mm = statistics.median(time_ms(lambda: torch.matmul(x, tables.kinv), 5, 1))
+    del x
+    said = "not measured" if stage is None else f"{stage:.4f} ms of {device:.4f} ms on the card"
+    print(f"[11 y/z stage] K3 {cfg.dtype} E {e} grid {(nx, ny, nz)}: the GEMMs {said}"
+          f" (profiler, per call); torch.matmul ({rows}, {ny * nz}) x ({ny * nz}, {ny * nz})"
+          f" {mm:.4f} ms (library yardstick) | {card}")
+    return stage, mm, device
+
+
+def k3_row(entry, name, dtype, shape, b, groups, e, launches_, plain_, err, ms, plain_ms, yz):
+    """K3's kernels-line entry: its bound on the tensor cores (what the
+    function needs, separable DFTs: ``tc_bound(k3_flops)``), printed beside
+    the dense kron product's on the tensor cores and the CUDA-core bound."""
+    csize = 8 if dtype == "float64" else 4
+    nx, nyz = shape[0], shape[1] * shape[2]
+    n3 = nx * nyz
+    nbytes = (2 * e * n3 * 2 * csize  # f_hat in, Q_gain_hat out
+              + (2 * nyz * nyz + b * (nx + nyz) + 2 * nx * nx) * 2 * csize  # tables
+              + (n3 + 2 * b) * csize)  # |l|, rho, gain_w
+    flops = k3_flops(shape, b, groups, batch=e)
+    b_ms, b_by, b_cc = tc_bound(flops, nbytes, dtype)
+    kron = k3_kron_flops(shape, b, groups, batch=e)
+    kron_ms = tc_bound(kron, nbytes, dtype)[0]
+    med = statistics.median(ms)
+    entry(name, "fused_gain_kron", dtype, launches_, plain_, err, ms, plain_ms, b_ms, b_by,
+          dev_ms=yz[2], bound_unit=TC_UNIT[dtype], yz_stage_ms=yz[0], yz_stage_matmul_ms=yz[1])
+    print(f"[11 bound] K3 {dtype} {name}: {flops / 1e9:.2f} GFLOP separable, {nbytes / 1e6:.1f} MB"
+          f" -> bound {b_ms:.4f} ms ({b_by}, {TC_UNIT[dtype]}; CUDA cores {b_cc:.4f} ms);"
+          f" the dense kron product K3 does, {kron / 1e9:.1f} GFLOP, on the tensor cores"
+          f" {kron_ms:.4f} ms; measured {med:.3f} ms = {med / b_ms:.1f}x the bound,"
+          f" {med / kron_ms:.2f}x the dense product's")
 
 
 def k1_batch_parity(op, k1, cfg, pre, cells, label):
@@ -1155,11 +1211,11 @@ def main() -> int:
     check(all(counts_tc.get(k, none)["HMMA"] + counts_tc.get(k, none)["HGMMA"] > 0
               for k in ("oz_contract_kernel", "gmain3_kernel", "gmain12_kernel")),
           f"tensor-core instructions missing from the oz kernels: {counts_tc}")
-    for k in ("line_dft_kernel", "plane_dft_kernel"):
+    for k in ("line_dft_kernel", "plane_dft_kernel", "kron_gemm_kernel"):
         dmma = counts_tc.get(f"{k}<double>", none)["DMMA"]
         hmma = counts_tc.get(f"{k}<float>", none)["HMMA"]
         print(f"[2 sass] {k}: DMMA {dmma} (double), HMMA {hmma} (float, 3xTF32)")
-        check(dmma > 0 and hmma > 0, f"K1's {k} is not on the tensor cores: {counts_tc}")
+        check(dmma > 0 and hmma > 0, f"{k} is not on the tensor cores: {counts_tc}")
 
     # ---- 3. kernels against their plain versions on the card -----------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1264,7 +1320,7 @@ def main() -> int:
             max_err[("k5", dtype, n)] = err
     # K3's route of collide: against the staged cuFFT c2c (float64), and its
     # float32 Q against its float64 Q at 16^3 (the cancellation rule)
-    for shape, ns, _ in SHAPES_K3[:1] + SHAPES_K3[2:]:
+    for shape, ns, _ in SHAPES_K3[:1] + SHAPES_K3[2:4]:
         kw = dict(nv=shape[0], nvy=shape[1], nvz=shape[2], ns=ns)
         cfg = bt.CollisionConfig(impl="fused", fused_scheme="kron", **kw)
         cfg_c = bt.CollisionConfig(impl="c2c", **kw)
@@ -1416,6 +1472,7 @@ def main() -> int:
     # The CLIs' defaults: 16^3 velocities, Ns=12, CFL time step, MUSCL.
     tg = dict(u0=0.8, temperature=3.0, length=1.0)
     solvers = {}
+    kron_steps = {}  # dtype -> the TG-2D step on K3 and its Precomp
     finals = {}  # (dtype, run) -> the run's last state
     c5 = {}
     for dtype in ("float64", "float32"):
@@ -1439,6 +1496,7 @@ def main() -> int:
         f1 = transport.sod_initial_condition(cfg, 32, device=dev)
         dv3 = g.cell_volume
         solvers[dtype] = (cfg, collide, pre, step2, f2)
+        kron_steps[dtype] = (step2k, pre_k)
         runs = [("TG-2D 16x16 cells, 10 steps", step2, pre, f2, 10, d2 * d2, "k1"),
                 ("TG-3D 8^3 cells, 2 steps", step3, pre, f3, 2, d3 ** 3, "k1"),
                 ("Sod 32 cells, 5 steps", step1, pre, f1, 5, dsod, "k1"),
@@ -1506,6 +1564,30 @@ def main() -> int:
                 check(torch.equal(qb, one), f"{dtype}: {route} {run} collide != per-cell collides")
             print(f"[7 determinism] {dtype}: {run}: the K1 and K3 {len(cells)}-cell collides =="
                   f" {len(cells)} per-cell collides bitwise")
+    # the default route at 8^3 (pick_scheme: kron, K3) on a 256-cell stack
+    k3_default = {}
+    for dtype in ("float64", "float32"):
+        cfg8 = bt.CollisionConfig(nv=8, ns=12, impl="fused", dtype=dtype)
+        collide8, pre8 = bt.make_collision_operator(cfg8, device="cuda")
+        _, _, f8 = bkw(bt, cfg8, dev)
+        cells8 = torch.stack([f8 * (1.0 - 0.5 * i / 256) for i in range(256)])
+        reset_counts(ks)
+        q8 = collide8(cells8, pre8)
+        torch.cuda.synchronize()
+        c7 = counts(ks)
+        check(op.fused_scheme(cfg8) == "kron" and c7["k3"] == 1 and c7["k1"] == 0
+              and plain_calls(c7) == 0, f"{dtype} 8^3 default route: dispatch {c7}")
+        k3_default[dtype] = (c7, cfg8, pre8, cells8)
+        one = torch.stack([collide8(x, pre8) for x in cells8])
+        check(torch.equal(q8, one), f"{dtype}: the 8^3 256-cell collide != per-cell collides")
+        said = ""
+        if dtype == "float64":
+            cfg_c8 = bt.CollisionConfig(nv=8, ns=12, impl="c2c")
+            d8 = max_rel(q8, bt.collide(cfg_c8, bt.build_precomp(cfg_c8, dev), cells8))
+            check(d8 <= 1e-12, f"8^3 default route vs c2c {d8:.3e}")
+            said = f"; vs staged c2c (cuFFT) {d8:.3e} max|Q| (tol 1e-12)"
+        print(f"[7 determinism] {dtype}: the 8^3 default route (K3) on 256 cells == 256"
+              f" per-cell collides bitwise{said}; counts {c7}")
     check(c4["k1"] > 0 and all(launches[k] > 0 for k in launches),
           f"homogeneous main path launched K1 {launches}")
     check(plain_calls(c4) == 0, f"homogeneous main path called a plain version {c4}")
@@ -1711,13 +1793,17 @@ def main() -> int:
         max_err[("k3", dtype)] = max(max_err[("k3", dtype)], err)
         ms_k3 = time_ms(lambda: k3.fused_gain_kron(*args, **kw))
         ms_plain = time_ms(lambda: k3.fused_gain_kron_reference(*args, **kw), PLAIN_TRIALS, 1)
+        yz = k3_yz_stage(k3, args, kw, cfg_k, card)
         args1, kw1 = k1_inputs(op, cfg, pre, cells)
         ms_k1 = time_ms(lambda: k1.fused_collide(*args1, **kw1))
         ms_step = time_ms(lambda: step2(f2, pre))
+        step2k, pre_k = kron_steps[dtype]
+        ms_step_k3 = time_ms(lambda: step2k(f2, pre_k))
         for label, ms, unit in (("K3 kernel", ms_k3, "call"), ("K3 plain", ms_plain, "call"),
-                                ("K1 kernel (whole Q)", ms_k1, "call"), ("TG-2D step (K1)", ms_step, "step")):
+                                ("K1 kernel (whole Q)", ms_k1, "call"), ("TG-2D step (K1)", ms_step, "step"),
+                                ("TG-2D step (K3, fused_scheme='kron')", ms_step_k3, "step")):
             report(f"{label} on the TG-2D batch, 256 x 16^3 Ns=12 {dtype}", ms, unit)
-        tg2d[dtype] = dict(k3=ms_k3, plain=ms_plain, k1=ms_k1, step=ms_step,
+        tg2d[dtype] = dict(k3=ms_k3, plain=ms_plain, k1=ms_k1, step=ms_step, yz=yz,
                            batch=cells.shape[0], nodes=pre.rho.shape[0],
                            groups=-(-pre.rho.shape[0] // cfg.ns_eff))
         t = tg2d[dtype]
@@ -1782,26 +1868,26 @@ def main() -> int:
                   times[("k1", n, dtype, "kernel")], times[("k1", n, dtype, "plain")], b_ms, b_by,
                   bound_unit=TC_UNIT[dtype],
                   stream_stage_ms=stage, stream_stage_ifftn_ms=ifft_ms)
+    # K3 on the TG-2D batch (fused_scheme="kron", its launches in the K3
+    # TG-2D runs of phase 6) and on the 8^3 stack of the default route (its
+    # launch in phase 7)
     for dtype in ("float64", "float32"):
         t = tg2d[dtype]
-        csize = 8 if dtype == "float64" else 4
-        n3, nyz, e, b, groups = 4096, 256, t["batch"], t["nodes"], t["groups"]
-        nbytes = (2 * e * n3 * 2 * csize  # f_hat in, Q_gain_hat out
-                  + (2 * nyz * nyz + b * (16 + nyz) + 2 * 16 * 16) * 2 * csize
-                  + (n3 + 2 * b) * csize)
-        flops = k3_flops((16, 16, 16), b, groups, batch=e)
-        b_ms, b_by = bound(flops, nbytes, dtype)
         kron_runs = [c for (dt, lab), c in c5.items() if dt == dtype and "K3" in lab]
-        entry(f"fused_gain_kron[{dtype},TG-2D {e}x16^3,Ns=12]", "fused_gain_kron", dtype,
-              sum(c["k3"] for c in kron_runs), sum(c["k3_plain"] for c in kron_runs),
-              max_err[("k3", dtype)], t["k3"], t["plain"], b_ms, b_by)
-        kron = k3_kron_flops((16, 16, 16), b, groups, batch=e)
-        ms = statistics.median(t["k3"])
-        print(f"[11 bound] K3 {dtype} TG-2D batch: {flops / 1e9:.2f} GFLOP separable,"
-              f" {nbytes / 1e6:.1f} MB -> bound {b_ms:.4f} ms ({b_by}); measured {ms:.3f} ms"
-              f" = {ms / b_ms:.1f}x the bound; K3's dense kron y/z product does"
-              f" {kron / 1e9:.1f} GFLOP, {kron / (ms * 1e-3) / PEAK_FLOPS[dtype]:.1%}"
-              " of the CUDA-core peak")
+        k3_row(entry, f"fused_gain_kron[{dtype},TG-2D {t['batch']}x16^3,Ns=12]", dtype,
+               (16, 16, 16), t["nodes"], t["groups"], t["batch"],
+               sum(c["k3"] for c in kron_runs), sum(c["k3_plain"] for c in kron_runs),
+               max_err[("k3", dtype)], t["k3"], t["plain"], t["yz"])
+        c7, cfg8, pre8, cells8 = k3_default[dtype]
+        err, (args, kw) = k3_batch_parity(op, k3, cfg8, pre8, cells8, "8^3 default route")
+        ms_k3 = time_ms(lambda: k3.fused_gain_kron(*args, **kw))
+        ms_plain = time_ms(lambda: k3.fused_gain_kron_reference(*args, **kw), PLAIN_TRIALS, 1)
+        for label, ms in (("K3 kernel", ms_k3), ("K3 plain", ms_plain)):
+            report(f"{label} on the 8^3 stack, 256 x 8^3 Ns=12 {dtype}", ms, "call")
+        b8 = pre8.rho.shape[0]
+        k3_row(entry, f"fused_gain_kron[{dtype},8^3 256x8^3,Ns=12]", dtype, (8, 8, 8), b8,
+               -(-b8 // cfg8.ns_eff), 256, c7["k3"], c7["k3_plain"], err, ms_k3, ms_plain,
+               k3_yz_stage(k3, args, kw, cfg8, card))
     lap(11)
     st = ds_phases(bt, dev, card, ks, q_c2c, entry, report)
     lap(16)

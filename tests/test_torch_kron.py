@@ -246,6 +246,8 @@ CUDA_CASES = [  # (config kwargs, batch, tolerance in max|Q_gain_hat|)
     (dict(nv=8, ns=12, node_chunk=5), 2, 1e-12),  # padded nodes (gain_w = 0)
     (dict(nv=16, ns=12, dtype="float32"), 3, 1e-5),
     (dict(nv=8, nvy=12, nvz=16, ns=6, dtype="float32"), 1, 1e-5),
+    (dict(nv=8, ns=12), 256, 1e-12),  # the default kron route on a cell stack (matrix resident)
+    (dict(nv=16, nvy=16, nvz=48, ns=12, dtype="float32"), 1, 1e-5),  # matrix streamed, 6 tiles
 ]
 
 
@@ -274,6 +276,22 @@ def test_kron_bitwise_reproducible_on_card(cuda_device, dtype):
     fs = torch.stack([f, 0.8 * f, 1.1 * f])
     assert torch.equal(collide(fs, pre), collide(fs, pre))
     assert torch.equal(collide(fs, pre), torch.stack([collide(x, pre) for x in fs]))
+
+
+@pytest.mark.cuda
+def test_kron_gemm_runs_on_the_tensor_cores(cuda_device):
+    # the y/z GEMM: DMMA in double, HMMA (3xTF32) in float, in the SASS of
+    # the library the kernel runs from
+    import ast
+
+    from boltzfft_torch import _build
+
+    _build.load_library()
+    line = next(ln for ln in _build.BUILD_LOG.read_text().splitlines()
+                if ln.startswith("# tensor-core instructions"))
+    counts = ast.literal_eval(line.split(": ", 1)[1])
+    assert counts["kron_gemm_kernel<double>"]["DMMA"] > 0
+    assert counts["kron_gemm_kernel<float>"]["HMMA"] > 0
 
 
 @pytest.mark.cuda
