@@ -34,6 +34,17 @@ from boltzfft_torch.kernels import fused_collide as k1
 CSRC = Path(__file__).resolve().parents[1] / "boltzfft_torch" / "csrc"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The models run many small products and elementwise passes, which
+    torch's thread pool makes slower, and beside other test workers stalls:
+    one thread while this module runs."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def tf32(x: torch.Tensor) -> torch.Tensor:
     """float32 rounded to TF32 (10 mantissa bits), to nearest, ties away:
     ``cvt.rna.tf32.f32``."""

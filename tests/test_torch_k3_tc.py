@@ -9,7 +9,7 @@ every tile, then Ai B), in float32 3xTF32 (each operand split hi = tf32(a), lo =
 tf32(a - hi); each k8 step puts each hi*hi product into a zeroed fragment of
 its own and chains the four small ones into a third, then float adds gather
 them).  The tensor core's adder truncates: a fragment is the exact sum of its
-products truncated to float32 (``truncate``, from K1's model).  Patched into
+products truncated to float32 (``truncate32``, K1's model's rule).  Patched into
 ``fused_gain_kron_reference`` for the y/z GEMM and for the x leg (K1's line
 pass, the matrix first), the float32 model must stay within 1e-5
 max|Q_gain_hat| of boltzfft's float64 ``fused_gain(scheme="kron")`` (interpret
@@ -27,7 +27,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
-from test_torch_k1_tc import split, truncate
+from test_torch_k1_tc import split
 
 import boltzfft_torch as bt
 from boltzfft_torch import _build
@@ -39,21 +39,52 @@ SOURCE = Path(__file__).resolve().parents[1] / "boltzfft_torch" / "csrc" / "fuse
 TOL = {"float64": 1e-12, "float32": 1e-5}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The models run many small products and elementwise passes, which
+    torch's thread pool makes slower, and beside other test workers stalls:
+    one thread while this module runs."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def truncate32(x: torch.Tensor) -> torch.Tensor:
+    """float64 to float32, toward zero: the tensor core's adder (``truncate``
+    of K1's model, as a bit mask: exact for float32's normal range)."""
+    return (x.view(torch.int64) & ~0x1FFFFFFF).view(torch.float64).float()
+
+
+def _chunk_dots(a, b, k0, k1, step):
+    """a[..., k] b[k, :] summed over each step-deep chunk of [k0, k1), exactly
+    (float64): (chunks, rows, L) for a (rows, K)."""
+    c = (k1 - k0) // step
+    a_c = a[:, k0:k1].reshape(a.shape[0], c, step).transpose(0, 1)
+    return torch.matmul(a_c, b[k0:k1].reshape(c, step, b.shape[1]))
+
+
 def tc_matmul(a: torch.Tensor, b: torch.Tensor, chained: bool = False) -> torch.Tensor:
     """a (..., N, K) @ b (K, L), complex, as the tensor cores form it with
     ``a`` the first operand (``chained``: 3xTF32 with every product of the k
-    loop chained in one fragment)."""
+    loop chained in one fragment).  The chunk products are formed 8 chunks
+    at a time; the accumulation runs chunk by chunk, in the kernel's order."""
+    shape = a.shape[:-1] + b.shape[-1:]
+    a = a.reshape(-1, a.shape[-1])
+    k, block = a.shape[-1], 64
     if a.dtype == torch.complex128:
         ar, ai, br, bi = a.real, a.imag, b.real, b.imag
-        re = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float64)
+        re = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float64)
         im = torch.zeros_like(re)
-        for k0 in range(0, a.shape[-1], 8):
-            s = slice(k0, k0 + 8)
-            re = re + ar[..., s] @ br[s]
-            im = im + ar[..., s] @ bi[s]
-            re = re + (-ai[..., s]) @ bi[s]
-            im = im + ai[..., s] @ br[s]
-        return torch.complex(re, im)
+        for k0 in range(0, k, block):
+            k1 = min(k, k0 + block)
+            dots = [_chunk_dots(x, y, k0, k1, 8) for x, y in ((ar, br), (ar, bi), (-ai, bi), (ai, br))]
+            for c in range(dots[0].shape[0]):
+                re = re + dots[0][c]
+                im = im + dots[1][c]
+                re = re + dots[2][c]
+                im = im + dots[3][c]
+        return torch.complex(re, im).reshape(shape)
     arh, arl = split(a.real)
     aih, ail = split(a.imag)
     brh, brl = split(b.real)
@@ -64,25 +95,26 @@ def tc_matmul(a: torch.Tensor, b: torch.Tensor, chained: bool = False) -> torch.
              ((arh, bih), (aih, brh), ((arl, bih), (arh, bil), (ail, brh), (aih, brl))))
     out = []
     for hh1, hh2, small in terms:
-        acc = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
-        for k0 in range(0, a.shape[-1], 8):
-            s = slice(k0, k0 + 8)
-
-            def dot(pair, s=s):
-                return pair[0][..., s] @ pair[1][s]
-
+        acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
+        for k0 in range(0, k, block):
+            k1 = min(k, k0 + block)
+            d1, d2 = (_chunk_dots(*pair, k0, k1, 8) for pair in (hh1, hh2))
+            ds = [_chunk_dots(*pair, k0, k1, 8) for pair in small]
             if chained:
-                run = acc.double()
-                for pair in (small[0], small[1], hh1, small[2], small[3], hh2):
-                    run = truncate(run + dot(pair)).double()
-                acc = run.float()
+                for c in range(d1.shape[0]):
+                    run = acc.double()
+                    for d in (ds[0], ds[1], d1, ds[2], ds[3], d2):
+                        run = truncate32(run + d[c]).double()
+                    acc = run.float()
             else:
-                part = torch.zeros((), dtype=torch.float64)
-                for pair in small:
-                    part = truncate(part + dot(pair)).double()
-                acc = ((acc + truncate(dot(hh1))) + truncate(dot(hh2))) + part.float()
+                part = truncate32(ds[0])
+                for d in ds[1:]:
+                    part = truncate32(part.double() + d)
+                h1, h2 = truncate32(d1), truncate32(d2)
+                for c in range(d1.shape[0]):
+                    acc = ((acc + h1[c]) + h2[c]) + part[c]
         out.append(acc)
-    return torch.complex(out[0], out[1])
+    return torch.complex(out[0], out[1]).reshape(shape)
 
 
 def _patch(monkeypatch, chained=False):
