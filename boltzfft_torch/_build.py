@@ -17,6 +17,7 @@ there is no fallback.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -82,12 +83,12 @@ _ENTRY_ARGS_F32 = {
     "bfft_oz_gmain3": [_P] * 10 + [_I] * 9 + [_P],
     # preslice, 4 matrices, 4 outputs, 10 ints and the stream
     "bfft_oz_gmain12": [_P] * 9 + [_I] * 10 + [_P],
-    # Nx, Ny, the z block, sx and the slices kept: whether K10's block fits
-    # in shared memory
-    "bfft_oz_gmain12_fits": [_I] * 5,
+    # Nx, Ny, Nz/2, the node count, sx, the slices kept, the z block and the
+    # 7-int output: K10's plan
+    "bfft_oz_gmain12_plan": [_I] * 7 + [_P],
     # 8 stream planes, 2 weights, 4 outputs, the node count, 3 dims, 11
-    # strides and the stream
-    "bfft_oz_hadamard": [_P] * 14 + [_I] * 15 + [_P],
+    # strides, the weights' stride and the stream
+    "bfft_oz_hadamard": [_P] * 14 + [_I] * 16 + [_P],
     # 4 main blocks, 3 planes, 3 signs, 2 weights, 2 outputs, 5 ints and the stream
     "bfft_oz_hadamard_half": [_P] * 14 + [_I] * 5 + [_P],
 }
@@ -209,6 +210,18 @@ def _run(cmd: list[str]) -> tuple[int, str, float]:
     proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     out = " ".join(cmd) + f"\n{proc.stdout}" + (f"(exit {proc.returncode})\n" if proc.returncode else "")
     return proc.returncode, out, time.perf_counter() - t0
+
+
+def on_device(dev):
+    """The context a launch on ``dev`` (a ``torch.device``) needs: none
+    where ``dev`` is the current device already (the common case; entering
+    ``torch.cuda.device`` costs host time on every call), else
+    ``torch.cuda.device(dev)``."""
+    import torch
+
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
 
 
 def load_library() -> ctypes.CDLL:

@@ -21,12 +21,12 @@ per-node matrices (K7, K8, K11) and, for tables built with
 
 The device of the tensors takes the place of the JAX package's
 ``jax.default_backend() == "tpu"`` test: on CUDA the defaults are the oz
-engine, the half g-stream, merged stages, the fused main block ``"3"`` under
-:func:`_gmain_mode`'s size rule, Hermitian downstream on grids <= 32 per
-axis and ``group_batch=2`` there; on the CPU the vpu engine and the full
-streams, as in JAX.  Those rules were measured on a TPU; the port keeps them
-as its starting rule, so the default route launches every ported kernel,
-until they are measured on the card.
+engine, the half g-stream, merged stages, the fused main block under
+:func:`_gmain_mode` (K9 ``"3"`` up to ~40^3, K10 ``"12"`` above, measured on
+the card), Hermitian downstream on grids <= 32 per axis and
+``group_batch=2`` there; on the CPU the vpu engine and the full streams, as
+in JAX.  The Hermitian and group-batch rules were measured on a TPU; the
+port keeps them as its starting rules until they are measured on the card.
 
 The sharded operator waits for the multi-device slice.
 """
@@ -312,17 +312,19 @@ def _g1_from_g2(r2: DS, w: DS) -> DS:
 
 def _gmain_mode(cfg: CollisionConfig, pre: DsPrecomp, cmax: int, w: int,
                 forced: bool = False, device=None):
-    """Auto fused-main-block mode: ``"3"`` or ``False`` (staged); ``"12"``
-    (K10) only when ``forced`` past the envelope.
+    """Auto fused-main-block mode: ``"3"`` (K9), ``"12"`` (K10, then the
+    half-z stage through K8) or ``False`` (the staged K8 chain).
 
-    The JAX package's rule, kept as the port's starting rule: on the
-    accelerator (here a CUDA device; ``forced`` skips that test), merged
-    exactness on the y and x stages, and a node volume under its measured
-    TPU VMEM envelope (45.6 MB at 64^3, kept under 12 MB: grids up to ~40^3).
-    The Mosaic tiling condition of the TPU rule has no counterpart on the
-    card (K9 walks a node in row tiles of any size).  Re-measuring the
-    envelope on the card, and K10 against K9 and the staged chain, is
-    ROADMAP perf work."""
+    On CUDA with merged exactness on the y and x stages (``forced`` skips
+    both tests and takes "12" past the envelope): K9 where a node's volume is
+    under the JAX package's measured TPU VMEM envelope (45.6 MB at 64^3,
+    kept under 12 MB: grids up to ~40^3) and the half-z stage merges too;
+    above it K10, where its plan fits without cutting the slices into column
+    groups (``kernels.oz_gmain12.plan``).  The K10 branch is the card's:
+    paired runs of the whole 64^3 eval (``chip_smoke.py`` phase 20)
+    put ``"12"`` ahead of the staged chain in wall and device time; at 32^3
+    K9, K10 and the staged chain tie within the host's spread, so the
+    envelope stays."""
     nx, ny, nz = cfg.grid_shape
     sm = pre.pm1[0].re.shape[-3]
     if not forced:
@@ -334,8 +336,10 @@ def _gmain_mode(cfg: CollisionConfig, pre: DsPrecomp, cmax: int, w: int,
     est3 = 45.6 * (nx * ny * nz) / (64**3)
     if est3 <= 12.0 and (forced or oz.merge_ok(nz // 2, sm=sm, cmax=cmax, w=w)):
         return "3"
-    # a forced gmain_fused=True past the envelope takes K10 ("12")
-    return "12" if forced else False
+    if forced:
+        return "12"
+    p = _k10.plan(nx, ny, nz // 2, 1, oz.DEFAULT_SLICES_X, 7 if cmax < 7 else 8)
+    return "12" if p.fits and p.lg == (ny, nx) else False
 
 
 def _ds_sum_last(x: DS) -> DS:
@@ -439,7 +443,7 @@ def collide_ds(
     :func:`oz.merge_ok` holds (default on).  ``gmain_fused``: ``"3"`` (K9),
     ``"12"`` (K10, then the half-z stage through K8), ``False`` (staged K8),
     ``True`` (by size: "3" up to ~40^3, "12" above), None (auto,
-    :func:`_gmain_mode`).  ``g1_reversal``: opt-in stream-1 reuse, exact
+    :func:`_gmain_mode`: the same on CUDA where the stages allow it).  ``g1_reversal``: opt-in stream-1 reuse, exact
     only for centrally symmetric f."""
     dev = f.hi.device
     on_cuda = dev.type == "cuda"

@@ -62,47 +62,76 @@ def hadamard_wsum_reference(g1: CDS, g2: CDS, w: Optional[DS]) -> CDS:
     return s
 
 
-def _hadamard_cuda(g1, g2, w) -> CDS:
-    global LAUNCHES
-    from .._build import load_library
-
-    f32 = torch.float32
-    shape = tuple(g1.re.hi.shape)
-    c = shape[0]
-    p1, p2 = ([t.to(f32) for t in (g.re.hi, g.re.lo, g.im.hi, g.im.lo)] for g in (g1, g2))
-    for t in p1 + p2:
-        if tuple(t.shape) != shape:
-            raise ValueError(f"hadamard_wsum: stream planes {tuple(t.shape)}, expected {shape}")
-    # The kernel reads each stream in place through one set of strides (the
-    # full routes hand over the x stage's rolled views), its three per-node
-    # axes ordered as the first stream lies in memory, and writes the output
-    # through its strides.  Planes that differ in layout, or more than three
-    # per-node axes, are copied into order first.
-    if len(shape) > 4 or any(len({t.stride() for t in p}) > 1 for p in (p1, p2)):
-        p1, p2 = ([t.contiguous().reshape(c, -1) for t in p] for p in (p1, p2))
-    pad = lambda t: t.reshape((c,) + (1,) * (4 - t.dim()) + tuple(t.shape[1:]))
-    p1, p2 = [pad(t) for t in p1], [pad(t) for t in p2]
-    d = tuple(p1[0].shape[1:])
-    perm = sorted(range(3), key=lambda a: (-p1[0].stride(a + 1), a))
+def _layout(shape, st1, st2):
+    """How the kernel walks streams of these shapes and strides: the extents
+    of the three per-node axes in the first stream's memory order (axes of
+    extent 1 outermost), both streams' element strides along them (node
+    first) and the strides of the contiguous output along them; or None
+    where the planes must first be copied into order (more than three
+    per-node axes, or planes of one stream laid out differently)."""
+    if len(shape) > 4 or len(set(st1)) > 1 or len(set(st2)) > 1:
+        return None
+    c, d = shape[0], tuple(shape[1:])
+    lift = lambda s: (s[0],) + (0,) * (4 - len(shape)) + tuple(s[1:])
+    s1, s2 = lift(st1[0]), lift(st2[0])
+    d = (1,) * (3 - len(d)) + d
+    perm = sorted(range(3), key=lambda a: (d[a] > 1, -s1[a + 1], a))
     dims = tuple(d[a] for a in perm)
     so = tuple((d[1] * d[2], d[2], 1)[a] for a in perm)
-    s1, s2 = ((t.stride(0),) + tuple(t.stride(a + 1) for a in perm) for t in (p1[0], p2[0]))
-    if math.prod(dims) >= 2**31 or max(s1 + s2) >= 2**31:
+    s1, s2 = ((s[0],) + tuple(s[a + 1] for a in perm) for s in (s1, s2))
+    if math.prod(dims) >= 2**31 or max(s1 + s2) >= 2**31 or min(s1 + s2) < 0 or c < 1:
         raise ValueError(f"hadamard_wsum: {dims} per node, strides {s1} {s2}; the kernel"
                          " takes < 2^31")
-    ws = [None, None]
+    return dims, s1, s2, so
+
+
+_LAYOUTS = {}
+
+
+def _hadamard_cuda(g1, g2, w) -> CDS:
+    global LAUNCHES
+    from .._build import load_library, on_device
+
+    f32 = torch.float32
+    p1 = (g1.re.hi, g1.re.lo, g1.im.hi, g1.im.lo)
+    p2 = (g2.re.hi, g2.re.lo, g2.im.hi, g2.im.lo)
+    if any(t.dtype != f32 for t in p1 + p2):
+        p1, p2 = tuple(t.to(f32) for t in p1), tuple(t.to(f32) for t in p2)
+    shape = p1[0].shape
+    if any(t.shape != shape for t in p1 + p2):
+        raise ValueError(f"hadamard_wsum: stream planes {[tuple(t.shape) for t in p1 + p2]},"
+                         f" expected {tuple(shape)}")
+    c = shape[0]
+    key = (tuple(shape), tuple(t.stride() for t in p1), tuple(t.stride() for t in p2))
+    lay = _LAYOUTS.get(key)
+    if lay is None:
+        # The kernel reads each stream in place through one set of strides
+        # (the full routes hand over the x stage's rolled views); planes that
+        # differ in layout, or more than three per-node axes, are copied
+        # into order first.
+        lay = _layout(*key)
+        _LAYOUTS[key] = lay if lay is not None else False
+    if not lay:
+        p1, p2 = (tuple(t.contiguous().reshape(c, -1) for t in p) for p in (p1, p2))
+        lay = _layout(tuple(p1[0].shape), (p1[0].stride(),), (p2[0].stride(),))
+    dims, s1, s2, so = lay
+    ws, sw = (None, None), 0
     if w is not None:
-        ws = [t.to(f32).contiguous() for t in (w.hi, w.lo)]
-        if any(tuple(t.shape) != (c,) for t in ws):
+        ws = (w.hi, w.lo)
+        if any(t.dtype != f32 or t.dim() != 1 for t in ws) or w.hi.stride() != w.lo.stride():
+            ws = tuple(t.to(f32).reshape(-1).contiguous() for t in ws)
+        if any(t.shape[0] != c for t in ws):
             raise ValueError(f"hadamard_wsum: weights {tuple(w.hi.shape)}, expected {(c,)}")
-    dev = g1.re.hi.device
-    out = [torch.empty(shape[1:], dtype=f32, device=dev) for _ in range(4)]
+        sw = ws[0].stride(0)
+    dev = p1[0].device
+    out = torch.empty((4,) + tuple(shape[1:]), dtype=f32, device=dev).unbind(0)
     ptr = lambda t: None if t is None else t.data_ptr()
     lib = load_library()
-    with torch.cuda.device(dev):
+    with on_device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.bfft_oz_hadamard(*[t.data_ptr() for t in p1 + p2], *[ptr(t) for t in ws],
-                                  *[t.data_ptr() for t in out], c, *dims, *s1, *s2, *so, stream)
+                                  *[t.data_ptr() for t in out], c, *dims, *s1, *s2, *so, sw,
+                                  stream)
     if rc != 0:
         raise RuntimeError(f"hadamard_wsum: CUDA kernel failed with cudaError {rc}")
     LAUNCHES += 1

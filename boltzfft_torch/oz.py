@@ -15,8 +15,7 @@ This module holds the host table slicing, the chunk extraction and fold
 shared by the kernels' plain versions, the staged contraction
 (:func:`contract_last_oz`, the JAX package's off-TPU engine), the 3-D
 transforms, which call the K8 wrapper (``kernels.oz_contract``): the CUDA
-kernel on a CUDA tensor, its plain version on a CPU tensor, and the z-block
-rule of K10 (:func:`default_zh_block`).
+kernel on a CUDA tensor, its plain version on a CPU tensor.
 
 The row scale.  The JAX package has two rules: its TPU kernels and
 ``preslice_rows`` take ``exp2(floor(log2(max|x|)) + 1)`` (``_phase_sigma``),
@@ -30,7 +29,7 @@ bitwise wherever the two scales agree and at the ds noise floor elsewhere.
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -361,32 +360,3 @@ def transform3_oz_nodemat(
     x = ds._swap_last2(ck(ds._swap_last2(x), my, merged=mok(my)))  # y
     return ds._roll_axis(ck(ds._roll_axis(x, -3, -1), mx, merged=mok(mx)), -1, -3)  # x
 
-
-# ---------------------------------------------------------------------------
-# K10's z blocking
-# ---------------------------------------------------------------------------
-
-# The 512-thread tile of K10's first, CUDA-core version.  The rule
-# stays: every z block gives the same bits, and it gives 1 at 32^3-64^3.
-_THREADS = 512
-
-
-def default_zh_block(nx: int, nzh: int, ny: Optional[int] = None,
-                     fits: Callable[[int], bool] = lambda zb: True) -> int:
-    """K10's z-half block: the smallest divisor ``zb`` of ``nzh`` whose
-    block rows fill a 512-thread tile in both stages (``Nx * zb >= 512 //
-    Ny`` and ``Ny * zb >= 512 // Nx``), so no thread idles and the grid has
-    the most blocks (``C * nzh / zb``); among the divisors for which
-    ``fits(zb)`` holds (on the card, whether the block fits in shared
-    memory, which the kernel counts: ``kernels.oz_gmain12.block_fits``).
-    32^3 and 64^3 give 1, 16^3 2, 8^3 4.  The JAX package's rule (multiples
-    of 8 under a 1024-row VMEM cap) follows Mosaic's tiling and has no
-    meaning here.  Every ``zb`` gives the same bits: the z rows are
-    independent."""
-    ny = nx if ny is None else ny
-    divisors = [d for d in range(1, nzh + 1) if nzh % d == 0]
-    ok = [d for d in divisors if fits(d)] or divisors[:1]
-    for d in ok:
-        if nx * d >= _THREADS // ny and ny * d >= _THREADS // nx:
-            return d
-    return ok[-1]

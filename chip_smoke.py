@@ -7,8 +7,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device: a CUDA card must be present; prints its name and power limit;
 2. build: compiles the port's CUDA kernels from ``boltzfft_torch/csrc``
    (the build seconds), and counts the tensor-core instructions (HMMA,
-   HGMMA, DMMA) in the SASS: the ds engine's tile kernels (K8, K9, K10)
-   must all have some, and K1's axis transforms (``line_dft_kernel``,
+   HGMMA, DMMA) in the SASS: the ds engine's tile kernels (K8, K9, K10's
+   two instances) must all have some, and K1's axis transforms (``line_dft_kernel``,
    ``plane_dft_kernel``; K2, K4 and K3's x leg too) and K3's y/z GEMM
    (``kron_gemm_kernel``) DMMA in double and HMMA (3xTF32) in float;
 3. each kernel against its plain PyTorch version on the card (float64 within
@@ -80,8 +80,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 13. the ds BKW digits through ``make_ds_collision_operator``'s card defaults
     (32^3: the reference L1/L2/Linf at rtol 1e-4; 64^3: Linf in
     [3.0680, 3.0692]e-12), each within 1e-12 max|Q| of the float64 staged
-    cuFFT c2c of phase 5, with counts reset around the eval (K7, K8, K12 and,
-    at 32^3, K9 launched; no plain call); ``g1_reversal`` and ``oz_cmax=4``
+    cuFFT c2c of phase 5, with counts reset around the eval (K7, K8, K12 and
+    K9 at 32^3, K10 at 64^3 launched; no plain call); ``g1_reversal`` and ``oz_cmax=4``
     at 64^3, and the staged K8 chain at 32^3 bitwise equal to K9's route;
 14. ``health.selfcheck_ds`` on the card (16^3, ns=6, oz vs vpu < 1e-11);
 15. ``maxwell_bkw --impl ds --Nv 32 --Ns 12``, ``--trials 3`` and ``--steps 4``;
@@ -98,9 +98,11 @@ Phases, in order; any failure raises and the script exits non-zero:
     their shapes, 32^3 and 64^3, Ns=12: K8's phased mode (the three stages of
     ``transform3_oz_phased`` on the first sub-batch of 2 nodes, tables from
     ``build_ds_precomp(node_mats=False)``, conj and not), K11 on the two
-    streams (C = 2), K10 on the main block's nodes at its default z block,
-    and at z blocks 2 and 4 (where a block's shared memory holds them)
-    bitwise equal to it;
+    streams (C = 2) as the routes lay them out (rolled) and in order,
+    weighted and not, K10 on the main block's nodes at its plan's z block,
+    at z blocks 1, 2 and 4 (where the plan fits) and node by node, all
+    bitwise equal to it, and K10 + the half-z K8 call bitwise equal to the
+    staged K8 chain;
 18. the full g-streams (``make_ds_collision_operator(g_stream="full")``: K7,
     K8, K11), the phased route (``collide_ds`` on the ``node_mats=False``
     tables: K8 phased, K11) and ``gmain_fused="12"`` (K7, K10, K8, K12), each
@@ -114,7 +116,11 @@ Phases, in order; any failure raises and the script exits non-zero:
     versions, bounds and complex128 ``einsum`` yardsticks, with
     their launches per eval; the 32^3 main block through K9, K10 + the half-z
     K8 call, and the staged K8 chain, on the same nodes: bitwise equal, then
-    timed in 5 paired rounds, the order reversed every other round.
+    timed in 5 paired rounds, the order reversed every other round; the
+    main-block route rule (``ds_operator._gmain_mode``): the whole ds eval
+    through K9 (32^3), K10 and the staged chain in 6 paired rounds, the
+    round-by-round differences, each route's profiled device time, and the
+    rule's pick.
 
 A ``[N total]`` line after phases 3-11, 16 and 20 gives the seconds since the
 device check.  The last two lines are a JSON summary of the kernels and
@@ -510,13 +516,13 @@ DS_LINF_64 = (3.0680e-12, 3.0692e-12)  # JAX ds-oz printed 3.0686e-12; f64 3.068
 DS_GRIDS = (32, 64)
 DS_TRIALS = {32: 5, 64: 3}
 PEAK_BF16 = 989e12  # dense bf16 tensor-core FLOP/s of an H100 SXM at 700 W
-# the ds kernels as the profiler names them (the default route's four first)
+# the ds kernels as the profiler names them (the default route's five first)
 DS_FAMILIES = ("oz_contract_kernel", "gmain3_kernel", "hwh_kernel", "preslice_kernel",
-               "gmain12_kernel", "hadamard_wsum_kernel")
+               "gmain12_kernel", "hadamard_")
 DS_KERNEL_NAMES = {  # kernels-line name -> the profiler's
     "preslice_rows": "preslice_kernel", "oz_contract": "oz_contract_kernel",
     "oz_contract_phased": "oz_contract_kernel", "gmain3_nodemat": "gmain3_kernel",
-    "gmain12_nodemat": "gmain12_kernel", "hadamard_wsum": "hadamard_wsum_kernel",
+    "gmain12_nodemat": "gmain12_kernel", "hadamard_wsum": "hadamard_",
     "hadamard_wsum_half": "hwh_kernel",
 }
 
@@ -755,7 +761,7 @@ def ds_phases(bt, dev, card, ks, q_c2c, entry, report):
         torch.cuda.synchronize()
         c = counts(ks)
         ds_counts[n] = c
-        needed = ("k7", "k8", "k12") + (("k9",) if n <= 32 else ())
+        needed = ("k7", "k8", "k12") + (("k9",) if n <= 32 else ("k10",))
         check(all(c[k] > 0 for k in needed) and plain_calls(c) == 0
               and all(c[k] == 0 for k in ("k1", "k2", "k3", "k4", "k5", "k6")),
               f"ds main path {n}^3: dispatch {c}")
@@ -821,7 +827,7 @@ def ds_phases(bt, dev, card, ks, q_c2c, entry, report):
         cfg, pre, f = cfgs[n], pres[n], fs[n]
         ms = time_ms(lambda: collides[n](f, pre), trials=DS_TRIALS[n])
         report(f"ds eval (oz defaults) {n}^3 Ns=12", ms, phase=16)
-        fam, wall_us = profile_eval(lambda: collides[n](f, pre), DS_FAMILIES[:4])
+        fam, wall_us = profile_eval(lambda: collides[n](f, pre), DS_FAMILIES[:5])
         print_profile(f"ds eval {n}^3", fam, wall_us, card, 16)
         inputs[n]["profile"] = fam
 
@@ -911,6 +917,7 @@ def ds_phases(bt, dev, card, ks, q_c2c, entry, report):
 
 # ---- the ds engine's other routes (K8 phased, K10, K11) ---------------------
 ROUTE_TRIALS = {32: 5, 64: 3}  # after 1 warm-up
+RULE_ROUNDS = 6  # paired rounds of the main-block routes' evals (phase 20)
 ROUTE_KERNELS = {  # the counts each route's eval must show (and no plain call)
     "full": ("k7", "k8", "k11"),
     "phased": ("k8", "k8p", "k11"),
@@ -970,19 +977,40 @@ def ds_route_phases(bt, dev, card, ks, q_c2c, entry, report, st):
                 lambda: k8.contract_last_oz_kernel_reference(xx, m, phase=ph[0], **kw)), -1, -3)
             whole = oz.transform3_oz_phased(v["f_hat"], m, ph, conj=conj, cmax=6)
             check(same(whole, g[conj]), f"transform3_oz_phased != its stages at {n}^3")
-        parity(f"K11 {n}^3 C={sb} (the full routes' launch set)", ("k11", n),
-               lambda: k11.hadamard_wsum(g[False], g[True], gw),
-               lambda: k11.hadamard_wsum_reference(g[False], g[True], gw))
+        # K11 on the routes' rolled streams (weighted, as the routes call it),
+        # unweighted, and on the same streams copied into order
+        g_in_order = [tm(lambda a: a.contiguous(), g[b]) for b in (False, True)]
+        for label, a1, a2, wk in (("rolled, weighted (the full routes' launch set)", g[False], g[True], gw),
+                                  ("rolled, unweighted", g[False], g[True], None),
+                                  ("contiguous, weighted", *g_in_order, gw),
+                                  ("contiguous, unweighted", *g_in_order, None)):
+            parity(f"K11 {n}^3 C={sb} {label}", ("k11", n),
+                   lambda: k11.hadamard_wsum(a1, a2, wk),
+                   lambda: k11.hadamard_wsum_reference(a1, a2, wk))
         c, grid = v["c"], cfg.grid_shape
-        zb0 = oz.default_zh_block(n, n // 2, n)
-        g12 = parity(f"K10 {n}^3 C={c} zh_block={zb0} (the default)", ("k10", n),
+        zb0 = k10.plan(n, n, n // 2, c).zb
+        g12 = parity(f"K10 {n}^3 C={c} zh_block={zb0} (the plan's rule)", ("k10", n),
                      lambda: k10.gmain12_nodemat(v["x_pre"], v["m_y"], v["m_x"], grid, cmax=6),
                      lambda: k10.gmain12_reference(v["x_pre"], v["m_y"], v["m_x"], grid, cmax=6))
-        for zb in (d for d in (2, 4) if (n // 2) % d == 0 and k10.block_fits(n, n, d, 7, 7)):
+        for zb in (d for d in (1, 2, 4) if (n // 2) % d == 0 and d != zb0
+                   and k10.plan(n, n, n // 2, c, zh_block=d).fits):
             other = k10.gmain12_nodemat(v["x_pre"], v["m_y"], v["m_x"], grid, cmax=6, zh_block=zb)
             torch.cuda.synchronize()
-            print(f"  K10 {n}^3 zh_block={zb} bitwise equal to zh_block={zb0}: {same(other, g12)}")
+            print(f"  K10 {n}^3 zh_block={zb} ({k10.plan(n, n, n // 2, c, zh_block=zb)}) bitwise"
+                  f" equal to zh_block={zb0}: {same(other, g12)}")
             check(same(other, g12), f"K10 {n}^3 not invariant in zh_block")
+        # node by node equal to the batch; K10 + the half-z K8 call equal to
+        # the staged K8 chain on the same nodes
+        one = lambda m, j: tm(lambda a: a[j:j + 1], m)
+        items = [k10.gmain12_nodemat(v["x_pre"], one(v["m_y"], j), one(v["m_x"], j), grid, cmax=6)
+                 for j in (0, c - 1)]
+        via = {f: dso._g_main_half(v["fhs"], v["x_pre"], v["m_y"], v["m_x"], v["m_zh"], 6, 7, None,
+                                   merged=True, grid_shape=grid, fused=f) for f in ("12", False)}
+        torch.cuda.synchronize()
+        ok_items = all(same(it, tm(lambda a: a[j:j + 1], g12)) for it, j in zip(items, (0, c - 1)))
+        print(f"  K10 {n}^3 per node bitwise equal to the batch: {ok_items}; K10 + K8 half-z"
+              f" bitwise equal to the staged K8 chain: {same(via['12'], via[False])}")
+        check(ok_items and same(via["12"], via[False]), f"K10 {n}^3: per node / chain differ")
         shapes[n] = dict(ph=ph, gw=gw, g=g, xy=xy, zb=zb0)
 
     # ---- 18. each route through its entry point, 32^3 and 64^3 -----------
@@ -1141,6 +1169,37 @@ def ds_route_phases(bt, dev, card, ks, q_c2c, entry, report, st):
                           f" main block (profiler, 5 calls): {parts} | {card}")
             print(f"[20 K10 vs K9] {n}^3 C={c}: K10 alone (stages y, x) median"
                   f" {statistics.median(ms10):.4f} ms | {card}")
+
+    # ---- 20. the main-block route rule (ds_operator._gmain_mode): the whole
+    # ds eval through K9 ("3", 32^3 only), K10 + the half-z K8 call ("12")
+    # and the staged K8 chain (False), one eval of each a round, the order
+    # reversed every other round; then each route's device time from one
+    # profiled eval.  The routes give the same bits (phase 18).
+    for n in grids:
+        cfg, f, pre = cfgs[n], fs[n], st["pres"][n]
+        modes = (["3"] if n == small else []) + ["12", False]
+        evals = {m: (lambda m_=m: dso.collide_ds(cfg, pre, f, contract="oz", g_stream="half",
+                                                 gmain_fused=m_)) for m in modes}
+        for m in modes:
+            evals[m]()
+        wall = {m: [] for m in modes}
+        for rnd in range(RULE_ROUNDS):
+            for m in (modes if rnd % 2 == 0 else modes[::-1]):
+                wall[m] += time_ms(evals[m], trials=1, warmup=0)
+        for a, b in ((x, y) for i, x in enumerate(modes) for y in modes[i + 1:]):
+            d = [x - y for x, y in zip(wall[a], wall[b])]
+            print(f"[20 route rule] {n}^3 wall of {a!r} minus {b!r}, round by round: median"
+                  f" {statistics.median(d):.3f} ms (min {min(d):.3f}, max {max(d):.3f}) | {card}")
+        for m in modes:
+            fam, wall_us = profile_eval(evals[m], DS_FAMILIES)
+            busy = sum(v[0] for v in fam.values()) / 1e3
+            kern = ", ".join(f"{k} {v[0] / 1e3:.3f} ms" for k, v in fam.items() if v[1] and k != "other")
+            print(f"[20 route rule] {n}^3 gmain_fused={m!r}: wall median"
+                  f" {statistics.median(wall[m]):.3f} ms (min {min(wall[m]):.3f}, max"
+                  f" {max(wall[m]):.3f}) over {RULE_ROUNDS} paired rounds; profiled eval: device"
+                  f" {busy:.3f} ms of {wall_us / 1e3:.3f} ms wall ({kern}) | {card}")
+        print(f"[20 route rule] {n}^3: _gmain_mode picks"
+              f" {dso._gmain_mode(cfg, pre, 6, 7, device=dev)!r} | {card}")
 
 
 def _leaves(tree):

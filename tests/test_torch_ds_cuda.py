@@ -243,8 +243,13 @@ def test_k8_phased_matches_plain(cuda_device, grid, repeat, conj):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("grid", GRIDS)
+@pytest.mark.parametrize("grid", GRIDS + [(16, 16, 16), (32, 32, 32), (48, 48, 48), (64, 64, 64)])
 def test_k10_matches_plain_every_zh_block(cuda_device, grid):
+    """K10 at every z block whose plan fits (the rule's too), against the
+    plain version and the staged K8 chain; node by node equal to the batch,
+    and the same bits run to run."""
+    from boltzfft_torch.ds_operator import _g_main_half
+
     nx, ny, nz = grid
     nzh = nz // 2
     cfg = _cfg(grid)
@@ -253,27 +258,71 @@ def test_k10_matches_plain_every_zh_block(cuda_device, grid):
     x_pre = k7.preslice_rows(fhs, cmax=6, merged=True)
     first = lambda m: ds.tree_map(lambda a: a[0], m)
     m_y, m_x = first(pre.pm1[1]), first(pre.pm1[0])
+    c, sm = m_y.re.shape[0], m_y.re.shape[-3]
     ref = k10.gmain12_reference(_to(x_pre, "cpu"), _to(m_y, "cpu"), _to(m_x, "cpu"), grid, cmax=6)
-    outs = [k10.gmain12_nodemat(x_pre, m_y, m_x, grid, cmax=6, zh_block=zb)
-            for zb in range(1, nzh + 1) if nzh % zb == 0]
+    blocks = [zb for zb in range(1, nzh + 1)
+              if nzh % zb == 0 and k10.plan(nx, ny, nzh, c, 7, min(sm, 7), zb).fits]
+    assert k10.plan(nx, ny, nzh, c, 7, min(sm, 7)).zb in blocks
+    outs = [k10.gmain12_nodemat(x_pre, m_y, m_x, grid, cmax=6, zh_block=zb) for zb in blocks]
     again = k10.gmain12_nodemat(x_pre, m_y, m_x, grid, cmax=6)
+    node = lambda m, j: ds.tree_map(lambda a: a[j:j + 1], m)
+    items = [k10.gmain12_nodemat(x_pre, node(m_y, j), node(m_x, j), grid, cmax=6) for j in range(c)]
+    chain = _g_main_half(fhs, x_pre, m_y, m_x, first(pre.pmz_half1w), 6, 7, None, merged=True,
+                         grid_shape=grid, fused=False)
+    via12 = _g_main_half(fhs, x_pre, m_y, m_x, first(pre.pmz_half1w), 6, 7, None, merged=True,
+                         grid_shape=grid, fused="12")
     torch.cuda.synchronize()
     assert all(_same(o, ref) for o in outs) and _same(again, ref)
+    assert all(_same(it, ds.tree_map(lambda a: a[j:j + 1], again)) for j, it in enumerate(items))
+    assert _same(via12, chain)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rolled", [False, True])
+@pytest.mark.parametrize("grid", GRIDS + [(16, 16, 16), (48, 48, 48)])
+def test_k10_plan_mirrors_the_library(cuda_device, grid):
+    """The Python plan (``kernels.oz_gmain12.plan``) against the kernel's own
+    count (``bfft_oz_gmain12_plan``), for the rule and every z block."""
+    import ctypes
+
+    from boltzfft_torch._build import load_library
+
+    nx, ny, nz = grid
+    nzh = nz // 2
+    lib = load_library()
+    for c in (1, 4, 24):
+        for zb in [0] + [d for d in range(1, nzh + 1) if nzh % d == 0]:
+            out = (ctypes.c_int * 7)()
+            assert lib.bfft_oz_gmain12_plan(nx, ny, nzh, c, 7, 7, zb, out) == 0
+            p = k10.plan(nx, ny, nzh, c, 7, 7, zb or None)
+            assert list(out) == [p.zb, p.lg[0], p.tr[0], p.lg[1], p.tr[1], p.smem, int(p.fits)]
+
+
+def _k11_stream(shape, seed, device, layout):
+    """A stream of logical shape ``(C, Nx, Ny, Nz)``: in order, the x
+    stage's rolled view (memory (C, Ny, Nz, Nx)), or a transposed view
+    (memory (C, Nz, Ny, Nx))."""
+    c, nx, ny, nz = shape
+    if layout == "contiguous":
+        return _cds(shape, seed, device)
+    if layout == "rolled":
+        return ds._roll_axis(_cds((c, ny, nz, nx), seed, device), -1, -3)
+    raw = _cds((c, nz, ny, nx), seed, device)
+    return ds.tree_map(lambda a: a.permute(0, 3, 2, 1), raw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "rolled", "transposed"])
 @pytest.mark.parametrize("weighted", [True, False])
-@pytest.mark.parametrize("grid", GRIDS)
-def test_k11_matches_plain(cuda_device, grid, weighted, rolled):
+@pytest.mark.parametrize("grid", GRIDS + [(32, 32, 32), (48, 48, 48), (64, 64, 64)])
+def test_k11_matches_plain(cuda_device, grid, weighted, layout):
     """K11 on streams in order and, as the full routes hand them over, on
-    the x stage's rolled views (read in place through their strides)."""
+    the x stage's rolled views (read in place through their strides), and on
+    transposed views."""
     c = 2
-    g1, g2 = _cds((c,) + grid, 11, cuda_device), _cds((c,) + grid, 12, cuda_device)
-    if rolled:
-        raw = _cds((c, grid[1], grid[2], grid[0]), 14, cuda_device)
-        g1 = ds._roll_axis(raw, -1, -3)
-        assert not g1.re.hi.is_contiguous() and tuple(g1.re.hi.shape) == (c,) + grid
+    g1 = _k11_stream((c,) + grid, 11, cuda_device, layout)
+    g2 = _k11_stream((c,) + grid, 12, cuda_device, layout)
+    assert tuple(g1.re.hi.shape) == (c,) + grid
+    assert g1.re.hi.is_contiguous() == (layout == "contiguous")
     rng = np.random.default_rng(13)
     w = ds.from_f64(rng.uniform(0.5, 1.5, c), torch.float32, cuda_device) if weighted else None
     a = k11.hadamard_wsum(g1, g2, w)
@@ -281,3 +330,21 @@ def test_k11_matches_plain(cuda_device, grid, weighted, rolled):
     ref = k11.hadamard_wsum(_to(g1, "cpu"), _to(g2, "cpu"), _to(w, "cpu"))
     torch.cuda.synchronize()
     assert _same(a, ref) and _same(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [(16, 16, 16), (32, 32, 32), (48, 48, 48)])
+def test_route_12_whole_eval_bitwise_equal_to_staged(cuda_device, grid):
+    """The whole ds eval through K10 (``gmain_fused="12"``) is bitwise equal
+    to the staged main block's (``gmain_fused=False``) and to itself."""
+    cfg = _cfg(grid)
+    fm = np.abs(np.random.default_rng(21).standard_normal(cfg.grid_shape)) + 0.1
+    pre = build_ds_precomp(cfg, device=cuda_device)
+    f = ds.from_f64(fm, torch.float32, cuda_device)
+    n10 = k10.LAUNCHES
+    q12 = collide_ds(cfg, pre, f, contract="oz", g_stream="half", gmain_fused="12")
+    again = collide_ds(cfg, pre, f, contract="oz", g_stream="half", gmain_fused="12")
+    staged = collide_ds(cfg, pre, f, contract="oz", g_stream="half", gmain_fused=False)
+    torch.cuda.synchronize()
+    assert k10.LAUNCHES > n10
+    assert _same(q12, staged) and _same(q12, again)

@@ -162,12 +162,20 @@ def test_k10_plain_matches_jax_interpret_and_zh_blocks(grid):
 
 
 def test_default_zh_block_rule():
-    assert [oz.default_zh_block(n, n // 2) for n in (8, 16, 32, 64)] == [4, 2, 1, 1]
-    assert oz.default_zh_block(6, 5, 8) == 5  # no divisor fills a tile: the largest
-    # blocks the card's shared memory refuses (``fits``) drop out of the choice
-    assert oz.default_zh_block(8, 4, fits=lambda d: d <= 2) == 2
-    assert oz.default_zh_block(16, 8, fits=lambda d: d != 2) == 4
-    assert oz.default_zh_block(4, 1021, 4, fits=lambda d: d == 1) == 1
+    """K10's z block (``kernels.oz_gmain12.plan``, the mirror of the
+    kernel's count): the largest fitting divisor of Nz/2 that leaves at
+    least MIN_CTAS blocks, else the smallest that fits."""
+    assert k10.plan(64, 64, 32, 4).zb == 1  # 128 blocks: no larger block keeps more
+    assert k10.plan(64, 64, 32, 4).smem <= k10.SMEM_MAX
+    assert not k10.plan(64, 64, 32, 4, zh_block=4).fits
+    for n, c in ((8, 12), (16, 12), (32, 24), (32, 4), (48, 4), (64, 4), (64, 24)):
+        nzh = n // 2
+        p = k10.plan(n, n, nzh, c)
+        fitting = [d for d in range(1, nzh + 1) if nzh % d == 0 and k10.plan(n, n, nzh, c, zh_block=d).fits]
+        keep = [d for d in fitting if c * (nzh // d) >= k10.MIN_CTAS]
+        assert p.fits and p.zb == (max(keep) if keep else min(fitting)), (n, c, p)
+    # a grid whose blocks never fit: zb 0
+    assert k10.plan(400, 400, 2, 1).zb == 0
 
 
 def test_full_routes_agree_with_half_and_f64_c2c_at_8():
@@ -226,7 +234,7 @@ def test_entry_argtypes_match_the_sources():
     for name, argtypes in table.items():
         if name in entries:  # the f32/f64 pairs come from macros, not read here
             assert entries[name] == argtypes, name
-    assert {"bfft_oz_contract", "bfft_oz_gmain12", "bfft_oz_gmain12_fits",
+    assert {"bfft_oz_contract", "bfft_oz_gmain12", "bfft_oz_gmain12_plan",
             "bfft_oz_hadamard"} <= set(entries)
 
 
