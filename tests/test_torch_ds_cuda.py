@@ -278,6 +278,30 @@ def test_k10_matches_plain_every_zh_block(cuda_device, grid):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cmax,fold_tail,nslices", [
+    (6, 4, 8), (4, None, 8), (7, None, 8), (7, 3, 8), (6, None, 4), (5, 2, 3),
+])
+@pytest.mark.parametrize("grid", GRIDS + [(32, 32, 32)])
+def test_k10_matches_plain_every_level_count(cuda_device, grid, cmax, fold_tail, nslices):
+    """K10's other instances and branches: 8 levels (cmax = 7), fewer chunks
+    than levels (cmax < 6), fewer matrix slices than levels (zero slices in
+    shared memory) and a fold tail, against the plain version."""
+    nx, ny, nz = grid
+    nzh = nz // 2
+    rng = np.random.default_rng(cmax + 10 * nslices)
+    fhs = _cds((nx, nzh, ny), 6, cuda_device)
+    x_pre = k7.preslice_rows(fhs, cmax=cmax, merged=True)
+    mats = [oz.slice_matrix_nodes(rng.standard_normal((3, n, n)) + 1j * rng.standard_normal((3, n, n)),
+                                  nslices=nslices, device=cuda_device) for n in (ny, nx)]
+    kw = dict(cmax=cmax, fold_tail=fold_tail)
+    a = k10.gmain12_nodemat(x_pre, *mats, grid, **kw)
+    b = k10.gmain12_nodemat(x_pre, *mats, grid, **kw)
+    ref = k10.gmain12_reference(_to(x_pre, "cpu"), *(_to(m, "cpu") for m in mats), grid, **kw)
+    torch.cuda.synchronize()
+    assert _same(a, ref) and _same(a, b)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("grid", GRIDS + [(16, 16, 16), (48, 48, 48)])
 def test_k10_plan_mirrors_the_library(cuda_device, grid):
     """The Python plan (``kernels.oz_gmain12.plan``) against the kernel's own
