@@ -102,10 +102,11 @@ def from_float(a: torch.Tensor) -> DS:
     return DS(a, torch.zeros_like(a))
 
 
-def from_f64(a, dtype=torch.float32, device="cpu") -> DS:
+def from_f64(a, dtype=torch.float32, device="cuda") -> DS:
     """Split a host float64 array into a ds pair of ``dtype`` on ``device``
     (hi = round(a), lo = round(a - hi)); relative representation error
-    ~2^-2p."""
+    ~2^-2p.  Like every constructor here it builds on the card unless
+    asked for the CPU."""
     a = np.asarray(a, np.float64)
     npd = np.float32 if dtype == torch.float32 else np.float64
     hi = a.astype(npd)
@@ -120,7 +121,7 @@ def to_f64(x: DS) -> np.ndarray:
     return hi + lo
 
 
-def zeros(shape, dtype=torch.float32, device="cpu") -> DS:
+def zeros(shape, dtype=torch.float32, device="cuda") -> DS:
     z = torch.zeros(shape, dtype=dtype, device=device)
     return DS(z, z)
 
@@ -162,7 +163,7 @@ def mul_f(x: DS, a) -> DS:
 # ---------------------------------------------------------------------------
 
 
-def cds_from_f64(a, dtype=torch.float32, device="cpu") -> CDS:
+def cds_from_f64(a, dtype=torch.float32, device="cuda") -> CDS:
     a = np.asarray(a)
     return CDS(from_f64(a.real, dtype, device), from_f64(a.imag, dtype, device))
 
@@ -175,7 +176,7 @@ def cds_to_c128(x: CDS) -> np.ndarray:
     return to_f64(x.re) + 1j * to_f64(x.im)
 
 
-def czeros(shape, dtype=torch.float32, device="cpu") -> CDS:
+def czeros(shape, dtype=torch.float32, device="cuda") -> CDS:
     return CDS(zeros(shape, dtype, device), zeros(shape, dtype, device))
 
 

@@ -8,6 +8,8 @@ sub, split); within 2^-46 relative where XLA may contract a product into an
 FMA that eager PyTorch does not (mul, cmul); 1e-13 for the contractions.
 """
 
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -69,7 +71,7 @@ def test_split_and_two_prod():
 def test_ds_add_sub_bitwise(op):
     x64, y64 = _pairs(5), _pairs(6)
     rj = getattr(jds, op)(jds.from_f64(x64), jds.from_f64(y64))
-    rt = getattr(ds, op)(ds.from_f64(x64), ds.from_f64(y64))
+    rt = getattr(ds, op)(ds.from_f64(x64, device="cpu"), ds.from_f64(y64, device="cpu"))
     np.testing.assert_array_equal(_np(rj.hi), rt.hi.numpy())
     np.testing.assert_array_equal(_np(rj.lo), rt.lo.numpy())
 
@@ -77,18 +79,18 @@ def test_ds_add_sub_bitwise(op):
 def test_ds_mul_cmul_close():
     x64, y64 = _pairs(7), _pairs(8)
     want = x64 * y64
-    got = ds.to_f64(ds.mul(ds.from_f64(x64), ds.from_f64(y64)))
+    got = ds.to_f64(ds.mul(ds.from_f64(x64, device="cpu"), ds.from_f64(y64, device="cpu")))
     jgot = jds.to_f64(jds.mul(jds.from_f64(x64), jds.from_f64(y64)))
     assert np.all(np.abs(got - jgot) <= 2.0**-46 * np.abs(want))
     assert np.all(np.abs(got - want) <= 2.0**-44 * np.abs(want))
     z1 = x64 + 1j * _pairs(9)
     z2 = y64 + 1j * _pairs(10)
-    ct = ds.cds_to_c128(ds.cmul(ds.cds_from_f64(z1), ds.cds_from_f64(z2)))
+    ct = ds.cds_to_c128(ds.cmul(ds.cds_from_f64(z1, device="cpu"), ds.cds_from_f64(z2, device="cpu")))
     cj = jds.cds_to_c128(jds.cmul(jds.cds_from_f64(z1), jds.cds_from_f64(z2)))
     scale = np.abs(z1) * np.abs(z2)
     assert np.all(np.abs(ct - cj) <= 2.0**-46 * scale)
     # the shared-product pair
-    a_f, c_f = ds.cmul_both(ds.cds_from_f64(z1), ds.cds_from_f64(z2))
+    a_f, c_f = ds.cmul_both(ds.cds_from_f64(z1, device="cpu"), ds.cds_from_f64(z2, device="cpu"))
     np.testing.assert_allclose(ds.cds_to_c128(a_f), z1 * z2, rtol=0, atol=1e-13 * scale.max())
     np.testing.assert_allclose(ds.cds_to_c128(c_f), np.conj(z1) * z2, rtol=0,
                                atol=1e-13 * scale.max())
@@ -96,10 +98,27 @@ def test_ds_mul_cmul_close():
 
 def test_from_f64_to_f64_exact():
     a = _pairs(11)
-    x = ds.from_f64(a)
+    x = ds.from_f64(a, device="cpu")
     np.testing.assert_array_equal(x.hi.numpy(), a.astype(F32))
     back = ds.to_f64(x)
     assert np.all(np.abs(back - a) <= 2.0**-48 * np.abs(a))
+
+
+@pytest.mark.parametrize("make,arg", [
+    (ds.from_f64, np.ones((2, 3))),
+    (ds.zeros, (2, 3)),
+    (ds.cds_from_f64, np.ones((2, 3)) + 1j),
+    (ds.czeros, (2, 3)),
+])
+def test_ds_constructors_default_to_the_card(make, arg):
+    # an entry point runs on the card unless asked for the CPU
+    assert inspect.signature(make).parameters["device"].default == "cuda"
+    x = make(arg, device="cpu")
+    leaves = []
+    ds.tree_map(leaves.append, x)
+    assert len(leaves) == (4 if isinstance(x, ds.CDS) else 2)
+    assert all(t.device.type == "cpu" and t.dtype == torch.float32 and tuple(t.shape) == (2, 3)
+               for t in leaves)
 
 
 @pytest.mark.parametrize("real_in,real_out", [(False, False), (True, False), (False, True)])
@@ -111,7 +130,7 @@ def test_contract_last_matches_jax(real_in, real_out):
     m = np.exp(2j * np.pi * rng.random((6, 7)))
     oj = jds.cds_to_c128(jds.contract_last(jds.cds_from_f64(x), jds.cds_from_f64(m),
                                            real_in=real_in, real_out=real_out))
-    ot = ds.cds_to_c128(ds.contract_last(ds.cds_from_f64(x), ds.cds_from_f64(m),
+    ot = ds.cds_to_c128(ds.contract_last(ds.cds_from_f64(x, device="cpu"), ds.cds_from_f64(m, device="cpu"),
                                          real_in=real_in, real_out=real_out))
     exact = x @ m
     if real_out:
@@ -127,9 +146,9 @@ def test_transform3_matches_jax(shape):
     x = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
     mats = [np.exp(-2j * np.pi * np.outer(np.arange(n), np.arange(n)) / n) for n in shape]
     mj = tuple(jds.cds_from_f64(m) for m in mats)
-    mt = tuple(ds.cds_from_f64(m) for m in mats)
+    mt = tuple(ds.cds_from_f64(m, device="cpu") for m in mats)
     oj = jds.cds_to_c128(jds.transform3(jds.cds_from_f64(x), mj))
-    ot = ds.cds_to_c128(ds.transform3(ds.cds_from_f64(x), mt))
+    ot = ds.cds_to_c128(ds.transform3(ds.cds_from_f64(x, device="cpu"), mt))
     exact = np.fft.fftn(x)
     scale = np.abs(exact).max()
     assert np.abs(ot - oj).max() <= 1e-13 * scale
@@ -146,10 +165,10 @@ def test_ds_rk4_relaxation_matches_jax():
     cj, pj = j_make(cfg_j, contract="vpu")
     ct, pt = make_ds_collision_operator(cfg_t, contract="vpu", device="cpu")
     tj = bz.make_relaxation(cj, pj, dt=0.25, n_steps=2, method="rk4")(jds.from_f64(f0))
-    tt = bt.make_relaxation(ct, pt, dt=0.25, n_steps=2, method="rk4")(ds.from_f64(f0))
+    tt = bt.make_relaxation(ct, pt, dt=0.25, n_steps=2, method="rk4")(ds.from_f64(f0, device="cpu"))
     fj, ft = jds.to_f64(tj.f), ds.to_f64(tt.f)
     assert np.abs(ft - fj).max() <= 1e-13 * np.abs(fj).max()
     # and a ds euler step is f + dt*Q with the scalar split
-    q = ds.to_f64(ct(ds.from_f64(f0), pt))
-    fe = ds.to_f64(bt.euler_step(lambda x: ct(x, pt), ds.from_f64(f0), 0.1))
+    q = ds.to_f64(ct(ds.from_f64(f0, device="cpu"), pt))
+    fe = ds.to_f64(bt.euler_step(lambda x: ct(x, pt), ds.from_f64(f0, device="cpu"), 0.1))
     assert np.abs(fe - (f0 + 0.1 * q)).max() <= 1e-14 * np.abs(f0).max()

@@ -53,7 +53,7 @@ def test_maxwell_bkw_ds_steps_lines(capsys):
     cfg = bt.CollisionConfig(nv=8, ns=6, n_radial=4, impl="c2c", dtype="float32")
     collide, pre = bt.make_ds_collision_operator(cfg, device="cpu")
     rsq = cfg.velocity_grid.r_squared()
-    traj = bt.make_relaxation(collide, pre, dt=0.125, n_steps=2)(ds.from_f64(bt.bkw_f(rsq, 5.5)))
+    traj = bt.make_relaxation(collide, pre, dt=0.125, n_steps=2)(ds.from_f64(bt.bkw_f(rsq, 5.5), device="cpu"))
     d = ds.to_f64(traj.f) - bt.bkw_f(rsq, 5.75)
     dv3 = cfg.velocity_grid.cell_volume
     want = [dv3 * np.abs(d).sum(), np.sqrt(dv3 * (d * d).sum()), np.abs(d).max()]

@@ -180,7 +180,7 @@ def test_collide_ds_default_route_on_card(cuda_device, grid):
     launched = [k.LAUNCHES - c0 for k, c0 in zip((k7, k8, k9, k12), counts0)]
     assert all(n > 0 for n in launched), launched
     # the same route on the CPU: the card's defaults named explicitly
-    q_cpu = collide_ds(cfg, pre_cpu, ds.from_f64(fm), contract="oz", g_stream="half",
+    q_cpu = collide_ds(cfg, pre_cpu, ds.from_f64(fm, device="cpu"), contract="oz", g_stream="half",
                        gmain_fused="3", group_batch=2, herm_downstream=True)
     q_vpu = collide_ds(cfg, pre, ds.from_f64(fm, torch.float32, cuda_device), contract="vpu")
     assert _same(q, q_cpu)
@@ -202,7 +202,7 @@ def test_unported_modes_raise_on_card(cuda_device):
     for tables, kw in ((pre, dict(g_stream="full")), (pre0, {}),
                        (pre, dict(g_stream="half", gmain_fused="12"))):
         q = collide_ds(cfg, tables, f, contract="oz", **kw)
-        ref = collide_ds(cfg, cpu(tables), ds.from_f64(fm), contract="oz", **kw)
+        ref = collide_ds(cfg, cpu(tables), ds.from_f64(fm, device="cpu"), contract="oz", **kw)
         torch.cuda.synchronize()
         assert _same(q, ref), kw
     staged = collide_ds(cfg, pre, f, contract="oz", g_stream="half", gmain_fused=False)

@@ -46,7 +46,7 @@ def _equal(j, t):
 def _cds_pair(shape, seed, scale=3.0):
     rng = np.random.default_rng(seed)
     z = rng.standard_normal(shape) * scale + 1j * rng.standard_normal(shape)
-    return jds.cds_from_f64(z), ds.cds_from_f64(z), z
+    return jds.cds_from_f64(z), ds.cds_from_f64(z, device="cpu"), z
 
 
 def _scales_agree(planes):
@@ -123,7 +123,7 @@ def test_k11_plain_matches_jax_staged(weighted):
     g2j, g2t, g2 = _cds_pair((3, 6, 8, 10), 41)
     w = np.random.default_rng(42).uniform(0.5, 1.5, 3) if weighted else None
     oj = joz.hadamard_wsum(g1j, g2j, None if w is None else jds.from_f64(w), kernel=False)
-    ot = k11.hadamard_wsum(g1t, g2t, None if w is None else ds.from_f64(w))
+    ot = k11.hadamard_wsum(g1t, g2t, None if w is None else ds.from_f64(w, device="cpu"))
     _equal(oj, ot)
     exact = np.einsum("c,c...->...", np.ones(3) if w is None else w, g1 * g2)
     assert np.abs(ds.cds_to_c128(ot) - exact).max() <= 1e-13 * np.abs(exact).max()
@@ -135,7 +135,7 @@ def test_k10_plain_matches_jax_interpret_and_zh_blocks(grid):
     nzh = nz // 2
     rng = np.random.default_rng(21)
     z = rng.standard_normal((nx, nzh, ny)) + 1j * rng.standard_normal((nx, nzh, ny))
-    fj, ft = jds.cds_from_f64(z), ds.cds_from_f64(z)
+    fj, ft = jds.cds_from_f64(z), ds.cds_from_f64(z, device="cpu")
     rows = lambda a: a.reshape(-1, ny)
     sig = torch.maximum(oz.row_sigma(rows(ft.re.hi)), oz.row_sigma(rows(ft.im.hi))).numpy()
     assert np.array_equal(sig, np.maximum(np.asarray(joz._phase_sigma(rows(fj.re.hi))),
@@ -182,7 +182,7 @@ def test_full_routes_agree_with_half_and_f64_c2c_at_8():
     kw = dict(nv=8, ns=6, n_radial=2)
     cfg = bt.CollisionConfig(impl="c2c", dtype="float32", **kw)
     fm = np.abs(np.random.default_rng(9).standard_normal(cfg.grid_shape)) + 0.1
-    f = ds.from_f64(fm)
+    f = ds.from_f64(fm, device="cpu")
     pre = build_ds_precomp(cfg, device="cpu")
     full = ds.to_f64(collide_ds(cfg, pre, f, contract="oz", g_stream="full"))
     half = ds.to_f64(collide_ds(cfg, pre, f, contract="oz", g_stream="half"))
@@ -241,7 +241,7 @@ def test_entry_argtypes_match_the_sources():
 def _k11_layouts(name):
     rng = np.random.default_rng(31)
     c, grid = 3, (4, 5, 6)
-    cds = lambda shape: ds.cds_from_f64(rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+    cds = lambda shape: ds.cds_from_f64(rng.standard_normal(shape) + 1j * rng.standard_normal(shape), device="cpu")
     rolled = lambda: ds._roll_axis(cds((c, grid[1], grid[2], grid[0])), -1, -3)
     if name == "rolled":
         return rolled(), rolled()

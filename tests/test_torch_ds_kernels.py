@@ -46,7 +46,7 @@ def test_k9_plain_matches_jax_interpret_and_k8_chain(grid):
     pt = build_ds_precomp(bt.CollisionConfig(**kw), device="cpu")
     rng = np.random.default_rng(21)
     z = rng.standard_normal((nx, nz // 2, ny)) + 1j * rng.standard_normal((nx, nz // 2, ny))
-    fj, ft = jds.cds_from_f64(z), ds.cds_from_f64(z)
+    fj, ft = jds.cds_from_f64(z), ds.cds_from_f64(z, device="cpu")
     rows = lambda a: a.reshape(-1, ny)
     sig = torch.maximum(oz.row_sigma(rows(ft.re.hi)), oz.row_sigma(rows(ft.im.hi))).numpy()
     sig_j = np.maximum(np.asarray(joz._phase_sigma(rows(fj.re.hi))),
@@ -90,9 +90,9 @@ def test_k12_plain_matches_jax_staged(groups, weighted):
         tuple(jnp.asarray(s, jnp.float32) for s in signs_np), j_assemble,
         kernel=False, groups=groups)
     ot = k12.hadamard_wsum_half(
-        ds.from_f64(r[0]), tuple(ds.cds_from_f64(p) for p in planes[0]),
-        ds.from_f64(r[1]), tuple(ds.cds_from_f64(p) for p in planes[1]),
-        None if w is None else ds.from_f64(w), grid,
+        ds.from_f64(r[0], device="cpu"), tuple(ds.cds_from_f64(p, device="cpu") for p in planes[0]),
+        ds.from_f64(r[1], device="cpu"), tuple(ds.cds_from_f64(p, device="cpu") for p in planes[1]),
+        None if w is None else ds.from_f64(w, device="cpu"), grid,
         tuple(torch.as_tensor(s, dtype=torch.float32) for s in signs_np), groups=groups)
     a, b = jds.to_f64(oj), ds.to_f64(ot)
     assert a.shape == b.shape

@@ -70,7 +70,7 @@ COMBOS = list(itertools.product(["3", False], [True, False], [1, 2], [True, Fals
 
 @pytest.mark.parametrize("gmain,herm,gb,merged", COMBOS)
 def test_half_route_matches_jax(case6, gmain, herm, gb, merged):
-    q = collide_ds(case6["cfg"], case6["pre"], ds.from_f64(case6["fm"]), contract="oz",
+    q = collide_ds(case6["cfg"], case6["pre"], ds.from_f64(case6["fm"], device="cpu"), contract="oz",
                    g_stream="half", gmain_fused=gmain, herm_downstream=herm, group_batch=gb,
                    oz_merge=merged)
     q = ds.to_f64(q)
@@ -81,7 +81,7 @@ def test_half_route_matches_jax(case6, gmain, herm, gb, merged):
 def test_fused_main_block_bitwise_equal_to_staged(case6):
     """K9's plain version == the staged K8 chain inside the pipeline, and
     the pipeline launches K9's plain version when "3" is asked for."""
-    f = ds.from_f64(case6["fm"])
+    f = ds.from_f64(case6["fm"], device="cpu")
     calls = k9.REFERENCE_CALLS
     a = collide_ds(case6["cfg"], case6["pre"], f, contract="oz", g_stream="half", gmain_fused="3")
     assert k9.REFERENCE_CALLS > calls
@@ -91,7 +91,7 @@ def test_fused_main_block_bitwise_equal_to_staged(case6):
 
 
 def test_g1_reversal_on_even_input(case6):
-    f = ds.from_f64(case6["fe"])
+    f = ds.from_f64(case6["fe"], device="cpu")
     for gmain in ("3", False):
         q = ds.to_f64(collide_ds(case6["cfg"], case6["pre"], f, contract="oz", g_stream="half",
                                  g1_reversal=True, gmain_fused=gmain))
@@ -99,7 +99,7 @@ def test_g1_reversal_on_even_input(case6):
 
 
 def test_vpu_engine_matches_jax(case6):
-    q = ds.to_f64(collide_ds(case6["cfg"], case6["pre"], ds.from_f64(case6["fm"]),
+    q = ds.to_f64(collide_ds(case6["cfg"], case6["pre"], ds.from_f64(case6["fm"], device="cpu"),
                              contract="vpu"))
     assert _rel(q, case6["vpu"]) <= TOL
 
@@ -111,7 +111,7 @@ def test_anisotropic_half_route_matches_jax_vpu():
     ref = jds.to_f64(j_collide(cfg_j, j_build(cfg_j), jds.from_f64(fm), contract="vpu"))
     pre = build_ds_precomp(cfg_t, device="cpu")
     for gmain in ("3", False):
-        q = collide_ds(cfg_t, pre, ds.from_f64(fm), contract="oz", g_stream="half",
+        q = collide_ds(cfg_t, pre, ds.from_f64(fm, device="cpu"), contract="oz", g_stream="half",
                        gmain_fused=gmain, group_batch=2)
         assert _rel(ds.to_f64(q), ref) <= TOL
 
@@ -120,7 +120,7 @@ def test_half_route_matches_port_f64_c2c_at_8():
     kw = dict(nv=8, ns=6, n_radial=4)
     cfg = bt.CollisionConfig(impl="c2c", dtype="float32", **kw)
     fm = _noise(cfg.grid_shape, seed=9)
-    q = ds.to_f64(collide_ds(cfg, build_ds_precomp(cfg, device="cpu"), ds.from_f64(fm),
+    q = ds.to_f64(collide_ds(cfg, build_ds_precomp(cfg, device="cpu"), ds.from_f64(fm, device="cpu"),
                              contract="oz", g_stream="half", gmain_fused="3", group_batch=2))
     cfg64 = bt.CollisionConfig(impl="c2c", dtype="float64", **kw)
     collide, pre64 = bt.make_collision_operator(cfg64, "cpu")
@@ -148,7 +148,7 @@ def test_oz_routes_match_jax(case6, case6_full, route):
     of JAX's ozk result of the same route; "12" (and True, which is "3" at
     6^3) is bitwise equal to the staged chain."""
     cfg, pre = case6["cfg"], case6["pre"]
-    f = ds.from_f64(case6["fm"])
+    f = ds.from_f64(case6["fm"], device="cpu")
     calls = {k: k.REFERENCE_CALLS for k in (k8, k9, k10, k11)}
     if route == "full":
         q = collide_ds(cfg, pre, f, contract="oz", g_stream="full")
@@ -171,7 +171,7 @@ def test_cpu_defaults_and_unported_modes(case6, case6_full):
     """The CPU defaults (vpu; the oz engine on full streams), and the routes
     that raised before K10, K11 and K8's phased mode existed."""
     cfg, pre = case6["cfg"], case6["pre"]
-    f = ds.from_f64(case6["fm"])
+    f = ds.from_f64(case6["fm"], device="cpu")
     assert default_contract("cpu") == "vpu" and default_contract("cuda") == "oz"
     calls = k8.REFERENCE_CALLS
     q = collide_ds(cfg, pre, f)  # the CPU default: vpu engine, full streams

@@ -224,10 +224,10 @@ def _stream(shape, seed, layout):
     rng = np.random.default_rng(seed)
     z = lambda s: rng.standard_normal(s) + 1j * rng.standard_normal(s)
     if layout == "contiguous":
-        return ds.cds_from_f64(z(shape))
+        return ds.cds_from_f64(z(shape), device="cpu")
     if layout == "rolled":  # the x stage's view: memory (C, Ny, Nz, Nx)
-        return ds._roll_axis(ds.cds_from_f64(z((c, ny, nz, nx))), -1, -3)
-    raw = ds.cds_from_f64(z((c, nz, ny, nx)))  # memory (C, Nz, Ny, Nx)
+        return ds._roll_axis(ds.cds_from_f64(z((c, ny, nz, nx)), device="cpu"), -1, -3)
+    raw = ds.cds_from_f64(z((c, nz, ny, nx)), device="cpu")  # memory (C, Nz, Ny, Nx)
     return ds.tree_map(lambda a: a.permute(0, 3, 2, 1), raw)
 
 
@@ -289,7 +289,7 @@ def _raw(t):
 def test_k11_index_walk_matches_reference(layout, weighted):
     c, grid = 3, (8, 4, 12)
     g1, g2 = _stream((c,) + grid, 1, layout), _stream((c,) + grid, 2, layout)
-    w = ds.from_f64(np.random.default_rng(3).uniform(0.5, 1.5, c)) if weighted else None
+    w = ds.from_f64(np.random.default_rng(3).uniform(0.5, 1.5, c), device="cpu") if weighted else None
     planes1 = (g1.re.hi, g1.re.lo, g1.im.hi, g1.im.lo)
     planes2 = (g2.re.hi, g2.re.lo, g2.im.hi, g2.im.lo)
     dims, s1, s2, so = k11._layout(tuple(g1.re.hi.shape), tuple(t.stride() for t in planes1),

@@ -50,7 +50,7 @@ def _equal(j, t):
 def _cds_pair(shape, seed):
     rng = np.random.default_rng(seed)
     z = rng.standard_normal(shape) * 3 + 1j * rng.standard_normal(shape)
-    return jds.cds_from_f64(z), ds.cds_from_f64(z), z
+    return jds.cds_from_f64(z), ds.cds_from_f64(z, device="cpu"), z
 
 
 def _scales_agree(x, merged):
@@ -234,7 +234,7 @@ def test_config_oz_cmax():
     kw = dict(nv=6, ns=6, n_radial=2, impl="c2c", dtype="float32")
     cfg4 = bt.CollisionConfig(oz_cmax=4, **kw)
     pre = build_ds_precomp(cfg4, device="cpu")
-    f = ds.from_f64(np.abs(np.random.default_rng(17).standard_normal((6, 6, 6))) + 0.1)
+    f = ds.from_f64(np.abs(np.random.default_rng(17).standard_normal((6, 6, 6))) + 0.1, device="cpu")
     from boltzfft_torch.ds_operator import collide_ds
 
     a = collide_ds(cfg4, pre, f, contract="oz", g_stream="half")
