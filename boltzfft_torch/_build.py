@@ -64,12 +64,14 @@ _ENTRY_ARGS = {
     "bfft_fused_gain": [_P] * 13 + [_P] * 3 + [_I] * 7 + [_D] * 3 + [_P],
     # 3 inputs, 2 outputs, 3 ints and the stream
     "bfft_alpha_multiply": [_P] * 3 + [_P] * 2 + [_I] * 3 + [_P],
-    # 4 inputs, 1 output, 3 ints, 3 reals and the stream
-    "bfft_gain_reduce": [_P] * 4 + [_P] + [_I] * 3 + [_D] * 3 + [_P],
+    # 4 inputs, the output, the scratch, 4 ints, 3 reals and the stream
+    "bfft_gain_reduce": [_P] * 4 + [_P] * 2 + [_I] * 4 + [_D] * 3 + [_P],
 }
 #: argtypes of the entry points without an f32/f64 pair (the ds engine's,
 #: and K1's plan).
 _ENTRY_ARGS_F32 = {
+    # B, M, node_block and the 4-int output: K5's plan
+    "bfft_gain_reduce_plan": [_I] * 3 + [_P],
     # Nx, Ny, Nz, is_f64 and the 3-int output: K1's shared-memory plan
     "bfft_k1_plan": [_I] * 4 + [_P],
     # Ny Nz and the 4-int output: K3's GEMM plan
@@ -89,8 +91,9 @@ _ENTRY_ARGS_F32 = {
     # 8 stream planes, 2 weights, 4 outputs, the node count, 3 dims, 11
     # strides, the weights' stride and the stream
     "bfft_oz_hadamard": [_P] * 14 + [_I] * 16 + [_P],
-    # 4 main blocks, 3 planes, 3 signs, 2 weights, 2 outputs, 5 ints and the stream
-    "bfft_oz_hadamard_half": [_P] * 14 + [_I] * 5 + [_P],
+    # the 37-pointer table, the 9 plane strides, the node count, groups, 3
+    # dims, the run, the block size and the stream
+    "bfft_oz_hadamard_half": [_P] * 2 + [_I] * 7 + [_P],
 }
 
 _lib = None

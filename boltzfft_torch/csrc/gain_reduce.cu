@@ -9,26 +9,38 @@
 //   w_b(l) = (amp gw_b) sin(a) / a,   a = (coef rho_b) |l| + eps,
 //   amp = 4 pi b_gamma, coef = pi / (2 L),
 //
-// with beta1 computed in registers, never stored.
+// with beta1 computed in registers, never stored.  The sum's order is the
+// TPU kernel's: the nodes fall in B / nb blocks of nb = gcd(node_block, B),
+// each block summed from zero in node order (S_j), and the block sums added
+// into the output from zero in block order, ((0 + S_0) + S_1) + ...  So
+// node_block enters the result, as it does in JAX.  Every product and sum
+// is rounded on its own (no contraction into an FMA), as in the plain
+// version; the two differ only by their sin.
 //
 // What bounds it on this card: bytes.  It reads h once, 2 B M reals (0.83 GB
 // at 64^3 / Ns = 12 in double, M = 64 * 64 * 33: 0.25 ms at 3.35 TB/s; 53 MB
-// at 32^3), and writes 2 M.  Per (b, l) it does one sin, one divide and about
-// eight multiply-adds: about 4 operations per 16 bytes in double.
+// at 32^3), and writes 2 M.  Per (b, l) it does one sin, one divide and a
+// few multiplies and adds.
 //
-// What the design does about it: one thread per mode l walks the nodes b in
-// order, so every sum runs in one thread in a fixed order (no atomics, no
-// cross-block pass) and the result is bitwise reproducible.  Consecutive
-// threads read consecutive h[b, l], a coalesced stream.  A block stages
-// node_block (rho, gw) pairs in shared memory per pass; node_block changes
-// only how many pairs a pass stages, never the arithmetic or its order, so
-// the result is bitwise the same for every node_block (the TPU kernel sums
-// each node block from zero instead, so its result moves with the block).
-// M need not be a multiple of anything: the ragged last block is masked, and
-// nothing is padded.
+// What the design does about it:
+//  - a thread owns kModes = 2 neighbouring modes (one 16-byte load a node in
+//    float, where M is even and h aligned; two in double), a block of
+//    kThreads = 128 threads a tile of 256 modes;
+//  - a thread issues the loads of kAhead = 8 nodes before their arithmetic,
+//    across node-block boundaries (the arithmetic keeps the block order);
+//  - a block stages its nodes' (coef rho, amp gw) in shared memory once;
+//  - the plan (gr_plan, mirrored by kernels.gain_reduce.plan): where the mode
+//    tiles alone give every SM a block (64^3: 528 tiles), one block walks
+//    every node block of its tile in order; where they do not (32^3: 68
+//    tiles on 132 SMs), the split route runs a 2-D grid of tiles x node
+//    blocks that writes each S_j to a (B / nb, M) scratch, and a second
+//    launch adds them into the output in block order.  Both routes do the
+//    same operations in the same order: bitwise equal, and run to run.
+// M need not be a multiple of anything: the ragged last tile is masked.
 //
-// The entry point returns cudaGetLastError() of its launch; it launches on
-// the given stream, does not synchronise and allocates nothing.
+// The entry points return cudaGetLastError() of their launches; they launch
+// on the given stream, do not synchronise and allocate nothing (the wrapper
+// allocates the scratch).
 
 #include "spectral_common.cuh"
 
@@ -36,74 +48,213 @@ namespace {
 
 using bfft::Cplx;
 
-template <typename T>
-__global__ void gain_reduce_kernel(const typename Cplx<T>::type* __restrict__ h,
-                                   const T* __restrict__ rho,
-                                   const T* __restrict__ gw,
-                                   const T* __restrict__ norm_l,
-                                   typename Cplx<T>::type* __restrict__ out,
-                                   int n_nodes, long long m, int node_block,
-                                   T coef, T amp, T eps) {
+constexpr int kSms = 132;     // the H100's SMs: the split rule's target
+constexpr int kThreads = 128;
+constexpr int kModes = 2;
+constexpr int kTile = kThreads * kModes;
+constexpr int kAhead = 8;
+constexpr int kSumThreads = 64;  // the split route's second launch: one mode a thread
+
+// nb, the number of node blocks, the mode tiles and the route (1: split)
+void gr_plan(int b, int m, int node_block, int* out) {
+  int x = node_block, y = b;
+  while (y) {
+    const int r = x % y;
+    x = y;
+    y = r;
+  }
+  out[0] = x;
+  out[1] = b / x;
+  out[2] = (m + kTile - 1) / kTile;
+  out[3] = out[2] < kSms && out[1] > 1;
+}
+
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+
+// the two modes l0, l0 + 1 of row p (VEC in float: one 16-byte load of two
+// float2; in double each mode is a 16-byte load of its own)
+template <typename T, bool VEC>
+__device__ __forceinline__ void load2(const typename Cplx<T>::type* __restrict__ p, bool second,
+                                      typename Cplx<T>::type (&v)[kModes]) {
+  if constexpr (VEC && sizeof(T) == 4) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    v[0].x = q.x;
+    v[0].y = q.y;
+    v[1].x = q.z;
+    v[1].y = q.w;
+  } else {
+    v[0] = __ldg(p);
+    if (second) {
+      v[1] = __ldg(p + 1);
+    } else {
+      v[1].x = 0;
+      v[1].y = 0;
+    }
+  }
+}
+
+// split 0, grid (tiles, 1): every node block of the tile, into out.  split
+// 1, grid (tiles, B / nb): node block blockIdx.y of the tile, S_j into row j
+// of out (the scratch).
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+    gain_reduce_kernel(const typename Cplx<T>::type* __restrict__ h, const T* __restrict__ rho,
+                       const T* __restrict__ gw, const T* __restrict__ norm_l,
+                       typename Cplx<T>::type* __restrict__ out, int n_nodes, int m, int nb,
+                       bool split, T coef, T amp, T eps) {
   using C2 = typename Cplx<T>::type;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s_rho = reinterpret_cast<T*>(smem_raw);
-  T* s_gw = s_rho + node_block;
-  const long long l = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  const bool valid = l < m;
-  const T nl = valid ? norm_l[l] : T(0);
-  C2 acc;
-  acc.x = 0;
-  acc.y = 0;
-  for (int b0 = 0; b0 < n_nodes; b0 += node_block) {
-    const int nb = min(node_block, n_nodes - b0);
-    __syncthreads();  // the previous pass is done with the staged pairs
-    for (int k = threadIdx.x; k < nb; k += blockDim.x) {
-      s_rho[k] = rho[b0 + k];
-      s_gw[k] = gw[b0 + k];
-    }
-    __syncthreads();
-    if (valid) {
-      for (int k = 0; k < nb; ++k) {
-        const T arg = (coef * s_rho[k]) * nl + eps;
-        const T w = (amp * s_gw[k]) * bfft::dev_sin(arg) / arg;
-        const C2 v = h[(long long)(b0 + k) * m + l];
-        acc.x = acc.x + w * v.x;
-        acc.y = acc.y + w * v.y;
+  const int b0 = split ? blockIdx.y * nb : 0;
+  const int b1 = split ? b0 + nb : n_nodes;
+  T* s_cr = reinterpret_cast<T*>(smem_raw);  // coef rho_b
+  T* s_ag = s_cr + (b1 - b0);                // amp gw_b
+  for (int k = threadIdx.x; k < b1 - b0; k += kThreads) {
+    s_cr[k] = mul_rn(coef, rho[b0 + k]);
+    s_ag[k] = mul_rn(amp, gw[b0 + k]);
+  }
+  __syncthreads();
+  const int l0 = (blockIdx.x * kThreads + threadIdx.x) * kModes;
+  if (l0 >= m) return;
+  const bool second = l0 + 1 < m;
+  T nl[kModes];
+  nl[0] = norm_l[l0];
+  nl[1] = second ? norm_l[l0 + 1] : T(0);
+  C2 s[kModes], acc[kModes];
+#pragma unroll
+  for (int i = 0; i < kModes; ++i) {
+    acc[i].x = 0;
+    acc[i].y = 0;
+  }
+  int left = 0;  // nodes left in the current block
+#pragma unroll 1
+  for (int c0 = b0; c0 < b1; c0 += kAhead) {
+    const int cnt = min(kAhead, b1 - c0);
+    C2 v[kAhead][kModes];
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k)
+      if (k < cnt) load2<T, VEC>(h + (size_t)(c0 + k) * m + l0, second, v[k]);
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k) {
+      if (k < cnt) {
+        if (left == 0) {
+#pragma unroll
+          for (int i = 0; i < kModes; ++i) {
+            s[i].x = 0;
+            s[i].y = 0;
+          }
+          left = nb;
+        }
+        const T cr = s_cr[c0 + k - b0], ag = s_ag[c0 + k - b0];
+#pragma unroll
+        for (int i = 0; i < kModes; ++i) {
+          const T arg = add_rn(mul_rn(cr, nl[i]), eps);
+          const T w = mul_rn(ag, bfft::dev_sin(arg)) / arg;
+          s[i].x = add_rn(s[i].x, mul_rn(w, v[k][i].x));
+          s[i].y = add_rn(s[i].y, mul_rn(w, v[k][i].y));
+        }
+        if (--left == 0 && !split) {
+#pragma unroll
+          for (int i = 0; i < kModes; ++i) {
+            acc[i].x = add_rn(acc[i].x, s[i].x);
+            acc[i].y = add_rn(acc[i].y, s[i].y);
+          }
+        }
       }
     }
   }
-  if (valid) out[l] = acc;
+  if (split) {
+    C2* o = out + (size_t)blockIdx.y * m;
+    o[l0] = s[0];
+    if (second) o[l0 + 1] = s[1];
+  } else {
+    out[l0] = acc[0];
+    if (second) out[l0 + 1] = acc[1];
+  }
+}
+
+// The split route's second launch: out[l] = ((0 + S_0) + S_1) + ...
+template <typename T>
+__global__ void __launch_bounds__(kSumThreads)
+    block_sum_kernel(const typename Cplx<T>::type* __restrict__ scratch,
+                     typename Cplx<T>::type* __restrict__ out, int n_blocks, int m) {
+  using C2 = typename Cplx<T>::type;
+  const int l = blockIdx.x * kSumThreads + threadIdx.x;
+  if (l >= m) return;
+  C2 acc;
+  acc.x = 0;
+  acc.y = 0;
+#pragma unroll 8
+  for (int j = 0; j < n_blocks; ++j) {
+    const C2 v = __ldg(scratch + (size_t)j * m + l);
+    acc.x = add_rn(acc.x, v.x);
+    acc.y = add_rn(acc.y, v.y);
+  }
+  out[l] = acc;
+}
+
+template <typename T, bool VEC>
+cudaError_t launch(const typename Cplx<T>::type* h, const T* rho, const T* gw, const T* norm_l,
+                   typename Cplx<T>::type* dst, const int* p, int n_nodes, int m, bool split,
+                   T coef, T amp, T eps, cudaStream_t st) {
+  const int staged = split ? p[0] : n_nodes;
+  const size_t smem = 2 * (size_t)staged * sizeof(T);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gain_reduce_kernel<T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((unsigned)p[2], split ? (unsigned)p[1] : 1u);
+  gain_reduce_kernel<T, VEC><<<grid, kThreads, smem, st>>>(h, rho, gw, norm_l, dst, n_nodes, m,
+                                                           p[0], split, coef, amp, eps);
+  return cudaGetLastError();
 }
 
 template <typename T>
-int gain_reduce(const typename Cplx<T>::type* h, const T* rho, const T* gw,
-                const T* norm_l, typename Cplx<T>::type* out, int n_nodes,
-                long long m, int node_block, double coef, double amp,
-                double eps, cudaStream_t st) {
-  const int pt = 256;
-  const long long blocks = (m + pt - 1) / pt;
-  if (blocks > 0x7fffffffLL || node_block < 1) return cudaErrorInvalidConfiguration;
-  const size_t smem = 2 * (size_t)node_block * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      gain_reduce_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  gain_reduce_kernel<T><<<(unsigned)blocks, pt, smem, st>>>(
-      h, rho, gw, norm_l, out, n_nodes, m, node_block, (T)coef, (T)amp,
-      (T)eps);
+int gain_reduce(const typename Cplx<T>::type* h, const T* rho, const T* gw, const T* norm_l,
+                typename Cplx<T>::type* out, typename Cplx<T>::type* scratch, int n_nodes, int m,
+                int node_block, int split, double coef, double amp, double eps,
+                cudaStream_t st) {
+  if (n_nodes < 1 || m < 1 || node_block < 1 || split < 0 || split > 1 ||
+      (split && scratch == nullptr))
+    return cudaErrorInvalidValue;
+  int p[4];
+  gr_plan(n_nodes, m, node_block, p);
+  if (split && p[1] > 65535) return cudaErrorInvalidValue;
+  if (2 * (size_t)(split ? p[0] : n_nodes) * sizeof(T) > 232448) return cudaErrorInvalidValue;
+  const bool vec = m % 2 == 0 && ((uintptr_t)h) % 16 == 0;
+  auto* dst = split ? scratch : out;
+  cudaError_t err =
+      vec ? launch<T, true>(h, rho, gw, norm_l, dst, p, n_nodes, m, split, (T)coef, (T)amp,
+                            (T)eps, st)
+          : launch<T, false>(h, rho, gw, norm_l, dst, p, n_nodes, m, split, (T)coef, (T)amp,
+                             (T)eps, st);
+  if (err != cudaSuccess || !split) return err;
+  block_sum_kernel<T><<<(m + kSumThreads - 1) / kSumThreads, kSumThreads, 0, st>>>(scratch, out,
+                                                                                  p[1], m);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-#define BFFT_REDUCE_ENTRY(NAME, T, C2)                                         \
-  extern "C" int NAME(const void* h, const void* rho, const void* gw,          \
-                      const void* norm_l, void* out, int n_nodes, int m,       \
-                      int node_block, double coef, double amp, double eps,     \
-                      void* stream) {                                          \
-    return gain_reduce<T>((const C2*)h, (const T*)rho, (const T*)gw,           \
-                          (const T*)norm_l, (C2*)out, n_nodes, m, node_block,  \
-                          coef, amp, eps, (cudaStream_t)stream);               \
+// nb, the number of node blocks, the mode tiles (kTile modes each) and the
+// route (1: split) for B nodes, M modes and node_block
+extern "C" int bfft_gain_reduce_plan(int n_nodes, int m, int node_block, void* out) {
+  if (n_nodes < 1 || m < 1 || node_block < 1 || out == nullptr) return cudaErrorInvalidValue;
+  gr_plan(n_nodes, m, node_block, (int*)out);
+  return cudaSuccess;
+}
+
+// split: 0 one launch, 1 the split route through scratch ((B / nb, M) complex)
+#define BFFT_REDUCE_ENTRY(NAME, T, C2)                                                     \
+  extern "C" int NAME(const void* h, const void* rho, const void* gw, const void* norm_l,  \
+                      void* out, void* scratch, int n_nodes, int m, int node_block,        \
+                      int split, double coef, double amp, double eps, void* stream) {      \
+    return gain_reduce<T>((const C2*)h, (const T*)rho, (const T*)gw, (const T*)norm_l,     \
+                          (C2*)out, (C2*)scratch, n_nodes, m, node_block, split, coef, amp, \
+                          eps, (cudaStream_t)stream);                                      \
   }
 
 BFFT_REDUCE_ENTRY(bfft_gain_reduce_f32, float, float2)

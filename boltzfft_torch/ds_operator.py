@@ -569,9 +569,9 @@ def collide_ds(
                     c = r12.hi.shape[0] // 2
                     r1 = tree_map(lambda a: a[:c], r12)
                     r2 = tree_map(lambda a: a[c:], r12)
-                part = _k12.hadamard_wsum_half(r1, take(c1g), r2, take(c2g), None,
-                                               cfg.grid_shape, signs, groups=gb)
-                s = part if s is None else ds.add(s, part)
+                # K12 adds the running sum of the earlier sub-batches itself
+                s = _k12.hadamard_wsum_half(r1, take(c1g), r2, take(c2g), None,
+                                            cfg.grid_shape, signs, groups=gb, acc=s)
                 continue
             if phased:
                 if nodemat:  # the phases folded into the per-node matrices

@@ -8,16 +8,20 @@ a CPU tensor runs :func:`gain_reduce_reference`.  Any other device raises.
 
 Both compute ``out[l] = sum_b gain_w[b] * beta1(rho[b], |l|) * h[b, l]`` with
 ``beta1 = 4 pi b_gamma sin(a) / a``, ``a = pi rho |l| / (2L) + eps``, as
-``(amp * gain_w) * sin(a) / a``, nodes summed in order into one running sum.
-The JAX kernel sums each block of ``node_block`` nodes from zero and adds
-that to its output, so its result moves with ``node_block`` by rounding; the
-port's kernel is bitwise the same for every ``node_block``, which sets only
-how many (rho, gain_w) pairs a thread block stages per pass.
+``(amp * gain_w) * sin(a) / a``, in the JAX kernel's order: the nodes in
+blocks of ``nb = gcd(node_block, B)``, each block summed from zero in node
+order, the block sums added into the output from zero in block order.  So
+``node_block`` enters the result by rounding, as it does in JAX.  The kernel
+takes one of two routes (:func:`plan`, the mirror of the ``.cu``'s
+``gr_plan``) that give the same bits: one launch, or a grid over node blocks
+through a scratch of block sums and a second launch that adds them.
 """
 
 from __future__ import annotations
 
+import functools
 import math
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -50,23 +54,53 @@ def node_weights(rho, gain_w, norm_l, *, length: float, b_gamma: float, dtype):
 
 def gain_reduce_reference(h, rho, gain_w, norm_l, *, length: float, b_gamma: float,
                           node_block: int = 8) -> torch.Tensor:
-    """Plain PyTorch version: the weights of all nodes at once, then one
-    running sum over the nodes in order (``node_block`` is the kernel's
-    staging size and does not enter the result)."""
+    """Plain PyTorch version: the weights of all nodes at once, each node
+    block of ``gcd(node_block, B)`` summed from zero in node order, the block
+    sums added from zero in block order (the JAX kernel's order)."""
     global REFERENCE_CALLS
     REFERENCE_CALLS += 1
     rd = torch.float64 if h.dtype == torch.complex128 else torch.float32
     w = node_weights(rho, gain_w, norm_l, length=length, b_gamma=b_gamma, dtype=rd)
-    acc = torch.zeros_like(h[0])
-    for b in range(h.shape[0]):
-        acc = acc + w[b] * h[b]
-    return acc
+    nb = math.gcd(node_block, h.shape[0])
+    out = torch.zeros_like(h[0])
+    for b0 in range(0, h.shape[0], nb):
+        acc = torch.zeros_like(h[0])
+        for b in range(b0, b0 + nb):
+            acc = acc + w[b] * h[b]
+        out = out + acc
+    return out
+
+
+#: The kernel's SMs, threads a block and modes a thread (``csrc/gain_reduce.cu``).
+N_SM, THREADS, MODES = 132, 128, 2
+
+
+class Plan(NamedTuple):
+    """The kernel's launch (``gr_plan``): ``nb`` nodes a block, ``blocks``
+    node blocks, ``tiles`` tiles of ``THREADS * MODES`` modes, and ``split``:
+    1 where the tiles alone leave SMs idle (and there is more than one node
+    block): a grid of tiles x node blocks through the scratch."""
+
+    nb: int
+    blocks: int
+    tiles: int
+    split: int
+
+
+@functools.lru_cache(maxsize=None)
+def plan(b: int, m: int, node_block: int) -> Plan:
+    """Mirror of ``gr_plan`` in ``csrc/gain_reduce.cu``."""
+    nb = math.gcd(node_block, b)
+    tiles = -(-m // (THREADS * MODES))
+    return Plan(nb, b // nb, tiles, int(tiles < N_SM and b // nb > 1))
 
 
 def _gain_reduce_cuda(h, rho, gain_w, norm_l, *, length: float, b_gamma: float,
-                      node_block: int) -> torch.Tensor:
+                      node_block: int, split: Optional[int] = None) -> torch.Tensor:
+    """The kernel; ``split`` (0 or 1) replaces the plan's route (the tests
+    take both)."""
     global LAUNCHES
-    from .._build import load_library
+    from .._build import load_library, on_device
 
     cd = h.dtype
     if cd not in (torch.complex64, torch.complex128):
@@ -86,12 +120,16 @@ def _gain_reduce_cuda(h, rho, gain_w, norm_l, *, length: float, b_gamma: float,
         return t.to(rd).contiguous()
 
     ins = [h.contiguous(), arg(rho, (b,)), arg(gain_w, (b,)), arg(norm_l, (m,))]
+    p = plan(b, m, node_block)
+    split = p.split if split is None else split
     out = torch.empty((m,), dtype=cd, device=dev)
+    scratch = torch.empty((p.blocks, m), dtype=cd, device=dev) if split else None
     lib = load_library()
     entry = lib.bfft_gain_reduce_f64 if rd == torch.float64 else lib.bfft_gain_reduce_f32
-    with torch.cuda.device(dev):
+    with on_device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = entry(*[t.data_ptr() for t in ins], out.data_ptr(), b, m, node_block,
+        rc = entry(*[t.data_ptr() for t in ins], out.data_ptr(),
+                   None if scratch is None else scratch.data_ptr(), b, m, node_block, split,
                    math.pi / (2.0 * length), 4.0 * math.pi * b_gamma,
                    float(torch.finfo(rd).eps), stream)
     if rc != 0:

@@ -17,10 +17,18 @@ three plane corrections ``(px, py, pz)`` (CDS, (C, Ny, Nz), (C, Nx, Nz),
 each of ``groups`` consecutive node groups are summed in order with
 compensated adds (the first node starts the sum).  Only ``Re`` is returned:
 the pipeline's ``Re(IFFT(beta1 FFT(.)))`` annihilates the imaginary part.
+Where a running sum ``acc`` is given, ``ds.add(acc, .)`` ends the call:
+``collide_ds`` sums its sub-batches so, in the kernel's launch.
+
+The CUDA wrapper hands the kernel one table of the operands' pointers and
+the planes' strides: it stacks nothing and copies only an operand the kernel
+cannot read in place (``COPIES``); :func:`plan` (cached) sets the launch.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -56,32 +64,35 @@ def assemble_g_half(r_main: DS, corr, signs) -> CDS:
 
 def hadamard_wsum_half(
     r1: DS, c1, r2: DS, c2, w: Optional[DS], grid_shape, signs, groups: int = 1,
+    acc: Optional[DS] = None,
 ) -> DS:
     """``Re sum_j w[j] g1[j] g2[j]`` per group of ``C // groups`` nodes:
     ``(Nx, Ny, Nz)`` for one group, ``(groups, Nx, Ny, Nz)`` otherwise.
-    ``signs`` are the per-axis ``(-1)^n`` float32 vectors.  The JAX
-    signature's ``assemble_fn`` (its staged twin's assembler) and ``kernel``
-    have no counterpart: the plain version assembles with
-    :func:`assemble_g_half`, and the device decides."""
+    ``signs`` are the per-axis ``(-1)^n`` float32 vectors.  ``acc``, a
+    running sum of the output's shape, is added last (``ds.add(acc, .)``):
+    the caller's sum over sub-batches in the same launch; the JAX function
+    has no such argument.  The JAX signature's ``assemble_fn`` (its staged
+    twin's assembler) and ``kernel`` have no counterpart: the plain version
+    assembles with :func:`assemble_g_half`, and the device decides."""
     c = r1.hi.shape[0]
     if groups < 1 or c % groups:
         raise ValueError(f"groups={groups} must divide the node count {c}")
+    ops = _table(r1, c1, r2, c2, w, signs, acc)
     dev = r1.hi.device
-    leaves = []
-    ds.tree_map(leaves.append, (r1, c1, r2, c2, w, tuple(signs)))
-    if any(t.device != dev for t in leaves):
+    if any(t is not None and t.device != dev for t in ops):
         raise ValueError("hadamard_wsum_half: operands on more than one device")
-    args = (r1, c1, r2, c2, w, tuple(grid_shape), signs, groups)
     if dev.type == "cuda":
-        return _hwh_cuda(*args)
+        return _hwh_cuda(ops, c, tuple(grid_shape), groups)
     if dev.type == "cpu":
-        return hadamard_wsum_half_reference(*args)
+        return hadamard_wsum_half_reference(r1, c1, r2, c2, w, tuple(grid_shape), signs, groups,
+                                            acc)
     raise ValueError(f"hadamard_wsum_half: no kernel for device {dev}")
 
 
-def hadamard_wsum_half_reference(r1, c1, r2, c2, w, grid_shape, signs, groups=1) -> DS:
+def hadamard_wsum_half_reference(r1, c1, r2, c2, w, grid_shape, signs, groups=1,
+                                 acc=None) -> DS:
     """Plain PyTorch version: assemble both streams, then the ds products and
-    the in-order group sums, elementwise."""
+    the in-order group sums, elementwise, then ``ds.add(acc, .)``."""
     global REFERENCE_CALLS
     REFERENCE_CALLS += 1
     g1 = assemble_g_half(r1, c1, signs)
@@ -98,45 +109,108 @@ def hadamard_wsum_half_reference(r1, c1, r2, c2, w, grid_shape, signs, groups=1)
                 term = ds.mul(term, DS(w.hi[j], w.lo[j]))
             s = term if s is None else ds.add(s, term)
         outs.append(s)
-    if groups == 1:
-        return outs[0]
-    return DS(torch.stack([o.hi for o in outs]), torch.stack([o.lo for o in outs]))
+    out = outs[0] if groups == 1 else DS(torch.stack([o.hi for o in outs]),
+                                         torch.stack([o.lo for o in outs]))
+    return out if acc is None else ds.add(acc, out)
 
 
-def _hwh_cuda(r1, c1, r2, c2, w, grid_shape, signs, groups) -> DS:
-    global LAUNCHES
-    from .._build import load_library
+def _table(r1, c1, r2, c2, w, signs, acc) -> list:
+    """The operands in the kernel's pointer-table order (``HPtrs`` of
+    ``csrc/oz_hadamard_half.cu``): the main blocks (stream 1 hi, lo, stream
+    2 hi, lo), each stream's x, y, z planes (re hi, re lo, im hi, im lo),
+    the three sign vectors, the weights, the running sum; None where absent."""
+    planes = [t for cs in (c1, c2) for p in cs for t in (p.re.hi, p.re.lo, p.im.hi, p.im.lo)]
+    return [r1.hi, r1.lo, r2.hi, r2.lo, *planes, *signs,
+            *((None, None) if w is None else (w.hi, w.lo)),
+            *((None, None) if acc is None else (acc.hi, acc.lo))]
 
+
+#: The grid the plan aims at: two blocks for each of the H100's 132 SMs.
+MIN_CTAS = 264
+
+
+@functools.lru_cache(maxsize=None)
+def plan(nx: int, ny: int, nz: int, groups: int) -> tuple:
+    """``(run, threads)`` of the kernel's launch: the z elements a thread
+    walks (4, 2 or 1) and the block size.  The longest run, then the largest
+    block, whose grid (``ceil(Nx Ny ceil(Nz / run) / threads)`` blocks per
+    group) still has ``MIN_CTAS`` blocks; 1 and 64 where none has."""
+    for run in (4, 2, 1):
+        per_group = nx * ny * -(-nz // run)
+        for threads in (256, 128, 64):
+            if -(-per_group // threads) * groups >= MIN_CTAS:
+                return run, threads
+    return 1, 64
+
+
+@functools.lru_cache(maxsize=None)
+def _shapes(c: int, groups: int, grid_shape: tuple) -> tuple:
+    """The shape each entry of :func:`_table` must have."""
     nx, ny, nz = grid_shape
-    c = r1.hi.shape[0]
-    dev = r1.hi.device
+    main, out = (c, nx, ny, nz), ((groups,) if groups > 1 else ()) + (nx, ny, nz)
+    planes = ((c, ny, nz),) * 4 + ((c, nx, nz),) * 4 + ((c, nx, ny),) * 4
+    return (main,) * 4 + planes * 2 + ((nx,), (ny,), (nz,), (c,), (c,), out, out)
+
+
+#: Operands the CUDA wrapper had to copy (the default route hands over none).
+COPIES = 0
+
+
+def _operands(ops, c, grid_shape, groups) -> tuple:
+    """The table's tensors as the kernel reads them, and the 9 plane strides
+    (px's node, y, z; py's node, x, z; pz's node, x, y).  Each operand is
+    checked against its shape (the weights may be any shape of C elements).
+    The planes are read through their strides, which a field's eight
+    tensors (both streams, four components) must share; the rest must be
+    contiguous.  An operand that does not qualify, or is not float32, is
+    copied (counted in ``COPIES``)."""
+    global COPIES
     f32 = torch.float32
+    out = list(ops)
+    for i, (t, shape) in enumerate(zip(ops, _shapes(c, groups, grid_shape))):
+        if t is None:
+            continue
+        if i in (31, 32) and t.dim() != 1:
+            t = out[i] = t.reshape(-1)
+        if t.shape != shape:
+            raise ValueError(f"hadamard_wsum_half: operand {i} has shape {tuple(t.shape)},"
+                             f" expected {shape}")
+        if not 4 <= i < 28 and (t.dtype != f32 or not t.is_contiguous()):
+            out[i] = t.to(f32).contiguous()
+            COPIES += 1
+    strides = []
+    for ax in range(3):
+        idx = [4 + 12 * s + 4 * ax + k for s in (0, 1) for k in range(4)]
+        st = out[idx[0]].stride()
+        if any(out[i].dtype != f32 or out[i].stride() != st for i in idx) or min(st) < 0:
+            for i in idx:
+                out[i] = out[i].to(f32).contiguous()
+            COPIES += len(idx)
+            st = out[idx[0]].stride()
+        strides += st
+    return out, strides
 
-    def planes(idx):
-        return torch.stack([t.to(f32) for cs in (c1, c2) for t in
-                            (cs[idx].re.hi, cs[idx].re.lo, cs[idx].im.hi, cs[idx].im.lo)]).contiguous()
 
-    px, py, pz = planes(0), planes(1), planes(2)
-    for p, shape in ((px, (8, c, ny, nz)), (py, (8, c, nx, nz)), (pz, (8, c, nx, ny))):
-        if tuple(p.shape) != shape:
-            raise ValueError(f"hadamard_wsum_half: planes {tuple(p.shape)}, expected {shape}")
-    rs = [t.to(f32).contiguous() for t in (r1.hi, r1.lo, r2.hi, r2.lo)]
-    for t in rs:
-        if tuple(t.shape) != (c, nx, ny, nz):
-            raise ValueError(f"hadamard_wsum_half: main block {tuple(t.shape)}, expected {(c, nx, ny, nz)}")
-    sg = [t.to(f32).contiguous() for t in signs]
-    ws = [None, None] if w is None else [t.to(f32).reshape(c).contiguous() for t in (w.hi, w.lo)]
-    oshape = ((groups,) if groups > 1 else ()) + (nx, ny, nz)
-    out = [torch.empty(oshape, dtype=f32, device=dev) for _ in range(2)]
-    ptr = lambda t: None if t is None else t.data_ptr()
+def _hwh_cuda(ops, c, grid_shape, groups, run=None) -> DS:
+    """The kernel; ``run``, a ``(run, threads)`` pair, replaces the plan's
+    (the tests walk every run length)."""
+    global LAUNCHES
+    from .._build import load_library, on_device
+
+    ops, strides = _operands(ops, c, grid_shape, groups)
+    run, threads = plan(*grid_shape, groups) if run is None else run
+    dev = ops[0].device
+    oshape = ((groups,) if groups > 1 else ()) + grid_shape
+    out = torch.empty((2,) + oshape, dtype=torch.float32, device=dev)
+    half = out[0].numel() * 4
+    table = (ctypes.c_void_p * 37)(*[None if t is None else t.data_ptr() for t in ops[:35]],
+                                   out.data_ptr(), out.data_ptr() + half)
     lib = load_library()
-    with torch.cuda.device(dev):
+    with on_device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.bfft_oz_hadamard_half(
-            *[t.data_ptr() for t in rs], px.data_ptr(), py.data_ptr(), pz.data_ptr(),
-            *[t.data_ptr() for t in sg], *[ptr(t) for t in ws],
-            out[0].data_ptr(), out[1].data_ptr(), c, groups, nx, ny, nz, stream)
+        rc = lib.bfft_oz_hadamard_half(table, (ctypes.c_int * 9)(*strides), c, groups,
+                                       *grid_shape, run, threads, stream)
     if rc != 0:
         raise RuntimeError(f"hadamard_wsum_half: CUDA kernel failed with cudaError {rc}")
     LAUNCHES += 1
-    return DS(*out)
+    return DS(out[0], out[1])

@@ -145,25 +145,70 @@ def test_k9_matches_plain_and_k8_chain(cuda_device, grid):
     assert _same(a, ref) and _same(a, b) and _same(a, chain)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("groups,weighted", [(1, False), (2, False), (1, True), (2, True)])
-def test_k12_matches_plain(cuda_device, groups, weighted):
-    nx, ny, nz = 6, 8, 10
-    c = 2 * groups
-    rng = np.random.default_rng(7)
-    r = [ds.from_f64(rng.standard_normal((c, nx, ny, nz)), torch.float32, cuda_device)
+def _k12_args(grid, c, groups, weighted, with_acc, device, seed=7):
+    """Seeded K12 operands; py and pz transposed as the ds eval hands them
+    over (memory (C, Nz, Nx) and (C, Ny, Nx))."""
+    nx, ny, nz = grid
+    rng = np.random.default_rng(seed)
+    r = [ds.from_f64(rng.standard_normal((c, nx, ny, nz)), torch.float32, device)
          for _ in range(2)]
-    planes = [tuple(_cds((c,) + s, 8 + 3 * i + j, cuda_device)
-                    for j, s in enumerate(((ny, nz), (nx, nz), (nx, ny)))) for i in range(2)]
-    signs = tuple(torch.as_tensor((-1.0) ** np.arange(n), dtype=torch.float32, device=cuda_device)
-                  for n in (nx, ny, nz))
-    w = ds.from_f64(rng.uniform(0.5, 1.5, c), torch.float32, cuda_device) if weighted else None
-    args = (r[0], planes[0], r[1], planes[1], w, (nx, ny, nz), signs)
-    a = k12.hadamard_wsum_half(*args, groups=groups)
-    b = k12.hadamard_wsum_half(*args, groups=groups)
-    ref = k12.hadamard_wsum_half(*_to(args, "cpu"), groups=groups)
+    flip = lambda x: ds.tree_map(lambda a: a.transpose(1, 2), x)
+    planes = [(_cds((c, ny, nz), 8 + 3 * i, device), flip(_cds((c, nz, nx), 9 + 3 * i, device)),
+               flip(_cds((c, ny, nx), 10 + 3 * i, device))) for i in range(2)]
+    signs = tuple(torch.as_tensor((-1.0) ** np.arange(n), dtype=torch.float32, device=device)
+                  for n in grid)
+    w = ds.from_f64(rng.uniform(0.5, 1.5, c), torch.float32, device) if weighted else None
+    oshape = ((groups,) if groups > 1 else ()) + grid
+    acc = ds.from_f64(rng.standard_normal(oshape), torch.float32, device) if with_acc else None
+    return (r[0], planes[0], r[1], planes[1], w, grid, signs), acc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid,c,groups", [
+    ((6, 8, 10), 2, 1), ((6, 8, 10), 4, 2), ((8, 8, 8), 2, 1), ((16, 16, 16), 6, 2),
+    ((32, 32, 32), 24, 2), ((64, 64, 64), 2, 1),  # the ds eval's 32^3 and 64^3 calls
+])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("with_acc", [False, True])
+def test_k12_matches_plain(cuda_device, grid, c, groups, weighted, with_acc):
+    """K12 bitwise equal to its plain version, with and without a weight and
+    a running sum, on the plan's run and on every run length (float4 and
+    float2 runs, ragged scalar tails at Nz = 10), and to itself run to run."""
+    args, acc = _k12_args(grid, c, groups, weighted, with_acc, cuda_device)
+    copies, launches = k12.COPIES, k12.LAUNCHES
+    a = k12.hadamard_wsum_half(*args, groups=groups, acc=acc)
+    b = k12.hadamard_wsum_half(*args, groups=groups, acc=acc)
+    ops = k12._table(*args[:5], args[6], acc)
+    runs = [k12._hwh_cuda(ops, c, grid, groups, run=(r, 64)) for r in (4, 2, 1)]
+    ref = k12.hadamard_wsum_half(*_to(args, "cpu"), groups=groups, acc=_to(acc, "cpu"))
     torch.cuda.synchronize()
-    assert _same(a, ref) and _same(a, b)
+    assert k12.COPIES == copies and k12.LAUNCHES == launches + 5
+    assert _same(a, ref) and _same(a, b) and all(_same(a, x) for x in runs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,group_batch", [(16, None), (32, None), (32, 1), (64, None)])
+def test_collide_ds_fused_add_keeps_the_bits(cuda_device, monkeypatch, n, group_batch):
+    """The default ds eval with K12 adding the running sum gives the bits of
+    the same eval with the sum added by ``ds.add`` after each call."""
+    cfg = bt.CollisionConfig(nv=n, ns=6, n_radial=2, impl="c2c", dtype="float32")
+    pre = build_ds_precomp(cfg, device=cuda_device)
+    fm = np.abs(np.random.default_rng(12).standard_normal(cfg.grid_shape)) + 0.1
+    f = ds.from_f64(fm, torch.float32, cuda_device)
+    kw = dict(contract="oz", group_batch=group_batch)
+    fused = collide_ds(cfg, pre, f, **kw)
+    real, accs = k12.hadamard_wsum_half, []
+
+    def unfused(*args, acc=None, **kwargs):
+        accs.append(acc is not None)
+        part = real(*args, **kwargs)
+        return part if acc is None else ds.add(acc, part)
+
+    monkeypatch.setattr(k12, "hadamard_wsum_half", unfused)
+    staged = collide_ds(cfg, pre, f, **kw)
+    torch.cuda.synchronize()
+    assert _same(fused, staged)
+    assert any(accs) == (n > 32 or group_batch == 1)
 
 
 @pytest.mark.cuda

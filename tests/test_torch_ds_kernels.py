@@ -108,3 +108,45 @@ def test_k12_plain_matches_jax_staged(groups, weighted):
     exact = h.reshape((groups, c // groups) + grid).sum(1)
     exact = exact[0] if groups == 1 else exact
     assert np.abs(b - exact).max() <= 1e-13 * np.abs(exact).max()
+
+
+@pytest.mark.parametrize("groups,weighted", [(1, False), (2, False), (1, True), (2, True)])
+def test_k12_plain_with_acc_matches_jax(groups, weighted):
+    """The running sum: ``acc`` given, the plain version is bitwise
+    ``ds.add(acc, .)`` of the call without it, and agrees with JAX's
+    ``hadamard_wsum_half`` followed by JAX's ``ds.add`` (the staged twin
+    multiplies under XLA: the ds noise floor, not bits)."""
+    grid = (6, 8, 10)
+    c = 3 * groups
+    r, planes, w = _half_inputs(c, grid, 23, weighted)
+    oshape = ((groups,) if groups > 1 else ()) + grid
+    acc = np.random.default_rng(24).standard_normal(oshape)
+    signs_np = [(-1.0) ** np.arange(n) for n in grid]
+
+    def jax_half(sel, g):
+        return joz.hadamard_wsum_half(
+            jds.from_f64(r[0][sel]), tuple(jds.cds_from_f64(p[sel]) for p in planes[0]),
+            jds.from_f64(r[1][sel]), tuple(jds.cds_from_f64(p[sel]) for p in planes[1]),
+            None if w is None else jds.from_f64(w[sel]), grid,
+            tuple(jnp.asarray(s, jnp.float32) for s in signs_np), j_assemble,
+            kernel=False, groups=g)
+
+    if weighted and groups > 1:  # JAX batches groups only unweighted: one call a group
+        parts = [jax_half(slice(g * 3, g * 3 + 3), 1) for g in range(groups)]
+        oj = jds.DS(jnp.stack([p.hi for p in parts]), jnp.stack([p.lo for p in parts]))
+    else:
+        oj = jax_half(slice(None), groups)
+    oj = jds.add(jds.from_f64(acc), oj)
+    args = (ds.from_f64(r[0], device="cpu"), tuple(ds.cds_from_f64(p, device="cpu") for p in planes[0]),
+            ds.from_f64(r[1], device="cpu"), tuple(ds.cds_from_f64(p, device="cpu") for p in planes[1]),
+            None if w is None else ds.from_f64(w, device="cpu"), grid,
+            tuple(torch.as_tensor(s, dtype=torch.float32) for s in signs_np))
+    acc_t = ds.from_f64(acc, device="cpu")
+    calls = k12.REFERENCE_CALLS
+    ot = k12.hadamard_wsum_half(*args, groups=groups, acc=acc_t)
+    assert k12.REFERENCE_CALLS == calls + 1
+    want = ds.add(acc_t, k12.hadamard_wsum_half(*args, groups=groups))
+    assert torch.equal(ot.hi, want.hi) and torch.equal(ot.lo, want.lo)
+    a, b = jds.to_f64(oj), ds.to_f64(ot)
+    assert a.shape == b.shape == oshape
+    assert np.abs(a - b).max() <= 2.0**-45 * np.abs(a).max()

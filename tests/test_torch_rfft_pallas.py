@@ -57,12 +57,21 @@ def test_gain_reduce_matches_boltzfft(b, m):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-13 * scale)
 
 
-def test_gain_reduce_node_block_does_not_enter_the_result():
-    h_r, h_i, rho, gw, nl = (torch.as_tensor(a) for a in _reduce_inputs(24, 320, seed=3))
-    h = torch.complex(h_r, h_i)
-    outs = [k5.gain_reduce(h, rho, gw, nl, length=LENGTH, b_gamma=B_GAMMA, node_block=nb)
-            for nb in (1, 4, 8, 16, 24)]
-    assert all(torch.equal(outs[0], o) for o in outs[1:])
+@pytest.mark.parametrize("node_block", [1, 4, 8, 16, 7])
+def test_gain_reduce_node_block_matches_boltzfft(node_block):
+    """The node blocks of gcd(node_block, B) nodes (7: gcd 1) enter the sum's
+    order as in boltzfft's kernel: the plain version against it at the same
+    node_block."""
+    jnp, _, pk = _jax()
+    h_r, h_i, rho, gw, nl = _reduce_inputs(24, 320, seed=3)
+    out_r, out_i = pk.gain_reduce(
+        jnp.asarray(h_r), jnp.asarray(h_i), jnp.asarray(rho), jnp.asarray(gw),
+        jnp.asarray(nl), length=LENGTH, b_gamma=B_GAMMA, node_block=node_block)
+    want = np.asarray(out_r) + 1j * np.asarray(out_i)
+    t = lambda a: torch.as_tensor(a)  # noqa: E731
+    got = k5.gain_reduce(t(h_r + 1j * h_i), t(rho), t(gw), t(nl), length=LENGTH,
+                         b_gamma=B_GAMMA, node_block=node_block)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-13 * np.abs(want).max())
 
 
 def test_alpha_multiply_matches_boltzfft():
@@ -171,11 +180,31 @@ def test_kernels_match_plain_on_card(cuda_device, dtype, tol):
     h = a[0].reshape(ax.shape[0], -1)
     nl = pre.norm_l.reshape(-1)
     kw = dict(length=cfg.domain_length, b_gamma=cfg.b_gamma)
-    outs = [k5.gain_reduce(h, pre.rho, pre.gain_w, nl, node_block=nb, **kw) for nb in (1, 7, 64)]
-    torch.cuda.synchronize()
-    assert all(torch.equal(outs[0], o) for o in outs[1:])
-    want = k5.gain_reduce_reference(h, pre.rho, pre.gain_w, nl, **kw)
-    assert float((outs[0] - want).abs().max()) <= tol * float(want.abs().max())
+    args = (h, pre.rho, pre.gain_w, nl)
+    for nb in (1, 7, 8, 64):
+        launches = k5.LAUNCHES
+        got = k5.gain_reduce(*args, node_block=nb, **kw)
+        routes = [k5._gain_reduce_cuda(*args, node_block=nb, split=s, **kw) for s in (0, 1)]
+        again = k5.gain_reduce(*args, node_block=nb, **kw)
+        torch.cuda.synchronize()
+        assert k5.LAUNCHES == launches + 4
+        assert torch.equal(got, again) and all(torch.equal(got, r) for r in routes), nb
+        want = k5.gain_reduce_reference(*args, node_block=nb, **kw)
+        assert float((got - want).abs().max()) <= tol * float(want.abs().max()), nb
+
+
+@pytest.mark.cuda
+def test_k5_plan_mirrors_the_library(cuda_device):
+    import ctypes
+
+    from boltzfft_torch import _build
+
+    lib = _build.load_library()
+    for b, m in ((192, 32 * 32 * 17), (384, 64 * 64 * 33), (24, 321), (96, 16 * 16 * 9)):
+        for nb in (1, 7, 8, 64):
+            out = (ctypes.c_int * 4)()
+            assert lib.bfft_gain_reduce_plan(b, m, nb, out) == 0
+            assert tuple(out) == tuple(k5.plan(b, m, nb)), (b, m, nb)
 
 
 @pytest.mark.cuda
