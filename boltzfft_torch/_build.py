@@ -91,9 +91,9 @@ _ENTRY_ARGS_F32 = {
     # 8 stream planes, 2 weights, 4 outputs, the node count, 3 dims, 11
     # strides, the weights' stride and the stream
     "bfft_oz_hadamard": [_P] * 14 + [_I] * 16 + [_P],
-    # the 37-pointer table, the 9 plane strides, the node count, groups, 3
-    # dims, the run, the block size and the stream
-    "bfft_oz_hadamard_half": [_P] * 2 + [_I] * 7 + [_P],
+    # the 37-pointer table, the node count, groups, 3 dims, the run, the
+    # block size and the stream
+    "bfft_oz_hadamard_half": [_P] + [_I] * 7 + [_P],
 }
 
 _lib = None

@@ -26,8 +26,11 @@
 //  - a thread owns kModes = 2 neighbouring modes (one 16-byte load a node in
 //    float, where M is even and h aligned; two in double), a block of
 //    kThreads = 128 threads a tile of 256 modes;
-//  - a thread issues the loads of kAhead = 8 nodes before their arithmetic,
-//    across node-block boundaries (the arithmetic keeps the block order);
+//  - a thread issues the loads of AHEAD nodes before their arithmetic,
+//    across node-block boundaries (the arithmetic keeps the block order):
+//    8 on the one-launch route, 4 on the split route, whose blocks then
+//    hold fewer registers and more of them fit an SM (measured: 4 faster at
+//    32^3, 8 at 64^3);
 //  - a block stages its nodes' (coef rho, amp gw) in shared memory once;
 //  - the plan (gr_plan, mirrored by kernels.gain_reduce.plan): where the mode
 //    tiles alone give every SM a block (64^3: 528 tiles), one block walks
@@ -52,7 +55,6 @@ constexpr int kSms = 132;     // the H100's SMs: the split rule's target
 constexpr int kThreads = 128;
 constexpr int kModes = 2;
 constexpr int kTile = kThreads * kModes;
-constexpr int kAhead = 8;
 constexpr int kSumThreads = 64;  // the split route's second launch: one mode a thread
 
 // nb, the number of node blocks, the mode tiles and the route (1: split)
@@ -99,7 +101,7 @@ __device__ __forceinline__ void load2(const typename Cplx<T>::type* __restrict__
 // split 0, grid (tiles, 1): every node block of the tile, into out.  split
 // 1, grid (tiles, B / nb): node block blockIdx.y of the tile, S_j into row j
 // of out (the scratch).
-template <typename T, bool VEC>
+template <typename T, bool VEC, int AHEAD>
 __global__ void __launch_bounds__(kThreads)
     gain_reduce_kernel(const typename Cplx<T>::type* __restrict__ h, const T* __restrict__ rho,
                        const T* __restrict__ gw, const T* __restrict__ norm_l,
@@ -130,14 +132,14 @@ __global__ void __launch_bounds__(kThreads)
   }
   int left = 0;  // nodes left in the current block
 #pragma unroll 1
-  for (int c0 = b0; c0 < b1; c0 += kAhead) {
-    const int cnt = min(kAhead, b1 - c0);
-    C2 v[kAhead][kModes];
+  for (int c0 = b0; c0 < b1; c0 += AHEAD) {
+    const int cnt = min(AHEAD, b1 - c0);
+    C2 v[AHEAD][kModes];
 #pragma unroll
-    for (int k = 0; k < kAhead; ++k)
+    for (int k = 0; k < AHEAD; ++k)
       if (k < cnt) load2<T, VEC>(h + (size_t)(c0 + k) * m + l0, second, v[k]);
 #pragma unroll
-    for (int k = 0; k < kAhead; ++k) {
+    for (int k = 0; k < AHEAD; ++k) {
       if (k < cnt) {
         if (left == 0) {
 #pragma unroll
@@ -195,21 +197,32 @@ __global__ void __launch_bounds__(kSumThreads)
   out[l] = acc;
 }
 
-template <typename T, bool VEC>
-cudaError_t launch(const typename Cplx<T>::type* h, const T* rho, const T* gw, const T* norm_l,
+template <typename T, bool VEC, int AHEAD>
+cudaError_t launch_ahead(const typename Cplx<T>::type* h, const T* rho, const T* gw, const T* norm_l,
                    typename Cplx<T>::type* dst, const int* p, int n_nodes, int m, bool split,
                    T coef, T amp, T eps, cudaStream_t st) {
   const int staged = split ? p[0] : n_nodes;
   const size_t smem = 2 * (size_t)staged * sizeof(T);
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        gain_reduce_kernel<T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t err =
+        cudaFuncSetAttribute(gain_reduce_kernel<T, VEC, AHEAD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((unsigned)p[2], split ? (unsigned)p[1] : 1u);
-  gain_reduce_kernel<T, VEC><<<grid, kThreads, smem, st>>>(h, rho, gw, norm_l, dst, n_nodes, m,
-                                                           p[0], split, coef, amp, eps);
+  gain_reduce_kernel<T, VEC, AHEAD><<<grid, kThreads, smem, st>>>(
+      h, rho, gw, norm_l, dst, n_nodes, m, p[0], split, coef, amp, eps);
   return cudaGetLastError();
+}
+
+template <typename T, bool VEC>
+cudaError_t launch(const typename Cplx<T>::type* h, const T* rho, const T* gw, const T* norm_l,
+                   typename Cplx<T>::type* dst, const int* p, int n_nodes, int m, bool split,
+                   T coef, T amp, T eps, cudaStream_t st) {
+  return split ? launch_ahead<T, VEC, 4>(h, rho, gw, norm_l, dst, p, n_nodes, m, split, coef,
+                                         amp, eps, st)
+               : launch_ahead<T, VEC, 8>(h, rho, gw, norm_l, dst, p, n_nodes, m, split, coef,
+                                         amp, eps, st);
 }
 
 template <typename T>

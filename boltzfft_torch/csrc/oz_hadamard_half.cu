@@ -29,11 +29,10 @@
 //    once, the rest as float4 (R = 4) or float2 (R = 2) where Nz % R == 0
 //    and every pointer is aligned, element by element with a ragged tail
 //    otherwise; offsets are 32-bit (the entry refuses sizes past 2^31);
-//  - the planes are read in place through their strides (the ds eval's py
-//    and pz come transposed), a plane with unit z stride with vector loads;
-//  - the next node's loads are issued before the current node's ds
-//    arithmetic (a register double buffer), so the dependent chain does not
-//    wait on memory;
+//  - the node loop is unrolled by two, so the next node's loads are issued
+//    before the current node's ds arithmetic (measured against a register
+//    double buffer, 255 registers at R = 4, and a plain loop: the unrolled
+//    loop was the fastest or within the noise of it at 32^3 and 64^3);
 //  - the run length and block size come from the wrapper's plan
 //    (kernels.oz_hadamard.plan): the longest run whose grid still gives two
 //    blocks for each of the 132 SMs.
@@ -67,8 +66,6 @@ static_assert(sizeof(HPtrs) == kNumPtrs * sizeof(void*), "the pointer table's la
 
 struct HDims {
   int ns_pg, nx, ny, nz, runs, n3;
-  int ps[3][3];  // strides of px (node, y, z), py (node, x, z), pz (node, x, y)
-  bool vx, vy;   // px / py read with vector loads along z
 };
 
 // R floats from p, of which n are in range (VEC: all R, one vector load)
@@ -88,14 +85,6 @@ __device__ __forceinline__ void load_run(const float* __restrict__ p, int n, flo
 #pragma unroll
     for (int i = 0; i < R; ++i) v[i] = i < n ? __ldg(p + i) : 0.0f;
   }
-}
-
-// R floats stride apart from p, of which n are in range
-template <int R>
-__device__ __forceinline__ void load_strided(const float* __restrict__ p, int stride, int n,
-                                             float (&v)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) v[i] = i < n ? __ldg(p + i * stride) : 0.0f;
 }
 
 template <int R, bool VEC>
@@ -129,23 +118,17 @@ template <int R, bool VEC>
 __device__ __forceinline__ void load_node(const HPtrs& a, const HDims& d, const RunAt& at,
                                           int j, int n, Node<R>& v) {
   const int e = j * d.n3 + at.e;
-  const int x = j * d.ps[0][0] + at.x;
-  const int y = j * d.ps[1][0] + at.y;
-  const int z = j * d.ps[2][0] + at.z;
+  const int x = j * (d.ny * d.nz) + at.x;
+  const int y = j * (d.nx * d.nz) + at.y;
+  const int z = j * (d.nx * d.ny) + at.z;
 #pragma unroll
   for (int s = 0; s < 2; ++s) {
     load_run<R, VEC>(a.r[s][0] + e, n, v.r[s][0]);
     load_run<R, VEC>(a.r[s][1] + e, n, v.r[s][1]);
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      if (d.vx)
-        load_run<R, VEC>(a.p[s][0][k] + x, n, v.pxy[s][0][k]);
-      else
-        load_strided<R>(a.p[s][0][k] + x, d.ps[0][2], n, v.pxy[s][0][k]);
-      if (d.vy)
-        load_run<R, VEC>(a.p[s][1][k] + y, n, v.pxy[s][1][k]);
-      else
-        load_strided<R>(a.p[s][1][k] + y, d.ps[1][2], n, v.pxy[s][1][k]);
+      load_run<R, VEC>(a.p[s][0][k] + x, n, v.pxy[s][0][k]);
+      load_run<R, VEC>(a.p[s][1][k] + y, n, v.pxy[s][1][k]);
       v.pz[s][k] = __ldg(a.p[s][2][k] + z);
     }
   }
@@ -205,20 +188,19 @@ __global__ void __launch_bounds__(256)
   const int jx = row / d.ny;
   const int jy = row - jx * d.ny;
   const int n = min(R, d.nz - z0);  // R, or fewer in a ragged last run
-  const RunAt at{row * d.nz + z0, jy * d.ps[0][1] + z0 * d.ps[0][2],
-                 jx * d.ps[1][1] + z0 * d.ps[1][2], jx * d.ps[2][1] + jy * d.ps[2][2]};
+  const RunAt at{row * d.nz + z0, jy * d.nz + z0, jx * d.nz + z0, row};
   const float sx = __ldg(a.s[0] + jx), sy = __ldg(a.s[1] + jy);
   float sz[R];
   load_run<R, VEC>(a.s[2] + z0, n, sz);
   const int j0 = g * d.ns_pg, j1 = j0 + d.ns_pg;
   float sh[R], sl[R];
-  Node<R> cur, nxt;
-  load_node<R, VEC>(a, d, at, j0, n, cur);
-#pragma unroll 1
+  // unrolled by two: nothing is stored in the loop, so the compiler issues
+  // the second node's loads ahead of the first node's arithmetic
+#pragma unroll 2
   for (int j = j0; j < j1; ++j) {
-    if (j + 1 < j1) load_node<R, VEC>(a, d, at, j + 1, n, nxt);
-    add_node<R>(cur, sx, sy, sz, a, j, j == j0, sh, sl);
-    if (j + 1 < j1) cur = nxt;
+    Node<R> v;
+    load_node<R, VEC>(a, d, at, j, n, v);
+    add_node<R>(v, sx, sy, sz, a, j, j == j0, sh, sl);
   }
   const int o = g * d.n3 + at.e;
   if (a.acc[0] != nullptr) {
@@ -244,33 +226,20 @@ bool aligned(const void* p, int bytes) { return ((uintptr_t)p) % bytes == 0; }
 
 }  // namespace
 
-// ptrs: the host table of 37 pointers (HPtrs' order); strides: 9 ints, the
-// element strides of px (node, y, z), py (node, x, z) and pz (node, x, y),
-// shared by both streams' four components; run: R, the z elements a thread
-// (1, 2 or 4); threads: the block size; both from the wrapper's plan.
-extern "C" int bfft_oz_hadamard_half(const void* ptrs, const void* strides, int c, int groups,
-                                     int nx, int ny, int nz, int run, int threads,
-                                     void* stream) {
-  if (ptrs == nullptr || strides == nullptr || c < 1 || groups < 1 || c % groups ||
-      groups > 65535 || nx < 1 || ny < 1 || nz < 1 || (run != 1 && run != 2 && run != 4) ||
-      threads < 32 || threads > 256 || threads % 32)
+// ptrs: the host table of 37 pointers (HPtrs' order), every operand
+// contiguous; run: R, the z elements a thread (1, 2 or 4); threads: the
+// block size; both from the wrapper's plan.
+extern "C" int bfft_oz_hadamard_half(const void* ptrs, int c, int groups, int nx, int ny,
+                                     int nz, int run, int threads, void* stream) {
+  if (ptrs == nullptr || c < 1 || groups < 1 || c % groups || groups > 65535 || nx < 1 ||
+      ny < 1 || nz < 1 || (run != 1 && run != 2 && run != 4) || threads < 32 ||
+      threads > 256 || threads % 32)
     return cudaErrorInvalidValue;
   const long long n3 = (long long)nx * ny * nz;
   if ((long long)c * n3 >= (1LL << 31) || (long long)groups * n3 >= (1LL << 31))
     return cudaErrorInvalidValue;  // 32-bit offsets
   HPtrs a;
   memcpy(&a, ptrs, sizeof(a));
-  HDims d{c / groups, nx, ny, nz, (nz + run - 1) / run, (int)n3, {}, false, false};
-  memcpy(d.ps, strides, sizeof(d.ps));
-  const int ext[3][2] = {{ny, nz}, {nx, nz}, {nx, ny}};
-  for (int f = 0; f < 3; ++f) {
-    long long last = 0;
-    for (int k = 0; k < 3; ++k) {
-      if (d.ps[f][k] < 0) return cudaErrorInvalidValue;
-      last += (long long)d.ps[f][k] * ((k ? ext[f][k - 1] : c) - 1);
-    }
-    if (last >= (1LL << 31)) return cudaErrorInvalidValue;
-  }
   const void* const* all = reinterpret_cast<const void* const*>(&a);
   for (int i = 0; i < 31; ++i)  // main blocks, planes, signs: all required
     if (all[i] == nullptr) return cudaErrorInvalidValue;
@@ -279,19 +248,13 @@ extern "C" int bfft_oz_hadamard_half(const void* ptrs, const void* strides, int 
       a.out[1] == nullptr)
     return cudaErrorInvalidValue;
   // vector loads: whole runs, and every pointer read or written along z
-  // aligned; a plane also with unit z stride and node and row strides of
-  // whole runs
+  // aligned (all but pz's four, the x and y signs and the weights)
   bool vec = run > 1 && nz % run == 0;
   for (int i = 0; vec && i < kNumPtrs; ++i) {
-    const bool along_z = i < 4 || i == 30 || i >= 33;
+    const bool along_z = i < 4 || (i < 28 && (i - 4) % 12 < 8) || i == 30 || i >= 33;
     if (along_z && all[i] != nullptr && !aligned(all[i], 4 * run)) vec = false;
   }
-  for (int f = 0; f < 2; ++f) {
-    bool v = vec && d.ps[f][2] == 1 && d.ps[f][0] % run == 0 && d.ps[f][1] % run == 0;
-    for (int s = 0; s < 2; ++s)
-      for (int k = 0; k < 4; ++k) v = v && aligned(a.p[s][f][k], 4 * run);
-    (f ? d.vy : d.vx) = v;
-  }
+  const HDims d{c / groups, nx, ny, nz, (nz + run - 1) / run, (int)n3};
   const cudaStream_t st = (cudaStream_t)stream;
   if (run == 4) return vec ? launch<4, true>(a, d, groups, threads, st)
                            : launch<4, false>(a, d, groups, threads, st);

@@ -270,7 +270,9 @@ def _nyq_corrections(cfg, pre, f_hat, ck, conj: bool, coef=None):
     px = ds.cadd(px, expand(lz, b + (None, al), syv[None, None, :, None]))
     px = ds.cadd(px, expand(pt, b + (None, None), (syv[:, None] * szv[None, :])[None, None]))
     py = ds.cadd(py, expand(lx, b + (al, None), szv[None, None, None, :]))
-    return (px, py, pz)
+    # py and pz come out transposed (z, resp. y, the outer axis): laid out
+    # in order once per eval, since K12 reads every plane along its last axis
+    return tuple(tree_map(lambda a: a.contiguous(), p) for p in (px, py, pz))
 
 
 def _g_main_half(fhs, x_pre, m_y, m_x, m_zh, cmax, w, ftail, merged=False,

@@ -20,9 +20,10 @@ the pipeline's ``Re(IFFT(beta1 FFT(.)))`` annihilates the imaginary part.
 Where a running sum ``acc`` is given, ``ds.add(acc, .)`` ends the call:
 ``collide_ds`` sums its sub-batches so, in the kernel's launch.
 
-The CUDA wrapper hands the kernel one table of the operands' pointers and
-the planes' strides: it stacks nothing and copies only an operand the kernel
-cannot read in place (``COPIES``); :func:`plan` (cached) sets the launch.
+The CUDA wrapper hands the kernel one table of the operands' pointers: it
+stacks nothing and copies only an operand that is not contiguous float32
+(``COPIES``; the ds eval lays its planes out in order once per eval);
+:func:`plan` (cached) sets the launch.
 """
 
 from __future__ import annotations
@@ -156,16 +157,11 @@ def _shapes(c: int, groups: int, grid_shape: tuple) -> tuple:
 COPIES = 0
 
 
-def _operands(ops, c, grid_shape, groups) -> tuple:
-    """The table's tensors as the kernel reads them, and the 9 plane strides
-    (px's node, y, z; py's node, x, z; pz's node, x, y).  Each operand is
-    checked against its shape (the weights may be any shape of C elements).
-    The planes are read through their strides, which a field's eight
-    tensors (both streams, four components) must share; the rest must be
-    contiguous.  An operand that does not qualify, or is not float32, is
-    copied (counted in ``COPIES``)."""
+def _operands(ops, c, grid_shape, groups) -> list:
+    """The table's tensors as the kernel reads them: each checked against its
+    shape (the weights may be any shape of C elements); one that is not
+    contiguous float32 is copied (counted in ``COPIES``)."""
     global COPIES
-    f32 = torch.float32
     out = list(ops)
     for i, (t, shape) in enumerate(zip(ops, _shapes(c, groups, grid_shape))):
         if t is None:
@@ -175,20 +171,10 @@ def _operands(ops, c, grid_shape, groups) -> tuple:
         if t.shape != shape:
             raise ValueError(f"hadamard_wsum_half: operand {i} has shape {tuple(t.shape)},"
                              f" expected {shape}")
-        if not 4 <= i < 28 and (t.dtype != f32 or not t.is_contiguous()):
-            out[i] = t.to(f32).contiguous()
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            out[i] = t.to(torch.float32).contiguous()
             COPIES += 1
-    strides = []
-    for ax in range(3):
-        idx = [4 + 12 * s + 4 * ax + k for s in (0, 1) for k in range(4)]
-        st = out[idx[0]].stride()
-        if any(out[i].dtype != f32 or out[i].stride() != st for i in idx) or min(st) < 0:
-            for i in idx:
-                out[i] = out[i].to(f32).contiguous()
-            COPIES += len(idx)
-            st = out[idx[0]].stride()
-        strides += st
-    return out, strides
+    return out
 
 
 def _hwh_cuda(ops, c, grid_shape, groups, run=None) -> DS:
@@ -197,7 +183,7 @@ def _hwh_cuda(ops, c, grid_shape, groups, run=None) -> DS:
     global LAUNCHES
     from .._build import load_library, on_device
 
-    ops, strides = _operands(ops, c, grid_shape, groups)
+    ops = _operands(ops, c, grid_shape, groups)
     run, threads = plan(*grid_shape, groups) if run is None else run
     dev = ops[0].device
     oshape = ((groups,) if groups > 1 else ()) + grid_shape
@@ -208,8 +194,7 @@ def _hwh_cuda(ops, c, grid_shape, groups, run=None) -> DS:
     lib = load_library()
     with on_device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.bfft_oz_hadamard_half(table, (ctypes.c_int * 9)(*strides), c, groups,
-                                       *grid_shape, run, threads, stream)
+        rc = lib.bfft_oz_hadamard_half(table, c, groups, *grid_shape, run, threads, stream)
     if rc != 0:
         raise RuntimeError(f"hadamard_wsum_half: CUDA kernel failed with cudaError {rc}")
     LAUNCHES += 1

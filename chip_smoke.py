@@ -15,9 +15,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    1e-12 of the plain result's max, float32 within 1e-5, 4e-5 below 32^3,
    see ``TOL``): K1 (``fused_collide``), K3 (``fused_gain_kron``), K2 and K4
    (``fused_gain_dft``; K2 at 16^3, 32^3, (32,16,48), 64^3, K4 at 16^3,
-   32^3, 40^3, 64^3), K6 (``alpha_multiply``) and K5 (``gain_reduce``, at three
-   node blocks that must agree bitwise) at the shapes the rfft + use_pallas
-   route gives them at 32^3 and 64^3; every new kernel bitwise equal to
+   32^3, 40^3, 64^3), K6 (``alpha_multiply``) and K5 (``gain_reduce``, at
+   node blocks 1, 8 and 64, each against its plain version at the same node
+   block, its split and one-launch routes bitwise equal) at the shapes the
+   rfft + use_pallas route gives them at 32^3 and 64^3; every new kernel
+   bitwise equal to
    itself run to run; K3's route of ``collide`` against the staged cuFFT
    c2c in float64 (1e-12 max|Q|);
 4. the scheme measurement: the whole Q through K1 against the kron route
@@ -75,13 +77,16 @@ Phases, in order; any failure raises and the script exits non-zero:
     unmerged, K8 in every mode the default route launches (shared matrix
     real_in / complex / real_out, Hermitian forward z; per-node repeat +
     presliced + merged, merged, merged real_out), K9 at 32^3 (also against
-    the K8 kernel chain), K12 with gb = 2 (32^3) and 1 (64^3); each bitwise
-    equal to its plain version and to itself run to run;
+    the K8 kernel chain), K12 with gb = 2 (32^3) and 1 (64^3), with and
+    without a running sum and a node weight, copying none of the eval's
+    operands; each bitwise equal to its plain version and to itself run to
+    run;
 13. the ds BKW digits through ``make_ds_collision_operator``'s card defaults
     (32^3: the reference L1/L2/Linf at rtol 1e-4; 64^3: Linf in
     [3.0680, 3.0692]e-12), each within 1e-12 max|Q| of the float64 staged
     cuFFT c2c of phase 5, with counts reset around the eval (K7, K8, K12 and
-    K9 at 32^3, K10 at 64^3 launched; no plain call); ``g1_reversal`` and ``oz_cmax=4``
+    K9 at 32^3, K10 at 64^3 launched; no plain call), a hash of each Q's hi
+    and lo bytes beside its digits; ``g1_reversal`` and ``oz_cmax=4``
     at 64^3, and the staged K8 chain at 32^3 bitwise equal to K9's route;
 14. ``health.selfcheck_ds`` on the card (16^3, ns=6, oz vs vpu < 1e-11);
 15. ``maxwell_bkw --impl ds --Nv 32 --Ns 12``, ``--trials 3`` and ``--steps 4``;
@@ -91,7 +96,8 @@ Phases, in order; any failure raises and the script exits non-zero:
     shapes against their plain versions, their bounds (chunk-pair dots at the
     bf16 tensor-core peak plus the fold at the float32 CUDA-core peak, or
     bytes) and, for K8, a complex128 ``torch.bmm``/``matmul`` yardstick, for
-    K9 a complex128 ``einsum`` of its three stages, and each kernel's device
+    K9 a complex128 ``einsum`` of its three stages, for K12 one complex128
+    ``einsum`` over the assembled streams (assembly excluded), and each kernel's device
     time per launch from ``torch.profiler`` (events around one call time the
     wrapper's host work where it is the longer);
 17. the oz engine's other routes' kernels against their plain versions at
@@ -132,6 +138,7 @@ from __future__ import annotations
 import ast
 import contextlib
 import dataclasses
+import hashlib
 import io
 import json
 import statistics
@@ -168,7 +175,7 @@ SHAPES_K24 = [  # (scheme, grid, ns, batch)
     ("transpose", (40, 40, 40), 12, 1),  # the TPU's transpose regime (> 32)
     ("transpose", (64, 64, 64), 12, 1),
 ]
-NODE_BLOCKS = (1, 8, 96)  # K5 staging sizes that must agree bitwise
+NODE_BLOCKS = (1, 8, 64)  # K5's node blocks, each held to its plain version
 SCHEME_GRIDS = (8, 12, 16)
 SCHEME_BATCHES = (1, 32, 256, 512)  # a BKW eval, Sod, TG-2D and TG-3D stacks
 # |kernel - plain| in units of max|Q| (K1) or max|Q_gain_hat| (K2-K4) or the
@@ -623,7 +630,8 @@ def device_ms(fn, family, calls=10):
 def print_profile(label, fam, wall_us, card, phase):
     busy = max(sum(v[0] for v in fam.values()), 1e-9)  # us; 0 if the profiler saw no device
     print(f"[{phase} profile] {label}: device {busy / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms"
-          f" wall; idle share {100 * (1 - busy / wall_us):.1f}% | {card}")
+          f" wall; idle share {100 * (1 - busy / wall_us):.1f}%;"
+          f" {sum(v[1] for v in fam.values())} launches | {card}")
     print("  " + ", ".join(f"{k} {v[0] / 1e3:.3f} ms in {v[1]} launches ({100 * v[0] / busy:.1f}%)"
                            for k, v in fam.items()))
 
@@ -747,9 +755,20 @@ def ds_phases(bt, dev, card, ks, q_c2c, entry, report):
         r1, r2 = tm(lambda a: a[:half], main), tm(lambda a: a[half:], main)
         c1, c2 = take(corr1), take(corr2)
         hargs = (r1, c1, r2, c2, None, cfg.grid_shape, signs)
-        parity(f"K12 {n}^3 gb={gb} C={half} per stream", ("k12", n),
-               lambda: k12.hadamard_wsum_half(*hargs, groups=gb),
-               lambda: k12.hadamard_wsum_half_reference(*hargs, groups=gb))
+        # with and without the running sum (the eval's earlier sub-batches)
+        # and a node weight
+        rng = np.random.default_rng(n)
+        acc = ds.from_f64(rng.standard_normal(((gb,) if gb > 1 else ()) + cfg.grid_shape),
+                          torch.float32, dev)
+        wk = ds.from_f64(rng.uniform(0.5, 1.5, half), torch.float32, dev)
+        copies = k12.COPIES
+        for w_, acc_ in ((None, None), (None, acc), (wk, None), (wk, acc)):
+            args_ = hargs[:4] + (w_,) + hargs[5:]
+            parity(f"K12 {n}^3 gb={gb} C={half} per stream, weight {w_ is not None},"
+                   f" running sum {acc_ is not None}", ("k12", n),
+                   lambda: k12.hadamard_wsum_half(*args_, groups=gb, acc=acc_),
+                   lambda: k12.hadamard_wsum_half_reference(*args_, groups=gb, acc=acc_))
+        check(k12.COPIES == copies, f"K12 copied {k12.COPIES - copies} operands of the ds eval's")
         inputs[n] = dict(fhs=fhs, x_pre=x_pre, f_hat=f_hat, m_y=m_y, m_x=m_x, m_zh=m_zh,
                          t1=t1, t2=t2, hargs=hargs, gb=gb, c=c)
 
@@ -774,10 +793,13 @@ def ds_phases(bt, dev, card, ks, q_c2c, entry, report):
         l1, l2, linf = g.cell_volume * np.abs(d).sum(), np.sqrt(g.cell_volume * (d * d).sum()), np.abs(d).max()
         qc = q_c2c[n].cpu().numpy()
         dc = np.abs(q64 - qc).max() / np.abs(qc).max()
+        bits = hashlib.sha256(ds_q[n].hi.cpu().numpy().tobytes()
+                              + ds_q[n].lo.cpu().numpy().tobytes()).hexdigest()[:16]
         print(f"[13 ds digits] {n}^3 Ns=12, make_ds_collision_operator defaults on the card"
               f" (oz, half, merged, gmain {dso._gmain_mode(cfgs[n], pres[n], 6, 7, device=dev)!r},"
               f" herm {n <= 32}, gb {inputs[n]['gb']}): L1 {l1:.5e} L2 {l2:.5e} Linf {linf:.5e};"
-              f" vs native f64 staged c2c (cuFFT) {dc:.3e} max|Q| (tol 1e-12); counts {ds_counts[n]}")
+              f" vs native f64 staged c2c (cuFFT) {dc:.3e} max|Q| (tol 1e-12); sha256 of the"
+              f" hi, lo bytes {bits}; counts {ds_counts[n]}")
         check(dc <= 1e-12, f"ds {n}^3 vs f64 c2c {dc:.3e}")
         if n == small:
             ref, rtol = DS_DIGITS_32
@@ -908,10 +930,17 @@ def ds_phases(bt, dev, card, ks, q_c2c, entry, report):
         half = c // 2
         b12 = oz_bound(0, half * n ** 3 * 138, half * n ** 3 * 16 + half * 8 * 3 * n * n * 4
                        + gb * n ** 3 * 8)
+        # the yardstick: K11's, one complex128 einsum over the two streams
+        # once assembled (the assembly from main block and planes excluded)
+        g12 = [torch.randn((gb, half // gb) + cfgs[n].grid_shape, dtype=torch.complex128,
+                           device=dev) for _ in range(2)]
         row(f"hadamard_wsum_half[{n}^3,Ns=12,gb={gb},C={half} per stream]", "k12", n,
             "hadamard_wsum_half",
             lambda: k12.hadamard_wsum_half(*v["hargs"], groups=gb),
-            lambda: k12.hadamard_wsum_half_reference(*v["hargs"], groups=gb), b12)
+            lambda: k12.hadamard_wsum_half_reference(*v["hargs"], groups=gb), b12,
+            lambda: torch.einsum("gc...,gc...->g...", *g12).real,
+            "complex128 einsum of the assembled streams, assembly excluded")
+        del g12
     return dict(cfgs=cfgs, pres=pres, fs=fs, ds_q=ds_q, inputs=inputs)
 
 
@@ -1363,20 +1392,28 @@ def main() -> int:
                   f" bitwise {rerun} {'ok' if ok else 'FAIL'}")
             check(ok, f"K6 != plain version at {dtype} {n}^3")
             max_err[("k6", dtype, n)] = err
-            outs = [k5.gain_reduce(*k5_args, node_block=nb, **k5_kw) for nb in NODE_BLOCKS]
-            again = k5.gain_reduce(*k5_args, **k5_kw)
-            ref = k5.gain_reduce_reference(*k5_args, **k5_kw)
-            torch.cuda.synchronize()
-            err = float((outs[1] - ref).abs().max())
-            scale = float(ref.abs().max())
-            nb_same = all(torch.equal(outs[0], o) for o in outs[1:])
-            rerun = torch.equal(outs[1], again)
-            ok = err <= TOL[dtype] * scale and nb_same and rerun
-            print(f"  K5 {dtype} {n}^3 h {tuple(k5_args[0].shape)}: max|d| {err:.3e} = {err / scale:.3e}"
-                  f" of max (tol {TOL[dtype]:g}); node_block {NODE_BLOCKS} bitwise equal {nb_same};"
-                  f" run to run bitwise {rerun} {'ok' if ok else 'FAIL'}")
-            check(ok, f"K5 != plain version or not node_block-invariant at {dtype} {n}^3")
-            max_err[("k5", dtype, n)] = err
+            # K5 at each node block against its plain version at the same
+            # node block, and its two routes (one launch; node blocks through
+            # the scratch) against each other
+            for nb in NODE_BLOCKS:
+                p5 = k5.plan(k5_args[0].shape[0], k5_args[0].shape[1], nb)
+                out = k5.gain_reduce(*k5_args, node_block=nb, **k5_kw)
+                again = k5.gain_reduce(*k5_args, node_block=nb, **k5_kw)
+                routes = [k5._gain_reduce_cuda(*k5_args, node_block=nb, split=s, **k5_kw)
+                          for s in (0, 1)]
+                ref = k5.gain_reduce_reference(*k5_args, node_block=nb, **k5_kw)
+                torch.cuda.synchronize()
+                err = float((out - ref).abs().max())
+                scale = float(ref.abs().max())
+                split_same = all(torch.equal(out, r) for r in routes)
+                rerun = torch.equal(out, again)
+                ok = err <= TOL[dtype] * scale and split_same and rerun
+                print(f"  K5 {dtype} {n}^3 h {tuple(k5_args[0].shape)} node_block {nb} ({p5}):"
+                      f" max|d| {err:.3e} = {err / scale:.3e} of max (tol {TOL[dtype]:g});"
+                      f" split and one-launch routes bitwise equal {split_same}; run to run"
+                      f" bitwise {rerun} {'ok' if ok else 'FAIL'}")
+                check(ok, f"K5 != plain version or its routes differ at {dtype} {n}^3 nb {nb}")
+                max_err[("k5", dtype, n)] = max(max_err.get(("k5", dtype, n), 0.0), err)
     # K3's route of collide: against the staged cuFFT c2c (float64), and its
     # float32 Q against its float64 Q at 16^3 (the cancellation rule)
     for shape, ns, _ in SHAPES_K3[:1] + SHAPES_K3[2:4]:
@@ -1800,7 +1837,16 @@ def main() -> int:
             b_k6 = bound(24.0 * c6 * n * m2,
                          csize * 2 * (c6 * n + c6 * m2 + n * m2 + 2 * c6 * n * m2), dtype)
             m = n * m2
-            b_k5 = bound(10.0 * c6 * m, csize * (2 * c6 * m + m + 2 * c6 + 2 * m), dtype)
+            # K5: h, |l|, rho and gw read, the output written; on the split
+            # route also the block sums written to the scratch and read back
+            p5 = k5.plan(c6, m, 8)
+            scratch = 2 * 2 * p5.blocks * m if p5.split else 0
+            b_k5 = bound(10.0 * c6 * m, csize * (2 * c6 * m + m + 2 * c6 + 2 * m + scratch), dtype)
+            fam5 = profile_calls(lambda: k5.gain_reduce(*k5_args, **k5_kw),
+                                 ("gain_reduce_kernel", "block_sum_kernel"), 10)
+            dev5 = None if fam5 is None else sum(v[0] for k, v in fam5.items() if k != "other") / 1e4
+            print(f"[11 device] K5 {n}^3 {dtype} ({p5}): {dev5 if dev5 is None else f'{dev5:.4f}'}"
+                  f" ms per call (profiler, both launches where split) | {card}")
             b_k24 = tc_bound(k3_flops((n, n, n), b, cfg.n_gl),
                           csize * (2 * n3 * 2 + n3 + 2 * b + 2 * 3 * b * n + 6 * 2 * n * n), dtype)
             print(f"[11 bound] {n}^3 {dtype}: K2/K4 {b_k24[0]:.4f} ms ({b_k24[1]}, {TC_UNIT[dtype]};"
@@ -1812,12 +1858,13 @@ def main() -> int:
                 ("k6", "alpha_multiply", b_k6, ROUTES[0][0]),
                 ("k5", "gain_reduce", b_k5, ROUTES[0][0]),
             ):
+                dms = {"dev_ms": dev5} if key == "k5" else {}
                 rc_ = route_counts[(route_label, dtype, n)]
                 tc = {} if len(b_ms) == 2 else {"bound_unit": TC_UNIT[dtype]}
                 entry(f"{kname}[{dtype},{n}^3,Ns=12]", kname, dtype, rc_[key], rc_[key + "_plain"],
                       max_err[(key, dtype, n)], times[(key, n, dtype, "kernel")],
                       times[(key, n, dtype, "plain")], b_ms[0], b_ms[1],
-                      times.get((key, n, dtype, "library")), **tc)
+                      times.get((key, n, dtype, "library")), **tc, **dms)
     # the whole eval through each route, as a user calls it
     route_cfgs = [("K1 (fused)", dict(impl="fused"), False),
                   ("staged rfft", dict(impl="rfft"), False),

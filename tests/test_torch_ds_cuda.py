@@ -145,16 +145,18 @@ def test_k9_matches_plain_and_k8_chain(cuda_device, grid):
     assert _same(a, ref) and _same(a, b) and _same(a, chain)
 
 
-def _k12_args(grid, c, groups, weighted, with_acc, device, seed=7):
-    """Seeded K12 operands; py and pz transposed as the ds eval hands them
-    over (memory (C, Nz, Nx) and (C, Ny, Nx))."""
+def _k12_args(grid, c, groups, weighted, with_acc, device, seed=7, transposed=False):
+    """Seeded K12 operands; ``transposed``: py and pz laid out (C, Nz, Nx)
+    and (C, Ny, Nx) in memory, which the wrapper copies into order."""
     nx, ny, nz = grid
     rng = np.random.default_rng(seed)
     r = [ds.from_f64(rng.standard_normal((c, nx, ny, nz)), torch.float32, device)
          for _ in range(2)]
     flip = lambda x: ds.tree_map(lambda a: a.transpose(1, 2), x)
-    planes = [(_cds((c, ny, nz), 8 + 3 * i, device), flip(_cds((c, nz, nx), 9 + 3 * i, device)),
-               flip(_cds((c, ny, nx), 10 + 3 * i, device))) for i in range(2)]
+    tr = (lambda s, sd: flip(_cds((s[0], s[2], s[1]), sd, device))) if transposed \
+        else (lambda s, sd: _cds(s, sd, device))
+    planes = [(_cds((c, ny, nz), 8 + 3 * i, device), tr((c, nx, nz), 9 + 3 * i),
+               tr((c, nx, ny), 10 + 3 * i)) for i in range(2)]
     signs = tuple(torch.as_tensor((-1.0) ** np.arange(n), dtype=torch.float32, device=device)
                   for n in grid)
     w = ds.from_f64(rng.uniform(0.5, 1.5, c), torch.float32, device) if weighted else None
@@ -184,6 +186,19 @@ def test_k12_matches_plain(cuda_device, grid, c, groups, weighted, with_acc):
     torch.cuda.synchronize()
     assert k12.COPIES == copies and k12.LAUNCHES == launches + 5
     assert _same(a, ref) and _same(a, b) and all(_same(a, x) for x in runs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid,c,groups", [((6, 8, 10), 4, 2), ((32, 32, 32), 24, 2)])
+def test_k12_copies_planes_out_of_order(cuda_device, grid, c, groups):
+    """Transposed py and pz planes: copied into order (16 tensors, counted),
+    then the same bits as the plain version."""
+    args, acc = _k12_args(grid, c, groups, False, True, cuda_device, transposed=True)
+    copies = k12.COPIES
+    a = k12.hadamard_wsum_half(*args, groups=groups, acc=acc)
+    ref = k12.hadamard_wsum_half(*_to(args, "cpu"), groups=groups, acc=_to(acc, "cpu"))
+    torch.cuda.synchronize()
+    assert k12.COPIES == copies + 16 and _same(a, ref)
 
 
 @pytest.mark.cuda

@@ -4,15 +4,17 @@ are laid out on the card, checked on the CPU.
 K5: the plan's mirror (``kernels.gain_reduce.plan``) deals every mode to one
 thread and every node to one node block, and takes the split route exactly
 where the mode tiles leave SMs idle; a model of a thread's walk (loads in
-chunks of 8 nodes across node-block boundaries, the block sums kept or
-added in order) gives the plain version's bits on both routes.
+chunks of 8 nodes, 4 on the split route, across node-block boundaries, the
+block sums kept or added in order) gives the plain version's bits on both
+routes.
 
 K12: the plan gives two blocks per SM where the grid allows; a model of the
 kernel's z-run walk (a thread's run of R z elements, float4/float2 runs and
 ragged scalar tails, groups as the grid's y) on the raw memory of the
 operands writes every output element once and gives the plain version's
 bits, with and without a weight and a running sum; the wrapper hands the
-kernel the default route's operands without a copy.
+kernel the default route's operands without a copy (a plane out of order
+is copied and counted).
 """
 
 import numpy as np
@@ -26,7 +28,7 @@ from boltzfft_torch.kernels import gain_reduce as k5
 from boltzfft_torch.kernels import oz_hadamard as k12
 
 LENGTH, B_GAMMA = 9.0, 1.0 / (4 * np.pi)
-AHEAD = 8  # csrc/gain_reduce.cu kAhead
+AHEAD = {0: 8, 1: 4}  # csrc/gain_reduce.cu: the nodes loaded ahead, by route
 
 # ---- K5 ----------------------------------------------------------------------
 
@@ -61,7 +63,7 @@ def test_k5_plan_on_the_main_shapes():
 
 def _k5_walk(h, w, nb, split):
     """The kernel's arithmetic order for every mode at once: per thread the
-    nodes in chunks of ``AHEAD`` (its loads), a block sum started at each
+    nodes in chunks of ``AHEAD[split]`` (its loads), a block sum started at each
     block's first node, added into the output at its last (one launch) or
     kept per block and added in block order by the second launch (split)."""
     b = h.shape[0]
@@ -69,8 +71,8 @@ def _k5_walk(h, w, nb, split):
     sums, out = [], torch.zeros_like(h[0])
     for b0, b1 in blocks:
         left = 0
-        for c0 in range(b0, b1, AHEAD):
-            for k in range(min(AHEAD, b1 - c0)):
+        for c0 in range(b0, b1, AHEAD[split]):
+            for k in range(min(AHEAD[split], b1 - c0)):
                 if left == 0:
                     s, left = torch.zeros_like(h[0]), nb
                 s = s + w[c0 + k] * h[c0 + k]
@@ -114,11 +116,10 @@ def test_k12_plan_gives_two_blocks_per_sm():
         assert blocks >= k12.MIN_CTAS or (run, threads) == (1, 64) and most < k12.MIN_CTAS
 
 
-def _k12_walk(grid, run, threads, ps):
+def _k12_walk(grid, run, threads):
     """Per element a thread of group 0 handles, in launch order: its offsets
     at node 0 in the main block (= the output's, within a group), px, py
-    and pz (through the plane strides ``ps``), and its x, y, z indices, as
-    ``hwh_kernel`` forms them."""
+    and pz, and its x, y, z indices, as ``hwh_kernel`` forms them."""
     nx, ny, nz = grid
     runs = -(-nz // run)
     per_group = nx * ny * runs
@@ -133,8 +134,7 @@ def _k12_walk(grid, run, threads, ps):
     for i in range(run):  # element i of each run, where the run has one
         ok = i < n
         r, z, x, y = row[ok], z0[ok] + i, jx[ok], jy[ok]
-        cols.append(np.stack([r * nz + z, y * ps[1] + z * ps[2], x * ps[4] + z * ps[5],
-                              x * ps[7] + y * ps[8], x, y, z]))
+        cols.append(np.stack([r * nz + z, y * nz + z, x * nz + z, r, x, y, z]))
     return np.concatenate(cols, axis=1)
 
 
@@ -181,12 +181,13 @@ def test_k12_walk_matches_reference(grid, run, groups, weighted, with_acc, trans
     ref = k12.hadamard_wsum_half_reference(r[0], planes[0], r[1], planes[1], w, grid, signs,
                                            groups, acc)
     copies = k12.COPIES
-    ops, ps = k12._operands(k12._table(r[0], planes[0], r[1], planes[1], w, signs, acc), c,
-                            grid, groups)
-    assert k12.COPIES == copies  # every operand read in place
-    assert (ps[5] == 1) == (ps[8] == 1) == (not transposed)
+    ops = k12._operands(k12._table(r[0], planes[0], r[1], planes[1], w, signs, acc), c, grid,
+                        groups)
+    # transposed py and pz (both streams, four components each) are copied
+    assert k12.COPIES == copies + (16 if transposed else 0)
     flat = [None if t is None else _raw(t) for t in ops]
-    e, ox, oy, oz, jx, jy, jz = (torch.from_numpy(a) for a in _k12_walk(grid, run, 64, ps))
+    e, ox, oy, oz, jx, jy, jz = (torch.from_numpy(a) for a in _k12_walk(grid, run, 64))
+    ps = (ny * nz, 0, 0, nx * nz, 0, 0, nx * ny)  # node strides of px, py, pz
     assert np.array_equal(np.sort(e.numpy()), np.arange(n3))  # each output once a group
     sx, sy, sz = flat[28][jx], flat[29][jy], flat[30][jz]
     got = [torch.empty(groups * n3), torch.empty(groups * n3)]
@@ -227,13 +228,14 @@ def test_k12_plain_acc_is_the_callers_add():
     want = ds.add(acc, part)
     assert torch.equal(got.hi, want.hi) and torch.equal(got.lo, want.lo)
     copies = k12.COPIES
-    ops, _ = k12._operands(k12._table(*args[:5], signs, acc), 4, grid, groups)
-    assert k12.COPIES == copies
+    ops = k12._operands(k12._table(*args[:5], signs, acc), 4, grid, groups)
+    assert k12.COPIES == copies and all(a is b for a, b in zip(
+        ops, k12._table(*args[:5], signs, acc)))  # nothing copied, nothing stacked
     mixed = (planes[0][0], ds.tree_map(lambda a: a.transpose(1, 2).contiguous().transpose(1, 2)
                                        if a is planes[0][1].re.hi else a, planes[0][1]),
              planes[0][2])
     k12._operands(k12._table(r[0], mixed, r[1], planes[1], w, signs, acc), 4, grid, groups)
-    assert k12.COPIES == copies + 8  # py's eight tensors must share their strides
+    assert k12.COPIES == copies + 1  # the one tensor out of order
     with pytest.raises(ValueError, match="operand 33 has shape"):
         k12._operands(k12._table(*args[:5], signs, ds.tree_map(lambda a: a[0], acc)), 4, grid,
                       groups)

@@ -1,23 +1,34 @@
-"""Time K10 (``gmain12_nodemat``) and K11 (``hadamard_wsum``) of a checkout of
-``boltzfft_torch`` on the card, at the shapes of the ds routes (32^3 and
-64^3, Ns=12, BKW t = 6.5): K10 on the "12" route's nodes (C = 24 at 32^3,
-4 at 64^3) at each z block that fits, K11 on two nodes of the full routes'
-rolled streams.  Prints one JSON line per measurement: CUDA events around
-one call (median of ``--trials``, the wrapper's host time included) and the
-kernel's device time per launch from ``torch.profiler`` over 10 calls.
+"""Time the ds kernels K10 (``gmain12_nodemat``), K11 (``hadamard_wsum``) and
+K12 (``hadamard_wsum_half``), the default ds eval, and (on its own flag) K5
+(``gain_reduce``) of a checkout of ``boltzfft_torch`` on the card, at the
+shapes of their routes (32^3 and 64^3, Ns=12, BKW t = 6.5): K10 on the "12"
+route's nodes (C = 24 at 32^3, 4 at 64^3) at each z block that fits, K11
+on two nodes of the full routes' rolled streams, K12 on the default
+route's call (gb = 2 and 12 nodes a stream at 32^3, gb = 1 and 2 nodes at
+64^3: the eval's real planes, random main blocks), the whole default ds
+eval (wall time, the profiler's device time, launches and idle share, a
+hash of its hi and lo bytes), K5 on the rfft + use_pallas route's node
+chunk in float64 and float32.  Prints one JSON line per measurement: CUDA
+events around one call (median of ``--trials``, the wrapper's host time
+included) and the kernel's device time per call from ``torch.profiler``
+over 10 calls.
 
     python3 tools/ds_kernels_ab.py [--root DIR] [--label NAME] [--grids 32 64]
+        [--parts k10 k11 k12 eval k5]
 
 ``--root`` names the directory that holds the ``boltzfft_torch`` package to
 time (default: this checkout), so that two versions can be timed in turns
-in one run on one card: parent, change, change, parent.
+in one run on one card: parent, change, change, parent.  ``--parts``
+chooses what to time (default: ``k10 k11 k12 eval``; K5 only when named).
 """
 
 import argparse
+import hashlib
 import json
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 
@@ -27,6 +38,9 @@ def main() -> int:
     ap.add_argument("--label", default="this")
     ap.add_argument("--grids", type=int, nargs="+", default=[32, 64])
     ap.add_argument("--trials", type=int, default=20)
+    ap.add_argument("--eval-trials", type=int, default=5)
+    ap.add_argument("--parts", nargs="+", default=["k10", "k11", "k12", "eval"],
+                    choices=["k10", "k11", "k12", "eval", "k5"])
     args = ap.parse_args()
     sys.path.insert(0, args.root)
     import numpy as np
@@ -36,7 +50,9 @@ def main() -> int:
     from boltzfft_torch import ds
     from boltzfft_torch import ds_operator as dso
     from boltzfft_torch import oz
+    from boltzfft_torch.kernels import gain_reduce as k5
     from boltzfft_torch.kernels import oz_gmain12 as k10
+    from boltzfft_torch.kernels import oz_hadamard as k12
     from boltzfft_torch.kernels import oz_hadamard_full as k11
     from boltzfft_torch.kernels import oz_preslice as k7
 
@@ -61,21 +77,39 @@ def main() -> int:
             out.append(a.elapsed_time(b))
         return statistics.median(out)
 
-    def device_ms(fn, family, calls=10):
+    def profile(fn, calls):
+        """(device us, launches) by kernel name over ``calls`` calls, and the
+        wall us of the window."""
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e6
+        by = {}
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                t = getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+                v = by.setdefault(e.key, [0.0, 0])
+                v[0] += t
+                v[1] += e.count
+        return by, wall
+
+    def device_ms(fn, family, calls=10, per="launch"):
+        """The device ms per launch (or per call, ``per="call"``) of the
+        kernels whose names hold ``family``; None if the profiler saw none."""
         for _ in range(3):
-            with torch.profiler.profile(activities=acts) as prof:
-                for _ in range(calls):
-                    fn()
-                torch.cuda.synchronize()
-            t = n = 0
-            for e in prof.key_averages():
-                if e.device_type == torch.autograd.DeviceType.CUDA and family in e.key:
-                    t += getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
-                    n += e.count
-            if n:
-                return t / n / 1e3
+            by, _ = profile(fn, calls)
+            hits = [v for k, v in by.items() if family in k]
+            if hits:
+                t = sum(v[0] for v in hits)
+                return t / (sum(v[1] for v in hits) if per == "launch" else calls) / 1e3
         return None
+
+    def bits(q):
+        return hashlib.sha256(q.hi.cpu().numpy().tobytes()
+                              + q.lo.cpu().numpy().tobytes()).hexdigest()[:16]
 
     for n in args.grids:
         cfg = bt.CollisionConfig(nv=n, ns=12, impl="c2c", dtype="float32")
@@ -96,7 +130,7 @@ def main() -> int:
         c = m_y.re.shape[0]
         grid = cfg.grid_shape
         ref = k10.gmain12_nodemat(x_pre, m_y, m_x, grid, cmax=6, zh_block=1)
-        for zb in [None, 1, 2, 4]:
+        for zb in [None, 1, 2, 4] if "k10" in args.parts else []:
             if zb is not None and (n // 2) % zb:
                 continue
             fn = lambda: k10.gmain12_nodemat(x_pre, m_y, m_x, grid, cmax=6, zh_block=zb)
@@ -117,12 +151,67 @@ def main() -> int:
         w = ds.from_f64(rng.uniform(0.5, 1.5, 2), torch.float32, dev)
         for layout, (a1, a2) in (("rolled", (g1, g2)),
                                  ("contiguous", tuple(tm(lambda t: t.contiguous(), g) for g in (g1, g2)))):
+            if "k11" not in args.parts:
+                break
             fn = lambda: k11.hadamard_wsum(a1, a2, w)
             print(json.dumps(dict(label=args.label, kernel="K11", n=n, c=2, layout=layout,
                                   events_ms=events_ms(fn),
-                                  device_ms=device_ms(fn, "hadamard"), card=card)), flush=True)
+                                  device_ms=device_ms(fn, "hadamard_"), card=card)), flush=True)
+        if "k12" in args.parts:
+            # the default route's call: the eval's planes (py, pz transposed),
+            # random main blocks, w = None
+            ck = dso._corr_ck(6, 7, None)
+            corr = [dso._nyq_corrections(cfg, pre, f_hat, ck, conj=cj) for cj in (False, True)]
+            half = c // 2
+            r1, r2 = (ds.from_f64(rng.standard_normal((half,) + grid), torch.float32, dev)
+                      for _ in range(2))
+            signs = tuple(torch.as_tensor((-1.0) ** np.arange(n), dtype=torch.float32,
+                                          device=dev) for _ in range(3))
+            hargs = (r1, take(corr[0]), r2, take(corr[1]), None, grid, signs)
+            fn = lambda: k12.hadamard_wsum_half(*hargs, groups=gb)
+            out = fn()
+            print(json.dumps(dict(label=args.label, kernel="K12", n=n, gb=gb, c=half,
+                                  bits=bits(out), events_ms=events_ms(fn),
+                                  device_ms=device_ms(fn, "hwh_kernel"), card=card)), flush=True)
+        if "eval" in args.parts:
+            collide, pre_e = bt.make_ds_collision_operator(cfg, device=dev)
+            for _ in range(2):
+                q = collide(f, pre_e)
+            torch.cuda.synchronize()
+            walls = []
+            for _ in range(args.eval_trials):
+                t0 = time.perf_counter()
+                collide(f, pre_e)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            by, wall = profile(lambda: collide(f, pre_e), 1)
+            busy = sum(v[0] for v in by.values())
+            k12_dev = sum(v[0] for k, v in by.items() if "hwh_kernel" in k)
+            k12_n = sum(v[1] for k, v in by.items() if "hwh_kernel" in k)
+            print(json.dumps(dict(label=args.label, kernel="ds eval", n=n, bits=bits(q),
+                                  wall_ms=statistics.median(walls), walls_ms=walls,
+                                  profiled_wall_ms=wall / 1e3, device_ms=busy / 1e3,
+                                  idle_share=1 - busy / wall,
+                                  launches=sum(v[1] for v in by.values()),
+                                  k12_device_ms=k12_dev / 1e3, k12_launches=k12_n,
+                                  card=card)), flush=True)
+            del collide, pre_e
         del pre
         torch.cuda.empty_cache()
+        if "k5" in args.parts:
+            for dtype in ("float64", "float32"):
+                cfg5 = bt.CollisionConfig(nv=n, ns=12, impl="rfft", use_pallas=True, dtype=dtype)
+                pre5 = bt.build_precomp(cfg5, dev)
+                b = pre5.rho.shape[0]
+                h = torch.randn((b, n * n * (n // 2 + 1)), dtype=cfg5.complex_dtype, device=dev)
+                kw = dict(length=cfg5.domain_length, b_gamma=cfg5.b_gamma)
+                fn = lambda: k5.gain_reduce(h, pre5.rho, pre5.gain_w, pre5.norm_l.reshape(-1), **kw)
+                print(json.dumps(dict(label=args.label, kernel="K5", n=n, dtype=dtype, b=b,
+                                      m=h.shape[1], events_ms=events_ms(fn),
+                                      device_ms=device_ms(fn, "_kernel", per="call"),
+                                      card=card)), flush=True)
+                del h, pre5
+                torch.cuda.empty_cache()
     return 0
 
 
