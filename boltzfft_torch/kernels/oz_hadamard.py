@@ -150,7 +150,8 @@ def _shapes(c: int, groups: int, grid_shape: tuple) -> tuple:
     nx, ny, nz = grid_shape
     main, out = (c, nx, ny, nz), ((groups,) if groups > 1 else ()) + (nx, ny, nz)
     planes = ((c, ny, nz),) * 4 + ((c, nx, nz),) * 4 + ((c, nx, ny),) * 4
-    return (main,) * 4 + planes * 2 + ((nx,), (ny,), (nz,), (c,), (c,), out, out)
+    shapes = (main,) * 4 + planes * 2 + ((nx,), (ny,), (nz,), (c,), (c,), out, out)
+    return tuple(torch.Size(s) for s in shapes)
 
 
 #: Operands the CUDA wrapper had to copy (the default route hands over none).
@@ -162,18 +163,18 @@ def _operands(ops, c, grid_shape, groups) -> list:
     shape (the weights may be any shape of C elements); one that is not
     contiguous float32 is copied (counted in ``COPIES``)."""
     global COPIES
+    f32 = torch.float32
     out = list(ops)
-    for i, (t, shape) in enumerate(zip(ops, _shapes(c, groups, grid_shape))):
-        if t is None:
+    if ops[31] is not None and ops[31].dim() != 1:
+        out[31], out[32] = ops[31].reshape(-1), ops[32].reshape(-1)
+    for i, (t, shape) in enumerate(zip(out, _shapes(c, groups, grid_shape))):
+        if t is None or (t.dtype is f32 and t.shape == shape and t.is_contiguous()):
             continue
-        if i in (31, 32) and t.dim() != 1:
-            t = out[i] = t.reshape(-1)
         if t.shape != shape:
             raise ValueError(f"hadamard_wsum_half: operand {i} has shape {tuple(t.shape)},"
-                             f" expected {shape}")
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            out[i] = t.to(torch.float32).contiguous()
-            COPIES += 1
+                             f" expected {tuple(shape)}")
+        out[i] = t.to(f32).contiguous()
+        COPIES += 1
     return out
 
 
@@ -188,9 +189,9 @@ def _hwh_cuda(ops, c, grid_shape, groups, run=None) -> DS:
     dev = ops[0].device
     oshape = ((groups,) if groups > 1 else ()) + grid_shape
     out = torch.empty((2,) + oshape, dtype=torch.float32, device=dev)
-    half = out[0].numel() * 4
+    o = out.data_ptr()
     table = (ctypes.c_void_p * 37)(*[None if t is None else t.data_ptr() for t in ops[:35]],
-                                   out.data_ptr(), out.data_ptr() + half)
+                                   o, o + out.numel() * 2)
     lib = load_library()
     with on_device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -198,4 +199,4 @@ def _hwh_cuda(ops, c, grid_shape, groups, run=None) -> DS:
     if rc != 0:
         raise RuntimeError(f"hadamard_wsum_half: CUDA kernel failed with cudaError {rc}")
     LAUNCHES += 1
-    return DS(out[0], out[1])
+    return DS(*out.unbind(0))

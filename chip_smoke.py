@@ -54,7 +54,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 11. times (CUDA events, 2 warm-ups, 10 trials, a plain version 1 and 5;
     median and mean): K1 at 32^3
     and 64^3; K2, K4, K5, K6 at the main paths' shapes with their bounds,
-    plain versions and K5's and K6's library yardsticks; ``collide`` through each route
+    plain versions and K5's and K6's library yardsticks, K5's device time
+    (profiler; both launches on its split route, whose scratch its bound
+    counts); ``collide`` through each route
     (K1, staged rfft and c2c, rfft + use_pallas, K2 + hook, K4, dft at
     32^3) at 32^3 and 64^3; K3 (first held to its plain
     version there), its plain version and K1 on the 256-cell TG-2D batch,

@@ -32,13 +32,15 @@ import time
 from pathlib import Path
 
 
+EVAL_TRIALS = 5  # whole ds evals timed after 2 warm-ups
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--label", default="this")
     ap.add_argument("--grids", type=int, nargs="+", default=[32, 64])
     ap.add_argument("--trials", type=int, default=20)
-    ap.add_argument("--eval-trials", type=int, default=5)
     ap.add_argument("--parts", nargs="+", default=["k10", "k11", "k12", "eval"],
                     choices=["k10", "k11", "k12", "eval", "k5"])
     args = ap.parse_args()
@@ -179,7 +181,7 @@ def main() -> int:
                 q = collide(f, pre_e)
             torch.cuda.synchronize()
             walls = []
-            for _ in range(args.eval_trials):
+            for _ in range(EVAL_TRIALS):
                 t0 = time.perf_counter()
                 collide(f, pre_e)
                 torch.cuda.synchronize()
