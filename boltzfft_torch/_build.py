@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -70,7 +71,7 @@ _ENTRY_ARGS = {
 #: argtypes of the entry points without an f32/f64 pair (the ds engine's,
 #: and K1's plan).
 _ENTRY_ARGS_F32 = {
-    # B, M, node_block and the 4-int output: K5's plan
+    # B, M, node_block and the 3-int output: K5's plan
     "bfft_gain_reduce_plan": [_I] * 3 + [_P],
     # Nx, Ny, Nz, is_f64 and the 3-int output: K1's shared-memory plan
     "bfft_k1_plan": [_I] * 4 + [_P],
@@ -225,6 +226,21 @@ def on_device(dev):
     if dev.index is None or dev.index == torch.cuda.current_device():
         return contextlib.nullcontext()
     return torch.cuda.device(dev)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(dev) -> int:
+    """The SMs of CUDA device ``dev`` (a ``torch.device``): the launch plans'
+    target (K5's route, K12's grid), read from the card, cached."""
+    import torch
+
+    return _sm_count(torch.cuda.current_device() if dev.index is None else dev.index)
 
 
 def load_library() -> ctypes.CDLL:

@@ -35,13 +35,14 @@
 //    loop was the fastest or within the noise of it at 32^3 and 64^3);
 //  - the run length and block size come from the wrapper's plan
 //    (kernels.oz_hadamard.plan): the longest run whose grid still gives two
-//    blocks for each of the 132 SMs.
+//    blocks for each of the card's SMs.
 // Each element sums its nodes in order from the group's first node, then
 // adds acc: bitwise equal to the plain version, and to itself run to run.
 //
 // The entry point returns cudaGetLastError() of its launch; it launches on
 // the given stream, does not synchronise and allocates nothing.
 
+#include <stddef.h>
 #include <string.h>
 
 #include "oz_common.cuh"
@@ -61,8 +62,15 @@ struct HPtrs {
   const float* acc[2];      // running sum (groups, Nx, Ny, Nz) hi, lo; or null
   float* out[2];            // (groups, Nx, Ny, Nz) hi, lo
 };
-constexpr int kNumPtrs = 37;
-static_assert(sizeof(HPtrs) == kNumPtrs * sizeof(void*), "the pointer table's layout");
+// The table's slots, as the wrapper numbers them (kernels.oz_hadamard.SLOT_*)
+enum Slot { kPlanes = 4, kSigns = 28, kW = 31, kAcc = 33, kOut = 35, kNumPtrs = 37 };
+static_assert(offsetof(HPtrs, p) == kPlanes * sizeof(void*) &&
+                  offsetof(HPtrs, s) == kSigns * sizeof(void*) &&
+                  offsetof(HPtrs, w) == kW * sizeof(void*) &&
+                  offsetof(HPtrs, acc) == kAcc * sizeof(void*) &&
+                  offsetof(HPtrs, out) == kOut * sizeof(void*) &&
+                  sizeof(HPtrs) == kNumPtrs * sizeof(void*),
+              "the pointer table's layout");
 
 struct HDims {
   int ns_pg, nx, ny, nz, runs, n3;
@@ -241,7 +249,7 @@ extern "C" int bfft_oz_hadamard_half(const void* ptrs, int c, int groups, int nx
   HPtrs a;
   memcpy(&a, ptrs, sizeof(a));
   const void* const* all = reinterpret_cast<const void* const*>(&a);
-  for (int i = 0; i < 31; ++i)  // main blocks, planes, signs: all required
+  for (int i = 0; i < kW; ++i)  // main blocks, planes, signs: all required
     if (all[i] == nullptr) return cudaErrorInvalidValue;
   if ((a.w[0] == nullptr) != (a.w[1] == nullptr) ||
       (a.acc[0] == nullptr) != (a.acc[1] == nullptr) || a.out[0] == nullptr ||
@@ -250,9 +258,19 @@ extern "C" int bfft_oz_hadamard_half(const void* ptrs, int c, int groups, int nx
   // vector loads: whole runs, and every pointer read or written along z
   // aligned (all but pz's four, the x and y signs and the weights)
   bool vec = run > 1 && nz % run == 0;
-  for (int i = 0; vec && i < kNumPtrs; ++i) {
-    const bool along_z = i < 4 || (i < 28 && (i - 4) % 12 < 8) || i == 30 || i >= 33;
-    if (along_z && all[i] != nullptr && !aligned(all[i], 4 * run)) vec = false;
+  auto along_z = [&](const void* p) {
+    if (p != nullptr && !aligned(p, 4 * run)) vec = false;
+  };
+  for (int s = 0; s < 2; ++s)
+    for (int k = 0; k < 4; ++k) {
+      along_z(a.p[s][0][k]);
+      along_z(a.p[s][1][k]);
+      if (k < 2) along_z(a.r[s][k]);
+    }
+  along_z(a.s[2]);
+  for (int k = 0; k < 2; ++k) {
+    along_z(a.acc[k]);
+    along_z(a.out[k]);
   }
   const HDims d{c / groups, nx, ny, nz, (nz + run - 1) / run, (int)n3};
   const cudaStream_t st = (cudaStream_t)stream;

@@ -12,9 +12,10 @@ Both compute ``out[l] = sum_b gain_w[b] * beta1(rho[b], |l|) * h[b, l]`` with
 blocks of ``nb = gcd(node_block, B)``, each block summed from zero in node
 order, the block sums added into the output from zero in block order.  So
 ``node_block`` enters the result by rounding, as it does in JAX.  The kernel
-takes one of two routes (:func:`plan`, the mirror of the ``.cu``'s
-``gr_plan``) that give the same bits: one launch, or a grid over node blocks
-through a scratch of block sums and a second launch that adds them.
+takes one of two routes that give the same bits: one launch, or a grid over
+node blocks through a scratch of block sums and a second launch that adds
+them.  :func:`plan` mirrors the ``.cu``'s ``gr_plan`` (the blocks and tiles)
+and picks the route from the card's SM count.
 """
 
 from __future__ import annotations
@@ -71,15 +72,18 @@ def gain_reduce_reference(h, rho, gain_w, norm_l, *, length: float, b_gamma: flo
     return out
 
 
-#: The kernel's SMs, threads a block and modes a thread (``csrc/gain_reduce.cu``).
-N_SM, THREADS, MODES = 132, 128, 2
+#: The kernel's threads a block and modes a thread (``csrc/gain_reduce.cu``).
+THREADS, MODES = 128, 2
+#: The most node blocks the split route takes (the grid's y limit).
+MAX_SPLIT_BLOCKS = 65535
 
 
 class Plan(NamedTuple):
-    """The kernel's launch (``gr_plan``): ``nb`` nodes a block, ``blocks``
-    node blocks, ``tiles`` tiles of ``THREADS * MODES`` modes, and ``split``:
-    1 where the tiles alone leave SMs idle (and there is more than one node
-    block): a grid of tiles x node blocks through the scratch."""
+    """The kernel's launch: ``nb`` nodes a block, ``blocks`` node blocks,
+    ``tiles`` tiles of ``THREADS * MODES`` modes (``gr_plan``), and
+    ``split``: 1 where the tiles alone leave some of the ``n_sm`` SMs idle
+    and there are 2 to ``MAX_SPLIT_BLOCKS`` node blocks: a grid of tiles x
+    node blocks through the scratch."""
 
     nb: int
     blocks: int
@@ -88,19 +92,21 @@ class Plan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=None)
-def plan(b: int, m: int, node_block: int) -> Plan:
-    """Mirror of ``gr_plan`` in ``csrc/gain_reduce.cu``."""
+def plan(b: int, m: int, node_block: int, n_sm: int) -> Plan:
+    """The launch for B nodes and M modes on a card of ``n_sm`` SMs; its
+    first three fields mirror ``gr_plan`` in ``csrc/gain_reduce.cu``."""
     nb = math.gcd(node_block, b)
     tiles = -(-m // (THREADS * MODES))
-    return Plan(nb, b // nb, tiles, int(tiles < N_SM and b // nb > 1))
+    return Plan(nb, b // nb, tiles, int(tiles < n_sm and 1 < b // nb <= MAX_SPLIT_BLOCKS))
 
 
 def _gain_reduce_cuda(h, rho, gain_w, norm_l, *, length: float, b_gamma: float,
                       node_block: int, split: Optional[int] = None) -> torch.Tensor:
     """The kernel; ``split`` (0 or 1) replaces the plan's route (the tests
-    take both)."""
+    take both).  Any B and M take the one-launch route; the split route
+    takes at most ``MAX_SPLIT_BLOCKS`` node blocks, and raises above."""
     global LAUNCHES
-    from .._build import load_library, on_device
+    from .._build import load_library, on_device, sm_count
 
     cd = h.dtype
     if cd not in (torch.complex64, torch.complex128):
@@ -120,8 +126,10 @@ def _gain_reduce_cuda(h, rho, gain_w, norm_l, *, length: float, b_gamma: float,
         return t.to(rd).contiguous()
 
     ins = [h.contiguous(), arg(rho, (b,)), arg(gain_w, (b,)), arg(norm_l, (m,))]
-    p = plan(b, m, node_block)
+    p = plan(b, m, node_block, sm_count(dev))
     split = p.split if split is None else split
+    if split not in (0, 1) or split and p.blocks > MAX_SPLIT_BLOCKS:
+        raise ValueError(f"gain_reduce: split={split} with {p.blocks} node blocks")
     out = torch.empty((m,), dtype=cd, device=dev)
     scratch = torch.empty((p.blocks, m), dtype=cd, device=dev) if split else None
     lib = load_library()

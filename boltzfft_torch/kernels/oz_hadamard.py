@@ -115,31 +115,43 @@ def hadamard_wsum_half_reference(r1, c1, r2, c2, w, grid_shape, signs, groups=1,
     return out if acc is None else ds.add(acc, out)
 
 
+#: Slots of the kernel's pointer table (``HPtrs`` of ``csrc/oz_hadamard_half.cu``,
+#: whose ``Slot`` enum has the same numbers): the main blocks (stream 1 hi,
+#: lo, stream 2 hi, lo), each stream's x, y, z planes (re hi, re lo, im hi,
+#: im lo), the x, y, z sign vectors, the weights (hi, lo), the running sum
+#: (hi, lo), the output (hi, lo).
+SLOT_PLANES = 4
+SLOT_SIGNS = SLOT_PLANES + 2 * 3 * 4
+SLOT_W = SLOT_SIGNS + 3
+SLOT_ACC = SLOT_W + 2
+SLOT_OUT = SLOT_ACC + 2
+N_SLOTS = SLOT_OUT + 2
+
+
 def _table(r1, c1, r2, c2, w, signs, acc) -> list:
-    """The operands in the kernel's pointer-table order (``HPtrs`` of
-    ``csrc/oz_hadamard_half.cu``): the main blocks (stream 1 hi, lo, stream
-    2 hi, lo), each stream's x, y, z planes (re hi, re lo, im hi, im lo),
-    the three sign vectors, the weights, the running sum; None where absent."""
+    """The operands in the kernel's pointer-table order (the ``SLOT_*``s, up
+    to the output); None where absent."""
     planes = [t for cs in (c1, c2) for p in cs for t in (p.re.hi, p.re.lo, p.im.hi, p.im.lo)]
     return [r1.hi, r1.lo, r2.hi, r2.lo, *planes, *signs,
             *((None, None) if w is None else (w.hi, w.lo)),
             *((None, None) if acc is None else (acc.hi, acc.lo))]
 
 
-#: The grid the plan aims at: two blocks for each of the H100's 132 SMs.
-MIN_CTAS = 264
+#: The grid the plan aims at: this many blocks for each of the card's SMs.
+BLOCKS_PER_SM = 2
 
 
 @functools.lru_cache(maxsize=None)
-def plan(nx: int, ny: int, nz: int, groups: int) -> tuple:
-    """``(run, threads)`` of the kernel's launch: the z elements a thread
-    walks (4, 2 or 1) and the block size.  The longest run, then the largest
-    block, whose grid (``ceil(Nx Ny ceil(Nz / run) / threads)`` blocks per
-    group) still has ``MIN_CTAS`` blocks; 1 and 64 where none has."""
+def plan(nx: int, ny: int, nz: int, groups: int, n_sm: int) -> tuple:
+    """``(run, threads)`` of the kernel's launch on a card of ``n_sm`` SMs:
+    the z elements a thread walks (4, 2 or 1) and the block size.  The
+    longest run, then the largest block, whose grid (``ceil(Nx Ny ceil(Nz /
+    run) / threads)`` blocks per group) still has ``BLOCKS_PER_SM * n_sm``
+    blocks; 1 and 64 where none has."""
     for run in (4, 2, 1):
         per_group = nx * ny * -(-nz // run)
         for threads in (256, 128, 64):
-            if -(-per_group // threads) * groups >= MIN_CTAS:
+            if -(-per_group // threads) * groups >= BLOCKS_PER_SM * n_sm:
                 return run, threads
     return 1, 64
 
@@ -165,8 +177,8 @@ def _operands(ops, c, grid_shape, groups) -> list:
     global COPIES
     f32 = torch.float32
     out = list(ops)
-    if ops[31] is not None and ops[31].dim() != 1:
-        out[31], out[32] = ops[31].reshape(-1), ops[32].reshape(-1)
+    if ops[SLOT_W] is not None and ops[SLOT_W].dim() != 1:
+        out[SLOT_W], out[SLOT_W + 1] = ops[SLOT_W].reshape(-1), ops[SLOT_W + 1].reshape(-1)
     for i, (t, shape) in enumerate(zip(out, _shapes(c, groups, grid_shape))):
         if t is None or (t.dtype is f32 and t.shape == shape and t.is_contiguous()):
             continue
@@ -182,16 +194,16 @@ def _hwh_cuda(ops, c, grid_shape, groups, run=None) -> DS:
     """The kernel; ``run``, a ``(run, threads)`` pair, replaces the plan's
     (the tests walk every run length)."""
     global LAUNCHES
-    from .._build import load_library, on_device
+    from .._build import load_library, on_device, sm_count
 
     ops = _operands(ops, c, grid_shape, groups)
-    run, threads = plan(*grid_shape, groups) if run is None else run
     dev = ops[0].device
+    run, threads = plan(*grid_shape, groups, sm_count(dev)) if run is None else run
     oshape = ((groups,) if groups > 1 else ()) + grid_shape
     out = torch.empty((2,) + oshape, dtype=torch.float32, device=dev)
     o = out.data_ptr()
-    table = (ctypes.c_void_p * 37)(*[None if t is None else t.data_ptr() for t in ops[:35]],
-                                   o, o + out.numel() * 2)
+    table = (ctypes.c_void_p * N_SLOTS)(
+        *[None if t is None else t.data_ptr() for t in ops[:SLOT_OUT]], o, o + out.numel() * 2)
     lib = load_library()
     with on_device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

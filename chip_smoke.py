@@ -55,8 +55,9 @@ Phases, in order; any failure raises and the script exits non-zero:
     median and mean): K1 at 32^3
     and 64^3; K2, K4, K5, K6 at the main paths' shapes with their bounds,
     plain versions and K5's and K6's library yardsticks, K5's device time
-    (profiler; both launches on its split route, whose scratch its bound
-    counts); ``collide`` through each route
+    (profiler; both launches on its split route, whose scratch's bytes are
+    printed beside the bound, which counts only the function's own);
+    ``collide`` through each route
     (K1, staged rfft and c2c, rfft + use_pallas, K2 + hook, K4, dft at
     32^3) at 32^3 and 64^3; K3 (first held to its plain
     version there), its plain version and K1 on the 256-cell TG-2D batch,
@@ -1398,7 +1399,7 @@ def main() -> int:
             # node block, and its two routes (one launch; node blocks through
             # the scratch) against each other
             for nb in NODE_BLOCKS:
-                p5 = k5.plan(k5_args[0].shape[0], k5_args[0].shape[1], nb)
+                p5 = k5.plan(k5_args[0].shape[0], k5_args[0].shape[1], nb, _build.sm_count(dev))
                 out = k5.gain_reduce(*k5_args, node_block=nb, **k5_kw)
                 again = k5.gain_reduce(*k5_args, node_block=nb, **k5_kw)
                 routes = [k5._gain_reduce_cuda(*k5_args, node_block=nb, split=s, **k5_kw)
@@ -1839,11 +1840,15 @@ def main() -> int:
             b_k6 = bound(24.0 * c6 * n * m2,
                          csize * 2 * (c6 * n + c6 * m2 + n * m2 + 2 * c6 * n * m2), dtype)
             m = n * m2
-            # K5: h, |l|, rho and gw read, the output written; on the split
-            # route also the block sums written to the scratch and read back
-            p5 = k5.plan(c6, m, 8)
-            scratch = 2 * 2 * p5.blocks * m if p5.split else 0
-            b_k5 = bound(10.0 * c6 * m, csize * (2 * c6 * m + m + 2 * c6 + 2 * m + scratch), dtype)
+            # K5: h, |l|, rho and gw read, the output written (the bytes the
+            # function needs); the split route's scratch is the design's
+            # cost, printed beside the bound and not counted in it
+            p5 = k5.plan(c6, m, 8, _build.sm_count(dev))
+            b_k5 = bound(10.0 * c6 * m, csize * (2 * c6 * m + m + 2 * c6 + 2 * m), dtype)
+            scratch = csize * 2 * 2 * p5.blocks * m if p5.split else 0
+            print(f"[11 bound] K5 {n}^3 {dtype} split route's scratch (block sums written and"
+                  f" read back, not in the bound): {scratch} B, {1e3 * scratch / PEAK_BYTES:.4f}"
+                  f" ms at the memory rate | {card}")
             fam5 = profile_calls(lambda: k5.gain_reduce(*k5_args, **k5_kw),
                                  ("gain_reduce_kernel", "block_sum_kernel"), 10)
             dev5 = None if fam5 is None else sum(v[0] for k, v in fam5.items() if k != "other") / 1e4

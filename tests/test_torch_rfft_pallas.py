@@ -200,11 +200,48 @@ def test_k5_plan_mirrors_the_library(cuda_device):
     from boltzfft_torch import _build
 
     lib = _build.load_library()
+    n_sm = _build.sm_count(cuda_device)
     for b, m in ((192, 32 * 32 * 17), (384, 64 * 64 * 33), (24, 321), (96, 16 * 16 * 9)):
         for nb in (1, 7, 8, 64):
-            out = (ctypes.c_int * 4)()
+            out = (ctypes.c_int * 3)()
             assert lib.bfft_gain_reduce_plan(b, m, nb, out) == 0
-            assert tuple(out) == tuple(k5.plan(b, m, nb)), (b, m, nb)
+            assert tuple(out) == tuple(k5.plan(b, m, nb, n_sm)[:3]), (b, m, nb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.complex128, torch.complex64])
+def test_k5_takes_any_node_count_on_card(cuda_device, dtype):
+    """More nodes than a block stages at once (1024) and than one stage of
+    shared memory could hold (20000 in double), on both routes, against the
+    plain version; the split route refuses more node blocks than the grid
+    holds."""
+    from boltzfft_torch import _build
+
+    rng = np.random.default_rng(9)
+    kw = dict(length=9.0, b_gamma=1.0 / (4 * np.pi))
+    tol = 1e-12 if dtype == torch.complex128 else 1e-5
+    rd = torch.float64 if dtype == torch.complex128 else torch.float32
+    for b, m in ((2500, 300), (20000, 64)):
+        h = torch.as_tensor(rng.standard_normal((b, m)) + 1j * rng.standard_normal((b, m)),
+                            dtype=dtype, device=cuda_device)
+        rho = torch.as_tensor(rng.uniform(0.5, 10.0, b), dtype=rd, device=cuda_device)
+        gw = torch.as_tensor(rng.uniform(0.0, 1.0, b), dtype=rd, device=cuda_device)
+        nl = torch.as_tensor(rng.uniform(0.0, 30.0, m), dtype=rd, device=cuda_device)
+        for nb in (1, 8):
+            routes = [k5._gain_reduce_cuda(h, rho, gw, nl, node_block=nb, split=s, **kw)
+                      for s in (0, 1)]
+            want = k5.gain_reduce_reference(h, rho, gw, nl, node_block=nb, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(routes[0], routes[1]), (b, nb)
+            err = float((routes[0] - want).abs().max())
+            assert err <= tol * float(want.abs().max()), (b, nb, err)
+    b = k5.MAX_SPLIT_BLOCKS + 1
+    h = torch.zeros((b, 4), dtype=dtype, device=cuda_device)
+    ones = torch.ones(b, dtype=rd, device=cuda_device)
+    nl = torch.ones(4, dtype=rd, device=cuda_device)
+    assert k5.plan(b, 4, 1, _build.sm_count(cuda_device)).split == 0
+    with pytest.raises(ValueError, match="node blocks"):
+        k5._gain_reduce_cuda(h, ones, ones, nl, node_block=1, split=1, **kw)
 
 
 @pytest.mark.cuda
