@@ -17,10 +17,10 @@ Imports torch and NumPy only, never jax::
     q = collide(f, pre)
 """
 
-from . import transport
+from . import ds, transport
 from .bkw import bkw_dfdt, bkw_f, bkw_k, maxwellian
 from .conserve import ConservePrecomp, build_conserve_precomp, conservative, project
-from .ds_operator import collide_ds, make_ds_collision_operator
+from .ds_operator import DsPrecomp, build_ds_precomp, collide_ds, make_ds_collision_operator
 from .grid import VelocityGrid, domain_from_support
 from .moments import Moments, entropy, moments
 from .operator import collide, gain_spectrum, make_collision_operator, pick_scheme
@@ -53,6 +53,7 @@ from .weights import (
 __all__ = [
     "CollisionConfig",
     "ConservePrecomp",
+    "DsPrecomp",
     "Moments",
     "Precomp",
     "Quadrature1D",
@@ -66,11 +67,13 @@ __all__ = [
     "bkw_f",
     "bkw_k",
     "build_conserve_precomp",
+    "build_ds_precomp",
     "build_precomp",
     "collide",
     "collide_ds",
     "conservative",
     "domain_from_support",
+    "ds",
     "ds_precomp_from_numpy",
     "entropy",
     "error_norms",

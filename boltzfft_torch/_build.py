@@ -77,8 +77,9 @@ _ENTRY_ARGS_F32 = {
     "bfft_k1_plan": [_I] * 4 + [_P],
     # Ny Nz and the 4-int output: K3's GEMM plan
     "bfft_kron_plan": [_I] + [_P],
-    # 4 inputs, 2 outputs, 5 ints and the stream
-    "bfft_oz_preslice": [_P] * 6 + [_I] * 5 + [_P],
+    # 4 planes, the mask, 2 outputs, 16 ints (dims, strides, chunking, launch)
+    # and the stream
+    "bfft_oz_preslice": [_P] * 7 + [_I] * 16 + [_P],
     # 4 planes, 2 presliced, 2 matrices, 4 phase planes, 4 outputs, 12 ints
     # and the stream
     "bfft_oz_contract": [_P] * 16 + [_I] * 12 + [_P],

@@ -1,0 +1,102 @@
+"""CUDA-graph replay of an eval: the card's counterpart of ``jax.jit``.
+
+:class:`Replayed` wraps ``fn(x, pre)``, where ``x`` is a tree of CUDA
+tensors (a :class:`boltzfft_torch.ds.DS`, say) and ``pre`` the tables.  The
+first call for a (``pre`` object, ``x``'s shapes and dtypes) runs ``fn`` once
+eagerly on a side stream, which builds and loads the kernel library and
+fills the plan caches outside capture, then captures one ``fn`` into a
+``torch.cuda.CUDAGraph``.  Every call copies ``x`` into the graph's static
+input, replays the graph and returns a clone of its static output: a caller
+that keeps results across calls (RK4's k1..k4) never sees one overwritten.
+The replay launches the captured kernels with the same arguments, so its
+result has the same bits as an eager call.
+
+A replay reads every tensor the capture used in place.  The graph keeps
+``pre``, its static input and its static output alive; a tensor the eval
+takes from a cache of its own (``ds_operator._grid_consts``) it passes
+through :func:`hold`, which keeps it alive with the graph being captured,
+so a cache that evicts or is cleared never frees memory a replay reads.
+
+A capture that fails raises, with the cause: there is no eager fallback.
+The kernel wrappers' launch counters count Python calls, so a replay moves
+none of them; the warm-up and the capture each count once.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Callable, NamedTuple
+
+import torch
+
+from .ds import tree_map
+
+#: Graphs a :class:`Replayed` keeps alive, the least recently used going first.
+KEEP = 2
+
+# what the capture under way holds (None outside a capture)
+_held: list | None = None
+
+
+def hold(obj):
+    """``obj``, kept alive as long as the graph being captured (if any)."""
+    if _held is not None:
+        _held.append(obj)
+    return obj
+
+
+def _leaves(tree) -> list:
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+class _Captured(NamedTuple):
+    pre: object  # held: the graph reads its tensors in place (and its id stays unique)
+    graph: object  # torch.cuda.CUDAGraph
+    x: object  # the static input tree
+    out: object  # the static output tree
+    held: list  # what the eval passed through hold() during the capture
+
+
+class Replayed:
+    """``fn(x, pre)`` replayed from a CUDA graph per (``pre``, ``x``'s
+    shapes, dtypes and device); at most :data:`KEEP` graphs stay alive."""
+
+    def __init__(self, fn: Callable):
+        self.fn = fn
+        self._graphs: OrderedDict = OrderedDict()
+
+    def __call__(self, x, pre):
+        leaves = _leaves(x)
+        key = (id(pre),) + tuple((t.shape, t.dtype, t.device) for t in leaves)
+        entry = self._graphs.get(key)
+        if entry is None or entry.pre is not pre:
+            entry = self._graphs[key] = self._capture(x, pre, leaves[0].device)
+            while len(self._graphs) > KEEP:
+                self._graphs.popitem(last=False)
+        self._graphs.move_to_end(key)
+        for dst, src in zip(_leaves(entry.x), leaves):
+            dst.copy_(src)
+        entry.graph.replay()
+        return tree_map(torch.clone, entry.out)
+
+    def _capture(self, x, pre, dev: torch.device) -> _Captured:
+        global _held
+        static = tree_map(torch.clone, x)
+        with torch.cuda.device(dev):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                self.fn(static, pre)  # warm-up, outside capture
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            _held = held = []
+            try:
+                with torch.cuda.graph(graph):
+                    out = self.fn(static, pre)
+            except RuntimeError as err:
+                raise RuntimeError(f"capturing the eval into a CUDA graph failed: {err}") from err
+            finally:
+                _held = None
+        return _Captured(pre, graph, static, out, held)

@@ -130,7 +130,7 @@ def no_mesh(flag: str) -> None:
     """The spatially decomposed CLIs wait for the multi-device port."""
     raise NotImplementedError(
         f"{flag}: the sharded transport steps are not ported yet "
-        "(ROADMAP Queue 1, step 9); run on one device"
+        "(ROADMAP Queue 1, step 4); run on one device"
     )
 
 

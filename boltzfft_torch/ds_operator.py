@@ -33,7 +33,7 @@ The sharded operator waits for the multi-device slice.
 
 from __future__ import annotations
 
-from functools import partial
+from functools import lru_cache, partial
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -44,6 +44,7 @@ from . import modes as _modes
 from . import oz
 from . import quadrature as _quad
 from . import weights as _weights
+from ._graph import Replayed, hold
 from .ds import CDS, DS, tree_map
 from .kernels import oz_contract as _k8
 from .kernels import oz_gmain as _k9
@@ -209,8 +210,42 @@ def _corr_ck(cmax, w, ftail):
     return partial(_k8.contract_last_oz_kernel, cmax=cmax, w=w, fold_tail=ftail)
 
 
-def _f32(a, device):
-    return torch.as_tensor(np.asarray(a, np.float32), device=device)
+class _GridConsts(NamedTuple):
+    """The half path's per-grid constants (float32; ``inv_nz`` a ds pair of
+    the eval's dtype)."""
+
+    keep: tuple  # (kx, ky, kz): 1 off the axis's Nyquist index, 0 on it
+    signs: tuple  # (sx, sy, sz): (-1)^n
+    keep_planes: tuple  # ky (x) kz, kx (x) kz, kx (x) ky
+    syz: torch.Tensor  # sy (x) sz
+    fmask: torch.Tensor  # kx (x) ky: the main block's x/y Nyquist mask
+    inv_nz: DS  # 1/Nz, exactly split
+
+
+@lru_cache(maxsize=8)
+def _grid_consts(grid_shape: tuple, dtype: torch.dtype, device: torch.device) -> _GridConsts:
+    """Built once per (grid, dtype, device) and only from device arithmetic:
+    a captured eval (``make_ds_collision_operator(jit=True)``) may not copy
+    from the host.  The eval passes them through ``_graph.hold``, so a graph
+    that reads them keeps them alive whatever this cache evicts.  The values are exact (0, 1, -1), bit for bit those of
+    the host arrays they replace."""
+    ar = lambda n: torch.arange(n, device=device)
+    keep = tuple((ar(n) != n // 2).to(torch.float32) for n in grid_shape)
+    signs = tuple((1 - 2 * (ar(n) % 2)).to(torch.float32) for n in grid_shape)
+    kx, ky, kz = keep
+    npd = np.float32 if dtype == torch.float32 else np.float64
+    inv = np.float64(1.0) / grid_shape[2]  # split as ds.from_f64 splits it
+    hi = npd(inv)
+    lo = npd(inv - np.float64(hi))
+    full = lambda v: torch.full((), float(v), dtype=dtype, device=device)
+    return _GridConsts(
+        keep=keep, signs=signs,
+        keep_planes=(ky[:, None] * kz[None, :], kx[:, None] * kz[None, :],
+                     kx[:, None] * ky[None, :]),
+        syz=signs[1][:, None] * signs[2][None, :],
+        fmask=kx[:, None] * ky[None, :],
+        inv_nz=DS(full(hi), full(lo)),
+    )
 
 
 def _nyq_corrections(cfg, pre, f_hat, ck, conj: bool, coef=None):
@@ -219,8 +254,8 @@ def _nyq_corrections(cfg, pre, f_hat, ck, conj: bool, coef=None):
     line and point blocks folded in (``boltzfft.ds_operator._nyq_corrections``)."""
     nx, ny, nz = cfg.grid_shape
     hx, hy, hz = nx // 2, ny // 2, nz // 2
-    dev = f_hat.re.hi.device
-    kx, ky, kz = (_f32(np.arange(n) != h, dev) for n, h in ((nx, hx), (ny, hy), (nz, hz)))
+    gc = hold(_grid_consts(cfg.grid_shape, f_hat.re.hi.dtype, f_hat.re.hi.device))
+    kx, ky, kz = gc.keep
     vs = pre.vinv_sl
     vx, vy, vz = (vs, vs, vs) if isinstance(vs, oz.CSlicedMatrix) else tuple(vs)
     ph = (pre.ax, pre.ay, pre.az)
@@ -243,9 +278,9 @@ def _nyq_corrections(cfg, pre, f_hat, ck, conj: bool, coef=None):
         t = t2(u, m_last, m_second)
         return ds.cmul(_cindex(cf, (al, al, None, None)), t)
 
-    px = plane((hx,), ky[:, None] * kz[None, :], ay, az, vz, vy, coef[0])
-    py = plane((al, hy), kx[:, None] * kz[None, :], ax, az, vz, vx, coef[1])
-    pz = plane((al, al, hz), kx[:, None] * ky[None, :], ax, ay, vy, vx, coef[2])
+    px = plane((hx,), gc.keep_planes[0], ay, az, vz, vy, coef[0])
+    py = plane((al, hy), gc.keep_planes[1], ax, az, vz, vx, coef[1])
+    pz = plane((al, al, hz), gc.keep_planes[2], ax, ay, vy, vx, coef[2])
 
     def line(take, mask, p_a, m_a, cf):
         data = tree_map(lambda a: a[take] * mask, f_hat)
@@ -262,13 +297,12 @@ def _nyq_corrections(cfg, pre, f_hat, ck, conj: bool, coef=None):
     # fold the line and point terms into the plane fields (exact +-1
     # patterns, compensated adds):
     #   g = r_main + sx(jx).px'(jy,jz) + sy(jy).py'(jx,jz) + sz(jz).pz(jx,jy)
-    syv = _f32((-1.0) ** np.arange(ny), dev)
-    szv = _f32((-1.0) ** np.arange(nz), dev)
+    _, syv, szv = gc.signs
     expand = lambda t, idx, pat: tree_map(lambda a: a[idx] * pat, t)
     b = (al, al)
     px = ds.cadd(px, expand(ly, b + (al, None), szv[None, None, None, :]))
     px = ds.cadd(px, expand(lz, b + (None, al), syv[None, None, :, None]))
-    px = ds.cadd(px, expand(pt, b + (None, None), (syv[:, None] * szv[None, :])[None, None]))
+    px = ds.cadd(px, expand(pt, b + (None, None), gc.syz[None, None]))
     py = ds.cadd(py, expand(lx, b + (al, None), szv[None, None, None, :]))
     # py and pz come out transposed (z, resp. y, the outer axis): laid out
     # in order once per eval, since K12 reads every plane along its last axis
@@ -395,17 +429,16 @@ def _cds_sum_first(x: CDS) -> CDS:
     return tree_map(lambda t: t[0], cur)
 
 
-def _inv_herm_half(u: CDS, p: CDS, ck, m_xy, m_zh, nz: int, szv) -> DS:
+def _inv_herm_half(u: CDS, p: CDS, ck, m_xy, m_zh, inv_nz: DS, szv) -> DS:
     """``Re(IFFT3(.))`` of a Hermitian spectrum given as the half-z main
-    block and the z-Nyquist plane."""
+    block and the z-Nyquist plane; ``inv_nz`` is 1/Nz, exactly split."""
     mx, my = m_xy
     u = ds._swap_last2(ck(ds._swap_last2(u), my))
     u = ds._roll_axis(ck(ds._roll_axis(u, -3, -1), mx), -1, -3)
     main = ck(u, m_zh, real_out=True).re
     p = ck(p, my)
     pr = ds._swap_last2(ck(ds._swap_last2(p), mx, real_out=True)).re
-    # 1/Nz as an exactly split ds constant
-    pr = ds.mul(pr, ds.from_f64(np.float64(1.0) / nz, pr.hi.dtype, pr.hi.device))
+    pr = ds.mul(pr, inv_nz)
     corr = DS(pr.hi[..., None] * szv, pr.lo[..., None] * szv)
     return ds.add(main, corr)
 
@@ -495,16 +528,18 @@ def collide_ds(
         n_gl_tot = pre.beta1.hi.shape[0]
         gb = default_group_batch(cfg, n_gl_tot, dev) if group_batch is None else group_batch
         nxg, nyg, nzg = cfg.grid_shape
-        hx, hy = nxg // 2, nyg // 2
-        kxm = _f32(np.arange(nxg) != hx, dev)
-        kym = _f32(np.arange(nyg) != hy, dev)
-        fmask = kxm[:, None, None] * kym[None, :, None]
+        gc = hold(_grid_consts(cfg.grid_shape, f.hi.dtype, dev))
         # main-block spectrum: half z extent, x/y Nyquist rows zeroed,
-        # pre-swapped once for the y-first contraction order
-        f_main = tree_map(lambda a: a[..., : nzg // 2] * fmask, f_hat)
-        fhs = ds._swap_last2(f_main)  # (Nx, Nz/2, Ny)
+        # swapped for the y-first contraction order: (Nx, Nz/2, Ny)
         if preslice and (on_cuda or gmain_fused):
-            f_pre_h = _k7.preslice_rows(fhs, cmax=cmax, w=slw, merged=mok(pre.pm1[1]))
+            # K7 cuts it from f_hat in one launch; the main-block entries
+            # read only its chunks, so fhs is the unmasked view, for its shape
+            f_pre_h = _k7.preslice_half(f_hat, gc.fmask, cmax=cmax, w=slw,
+                                        merged=mok(pre.pm1[1]))
+            fhs = ds._swap_last2(tree_map(lambda a: a[..., : nzg // 2], f_hat))
+        else:
+            fhs = ds._swap_last2(tree_map(lambda a: a[..., : nzg // 2] * gc.fmask[..., None],
+                                          f_hat))
         if gmain_fused is None:
             fuse3 = _gmain_mode(cfg, pre, cmax, slw, device=dev)
         elif gmain_fused is False:
@@ -520,7 +555,7 @@ def collide_ds(
         # its tables), so the Hadamard kernel sums plain products (w=None)
         corr1 = _nyq_corrections(cfg, pre, f_hat, ckc, conj=False, coef=pre.nyq_coef_w)
         corr2 = _nyq_corrections(cfg, pre, f_hat, ckc, conj=True)
-        signs = tuple(_f32((-1.0) ** np.arange(n), dev) for n in (nxg, nyg, nzg))
+        signs = gc.signs
         if herm_downstream is None:
             herm_downstream = max(cfg.grid_shape) <= 32
         herm = herm_downstream and pre.vfwd_zh_sl is not None
@@ -673,7 +708,7 @@ def collide_ds(
         fp = tree_map(lambda a: a[..., nzh], f_hat)
         stk = lambda a, b: tree_map(lambda x, y: torch.stack((x, y)), a, b)
         inv = _inv_herm_half(stk(am, ds.cmul_ds(fh, b2h)), stk(ap, ds.cmul_ds(fp, b2p)),
-                             ckc, inv_xy, pre.vinv_zh_sl, nzg, signs[2])
+                             ckc, inv_xy, pre.vinv_zh_sl, gc.inv_nz, signs[2])
         q_gain = tree_map(lambda a: a[0], inv)
         loss = tree_map(lambda a: a[1], inv)
         return ds.sub(q_gain, ds.mul(loss, f))
@@ -724,9 +759,15 @@ def make_ds_collision_operator(
 ) -> Tuple[Callable[[DS, DsPrecomp], DS], DsPrecomp]:
     """Build ``(collide_fn, ds_precomp)`` on ``device`` (CUDA unless the
     caller asks for the CPU); ``collide_fn(f_ds, pre) -> Q_ds``.  A plain
-    tensor ``f`` is promoted with :func:`ds.from_float`.  ``jit`` is accepted
-    for the JAX signature and ignored: PyTorch runs eagerly, which the ds
-    arithmetic needs (no compiler may contract its EFTs)."""
+    tensor ``f`` is promoted with :func:`ds.from_float`.
+
+    ``jit=True`` on CUDA replays the eval from a CUDA graph
+    (:class:`boltzfft_torch._graph.Replayed`), the card's counterpart of the
+    JAX package's ``jax.jit``: the first call per precomp and f shape runs
+    one eager eval, then captures one; every call returns a fresh Q with the
+    eager eval's bits.  A failed capture raises.  The arithmetic stays eager
+    PyTorch and the hand-written kernels (no compiler may contract the
+    EFTs).  On the CPU ``jit`` changes nothing."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device='cuda' requested but torch.cuda.is_available() is False")
@@ -736,10 +777,13 @@ def make_ds_collision_operator(
         oz_cmax=oz_cmax, g_stream=g_stream, group_batch=group_batch, oz_merge=oz_merge,
         gmain_fused=gmain_fused, g1_reversal=g1_reversal,
     )
+    run = lambda f, precomp: fn(precomp, f)
+    if jit and device.type == "cuda":
+        run = Replayed(run)
 
     def collide_fn(f, precomp):
         if not isinstance(f, DS):
             f = ds.from_float(torch.as_tensor(f, dtype=dtype, device=device))
-        return fn(precomp, f)
+        return run(f, precomp)
 
     return collide_fn, pre

@@ -210,7 +210,9 @@ def _nodemat(x, m, cmax, w, repeat, fold_tail, x_pre, real_out, merged, run) -> 
         want = _oz.PreslicedM if merged else _oz.PreslicedCDS
         if not isinstance(x_pre, want):
             raise ValueError(f"x_pre must be a {want.__name__} for merged={merged}")
-    planes = [a.reshape(-1, k) for a in (x.re.hi, x.re.lo, x.im.hi, x.im.lo)]
+    # with x_pre the entries read only the chunks: x gives the shape
+    planes = [None] * 4 if x_pre is not None else \
+        [a.reshape(-1, k) for a in (x.re.hi, x.re.lo, x.im.hi, x.im.lo)]
     out = run(planes, x_pre, m, cmax=cmax, w=w, real_out=real_out, merged=merged,
               fold_tail=fold_tail, n_nodes=c, rows_pn=rows_pn, per_node=True,
               x_per_node=not repeat)
@@ -426,10 +428,25 @@ def check_exact(k: int, sm: int, cmax: int, w: int, merged: bool) -> None:
                          f" (merged={merged}, cmax={cmax}, w={w})")
 
 
+#: Operands the CUDA wrapper had to copy: not contiguous or not of the
+#: kernel's type (the ds eval hands over none).
+COPIES = 0
+
+
+def _ready(t, dtype):
+    """``t`` as the kernel reads it: itself where it is contiguous and of
+    ``dtype``, else a copy (counted in ``COPIES``)."""
+    global COPIES
+    if t is None or (t.dtype is dtype and t.is_contiguous()):
+        return t
+    COPIES += 1
+    return t.to(dtype).contiguous()
+
+
 def _contract_cuda(planes, x_pre, m, *, cmax, w, real_out, merged, fold_tail,
                    n_nodes, rows_pn, per_node, x_per_node, phase=None, conj=False):
     global LAUNCHES, PHASED_LAUNCHES
-    from .._build import load_library
+    from .._build import load_library, on_device
 
     sm, k, ell = m.re.shape[-3:]
     nlev = cmax + 1
@@ -438,31 +455,30 @@ def _contract_cuda(planes, x_pre, m, *, cmax, w, real_out, merged, fold_tail,
         raise ValueError(f"oz contraction kernel: cmax <= 7 and sm <= 8 (got cmax={cmax}, sm={sm})")
     check_exact(k, sm, cmax, w, merged)
     dev = m.re.device
-    real_in = planes[2] is None
+    real_in = x_pre is None and planes[2] is None
     flags = ((_REAL_IN * real_in) | (_REAL_OUT * real_out) | (_MERGED * merged)
              | (_CONJ * bool(conj)))
     ptr = lambda t: None if t is None else t.data_ptr()
-    keep = []  # contiguous operands, alive until the launch is queued
+    f32, bf16 = torch.float32, torch.bfloat16
     ph = [None] * 4
     if phase is not None:
         if merged or x_pre is not None or real_in or per_node:
             raise ValueError("oz contraction: phased mode is unmerged, complex in, shared matrix")
-        ph = [t.to(torch.float32).contiguous() for t in phase]
+        ph = [_ready(t, f32) for t in phase]
         for t in ph:
             if tuple(t.shape) != (n_nodes, k):
                 raise ValueError(f"oz contraction: phase rows {tuple(t.shape)}, expected {(n_nodes, k)}")
-        keep += ph
     if x_pre is not None:
         flags |= _PRESLICED
-        pre = [x_pre.full, None] if merged else [x_pre.all_re, x_pre.all_im]
-        pre = [None if t is None else t.contiguous() for t in pre]
-        keep += pre
+        pre = [_ready(x_pre.full, bf16), None] if merged else \
+            [_ready(x_pre.all_re, bf16), _ready(x_pre.all_im, bf16)]
         xs = [None] * 4
     else:
-        xs = [None if t is None else t.to(torch.float32).contiguous() for t in planes]
-        keep += xs
+        xs = [_ready(t, f32) for t in planes]
         pre = [None, None]
-    mre, mim = m.re.contiguous(), m.im.contiguous()
+    if m.re.dtype != bf16 or m.im.dtype != bf16:
+        raise ValueError(f"oz contraction: matrix slices of {m.re.dtype}, expected bf16")
+    mre, mim = _ready(m.re, bf16), _ready(m.im, bf16)
     rows_out = n_nodes * rows_pn
     rows_in = rows_pn * (n_nodes if x_per_node else 1)
     width = sx * k * (2 if merged else 1) if x_pre is not None else k
@@ -470,13 +486,13 @@ def _contract_cuda(planes, x_pre, m, *, cmax, w, real_out, merged, fold_tail,
         if t is not None and tuple(t.shape) != (rows_in, width):
             raise ValueError(f"oz contraction: operand {tuple(t.shape)}, expected {(rows_in, width)}")
     want_m = ((n_nodes,) if per_node else ()) + (sm, k, ell)
-    if tuple(mre.shape) != want_m or tuple(mim.shape) != want_m or mre.dtype != torch.bfloat16:
+    if tuple(mre.shape) != want_m or tuple(mim.shape) != want_m:
         raise ValueError(f"oz contraction: bf16 matrix slices {tuple(mre.shape)}, expected {want_m}")
     outs = [torch.empty((rows_out, ell), dtype=torch.float32, device=dev)
             for _ in range(2 if real_out else 4)]
     outs += [None] * (4 - len(outs))
     lib = load_library()
-    with torch.cuda.device(dev):
+    with on_device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.bfft_oz_contract(
             *[ptr(t) for t in xs], *[ptr(t) for t in pre], mre.data_ptr(), mim.data_ptr(),

@@ -31,7 +31,7 @@ import torch
 
 from .. import oz as _oz
 from ..ds import DS
-from .oz_contract import contract_plain, plan
+from .oz_contract import _ready, contract_plain, plan
 
 #: Launches of the CUDA kernel (one per :func:`gmain3_nodemat` call on CUDA).
 LAUNCHES = 0
@@ -119,7 +119,7 @@ def gmain3_reference(x_pre, m_y, m_x, m_zh, grid_shape, cmax=_oz.DEFAULT_CMAX,
 
 def _gmain3_cuda(x_pre, m_y, m_x, m_zh, grid_shape, cmax, w, fold_tail) -> DS:
     global LAUNCHES
-    from .._build import load_library
+    from .._build import load_library, on_device
 
     nx, ny, nz = grid_shape
     nzh = nz // 2
@@ -131,16 +131,16 @@ def _gmain3_cuda(x_pre, m_y, m_x, m_zh, grid_shape, cmax, w, fold_tail) -> DS:
     for mm, shape in ((m_y, (c, sm, ny, ny)), (m_x, (c, sm, nx, nx)), (m_zh, (c, sm, nzh, nz))):
         if tuple(mm.re.shape) != shape or tuple(mm.im.shape) != shape:
             raise ValueError(f"gmain3: matrix slices {tuple(mm.re.shape)}, expected {shape}")
-    pre = x_pre.full.contiguous()
+    pre = _ready(x_pre.full, torch.bfloat16)
     if tuple(pre.shape) != (nx * nzh, sx * 2 * ny):
         raise ValueError(f"gmain3: x_pre {tuple(pre.shape)}, expected {(nx * nzh, sx * 2 * ny)}")
     dev = pre.device
-    mats = [t.contiguous() for mm in (m_y, m_x, m_zh) for t in (mm.re, mm.im)]
+    mats = [_ready(t, torch.bfloat16) for mm in (m_y, m_x, m_zh) for t in (mm.re, mm.im)]
     # two complex ds intermediates per node (4 planes each), kept in the L2
     scratch = torch.empty((c, 8, nx * ny * nzh), dtype=torch.float32, device=dev)
     out = [torch.empty((c, nx, ny, nz), dtype=torch.float32, device=dev) for _ in range(2)]
     lib = load_library()
-    with torch.cuda.device(dev):
+    with on_device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.bfft_oz_gmain3(pre.data_ptr(), *[t.data_ptr() for t in mats],
                                 scratch.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),

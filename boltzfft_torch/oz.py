@@ -90,9 +90,10 @@ def _bf16(a: np.ndarray, device) -> torch.Tensor:
 
 
 def slice_matrix(
-    m: np.ndarray, nslices: int = DEFAULT_SLICES_M, w: int = DEFAULT_W, device="cpu"
+    m: np.ndarray, nslices: int = DEFAULT_SLICES_M, w: int = DEFAULT_W, device="cuda"
 ) -> CSlicedMatrix:
-    """Host-split a complex (or real) f64 matrix into bf16 slices on ``device``."""
+    """Host-split a complex (or real) f64 matrix into bf16 slices on ``device``
+    (the card unless the caller asks for the CPU)."""
     m = np.asarray(m)
     return CSlicedMatrix(
         re=_bf16(_host_slices(m.real, nslices, w), device),
@@ -101,7 +102,7 @@ def slice_matrix(
 
 
 def slice_matrix_nodes(
-    m: np.ndarray, nslices: int = DEFAULT_SLICES_M, w: int = DEFAULT_W, device="cpu"
+    m: np.ndarray, nslices: int = DEFAULT_SLICES_M, w: int = DEFAULT_W, device="cuda"
 ) -> CSlicedMatrix:
     """Host-split a batch of per-node matrices ``(..., K, L)``: slices
     ``(..., nslices, K, L)`` (slice axis inside the node axes), one global

@@ -77,7 +77,11 @@ Phases, in order; any failure raises and the script exits non-zero:
     engine's kernels against their plain versions at the main path's
     shapes, 32^3 and 64^3, Ns=12 (real tables from
     ``make_ds_collision_operator``, f_hat of the BKW state): K7 merged and
-    unmerged, K8 in every mode the default route launches (shared matrix
+    unmerged, on the swapped half spectrum, on the half path's whole step
+    from f_hat in one launch (``preslice_half``: the half-z slice, the x/y
+    Nyquist mask and the swap read in place) and on the full streams'
+    operand (f_hat in place), copying none, K8 in every mode the default
+    route launches (shared matrix
     real_in / complex / real_out, Hermitian forward z; per-node repeat +
     presliced + merged, merged, merged real_out), K9 at 32^3 (also against
     the K8 kernel chain), K12 with gb = 2 (32^3) and 1 (64^3), with and
@@ -85,11 +89,14 @@ Phases, in order; any failure raises and the script exits non-zero:
     operands; each bitwise equal to its plain version and to itself run to
     run;
 13. the ds BKW digits through ``make_ds_collision_operator``'s card defaults
-    (32^3: the reference L1/L2/Linf at rtol 1e-4; 64^3: Linf in
-    [3.0680, 3.0692]e-12), each within 1e-12 max|Q| of the float64 staged
-    cuFFT c2c of phase 5, with counts reset around the eval (K7, K8, K12 and
-    K9 at 32^3, K10 at 64^3 launched; no plain call), a hash of each Q's hi
-    and lo bytes beside its digits; ``g1_reversal`` and ``oz_cmax=4``
+    (``jit=True``: the eval replayed from a CUDA graph; 32^3: the reference
+    L1/L2/Linf at rtol 1e-4; 64^3: Linf in [3.0680, 3.0692]e-12), each within
+    1e-12 max|Q| of the float64 staged cuFFT c2c of phase 5, with counts
+    reset around the first call (an eager warm-up and the capture: K7, K8,
+    K12 and K9 at 32^3, K10 at 64^3 launched; no plain call), which count
+    twice those of an eager eval with the operator's arguments, the
+    launches of one eval that the kernels line reports, a hash of each
+    Q's hi and lo bytes beside its digits; ``g1_reversal`` and ``oz_cmax=4``
     at 64^3, and the staged K8 chain at 32^3 bitwise equal to K9's route;
 14. ``health.selfcheck_ds`` on the card (16^3, ns=6, oz vs vpu < 1e-11);
 15. ``maxwell_bkw --impl ds --Nv 32 --Ns 12``, ``--trials 3`` and ``--steps 4``;
@@ -116,8 +123,10 @@ Phases, in order; any failure raises and the script exits non-zero:
     K8, K11), the phased route (``collide_ds`` on the ``node_mats=False``
     tables: K8 phased, K11) and ``gmain_fused="12"`` (K7, K10, K8, K12), each
     giving the ds digits, within 1e-12 max|Q| of the f64 c2c and of the
-    default route, launching its kernels and no plain version; "12" bitwise
-    equal to the staged route and, at 32^3, to K9's;
+    default route, launching its kernels and no plain version (the graphed
+    "full" and "12" operators' first calls twice an eager eval's launches,
+    which are the counts reported); "12" bitwise equal to the staged route
+    and, at 32^3, to K9's;
 19. ``maxwell_bkw --impl ds --Nv 32 --Ns 12 --trials 3`` with
     ``--g-stream full`` and with ``--gmain-fused 12``;
 20. times: each route's eval (1 warm-up, 5 trials at 32^3, 3 at 64^3) and a
@@ -129,10 +138,23 @@ Phases, in order; any failure raises and the script exits non-zero:
     main-block route rule (``ds_operator._gmain_mode``): the whole ds eval
     through K9 (32^3), K10 and the staged chain in 6 paired rounds, the
     round-by-round differences, each route's profiled device time, and the
-    rule's pick.
+    rule's pick;
+21. the ds eval replayed from one CUDA graph (``make_ds_collision_operator(
+    jit=True)``, a fresh capture) against the eager ``collide_ds``: the
+    default route at 32^3 and 64^3 (the hash of Q's hi and lo bytes equal to
+    eager's and to the recorded ``DS_Q_HASHES``) and the full streams at
+    32^3, bitwise; the capture's seconds and counts (twice an eager eval's:
+    the warm-up and the capture; a replay moves none) and the operands the
+    K7, K8 and K12 wrappers copied in an eager eval (none for K7 and K12), a
+    second f leaving the first Q intact, the graph pool's memory against the
+    eager peak, paired wall times (10 rounds at 32^3, 6 at 64^3) and one
+    profiled replay and eager eval.
 
-A ``[N total]`` line after phases 3-11, 16 and 20 gives the seconds since the
-device check.  The last two lines are a JSON summary of the kernels and
+The ds evals of phases 13, 15, 16 and 18 (but the phased route) go through
+``make_ds_collision_operator``, so they replay CUDA graphs; phase 20's route
+rule and ``selfcheck_ds`` call ``collide_ds`` eagerly.  A
+``[N total]`` line after phases 3-11, 16, 20 and 21 gives the seconds since
+the device check.  The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -700,10 +722,20 @@ def ds_phases(bt, dev, card, ks, q_c2c, entry, report):
         kxy[n // 2] = 0.0
         fmask = kxy[:, None, None] * kxy[None, :, None]
         fhs = ds._swap_last2(tm(lambda a: a[..., : n // 2] * fmask, f_hat))  # (Nx, Nz/2, Ny)
+        fmask2 = kxy[:, None] * kxy[None, :]
+        copies = k7.COPIES
         for merged in (True, False):
             parity(f"K7 {n}^3 rows {n * n // 2} K {n} merged={merged}", ("k7", n),
                    lambda: k7.preslice_rows(fhs, cmax=6, merged=merged),
                    lambda: k7.preslice_rows_reference(fhs, cmax=6, merged=merged))
+            # the half path's whole step: f_hat read in place, masked, swapped
+            parity(f"K7 {n}^3 half path, one launch from f_hat, merged={merged}", ("k7", n),
+                   lambda: k7.preslice_half(f_hat, fmask2, cmax=6, merged=merged),
+                   lambda: k7.preslice_half_reference(f_hat, fmask2, cmax=6, merged=merged))
+        parity(f"K7 {n}^3 full streams' operand, f_hat in place, rows {n * n} K {n} merged",
+               ("k7", n), lambda: k7.preslice_rows(f_hat, cmax=6, merged=True),
+               lambda: k7.preslice_rows_reference(f_hat, cmax=6, merged=True))
+        check(k7.COPIES == copies, f"K7 copied {k7.COPIES - copies} operands")
         x_pre = k7.preslice_rows(fhs, cmax=6, merged=True)
         shared = [("forward z, real_in", ds.cds_from_real(fs[n]), pre.vfwd_sl, dict(real_in=True)),
                   ("forward y, complex", ds._swap_last2(f_hat), pre.vfwd_sl, {}),
@@ -772,8 +804,8 @@ def ds_phases(bt, dev, card, ks, q_c2c, entry, report):
                    lambda: k12.hadamard_wsum_half(*args_, groups=gb, acc=acc_),
                    lambda: k12.hadamard_wsum_half_reference(*args_, groups=gb, acc=acc_))
         check(k12.COPIES == copies, f"K12 copied {k12.COPIES - copies} operands of the ds eval's")
-        inputs[n] = dict(fhs=fhs, x_pre=x_pre, f_hat=f_hat, m_y=m_y, m_x=m_x, m_zh=m_zh,
-                         t1=t1, t2=t2, hargs=hargs, gb=gb, c=c)
+        inputs[n] = dict(fhs=fhs, x_pre=x_pre, f_hat=f_hat, fmask2=fmask2, m_y=m_y, m_x=m_x,
+                         m_zh=m_zh, t1=t1, t2=t2, hargs=hargs, gb=gb, c=c)
 
     # ---- 13. the ds BKW digits through the card's default route ---------
     ds_q, ds_counts = {}, {}
@@ -782,11 +814,19 @@ def ds_phases(bt, dev, card, ks, q_c2c, entry, report):
         q = collides[n](fs[n], pres[n])
         torch.cuda.synchronize()
         c = counts(ks)
-        ds_counts[n] = c
         needed = ("k7", "k8", "k12") + (("k9",) if n <= 32 else ("k10",))
         check(all(c[k] > 0 for k in needed) and plain_calls(c) == 0
               and all(c[k] == 0 for k in ("k1", "k2", "k3", "k4", "k5", "k6")),
               f"ds main path {n}^3: dispatch {c}")
+        # the first graphed call counts two evals (the warm-up and the
+        # capture) and a replay none: the launches of one eval, which a
+        # replay repeats, are an eager eval's with the operator's arguments
+        reset_counts(ks)
+        dso.collide_ds(cfgs[n], pres[n], fs[n], contract="oz")
+        torch.cuda.synchronize()
+        ds_counts[n] = counts(ks)
+        check(all(c[k] == 2 * ds_counts[n][k] for k in c),
+              f"ds main path {n}^3: first graphed call {c} != 2 x eager {ds_counts[n]}")
         ds_q[n] = q
     for n in grids:
         g = cfgs[n].velocity_grid
@@ -796,13 +836,13 @@ def ds_phases(bt, dev, card, ks, q_c2c, entry, report):
         l1, l2, linf = g.cell_volume * np.abs(d).sum(), np.sqrt(g.cell_volume * (d * d).sum()), np.abs(d).max()
         qc = q_c2c[n].cpu().numpy()
         dc = np.abs(q64 - qc).max() / np.abs(qc).max()
-        bits = hashlib.sha256(ds_q[n].hi.cpu().numpy().tobytes()
-                              + ds_q[n].lo.cpu().numpy().tobytes()).hexdigest()[:16]
+        bits = q_hash(ds_q[n])
         print(f"[13 ds digits] {n}^3 Ns=12, make_ds_collision_operator defaults on the card"
               f" (oz, half, merged, gmain {dso._gmain_mode(cfgs[n], pres[n], 6, 7, device=dev)!r},"
               f" herm {n <= 32}, gb {inputs[n]['gb']}): L1 {l1:.5e} L2 {l2:.5e} Linf {linf:.5e};"
               f" vs native f64 staged c2c (cuFFT) {dc:.3e} max|Q| (tol 1e-12); sha256 of the"
-              f" hi, lo bytes {bits}; counts {ds_counts[n]}")
+              f" hi, lo bytes {bits}; launches of one eval (an eager eval; the first graphed"
+              f" call, a warm-up and the capture, counted twice these) {ds_counts[n]}")
         check(dc <= 1e-12, f"ds {n}^3 vs f64 c2c {dc:.3e}")
         if n == small:
             ref, rtol = DS_DIGITS_32
@@ -876,10 +916,14 @@ def ds_phases(bt, dev, card, ks, q_c2c, entry, report):
         v = inputs[n]
         nzh, c = n // 2, v["c"]
         rows = n * nzh
-        b7 = oz_bound(0, rows * n * 2 * sx * 13, rows * n * 16 + rows * sx * 2 * n * 2)
-        row(f"preslice_rows[{n}^3,Ns=12,merged,rows={rows},K={n}]", "k7", n, "preslice_rows",
-            lambda: k7.preslice_rows(v["fhs"], cmax=6, merged=True),
-            lambda: k7.preslice_rows_reference(v["fhs"], cmax=6, merged=True), b7)
+        # the half-z spectrum of f_hat and the (Nx, Ny) mask read, the chunks written
+        b7 = oz_bound(0, rows * n * 2 * sx * 13,
+                      rows * n * 16 + n * n * 4 + rows * sx * 2 * n * 2)
+        row(f"preslice_half[{n}^3,Ns=12,merged,rows={rows},K={n},one launch from f_hat]", "k7",
+            n, "preslice_rows",
+            lambda: k7.preslice_half(v["f_hat"], v["fmask2"], cmax=6, merged=True),
+            lambda: k7.preslice_half_reference(v["f_hat"], v["fmask2"], cmax=6, merged=True),
+            b7)
         macs, fold = oz_stage_work(c * rows, n, n, "m")
         mat_bytes = c * 8 * n * n * 2 * 2
         b8 = oz_bound(macs, fold, rows * sx * 2 * n * 2 + mat_bytes + c * rows * n * 16)
@@ -944,7 +988,7 @@ def ds_phases(bt, dev, card, ks, q_c2c, entry, report):
             lambda: torch.einsum("gc...,gc...->g...", *g12).real,
             "complex128 einsum of the assembled streams, assembly excluded")
         del g12
-    return dict(cfgs=cfgs, pres=pres, fs=fs, ds_q=ds_q, inputs=inputs)
+    return dict(cfgs=cfgs, pres=pres, fs=fs, ds_q=ds_q, inputs=inputs, collides=collides)
 
 
 # ---- the ds engine's other routes (K8 phased, K10, K11) ---------------------
@@ -1047,6 +1091,7 @@ def ds_route_phases(bt, dev, card, ks, q_c2c, entry, report, st):
 
     # ---- 18. each route through its entry point, 32^3 and 64^3 -----------
     route_counts = {}
+    graphed_kw = {"full": dict(g_stream="full"), "12": dict(gmain_fused="12")}
     for n in grids:
         cfg, f = cfgs[n], fs[n]
         t0 = time.perf_counter()
@@ -1064,11 +1109,20 @@ def ds_route_phases(bt, dev, card, ks, q_c2c, entry, report, st):
             torch.cuda.synchronize()
             c = counts(ks)
             route_counts[(name, n)] = c
+            if name in graphed_kw:  # one eval's launches: an eager eval's (phase 13)
+                reset_counts(ks)
+                dso.collide_ds(cfg, pre, f, contract="oz", **graphed_kw[name])
+                torch.cuda.synchronize()
+                route_counts[(name, n)] = counts(ks)
+                check(all(c[k] == 2 * route_counts[(name, n)][k] for k in c),
+                      f"route {name} {n}^3: first graphed call {c} != 2 x eager")
             l1, l2, linf, dc = ds_digits(bt, cfg, q, q_c2c[n])
             qd = ds.to_f64(ds_q[n])
             dh = np.abs(ds.to_f64(q) - qd).max() / np.abs(qd).max()
             print(f"  route {name} {n}^3: L1 {l1:.5e} L2 {l2:.5e} Linf {linf:.5e}; vs f64 c2c"
-                  f" {dc:.3e}, vs the default half route {dh:.3e} max|Q| (tol 1e-12); counts {c}")
+                  f" {dc:.3e}, vs the default half route {dh:.3e} max|Q| (tol 1e-12); counts {c}"
+                  + (f" (warm-up and capture), of one eval {route_counts[(name, n)]}"
+                     if name in graphed_kw else ""))
             ok_counts = (all(c[k] > 0 for k in ROUTE_KERNELS[name]) and plain_calls(c) == 0
                          and all(c[k] == 0 for k in ("k1", "k2", "k3", "k4", "k5", "k6", "k9")))
             check(ok_counts, f"route {name} {n}^3: dispatch {c}")
@@ -1096,6 +1150,8 @@ def ds_route_phases(bt, dev, card, ks, q_c2c, entry, report, st):
             report(f"ds eval route {name} {n}^3 Ns=12", ms, phase=20)
             fam, wall_us = profile_eval(lambda: fn(f, pre), DS_FAMILIES)
             print_profile(f"ds eval route {name} {n}^3", fam, wall_us, card, 20)
+        if n == small:
+            st["full"] = routes["full"]
         del routes
 
     # ---- 19. the ds driver on the new routes ------------------------------
@@ -1232,6 +1288,119 @@ def ds_route_phases(bt, dev, card, ks, q_c2c, entry, report, st):
                   f" {busy:.3f} ms of {wall_us / 1e3:.3f} ms wall ({kern}) | {card}")
         print(f"[20 route rule] {n}^3: _gmain_mode picks"
               f" {dso._gmain_mode(cfg, pre, 6, 7, device=dev)!r} | {card}")
+
+
+# ---- the ds eval replayed from one CUDA graph (phase 21) ---------------------
+GRAPH_ROUNDS = {32: 10, 64: 6}  # paired eager / graph rounds, the order reversed every other
+# the default eval's hashes as recorded before the eval was graphed (PERF.md)
+DS_Q_HASHES = {32: "9fef39ee108330d3", 64: "e73b85d16bbf4c00"}
+
+
+def q_hash(q):
+    """sha256 (16 hex digits) of a ds Q's hi and lo bytes."""
+    return hashlib.sha256(q.hi.cpu().numpy().tobytes()
+                          + q.lo.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def ds_graph_phase(bt, dev, card, ks, st):
+    """Phase 21: ``make_ds_collision_operator(jit=True)`` replays the eval
+    from one CUDA graph; held bitwise against the eager eval (``collide_ds``,
+    the same arguments) on the default route at 32^3 and 64^3 (and against
+    the recorded hashes there) and on the full streams at 32^3.  A fresh capture
+    through the user's operator (a new precomp object over the same tables):
+    its seconds, the launches it counted (an eager warm-up and the capture)
+    against an eager eval's, the memory its graph pool holds against the
+    eager eval's peak; a replay moves no counter and a second f leaves the
+    first Q intact; paired wall times (host clock to a synchronise), and one
+    profiled replay and eager eval (device time, idle share, launches)."""
+    from boltzfft_torch import ds
+    from boltzfft_torch import ds_operator as dso
+
+    cfgs, fs, pres = st["cfgs"], st["fs"], st["pres"]
+    small, big = DS_GRIDS
+    cases = ((small, "default", st["collides"][small], {}),
+             (big, "default", st["collides"][big], {}),
+             (small, "full", st["full"][0], {"g_stream": "full"}))
+    for n, route, graphed, kw in cases:
+        cfg, f, pre = cfgs[n], fs[n], pres[n]
+        eager = lambda: dso.collide_ds(cfg, pre, f, contract="oz", **kw)
+        eager()
+        torch.cuda.synchronize()
+        reset_counts(ks)
+        copies = [k.COPIES for k in (ks.k7, ks.k8, ks.k12)]
+        torch.cuda.reset_peak_memory_stats()
+        a0 = torch.cuda.memory_allocated()
+        q_eager = eager()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - a0
+        c_eager = counts(ks)
+        copies = [k.COPIES - c for k, c in zip((ks.k7, ks.k8, ks.k12), copies)]
+        pre_g = pre._replace()  # a new precomp object: the operator captures again
+        torch.cuda.empty_cache()
+        r0 = torch.cuda.memory_reserved()
+        reset_counts(ks)
+        t0 = time.perf_counter()
+        q_graph = graphed(f, pre_g)
+        torch.cuda.synchronize()
+        cap_s = time.perf_counter() - t0
+        c_cap = counts(ks)
+        torch.cuda.empty_cache()
+        pool = torch.cuda.memory_reserved() - r0
+        reset_counts(ks)
+        q_replay = graphed(f, pre_g)
+        torch.cuda.synchronize()
+        c_replay = counts(ks)
+        h_e, h_g, h_r = q_hash(q_eager), q_hash(q_graph), q_hash(q_replay)
+        want = DS_Q_HASHES[n] if route == "default" else h_e
+        print(f"[21 ds graph] {n}^3 Ns=12 {route} route: make_ds_collision_operator(jit=True)"
+              f" capture (warm-up + capture) {cap_s:.3f} s; sha256 of Q's hi, lo bytes: eager"
+              f" {h_e}, capture {h_g}, replay {h_r}"
+              + (f", recorded {want}" if route == "default" else "") + f" | {card}")
+        print(f"  launches of an eager eval {c_eager}; of the first graphed call (warm-up and"
+              f" capture) {c_cap}; of a replay {c_replay}; operands the K7, K8, K12 wrappers"
+              f" copied in the eager eval {copies}")
+        check(copies[0] == copies[2] == 0, f"ds graph {n}^3 {route}: K7/K12 copies {copies}")
+        check(h_e == h_g == h_r == want and same(q_graph, q_eager) and same(q_replay, q_eager),
+              f"ds graph {n}^3 {route}: Q differs from eager or from the recorded hash")
+        check(all(v == 0 for v in c_replay.values()) and plain_calls(c_cap) == 0
+              and all(c_cap[k] == 2 * c_eager[k] for k in c_eager), f"ds graph {n}^3 {route}: counts")
+        keep = ds.DS(q_replay.hi.clone(), q_replay.lo.clone())
+        f2 = ds.from_f64(bt.bkw_f(cfg.velocity_grid.r_squared(), 7.0), torch.float32, dev)
+        q2 = graphed(f2, pre_g)
+        q2_eager = dso.collide_ds(cfg, pre, f2, contract="oz", **kw)
+        torch.cuda.synchronize()
+        ok2 = same(q_replay, keep) and same(q2, q2_eager) and q2.hi.data_ptr() != q_replay.hi.data_ptr()
+        print(f"  a second f (BKW t = 7.0): equal to eager {same(q2, q2_eager)}; the first Q kept"
+              f" {same(q_replay, keep)}")
+        check(ok2, f"ds graph {n}^3 {route}: a second replay overwrote or differs")
+        del keep, q2, q2_eager
+        print(f"  memory: the graph's pool {pool / 2**20:.1f} MiB reserved (memory_reserved"
+              f" across the first graphed call, caches emptied); the eager eval's peak"
+              f" {peak / 2**20:.1f} MiB allocated | {card}")
+        runs = {"eager": eager, "graph": lambda: graphed(f, pre_g)}
+        wall = {k: [] for k in runs}
+        for rnd in range(GRAPH_ROUNDS[n]):
+            for k in (("eager", "graph") if rnd % 2 == 0 else ("graph", "eager")):
+                t0 = time.perf_counter()
+                runs[k]()
+                torch.cuda.synchronize()
+                wall[k].append((time.perf_counter() - t0) * 1e3)
+        d = [a - b for a, b in zip(wall["eager"], wall["graph"])]
+        print(f"[21 ds graph] {n}^3 {route}: wall per eval over {GRAPH_ROUNDS[n]} paired rounds,"
+              f" eager median {statistics.median(wall['eager']):.3f} ms (min"
+              f" {min(wall['eager']):.3f}, max {max(wall['eager']):.3f}), graph median"
+              f" {statistics.median(wall['graph']):.3f} ms (min {min(wall['graph']):.3f}, max"
+              f" {max(wall['graph']):.3f}); eager minus graph round by round: median"
+              f" {statistics.median(d):.3f} (min {min(d):.3f}, max {max(d):.3f}) | {card}")
+        for label, fn, k in (("one replay", runs["graph"], "graph"), ("one eager eval", eager, "eager")):
+            fam, wall_us = profile_eval(fn, DS_FAMILIES)
+            print_profile(f"ds {route} {n}^3, {label}", fam, wall_us, card, 21)
+            busy = sum(v[0] for v in fam.values()) / 1e3
+            med = statistics.median(wall[k])
+            print(f"  the profiler's device time against the unprofiled median wall: {busy:.3f} of"
+                  f" {med:.3f} ms, idle share {100 * (1 - busy / med):.1f}% | {card}")
+        del q_eager, q_graph, q_replay, runs, pre_g
+        torch.cuda.empty_cache()
 
 
 def _leaves(tree):
@@ -2006,6 +2175,8 @@ def main() -> int:
     lap(16)
     ds_route_phases(bt, dev, card, ks, q_c2c, entry, report, st)
     lap(20)
+    ds_graph_phase(bt, dev, card, ks, st)
+    lap(21)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -48,7 +48,7 @@ def test_taylor_green_3d_runs_and_decays(capsys):
     (taylor_green_3d3v.main, ["--mesh", "2x2x2"]),
 ])
 def test_mesh_not_ported(main, flag):
-    with pytest.raises(NotImplementedError, match="step 9"):
+    with pytest.raises(NotImplementedError, match="step 4"):
         main(SMALL + flag)
 
 

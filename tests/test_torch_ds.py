@@ -121,6 +121,28 @@ def test_ds_constructors_default_to_the_card(make, arg):
                for t in leaves)
 
 
+#: Names of ``boltzfft.__all__`` the port does not have yet (ROADMAP Queue 1)
+#: or will not have ("Do not port"), and the port's names beyond the
+#: reference's.
+NOT_YET_PORTED = {
+    "make_mesh", "make_sharded_collision_operator", "place", "place_cells", "NODE_AXIS",
+    "ENSEMBLE_AXIS", "repad_nodes", "initialize_distributed", "make_multihost_mesh",
+    "process_local_ensemble_slice", "make_sharded_ds_collision_operator", "place_ds",
+    "RelaxCheckpointer", "autotune", "autotune_ds", "autotune_fused", "save_precomp",
+    "load_precomp", "trace",
+}
+DO_NOT_PORT = {"enable_compilation_cache", "fused_fits_vmem"}
+PORT_ONLY = {"antipodal_reduce", "ds_precomp_from_numpy", "pick_scheme", "precomp_from_numpy",
+             "transport"}
+
+
+def test_exports_match_the_reference():
+    assert set(bt.__all__) == (set(bz.__all__) - NOT_YET_PORTED - DO_NOT_PORT) | PORT_ONLY
+    assert all(hasattr(bt, name) for name in bt.__all__)
+    assert bt.ds is ds and bt.DsPrecomp is bt.ds_operator.DsPrecomp
+    assert bt.build_ds_precomp is bt.ds_operator.build_ds_precomp
+
+
 @pytest.mark.parametrize("real_in,real_out", [(False, False), (True, False), (False, True)])
 def test_contract_last_matches_jax(real_in, real_out):
     rng = np.random.default_rng(12)

@@ -78,7 +78,8 @@ def test_k8_phased_plain_matches_jax(repeat, conj):
     assert _scales_agree((t[0], t[2]))
     oj = joz.contract_last_oz_kernel(xj, joz.slice_matrix(m), phase=phj, conj=conj,
                                      repeat=rep, interpret=True)
-    ot = k8.contract_last_oz_kernel(xt, oz.slice_matrix(m), phase=pht, conj=conj, repeat=rep)
+    ot = k8.contract_last_oz_kernel(xt, oz.slice_matrix(m, device="cpu"), phase=pht, conj=conj,
+                                    repeat=rep)
     _equal(oj, ot)
     # the value: (phase * x) @ m in float64
     p = ds.cds_to_c128(pht)
@@ -91,7 +92,7 @@ def test_k8_phased_plain_matches_jax(repeat, conj):
 def test_k8_phased_rejects_bad_shapes():
     _, xt, _ = _cds_pair((4, 5, 8), 2)
     _, pht, _ = _cds_pair((3, 8), 3)
-    m = oz.slice_matrix(np.ones((8, 4)) + 0j)
+    m = oz.slice_matrix(np.ones((8, 4)) + 0j, device="cpu")
     with pytest.raises(ValueError, match="repeat=2"):
         k8.contract_last_oz_kernel(xt, m, phase=pht, repeat=2)
     with pytest.raises(ValueError, match="split over 3 nodes"):
@@ -108,7 +109,7 @@ def test_transform3_oz_phased_matches_jax(conj):
     xj, xt, z = _cds_pair(shape, 30)
     oj = joz.transform3_oz_phased(xj, tuple(joz.slice_matrix(m) for m in mats),
                                   tuple(p[0] for p in phs), conj=conj, kernel=True)
-    ot = oz.transform3_oz_phased(xt, tuple(oz.slice_matrix(m) for m in mats),
+    ot = oz.transform3_oz_phased(xt, tuple(oz.slice_matrix(m, device="cpu") for m in mats),
                                  tuple(p[1] for p in phs), conj=conj)
     _equal(oj, ot)
     ph = [ds.cds_to_c128(p[1]) for p in phs]
@@ -146,7 +147,7 @@ def test_k10_plain_matches_jax_interpret_and_zh_blocks(grid):
     xt = k7.preslice_rows(ft, cmax=6, merged=True)
     oj = joz.gmain12_nodemat(xj, joz.slice_matrix_nodes(my), joz.slice_matrix_nodes(mx), grid,
                              cmax=6, zh_block=1, interpret=True)
-    mt = (oz.slice_matrix_nodes(my), oz.slice_matrix_nodes(mx))
+    mt = (oz.slice_matrix_nodes(my, device="cpu"), oz.slice_matrix_nodes(mx, device="cpu"))
     blocks = [d for d in range(1, nzh + 1) if nzh % d == 0]
     outs = [k10.gmain12_nodemat(xt, *mt, grid, cmax=6, zh_block=zb) for zb in blocks]
     for o in outs:

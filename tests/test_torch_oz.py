@@ -13,6 +13,8 @@ meets ``_phase_sigma`` asserts that its seeded rows are not such a case, and
 then asks for the same bits.
 """
 
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -69,14 +71,23 @@ def _scales_agree(x, merged):
 def test_slice_matrix_bitwise():
     rng = np.random.default_rng(0)
     m = rng.standard_normal((9, 7)) + 1j * rng.standard_normal((9, 7))
-    _equal(tuple(joz.slice_matrix(m)), tuple(oz.slice_matrix(m)))
-    _equal(tuple(joz.slice_matrix(m, 6, 8)), tuple(oz.slice_matrix(m, 6, 8)))
+    _equal(tuple(joz.slice_matrix(m)), tuple(oz.slice_matrix(m, device="cpu")))
+    _equal(tuple(joz.slice_matrix(m, 6, 8)), tuple(oz.slice_matrix(m, 6, 8, device="cpu")))
     mn = rng.standard_normal((2, 3, 5, 6)) + 1j * rng.standard_normal((2, 3, 5, 6))
-    _equal(tuple(joz.slice_matrix_nodes(mn)), tuple(oz.slice_matrix_nodes(mn)))
+    _equal(tuple(joz.slice_matrix_nodes(mn)), tuple(oz.slice_matrix_nodes(mn, device="cpu")))
     # the slices sum back to the matrix at 2^-56 of its scale
-    s = oz.slice_matrix(m)
+    s = oz.slice_matrix(m, device="cpu")
     back = s.re.double().sum(0).numpy() + 1j * s.im.double().sum(0).numpy()
     assert np.abs(back - m).max() <= 2.0**-52 * np.abs(m).max()
+
+
+@pytest.mark.parametrize("make", [oz.slice_matrix, oz.slice_matrix_nodes])
+def test_slice_matrix_defaults_to_the_card(make):
+    # an entry point runs on the card unless asked for the CPU
+    assert inspect.signature(make).parameters["device"].default == "cuda"
+    m = np.ones((2, 3, 4)) + 1j
+    s = make(m, device="cpu")
+    assert all(t.device.type == "cpu" and t.dtype == torch.bfloat16 for t in s)
 
 
 @pytest.mark.parametrize("shape,node_mats", [((6, 6, 6), True), ((6, 8, 10), True),
@@ -137,7 +148,7 @@ def test_k8_plain_matches_jax_twin(real_in, real_out, cmax, fold_tail):
     m = np.exp(2j * np.pi * np.random.default_rng(3).random((10, 12)))
     kw = dict(cmax=cmax, real_in=real_in, real_out=real_out, fold_tail=fold_tail)
     oj = joz.contract_last_oz_kernel(xj, joz.slice_matrix(m), interpret=True, **kw)
-    ot = k8.contract_last_oz_kernel(xt, oz.slice_matrix(m), **kw)
+    ot = k8.contract_last_oz_kernel(xt, oz.slice_matrix(m, device="cpu"), **kw)
     _equal(tuple(oj), tuple(ot))
 
 
@@ -156,7 +167,7 @@ def test_k8_nodemat_plain_matches_jax(repeat, x_pre, merged, real_out):
     pt = k7.preslice_rows(xt, cmax=6, merged=merged) if x_pre else None
     oj = joz.contract_last_oz_nodemat(xj, joz.slice_matrix_nodes(mats), interpret=True,
                                       x_pre=pj, **kw)
-    ot = k8.contract_last_oz_nodemat(xt, oz.slice_matrix_nodes(mats), x_pre=pt, **kw)
+    ot = k8.contract_last_oz_nodemat(xt, oz.slice_matrix_nodes(mats, device="cpu"), x_pre=pt, **kw)
     _equal(tuple(oj), tuple(ot))
 
 
@@ -165,11 +176,12 @@ def test_k8_merged_past_merge_ok_raises():
     there (K = 74 <= 146) and is the shared-matrix contraction of the
     operand phase * x, bitwise."""
     _, xt, _ = _cds_pair((2, 74), 6)
-    m = oz.slice_matrix_nodes(np.ones((2, 74, 4)) + 0j)
+    m = oz.slice_matrix_nodes(np.ones((2, 74, 4)) + 0j, device="cpu")
     with pytest.raises(ValueError, match="merge_ok"):
         k8.contract_last_oz_nodemat(xt, m, repeat=True, merged=True)
     _, ph, _ = _cds_pair((2, 74), 7)
-    ms = oz.slice_matrix(np.exp(2j * np.pi * np.random.default_rng(8).random((74, 4))))
+    ms = oz.slice_matrix(np.exp(2j * np.pi * np.random.default_rng(8).random((74, 4))),
+                         device="cpu")
     for conj in (False, True):
         got = k8.contract_last_oz_kernel(xt, ms, phase=ph, conj=conj)
         t = k8.phase_operand([xt.re.hi, xt.re.lo, xt.im.hi, xt.im.lo],
@@ -182,10 +194,10 @@ def test_staged_contract_last_oz_matches_jax():
     xj, xt, z = _cds_pair((3, 4, 9), 7)
     m = np.exp(2j * np.pi * np.random.default_rng(8).random((9, 5)))
     oj = joz.contract_last_oz(xj, joz.slice_matrix(m), cmax=6)
-    ot = oz.contract_last_oz(xt, oz.slice_matrix(m), cmax=6)
+    ot = oz.contract_last_oz(xt, oz.slice_matrix(m, device="cpu"), cmax=6)
     _equal(tuple(oj), tuple(ot))
     # the kernel route folds in another order: same value at the ds floor
-    ok = ds.cds_to_c128(k8.contract_last_oz_kernel(xt, oz.slice_matrix(m), cmax=6))
+    ok = ds.cds_to_c128(k8.contract_last_oz_kernel(xt, oz.slice_matrix(m, device="cpu"), cmax=6))
     st = ds.cds_to_c128(ot)
     assert np.abs(ok - st).max() <= 1e-14 * np.abs(z @ m).max()
 
@@ -208,8 +220,8 @@ def test_transform3_oz_nodemat_matches_jax(merged):
     xj, xt, z = _cds_pair(shape, 15)
     oj = joz.transform3_oz_nodemat(xj, tuple(joz.slice_matrix_nodes(m) for m in mats), cmax=6,
                                    kernel=True, merged=merged)
-    ot = oz.transform3_oz_nodemat(xt, tuple(oz.slice_matrix_nodes(m) for m in mats), cmax=6,
-                                  merged=merged)
+    ot = oz.transform3_oz_nodemat(xt, tuple(oz.slice_matrix_nodes(m, device="cpu") for m in mats),
+                                  cmax=6, merged=merged)
     a, b = jds.cds_to_c128(oj), ds.cds_to_c128(ot)
     exact = np.einsum("xyz,czk,cyj,cxi->cijk", z, mats[2], mats[1], mats[0])
     assert np.abs(a - b).max() <= 1e-14 * np.abs(exact).max()
@@ -223,7 +235,8 @@ def test_transform3_oz_matches_jax(kernel):
     mats = [np.exp(-2j * np.pi * np.outer(np.arange(n), np.arange(n)) / n) for n in (6, 8, 10)]
     oj = joz.transform3_oz(xj, tuple(joz.slice_matrix(m) for m in mats), cmax=6,
                            kernel=True if kernel is None else False)
-    ot = oz.transform3_oz(xt, tuple(oz.slice_matrix(m) for m in mats), cmax=6, kernel=kernel)
+    ot = oz.transform3_oz(xt, tuple(oz.slice_matrix(m, device="cpu") for m in mats), cmax=6,
+                          kernel=kernel)
     _equal(tuple(oj), tuple(ot))
     assert np.abs(ds.cds_to_c128(ot) - np.fft.fftn(z)).max() <= 1e-13 * np.abs(np.fft.fftn(z)).max()
 

@@ -1,25 +1,32 @@
-"""Time the ds kernels K10 (``gmain12_nodemat``), K11 (``hadamard_wsum``) and
-K12 (``hadamard_wsum_half``), the default ds eval, and (on its own flag) K5
+"""Time the ds kernels K7 (the half path's preslice step), K10
+(``gmain12_nodemat``), K11 (``hadamard_wsum``) and K12
+(``hadamard_wsum_half``), the default ds eval, and (on its own flag) K5
 (``gain_reduce``) of a checkout of ``boltzfft_torch`` on the card, at the
 shapes of their routes (32^3 and 64^3, Ns=12, BKW t = 6.5): K10 on the "12"
 route's nodes (C = 24 at 32^3, 4 at 64^3) at each z block that fits, K11
 on two nodes of the full routes' rolled streams, K12 on the default
 route's call (gb = 2 and 12 nodes a stream at 32^3, gb = 1 and 2 nodes at
-64^3: the eval's real planes, random main blocks), the whole default ds
-eval (wall time, the profiler's device time, launches and idle share, a
-hash of its hi and lo bytes), K5 on the rfft + use_pallas route's node
+64^3: the eval's real planes, random main blocks), K7's step as the
+checkout's ``collide_ds`` runs it (f_hat's half-z spectrum, masked and
+swapped, cut into merged chunks: its launches, events and device time), the
+whole default ds eval through ``make_ds_collision_operator`` (replayed from a
+CUDA graph where the checkout honours ``jit=True``) and through
+``collide_ds`` (eager), each with its wall time, the profiler's device time,
+launches and idle share, a hash of its hi and lo bytes, K5 on the rfft +
+use_pallas route's node
 chunk in float64 and float32.  Prints one JSON line per measurement: CUDA
 events around one call (median of ``--trials``, the wrapper's host time
 included) and the kernel's device time per call from ``torch.profiler``
 over 10 calls.
 
     python3 tools/ds_kernels_ab.py [--root DIR] [--label NAME] [--grids 32 64]
-        [--parts k10 k11 k12 eval k5]
+        [--parts k7 k10 k11 k12 eval k5]
 
 ``--root`` names the directory that holds the ``boltzfft_torch`` package to
 time (default: this checkout), so that two versions can be timed in turns
 in one run on one card: parent, change, change, parent.  ``--parts``
-chooses what to time (default: ``k10 k11 k12 eval``; K5 only when named).
+chooses what to time (default: ``k7 k10 k11 k12 eval``; K5 only when
+named).
 """
 
 import argparse
@@ -41,8 +48,8 @@ def main() -> int:
     ap.add_argument("--label", default="this")
     ap.add_argument("--grids", type=int, nargs="+", default=[32, 64])
     ap.add_argument("--trials", type=int, default=20)
-    ap.add_argument("--parts", nargs="+", default=["k10", "k11", "k12", "eval"],
-                    choices=["k10", "k11", "k12", "eval", "k5"])
+    ap.add_argument("--parts", nargs="+", default=["k7", "k10", "k11", "k12", "eval"],
+                    choices=["k7", "k10", "k11", "k12", "eval", "k5"])
     args = ap.parse_args()
     sys.path.insert(0, args.root)
     import numpy as np
@@ -123,6 +130,24 @@ def main() -> int:
         fmask = kxy[:, None, None] * kxy[None, :, None]
         fhs = ds._swap_last2(tm(lambda a: a[..., : n // 2] * fmask, f_hat))
         x_pre = k7.preslice_rows(fhs, cmax=6, merged=True)
+        if "k7" in args.parts:
+            if hasattr(k7, "preslice_half"):
+                step = lambda: k7.preslice_half(f_hat, fmask[:, :, 0], cmax=6, merged=True)
+            else:  # the step as the parent's collide_ds ran it
+                def step():
+                    keep = dso._f32(np.arange(n) != n // 2, dev)
+                    m3 = keep[:, None, None] * keep[None, :, None]
+                    x = ds._swap_last2(tm(lambda a: a[..., : n // 2] * m3, f_hat))
+                    return k7.preslice_rows(x, cmax=6, merged=True)
+            by, _ = profile(step, 1)
+            print(json.dumps(dict(label=args.label, kernel="K7 step", n=n,
+                                  bits=hashlib.sha256(step().full.cpu().view(torch.int16).numpy()
+                                                      .tobytes()).hexdigest()[:16],
+                                  launches=sum(v[1] for v in by.values()),
+                                  events_ms=events_ms(step),
+                                  device_ms=device_ms(step, "", per="call"),
+                                  k7_device_ms=device_ms(step, "preslice_kernel"),
+                                  card=card)), flush=True)
         gb = 2 if n <= 32 else 1
         take = (lambda t: tm(lambda a: a[:gb].reshape((-1,) + tuple(a.shape[2:])), t)) \
             if n <= 32 else (lambda t: tm(lambda a: a[0, :2], t))
@@ -177,27 +202,30 @@ def main() -> int:
                                   device_ms=device_ms(fn, "hwh_kernel"), card=card)), flush=True)
         if "eval" in args.parts:
             collide, pre_e = bt.make_ds_collision_operator(cfg, device=dev)
-            for _ in range(2):
-                q = collide(f, pre_e)
-            torch.cuda.synchronize()
-            walls = []
-            for _ in range(EVAL_TRIALS):
-                t0 = time.perf_counter()
-                collide(f, pre_e)
+            evals = (("ds eval", lambda: collide(f, pre_e)),
+                     ("ds eval eager", lambda: dso.collide_ds(cfg, pre_e, f, contract="oz")))
+            for name, ev in evals:
+                for _ in range(2):
+                    q = ev()
                 torch.cuda.synchronize()
-                walls.append((time.perf_counter() - t0) * 1e3)
-            by, wall = profile(lambda: collide(f, pre_e), 1)
-            busy = sum(v[0] for v in by.values())
-            k12_dev = sum(v[0] for k, v in by.items() if "hwh_kernel" in k)
-            k12_n = sum(v[1] for k, v in by.items() if "hwh_kernel" in k)
-            print(json.dumps(dict(label=args.label, kernel="ds eval", n=n, bits=bits(q),
-                                  wall_ms=statistics.median(walls), walls_ms=walls,
-                                  profiled_wall_ms=wall / 1e3, device_ms=busy / 1e3,
-                                  idle_share=1 - busy / wall,
-                                  launches=sum(v[1] for v in by.values()),
-                                  k12_device_ms=k12_dev / 1e3, k12_launches=k12_n,
-                                  card=card)), flush=True)
-            del collide, pre_e
+                walls = []
+                for _ in range(EVAL_TRIALS):
+                    t0 = time.perf_counter()
+                    ev()
+                    torch.cuda.synchronize()
+                    walls.append((time.perf_counter() - t0) * 1e3)
+                by, wall = profile(ev, 1)
+                busy = sum(v[0] for v in by.values())
+                k12_dev = sum(v[0] for k, v in by.items() if "hwh_kernel" in k)
+                k12_n = sum(v[1] for k, v in by.items() if "hwh_kernel" in k)
+                print(json.dumps(dict(label=args.label, kernel=name, n=n, bits=bits(q),
+                                      wall_ms=statistics.median(walls), walls_ms=walls,
+                                      profiled_wall_ms=wall / 1e3, device_ms=busy / 1e3,
+                                      idle_share=1 - busy / wall,
+                                      launches=sum(v[1] for v in by.values()),
+                                      k12_device_ms=k12_dev / 1e3, k12_launches=k12_n,
+                                      card=card)), flush=True)
+            del collide, pre_e, evals
         del pre
         torch.cuda.empty_cache()
         if "k5" in args.parts:
