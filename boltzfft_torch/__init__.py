@@ -11,10 +11,12 @@ Imports torch and NumPy only, never jax::
 
     import boltzfft_torch as bt
     cfg = bt.CollisionConfig(nv=32, ns=12, impl="fused")
-    collide, pre = bt.make_collision_operator(cfg, device="cuda")
+    collide, pre = bt.make_collision_operator(cfg)  # jit=True, device="cuda"
     g = cfg.velocity_grid
     f = torch.as_tensor(bt.bkw_f(g.r_squared(), 6.5), device="cuda")
-    q = collide(f, pre)
+    q = collide(f, pre)  # replayed from one CUDA graph after the first call
+
+``device="cpu"`` runs the plain PyTorch versions; ``jit=False`` runs eagerly.
 """
 
 from . import ds, transport

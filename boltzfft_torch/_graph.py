@@ -1,7 +1,9 @@
 """CUDA-graph replay of an eval: the card's counterpart of ``jax.jit``.
 
 :class:`Replayed` wraps ``fn(x, pre)``, where ``x`` is a tree of CUDA
-tensors (a :class:`boltzfft_torch.ds.DS`, say) and ``pre`` the tables.  The
+tensors (a :class:`boltzfft_torch.ds.DS`, or one tensor f) and ``pre`` the
+tables: the ds eval (``make_ds_collision_operator``) and every route of
+``make_collision_operator``.  The
 first call for a (``pre`` object, ``x``'s shapes and dtypes) runs ``fn`` once
 eagerly on a side stream, which builds and loads the kernel library and
 fills the plan caches outside capture, then captures one ``fn`` into a
@@ -13,7 +15,8 @@ result has the same bits as an eager call.
 
 A replay reads every tensor the capture used in place.  The graph keeps
 ``pre``, its static input and its static output alive; a tensor the eval
-takes from a cache of its own (``ds_operator._grid_consts``) it passes
+takes from a cache of its own (``ds_operator._grid_consts``, the K3 tables
+in ``pre.derived``) it passes
 through :func:`hold`, which keeps it alive with the graph being captured,
 so a cache that evicts or is cleared never frees memory a replay reads.
 

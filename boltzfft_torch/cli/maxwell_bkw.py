@@ -54,7 +54,7 @@ def main(argv=None):
     rsq = g.r_squared()
 
     t0 = time.perf_counter()
-    collide, pre = bt.make_collision_operator(cfg, device)
+    collide, pre = bt.make_collision_operator(cfg, device=device)
 
     if args.steps > 0:
         # RK4 relaxation from f_bkw(t0), moments recorded after every step

@@ -57,7 +57,7 @@ def main(argv=None):
     dx = args.x_length / args.nx
     dt = args.dt or transport.cfl_dt(float(np.abs(np.asarray(g.v)).max()), dx)
 
-    collide_fn, pre = bt.make_collision_operator(cfg, device)
+    collide_fn, pre = bt.make_collision_operator(cfg, device=device)
     if args.conserve:
         collide_fn = bt.conservative(
             collide_fn, bt.build_conserve_precomp(cfg, temperature=1.0, device=device)

@@ -106,7 +106,7 @@ def main(argv=None):
     nc = args.cells
     d = args.x_length / nc
     dt = args.dt or transport.cfl_dt(float(np.abs(np.asarray(g.v)).max()), d)
-    collide_fn, pre = bt.make_collision_operator(cfg, device)
+    collide_fn, pre = bt.make_collision_operator(cfg, device=device)
     if args.conserve:
         collide_fn = bt.conservative(
             collide_fn,

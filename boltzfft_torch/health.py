@@ -69,7 +69,7 @@ def selfcheck(
         nv=nv, ns=ns, n_radial=n_radial if n_radial is not None else nv // 2,
         dtype=dtype, impl=impl, **(cfg_kwargs or {}),
     )
-    collide, pre = bt.make_collision_operator(cfg, device)
+    collide, pre = bt.make_collision_operator(cfg, device=device)
     if pre_transform is not None:
         pre = pre_transform(pre)
     g = cfg.velocity_grid
@@ -80,7 +80,7 @@ def selfcheck(
     q = collide(f, pre)
     if compare_impl is not None:
         cfg_ref = dataclasses.replace(cfg, impl=compare_impl, use_pallas=False)
-        collide_ref, pre_ref = bt.make_collision_operator(cfg_ref, device)
+        collide_ref, pre_ref = bt.make_collision_operator(cfg_ref, device=device)
         q_exact = collide_ref(f, pre_ref)
     else:
         q_exact = torch.as_tensor(bt.bkw_dfdt(rsq, _PROBE_TIME), dtype=cfg.real_dtype,

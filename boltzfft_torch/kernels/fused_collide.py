@@ -154,18 +154,21 @@ def check_grid(shape, dtype: torch.dtype) -> None:
 
 def fused_collide(
     rho, gain_w, ax, ay, az, f, beta2, dft_inv, dft_fwd, norm_l,
-    *, length: float, b_gamma: float, radial_group: int,
+    *, length: float, b_gamma: float, radial_group: int, chunk: int | None = None,
 ) -> torch.Tensor:
     """Q(f, f) for f of shape (Nx, Ny, Nz) or (E, Nx, Ny, Nz).
 
     ``rho``, ``gain_w``: (B,) node tables; ``ax``/``ay``/``az``: (B, N_axis)
     complex phase factors; ``beta2``, ``norm_l``: (Nx, Ny, Nz);
     ``dft_inv``/``dft_fwd``: (x, y, z) triples of (2, N, N) [re, im] stacks.
+    ``chunk``: the kernel's nodes per chunk (whole radial groups; it sets
+    the buffers, not the result's bits), else :func:`_chunk_nodes` of the
+    free memory; the plain version ignores it.
     """
     args = (rho, gain_w, ax, ay, az, f, beta2, dft_inv, dft_fwd, norm_l)
     kw = dict(length=length, b_gamma=b_gamma, radial_group=radial_group)
     if f.device.type == "cuda":
-        return _fused_collide_cuda(*args, **kw)
+        return _fused_collide_cuda(*args, chunk=chunk, **kw)
     if f.device.type == "cpu":
         return fused_collide_reference(*args, **kw)
     raise ValueError(f"fused_collide: no kernel for device {f.device}")
@@ -260,7 +263,7 @@ def fused_collide_reference(
 
 
 def _chunk_nodes(n_nodes: int, group: int, n_batch: int, n3: int,
-                 csize: int, device) -> int:
+                csize: int, device) -> int:
     """Nodes per kernel chunk: whole radial groups whose two stream buffers
     (2 buffers x E x 2 streams x N^3 complex per node) fit half the free
     device memory."""
@@ -272,7 +275,7 @@ def _chunk_nodes(n_nodes: int, group: int, n_batch: int, n3: int,
 
 def _fused_collide_cuda(
     rho, gain_w, ax, ay, az, f, beta2, dft_inv, dft_fwd, norm_l,
-    *, length: float, b_gamma: float, radial_group: int,
+    *, length: float, b_gamma: float, radial_group: int, chunk: int | None = None,
 ) -> torch.Tensor:
     global LAUNCHES
     from .._build import load_library
@@ -317,7 +320,8 @@ def _fused_collide_cuda(
             ins.append(_cplx(arg(m, (2, n, n), rd)).contiguous())
 
     csize = 16 if rd == torch.float64 else 8
-    chunk = _chunk_nodes(n_nodes, radial_group, n_batch, n3, csize, dev)
+    if chunk is None:
+        chunk = _chunk_nodes(n_nodes, radial_group, n_batch, n3, csize, dev)
     fh = torch.empty((n_batch, n3), dtype=cd, device=dev)
     y = torch.empty((n_batch, 2, n3), dtype=cd, device=dev)
     t1 = torch.empty((2 * n_batch * chunk, n3), dtype=cd, device=dev)

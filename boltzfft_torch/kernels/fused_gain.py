@@ -150,17 +150,18 @@ def pick_scheme(nx: int, ny: int, nz: int) -> str:
 def fused_gain(
     rho, gain_w, ax, ay, az, f_hat, dft_inv, dft_fwd, norm_l,
     *, length: float, b_gamma: float, radial_group: int, scheme: str = "auto",
-    tables: KronTables | None = None,
+    tables: KronTables | None = None, chunk: int | None = None,
 ) -> torch.Tensor:
     """Q_gain_hat of f_hat (Nx, Ny, Nz) or (E, Nx, Ny, Nz), complex, by
     ``scheme``, as ``boltzfft``'s ``fused_gain`` dispatches: ``"ct"`` -> K2,
     ``"transpose"`` -> K4 (cubic only; both
     ``fused_gain_dft.fused_gain_dft``), ``"kron"`` -> K3
     (:func:`fused_gain_kron`, on ``tables`` when given, else built here),
-    ``"auto"`` -> :func:`pick_scheme`."""
+    ``"auto"`` -> :func:`pick_scheme`.  ``chunk``: the kernels' nodes per
+    chunk, as for ``fused_collide``."""
     if scheme == "auto":
         scheme = pick_scheme(*f_hat.shape[-3:])
-    kw = dict(length=length, b_gamma=b_gamma, radial_group=radial_group)
+    kw = dict(length=length, b_gamma=b_gamma, radial_group=radial_group, chunk=chunk)
     if scheme == "kron":
         if tables is None:
             tables = kron_tables(ax, ay, az, dft_inv, dft_fwd)
@@ -171,18 +172,18 @@ def fused_gain(
 
 def fused_gain_kron(
     rho, gain_w, tables: KronTables, f_hat, norm_l,
-    *, length: float, b_gamma: float, radial_group: int,
+    *, length: float, b_gamma: float, radial_group: int, chunk: int | None = None,
 ) -> torch.Tensor:
     """Q_gain_hat for f_hat of shape (Nx, Ny, Nz) or (E, Nx, Ny, Nz), complex.
 
     ``rho``, ``gain_w``: (B,) node tables; ``tables``: :func:`kron_tables`;
     ``norm_l``: (Nx, Ny, Nz) mode norms.  Returns a complex tensor shaped like
-    ``f_hat``.
+    ``f_hat``.  ``chunk``: as for ``fused_collide``.
     """
     args = (rho, gain_w, tables, f_hat, norm_l)
     kw = dict(length=length, b_gamma=b_gamma, radial_group=radial_group)
     if f_hat.device.type == "cuda":
-        return _fused_gain_kron_cuda(*args, **kw)
+        return _fused_gain_kron_cuda(*args, chunk=chunk, **kw)
     if f_hat.device.type == "cpu":
         return fused_gain_kron_reference(*args, **kw)
     raise ValueError(f"fused_gain_kron: no kernel for device {f_hat.device}")
@@ -266,7 +267,7 @@ def fused_gain_kron_reference(
 
 def _fused_gain_kron_cuda(
     rho, gain_w, tables: KronTables, f_hat, norm_l,
-    *, length: float, b_gamma: float, radial_group: int,
+    *, length: float, b_gamma: float, radial_group: int, chunk: int | None = None,
 ) -> torch.Tensor:
     global LAUNCHES
     from .._build import load_library
@@ -312,7 +313,8 @@ def _fused_gain_kron_cuda(
     n3 = nx * nyz
     csize = 16 if rd == torch.float64 else 8
     # the same two stream buffers per node as K1's, sized by K1's rule
-    chunk = _chunk_nodes(n_nodes, radial_group, n_batch, n3, csize, dev)
+    if chunk is None:
+        chunk = _chunk_nodes(n_nodes, radial_group, n_batch, n3, csize, dev)
     t1 = torch.empty((2 * n_batch * chunk, n3), dtype=cd, device=dev)
     t2 = torch.empty_like(t1)
     # kinv and kfwd split into planes for the GEMM, 16 bytes a point

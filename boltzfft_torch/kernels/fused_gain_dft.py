@@ -45,19 +45,21 @@ def check_scheme(scheme: str, shape) -> None:
 def fused_gain_dft(
     rho, gain_w, ax, ay, az, f_hat, dft_inv, dft_fwd, norm_l,
     *, length: float, b_gamma: float, radial_group: int, scheme: str,
+    chunk: int | None = None,
 ) -> torch.Tensor:
     """Q_gain_hat for f_hat of shape (Nx, Ny, Nz) or (E, Nx, Ny, Nz), complex.
 
     ``rho``, ``gain_w``: (B,) node tables; ``ax``/``ay``/``az``: (B, N_axis)
     complex phase factors; ``dft_inv``/``dft_fwd``: (x, y, z) triples of
     (2, N, N) [re, im] stacks; ``norm_l``: (Nx, Ny, Nz).  ``scheme`` is
-    ``"ct"`` (K2) or ``"transpose"`` (K4).
+    ``"ct"`` (K2) or ``"transpose"`` (K4).  ``chunk``: as for
+    ``fused_collide``.
     """
     check_scheme(scheme, f_hat.shape[-3:])
     args = (rho, gain_w, ax, ay, az, f_hat, dft_inv, dft_fwd, norm_l)
     kw = dict(length=length, b_gamma=b_gamma, radial_group=radial_group)
     if f_hat.device.type == "cuda":
-        out = _fused_gain_cuda(*args, **kw)
+        out = _fused_gain_cuda(*args, chunk=chunk, **kw)
         LAUNCHES[scheme] += 1
         return out
     if f_hat.device.type == "cpu":
@@ -85,7 +87,7 @@ def fused_gain_dft_reference(
 
 def _fused_gain_cuda(
     rho, gain_w, ax, ay, az, f_hat, dft_inv, dft_fwd, norm_l,
-    *, length: float, b_gamma: float, radial_group: int,
+    *, length: float, b_gamma: float, radial_group: int, chunk: int | None = None,
 ) -> torch.Tensor:
     from .._build import load_library
 
@@ -129,7 +131,8 @@ def _fused_gain_cuda(
             ins.append(_cplx(arg(m, (2, n, n), rd)).contiguous())
 
     csize = 16 if rd == torch.float64 else 8
-    chunk = _chunk_nodes(n_nodes, radial_group, n_batch, n3, csize, dev)
+    if chunk is None:
+        chunk = _chunk_nodes(n_nodes, radial_group, n_batch, n3, csize, dev)
     t1 = torch.empty((2 * n_batch * chunk, n3), dtype=cd, device=dev)
     t2 = torch.empty_like(t1)
     out = torch.empty_like(fb)

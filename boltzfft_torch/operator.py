@@ -30,6 +30,12 @@ the node phases folded into the inverse matrices (no kernel).
 * ``"kron"``: the same with K3 (``kernels.fused_gain``), hook or not.
 
 As in ``boltzfft``, only the first has a gradient.
+
+:func:`make_collision_operator` with ``jit=True`` on CUDA replays the eval
+from a CUDA graph (``_graph.Replayed``).  So that the capture and every
+eager call take one node chunk, each route's chunk is settled at its first
+use and kept in ``pre.derived`` (:func:`node_chunk`, :func:`kernel_chunk`),
+as a trace settles it once in the JAX package.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from . import _graph
 from .kernels import alpha_multiply as _k6
 from .kernels import fused_collide as _k1
 from .kernels import fused_gain as _k3
@@ -71,6 +78,49 @@ def _beta1(cfg: CollisionConfig, pre: Precomp, rho):
     eps = float(np.finfo(cfg.dtype).eps)
     arg = (math.pi / (2.0 * cfg.domain_length)) * rho[:, None, None, None] * pre.norm_l[None]
     return (4.0 * math.pi * cfg.b_gamma) * (torch.sin(arg + eps) / (arg + eps))
+
+
+def _settled(pre: Precomp, key, make):
+    """``pre.derived[key]``, made by ``make()`` at its first use and kept."""
+    if key not in pre.derived:
+        pre.derived[key] = make()
+    return pre.derived[key]
+
+
+def node_chunk(cfg: CollisionConfig, pre: Precomp) -> int:
+    """The staged pipelines' nodes per chunk for ``pre``: ``cfg.chunk`` of
+    its device (on CUDA a share of the free memory) cut to a divisor of the
+    node count, settled at the first call.  The chunk sets the order of the
+    node sum, and the free memory moves between calls (a CUDA graph's pool
+    holds some), so it is read once."""
+
+    def make():
+        b = pre.rho.shape[0]
+        c = min(cfg.chunk(pre.device), b)
+        while b % c:
+            # a node count the configured chunk doesn't divide: largest divisor
+            c -= 1
+        return c
+
+    return _settled(pre, ("chunk", cfg), make)
+
+
+def kernel_chunk(cfg: CollisionConfig, pre: Precomp, f: torch.Tensor) -> Optional[int]:
+    """K1-K4's nodes per chunk for a batch of ``f``'s shape on CUDA (their
+    buffers; the result's bits do not depend on it), settled at the first
+    call per batch size; None on the CPU, whose plain versions take no
+    chunk."""
+    if pre.device.type != "cuda":
+        return None
+    n_batch = f.shape[0] if f.dim() == 4 else 1
+
+    def make():
+        nx, ny, nz = cfg.grid_shape
+        csize = 16 if cfg.dtype == "float64" else 8
+        return _k1._chunk_nodes(pre.rho.shape[0], cfg.ns_eff, n_batch, nx * ny * nz, csize,
+                                pre.device)
+
+    return _settled(pre, ("kernel chunk", cfg, n_batch), make)
 
 
 def _gain_chunk(cfg: CollisionConfig, pre: Precomp, f_hat, rho, sigma, gain_w):
@@ -166,13 +216,14 @@ def fused_scheme(cfg: CollisionConfig) -> str:
 
 def _kron_tables(cfg: CollisionConfig, pre: Precomp) -> _k3.KronTables:
     """K3's tables for ``pre``, built at the first call and kept in
-    ``pre.derived``."""
+    ``pre.derived``; held by a CUDA graph being captured, which reads them
+    in place."""
     key = ("kron", cfg.domain_length, cfg.dtype)
     if key not in pre.derived:
         ax, ay, az = _alpha_factors(cfg, pre, pre.rho, pre.sigma)
         pre.derived[key] = _k3.kron_tables(
             ax, ay, az, pre.dft_inv_axes(), pre.dft_fwd_axes())
-    return pre.derived[key]
+    return _graph.hold(pre.derived[key])
 
 
 def gain_spectrum(cfg: CollisionConfig, pre: Precomp, f_hat) -> torch.Tensor:
@@ -198,12 +249,10 @@ def gain_spectrum(cfg: CollisionConfig, pre: Precomp, f_hat) -> torch.Tensor:
             pre.dft_inv_axes(), pre.dft_fwd_axes(), pre.norm_l,
             length=cfg.domain_length, b_gamma=cfg.b_gamma,
             radial_group=cfg.ns_eff, scheme=scheme, tables=tables,
+            chunk=kernel_chunk(cfg, pre, f_hat),
         )
     b = pre.rho.shape[0]
-    c = min(cfg.chunk(pre.device), b)
-    while b % c:
-        # a node count the configured chunk doesn't divide: largest divisor
-        c -= 1
+    c = node_chunk(cfg, pre)
     acc = None
     for i in range(0, b, c):
         part = _gain_chunk(
@@ -220,7 +269,7 @@ def _fused_io_collide(cfg: CollisionConfig, pre: Precomp, f: torch.Tensor):
         pre.rho, pre.gain_w, ax, ay, az, f, pre.beta2,
         pre.dft_inv_axes(), pre.dft_fwd_axes(), pre.norm_l,
         length=cfg.domain_length, b_gamma=cfg.b_gamma,
-        radial_group=cfg.ns_eff,
+        radial_group=cfg.ns_eff, chunk=kernel_chunk(cfg, pre, f),
     ).to(cfg.real_dtype)
 
 
@@ -296,13 +345,23 @@ def collide(
 
 
 def make_collision_operator(
-    cfg: CollisionConfig, device
+    cfg: CollisionConfig, jit: bool = True, *, device="cuda",
 ) -> Tuple[Callable[[torch.Tensor, Precomp], torch.Tensor], Precomp]:
-    """Build ``(collide_fn, precomp)`` for a configuration on ``device``.
+    """Build ``(collide_fn, precomp)`` for a configuration on ``device``
+    (CUDA unless the caller asks for the CPU).
 
     ``collide_fn(f, precomp) -> Q`` for f of shape (Nx, Ny, Nz) or
     (E, Nx, Ny, Nz).  ``impl="fused"`` on CUDA raises here if the kernels
     cannot take the grid.
+
+    ``jit=True`` on CUDA replays the eval from a CUDA graph
+    (:class:`boltzfft_torch._graph.Replayed`), the card's counterpart of the
+    JAX package's ``jax.jit``, on every route: the first call per precomp
+    and f shape runs one eager eval, then captures one; every call returns a
+    fresh Q with the eager eval's bits.  A failed capture raises, and so
+    does an f that requires grad while grad is enabled (a graph replays no
+    backward: build with ``jit=False`` to differentiate).  On the CPU
+    ``jit`` changes nothing.
     """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -313,5 +372,15 @@ def make_collision_operator(
 
     def collide_fn(f, precomp):
         return collide(cfg, precomp, f)
+
+    if jit and device.type == "cuda":
+        replayed = _graph.Replayed(collide_fn)
+
+        def collide_fn(f, precomp):  # noqa: F811
+            if torch.is_grad_enabled() and f.requires_grad:
+                raise RuntimeError(
+                    "make_collision_operator(jit=True) replays a CUDA graph, which has no"
+                    " backward; build the operator with jit=False to differentiate")
+            return replayed(f, precomp)
 
     return collide_fn, pre

@@ -31,7 +31,7 @@ def test_dft_matches_boltzfft(kw, precision):
     q_j = np.asarray(collide_j(jnp.asarray(f), pre_j))
 
     cfg = bt.CollisionConfig(**kw)
-    collide, pre = bt.make_collision_operator(cfg, "cpu")
+    collide, pre = bt.make_collision_operator(cfg, device="cpu")
     assert pre.dft_fwd is not None and (pre.dft_fwd_y is not None) == (not cfg.is_isotropic)
     q = collide(torch.as_tensor(f), pre)
     assert q.dtype == torch.float64 and q.shape == f.shape

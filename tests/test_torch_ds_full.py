@@ -190,7 +190,7 @@ def test_full_routes_agree_with_half_and_f64_c2c_at_8():
     phased = ds.to_f64(collide_ds(cfg, build_ds_precomp(cfg, node_mats=False, device="cpu"), f,
                                   contract="oz"))
     cfg64 = bt.CollisionConfig(impl="c2c", dtype="float64", **kw)
-    collide, pre64 = bt.make_collision_operator(cfg64, "cpu")
+    collide, pre64 = bt.make_collision_operator(cfg64, device="cpu")
     q64 = collide(torch.as_tensor(fm), pre64).numpy()
     for q in (full, phased):
         assert _rel(q, q64) <= TOL and _rel(q, half) <= TOL

@@ -123,7 +123,7 @@ def test_half_route_matches_port_f64_c2c_at_8():
     q = ds.to_f64(collide_ds(cfg, build_ds_precomp(cfg, device="cpu"), ds.from_f64(fm, device="cpu"),
                              contract="oz", g_stream="half", gmain_fused="3", group_batch=2))
     cfg64 = bt.CollisionConfig(impl="c2c", dtype="float64", **kw)
-    collide, pre64 = bt.make_collision_operator(cfg64, "cpu")
+    collide, pre64 = bt.make_collision_operator(cfg64, device="cpu")
     q64 = collide(torch.as_tensor(fm), pre64).numpy()
     assert _rel(q, q64) <= TOL
 

@@ -66,7 +66,7 @@ def test_fused_matches_boltzfft(kw, tol):
     scale = np.abs(q_j).max()
 
     cfg = bt.CollisionConfig(impl="fused", fused_scheme="ct", **kw)
-    collide, pre = bt.make_collision_operator(cfg, "cpu")
+    collide, pre = bt.make_collision_operator(cfg, device="cpu")
     ft = torch.as_tensor(f)
     q = collide(ft, pre)
     assert q.dtype == cfg.real_dtype and q.shape == ft.shape
@@ -81,15 +81,15 @@ def test_fused_matches_staged_c2c():
     cfg = bt.CollisionConfig(nv=16, ns=12, impl="fused", fused_scheme="ct")
     cfg_c = bt.CollisionConfig(nv=16, ns=12, impl="c2c")
     f = torch.as_tensor(_bkw_f(cfg))
-    q = bt.make_collision_operator(cfg, "cpu")[0](f, bt.build_precomp(cfg, "cpu"))
-    collide_c, pre_c = bt.make_collision_operator(cfg_c, "cpu")
+    q = bt.make_collision_operator(cfg, device="cpu")[0](f, bt.build_precomp(cfg, "cpu"))
+    collide_c, pre_c = bt.make_collision_operator(cfg_c, device="cpu")
     qc = collide_c(f, pre_c)
     np.testing.assert_allclose(q.numpy(), qc.numpy(), rtol=0, atol=1e-12 * float(qc.abs().max()))
 
 
 def test_fused_batch_equals_per_item():
     cfg = bt.CollisionConfig(nv=8, nvy=10, nvz=12, ns=6, impl="fused", fused_scheme="ct")
-    collide, pre = bt.make_collision_operator(cfg, "cpu")
+    collide, pre = bt.make_collision_operator(cfg, device="cpu")
     f = torch.as_tensor(_bkw_f(cfg))
     fs = torch.stack([f, 0.8 * f])
     q = collide(fs, pre)
@@ -109,7 +109,7 @@ def test_fused_gradient_matches_jax():
     )(jnp.asarray(f)))
 
     cfg = bt.CollisionConfig(fused_scheme="ct", **kw)
-    collide, pre = bt.make_collision_operator(cfg, "cpu")
+    collide, pre = bt.make_collision_operator(cfg, device="cpu")
     x = torch.as_tensor(f).requires_grad_(True)
     (collide(x, pre) * torch.as_tensor(r)).sum().backward()
     np.testing.assert_allclose(x.grad.numpy(), g_j, rtol=0, atol=1e-10 * np.abs(g_j).max())
@@ -117,7 +117,7 @@ def test_fused_gradient_matches_jax():
 
 def test_dispatch_on_device():
     cfg = bt.CollisionConfig(nv=8, ns=6, impl="fused", fused_scheme="ct")
-    collide, pre = bt.make_collision_operator(cfg, "cpu")
+    collide, pre = bt.make_collision_operator(cfg, device="cpu")
     f = torch.as_tensor(_bkw_f(cfg))
     launches, ref_calls = k1.LAUNCHES, k1.REFERENCE_CALLS
     collide(f, pre)
@@ -146,7 +146,7 @@ def test_cuda_device_without_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="is_available"):
-        bt.make_collision_operator(bt.CollisionConfig(nv=8, ns=6, impl="fused"), "cuda")
+        bt.make_collision_operator(bt.CollisionConfig(nv=8, ns=6, impl="fused"), device="cuda")
 
 
 # --------------------------------------------------------------------------
@@ -204,7 +204,7 @@ def test_kernel_matches_plain_on_card(cuda_device, kw, batch, tol):
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_kernel_bitwise_reproducible_on_card(cuda_device, dtype):
     cfg = bt.CollisionConfig(nv=16, ns=12, impl="fused", fused_scheme="ct", dtype=dtype)
-    collide, pre = bt.make_collision_operator(cfg, cuda_device)
+    collide, pre = bt.make_collision_operator(cfg, jit=False, device=cuda_device)
     f = torch.as_tensor(_bkw_f(cfg), dtype=cfg.real_dtype, device=cuda_device)
     fs = torch.stack([f, 0.8 * f])
     assert torch.equal(collide(f, pre), collide(f, pre))
@@ -216,12 +216,15 @@ def test_kernel_chunking_is_bitwise_invariant_on_card(cuda_device, monkeypatch):
     # one radial group per chunk (many launches) against the default single
     # chunk: the group order of the beta1 sum is the same, so bitwise equal
     cfg = bt.CollisionConfig(nv=16, ns=12, node_chunk=7, impl="fused", fused_scheme="ct")
-    collide, pre = bt.make_collision_operator(cfg, cuda_device)
+    collide, pre = bt.make_collision_operator(cfg, jit=False, device=cuda_device)
     f = torch.as_tensor(_bkw_f(cfg), device=cuda_device)
     fs = torch.stack([f, 0.8 * f])
     q_one = collide(fs, pre)
+    # the operator settles the chunk per precomp: a fresh one reads the rule again
     monkeypatch.setattr(k1, "_chunk_nodes", lambda n_nodes, group, *a: group)
-    assert torch.equal(collide(fs, pre), q_one)
+    pre_g = bt.build_precomp(cfg, cuda_device)
+    assert torch.equal(collide(fs, pre_g), q_one)
+    assert bt_op.kernel_chunk(cfg, pre_g, fs) == cfg.ns_eff
 
 
 @pytest.mark.cuda

@@ -153,7 +153,7 @@ def test_fused_gradient_16_matches_jax():
 
     cfg = bt.CollisionConfig(**kw)
     assert bt_op.fused_scheme(cfg) == "ct"
-    collide, pre = bt.make_collision_operator(cfg, "cpu")
+    collide, pre = bt.make_collision_operator(cfg, device="cpu")
     x = torch.as_tensor(f).requires_grad_(True)
     (collide(x, pre) * torch.as_tensor(r)).sum().backward()
     np.testing.assert_allclose(x.grad.numpy(), g_j, rtol=0, atol=1e-12 * np.abs(g_j).max())

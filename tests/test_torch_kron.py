@@ -148,7 +148,7 @@ def test_kron_collide_matches_boltzfft():
     q_j = np.asarray(collide_j(jnp.asarray(f), pre_j))
 
     cfg = bt.CollisionConfig(impl="fused", fused_scheme="kron", **kw)
-    collide, pre = bt.make_collision_operator(cfg, "cpu")
+    collide, pre = bt.make_collision_operator(cfg, device="cpu")
     k1_calls, k3_calls = k1.REFERENCE_CALLS, k3.REFERENCE_CALLS
     q = collide(torch.as_tensor(f), pre)
     assert k3.REFERENCE_CALLS == k3_calls + 1 and k1.REFERENCE_CALLS == k1_calls
@@ -160,8 +160,8 @@ def test_kron_collide_matches_staged_c2c():
     cfg_c = bt.CollisionConfig(nv=16, ns=12, impl="c2c")
     f = torch.as_tensor(_bkw_f(cfg))
     fs = torch.stack([f, 0.8 * f])
-    collide, pre = bt.make_collision_operator(cfg, "cpu")
-    collide_c, pre_c = bt.make_collision_operator(cfg_c, "cpu")
+    collide, pre = bt.make_collision_operator(cfg, device="cpu")
+    collide_c, pre_c = bt.make_collision_operator(cfg_c, device="cpu")
     q, qc = collide(fs, pre), collide_c(fs, pre_c)
     np.testing.assert_allclose(q.numpy(), qc.numpy(), rtol=0, atol=1e-12 * float(qc.abs().max()))
     # the kron route transforms the whole batch at once: CPU torch.fft (MKL)
@@ -173,7 +173,7 @@ def test_kron_collide_matches_staged_c2c():
 
 def test_kron_tables_built_once_per_precomp():
     cfg = bt.CollisionConfig(nv=8, ns=6, impl="fused", fused_scheme="kron")
-    collide, pre = bt.make_collision_operator(cfg, "cpu")
+    collide, pre = bt.make_collision_operator(cfg, device="cpu")
     f = torch.as_tensor(_bkw_f(cfg))
     q = collide(f, pre)
     tables = bt_op._kron_tables(cfg, pre)
@@ -204,7 +204,7 @@ def test_kron_gain_spectrum_and_hooks():
 
 def test_kron_route_has_no_gradient():
     cfg = bt.CollisionConfig(nv=8, ns=6, impl="fused", fused_scheme="kron")
-    collide, pre = bt.make_collision_operator(cfg, "cpu")
+    collide, pre = bt.make_collision_operator(cfg, device="cpu")
     x = torch.as_tensor(_bkw_f(cfg)).requires_grad_(True)
     with pytest.raises(NotImplementedError, match="no gradient"):
         collide(x, pre)
@@ -271,7 +271,7 @@ def test_kron_kernel_matches_plain_on_card(cuda_device, kw, batch, tol):
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_kron_bitwise_reproducible_on_card(cuda_device, dtype):
     cfg = bt.CollisionConfig(nv=16, ns=12, impl="fused", fused_scheme="kron", dtype=dtype)
-    collide, pre = bt.make_collision_operator(cfg, cuda_device)
+    collide, pre = bt.make_collision_operator(cfg, jit=False, device=cuda_device)
     f = torch.as_tensor(_bkw_f(cfg), dtype=cfg.real_dtype, device=cuda_device)
     fs = torch.stack([f, 0.8 * f, 1.1 * f])
     assert torch.equal(collide(fs, pre), collide(fs, pre))
@@ -299,9 +299,13 @@ def test_kron_chunking_is_bitwise_invariant_on_card(cuda_device, monkeypatch):
     # one radial group per chunk (many launches of the stages) against the
     # default single chunk: the same group order, so bitwise equal
     cfg = bt.CollisionConfig(nv=16, ns=12, impl="fused", fused_scheme="kron")
-    collide, pre = bt.make_collision_operator(cfg, cuda_device)
+    collide, pre = bt.make_collision_operator(cfg, jit=False, device=cuda_device)
     f = torch.as_tensor(_bkw_f(cfg), device=cuda_device)
     fs = torch.stack([f, 0.8 * f])
     q_one = collide(fs, pre)
-    monkeypatch.setattr(k3, "_chunk_nodes", lambda n_nodes, group, *a: group)
-    assert torch.equal(collide(fs, pre), q_one)
+    # the operator settles K1-K4's chunk per precomp by K1's rule: a fresh
+    # precomp reads the rule again
+    monkeypatch.setattr(k1, "_chunk_nodes", lambda n_nodes, group, *a: group)
+    pre_g = bt.build_precomp(cfg, cuda_device)
+    assert torch.equal(collide(fs, pre_g), q_one)
+    assert bt_op.kernel_chunk(cfg, pre_g, fs) == cfg.ns_eff

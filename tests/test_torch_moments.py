@@ -15,7 +15,7 @@ import boltzfft_torch as bt
 
 def _q(nv=16, ns=6):
     cfg = bt.CollisionConfig(nv=nv, ns=ns)
-    collide, pre = bt.make_collision_operator(cfg, "cpu")
+    collide, pre = bt.make_collision_operator(cfg, device="cpu")
     g = cfg.velocity_grid
     return cfg, g, collide(torch.as_tensor(bt.bkw_f(g.r_squared(), 6.5)), pre)
 
@@ -103,7 +103,7 @@ def test_projection_batch_broadcast():
 
 def test_conservative_wrapper():
     cfg = bt.CollisionConfig(nv=8, ns=6, impl="fused")
-    collide, pre = bt.make_collision_operator(cfg, "cpu")
+    collide, pre = bt.make_collision_operator(cfg, device="cpu")
     cp = bt.build_conserve_precomp(cfg, device="cpu")
     f = torch.as_tensor(bt.bkw_f(cfg.velocity_grid.r_squared(), 6.5))
     fs = torch.stack([f, 0.5 * f])

@@ -23,7 +23,7 @@ def _bkw(cfg, t=6.5):
 def _both(kw, f, gain_reduce=None):
     """(port Q, boltzfft Q) as float64 NumPy arrays for one configuration."""
     cfg_t = bt.CollisionConfig(**kw)
-    collide_t, pre_t = bt.make_collision_operator(cfg_t, "cpu")
+    collide_t, pre_t = bt.make_collision_operator(cfg_t, device="cpu")
     if gain_reduce is None:
         q_t = collide_t(torch.as_tensor(f), pre_t)
     else:
@@ -65,7 +65,7 @@ def test_gain_reduce_hook_matches_boltzfft():
 @pytest.mark.parametrize("impl", ["c2c", "rfft"])
 def test_direct_sum_parity(gamma, impl):
     cfg = bt.CollisionConfig(nv=8, ns=6, n_radial=6, gamma=gamma, impl=impl)
-    collide, pre = bt.make_collision_operator(cfg, "cpu")
+    collide, pre = bt.make_collision_operator(cfg, device="cpu")
     f, _ = _bkw(cfg)
     gl = bt.gauss_legendre(cfg.n_gl, 0.0, cfg.r_max)
     sph = bt.spherical_design(cfg.ns)
@@ -80,7 +80,7 @@ def test_direct_sum_parity(gamma, impl):
 def test_bkw_reference_digits_c2c_32():
     # the reference's f64 numbers at 32^3/Ns=12 (BASELINE.md)
     cfg = bt.CollisionConfig(nv=32, ns=12, impl="c2c")
-    collide, pre = bt.make_collision_operator(cfg, "cpu")
+    collide, pre = bt.make_collision_operator(cfg, device="cpu")
     f, q_exact = _bkw(cfg)
     err = bt.error_norms(collide(torch.as_tensor(f), pre), q_exact, cfg.velocity_grid.dv)
     np.testing.assert_allclose(err["L1"], 1.5403e-03, rtol=1e-4)
@@ -90,7 +90,7 @@ def test_bkw_reference_digits_c2c_32():
 
 def test_staged_batch_equals_per_item():
     cfg = bt.CollisionConfig(nv=8, ns=6, impl="rfft")
-    collide, pre = bt.make_collision_operator(cfg, "cpu")
+    collide, pre = bt.make_collision_operator(cfg, device="cpu")
     f = torch.as_tensor(_bkw(cfg)[0])
     fs = torch.stack([f, 0.8 * f])
     assert torch.equal(collide(fs, pre), torch.stack([collide(fs[0], pre), collide(fs[1], pre)]))

@@ -36,7 +36,7 @@ def test_relax_matches_boltzfft(nv, method):
     traj_j = run_j(jnp.asarray(f0))
 
     cfg = bt.CollisionConfig(**kw)
-    collide, pre = bt.make_collision_operator(cfg, "cpu")
+    collide, pre = bt.make_collision_operator(cfg, device="cpu")
     run = bt.make_relaxation(collide, pre, dt=0.1, n_steps=3, method=method,
                              record=lambda x: bt.moments(x, g.v, g.dv))
     traj = run(torch.as_tensor(f0))
@@ -77,7 +77,7 @@ def test_maxwell_bkw_steps(capsys):
     # the same relaxation through the library
     cfg = bt.CollisionConfig(nv=8, ns=6, n_radial=4, impl="c2c")
     g = cfg.velocity_grid
-    collide, pre = bt.make_collision_operator(cfg, "cpu")
+    collide, pre = bt.make_collision_operator(cfg, device="cpu")
     traj = bt.make_relaxation(collide, pre, dt=0.1, n_steps=3)(
         torch.as_tensor(bt.bkw_f(g.r_squared(), 5.5)))
     want = bt.error_norms(traj.f, bt.bkw_f(g.r_squared(), 5.5 + 0.3), g.dv)["Linf"]

@@ -62,7 +62,7 @@ def test_step_matches_boltzfft_c2c(ndim, scheme):
     collide_j, pre_j = bz.make_collision_operator(cfg_j, jit=False)
     step_j = jax.jit(mk_j(cfg_j, collide_j, dt=0.02, knudsen=0.5, scheme=scheme, **deltas))
     a = np.asarray(step_j(jnp.asarray(f), pre_j))
-    collide_t, pre_t = bt.make_collision_operator(cfg_t, "cpu")
+    collide_t, pre_t = bt.make_collision_operator(cfg_t, device="cpu")
     step_t = mk_t(cfg_t, collide_t, dt=0.02, knudsen=0.5, scheme=scheme, **deltas)
     b = step_t(torch.as_tensor(f), pre_t).numpy()
     assert b.shape == f.shape
@@ -125,7 +125,7 @@ def test_cfl_dt():
 @pytest.mark.parametrize("impl", ["rfft", "fused"])
 def test_uniform_cells_match_homogeneous_rk2(impl):
     cfg = bt.CollisionConfig(**small_kw(impl=impl))
-    collide_fn, pre = bt.make_collision_operator(cfg, "cpu")
+    collide_fn, pre = bt.make_collision_operator(cfg, device="cpu")
     f_one = torch.as_tensor(bt.bkw_f(cfg.velocity_grid.r_squared(), 6.5))
     nx, dt, kn = 4, 0.05, 0.7
     f = f_one.expand(nx, *f_one.shape).contiguous()
@@ -140,7 +140,7 @@ def test_uniform_cells_match_homogeneous_rk2(impl):
 def test_collisionless_step_conserves_exactly():
     cfg = bt.CollisionConfig(**small_kw())
     g = cfg.velocity_grid
-    collide_fn, pre = bt.make_collision_operator(cfg, "cpu")
+    collide_fn, pre = bt.make_collision_operator(cfg, device="cpu")
     nx = 8
     f = bt_tr.sod_initial_condition(cfg, nx, device="cpu")
     dx = 1.0 / nx

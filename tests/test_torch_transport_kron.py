@@ -28,7 +28,7 @@ def test_step_matches_boltzfft_kron(ndim):
     step_j = jax.jit(mk_j(cfg_j, collide_j, dt=0.02, knudsen=0.5, **deltas))
     a = np.asarray(step_j(jnp.asarray(f), pre_j))
 
-    collide_t, pre_t = bt.make_collision_operator(cfg_t, "cpu")
+    collide_t, pre_t = bt.make_collision_operator(cfg_t, device="cpu")
     step_t = mk_t(cfg_t, collide_t, dt=0.02, knudsen=0.5, **deltas)
     calls = k3.REFERENCE_CALLS
     b = step_t(torch.as_tensor(f), pre_t).numpy()

@@ -116,7 +116,7 @@ def test_precomp_from_numpy_round_trip():
 
     # the carried-across tables give the same Q as the port's own
     cfg_t = bt.CollisionConfig(nv=8, nvy=10, nvz=12, ns=6, impl="fused")
-    collide, own = bt.make_collision_operator(cfg_t, "cpu")
+    collide, own = bt.make_collision_operator(cfg_t, device="cpu")
     f = torch.as_tensor(bt.bkw_f(cfg_t.velocity_grid.r_squared(), 6.5))
     assert torch.equal(collide(f, pre), collide(f, own))
 
