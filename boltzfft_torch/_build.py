@@ -63,8 +63,8 @@ _ENTRY_ARGS = {
     "bfft_fused_gain_kron": [_P] * 10 + [_P] * 4 + [_I] * 6 + [_D] * 3 + [_P],
     # 13 inputs, 3 buffers, 7 ints, 3 reals and the stream
     "bfft_fused_gain": [_P] * 13 + [_P] * 3 + [_I] * 7 + [_D] * 3 + [_P],
-    # 3 inputs, 2 outputs, 3 ints and the stream
-    "bfft_alpha_multiply": [_P] * 3 + [_P] * 2 + [_I] * 3 + [_P],
+    # 3 inputs, the output, 6 ints (dims and the launch plan) and the stream
+    "bfft_alpha_multiply": [_P] * 3 + [_P] + [_I] * 6 + [_P],
     # 4 inputs, the output, the scratch, 4 ints, 3 reals and the stream
     "bfft_gain_reduce": [_P] * 4 + [_P] * 2 + [_I] * 4 + [_D] * 3 + [_P],
 }

@@ -15,7 +15,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    1e-12 of the plain result's max, float32 within 1e-5, 4e-5 below 32^3,
    see ``TOL``): K1 (``fused_collide``), K3 (``fused_gain_kron``), K2 and K4
    (``fused_gain_dft``; K2 at 16^3, 32^3, (32,16,48), 64^3, K4 at 16^3,
-   32^3, 40^3, 64^3), K6 (``alpha_multiply``) and K5 (``gain_reduce``, at
+   32^3, 40^3, 64^3), K6 (``alpha_multiply``, bitwise, and at a ragged
+   shape: B 6, N 8, M2 40) and K5 (``gain_reduce``, at
    node blocks 1, 8 and 64, each against its plain version at the same node
    block, its split and one-launch routes bitwise equal) at the shapes the
    rfft + use_pallas route gives them at 32^3 and 64^3; every new kernel
@@ -26,8 +27,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    (K3 plus its cuFFT finale) at 8^3, 12^3 and 16^3, Ns=12, on E = 1, 32, 256
    and 512 distributions, float32 and float64, medians of 20 trials (5 in
    each of four turns);
-5. the homogeneous main paths, ``make_collision_operator`` or ``collide``
-   at 32^3 and 64^3, Ns=12, on the BKW distribution at t = 6.5: K1
+5. the homogeneous main paths, ``make_collision_operator(cfg, jit=False)``
+   (eager: each kernel's launches per eval) or ``collide`` at 32^3 and
+   64^3, Ns=12, on the BKW distribution at t = 6.5: K1
    (``impl="fused"``), rfft + use_pallas (K6, K5), fused + a ``gain_reduce``
    hook (K2), ``fused_scheme="transpose"`` (K4), and dft (32^3), each held
    to the reference's float64 error norms and to the staged float64 c2c
@@ -47,16 +49,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``impl="fused"``, K3) on a 256-cell stack against the staged c2c, and
    dispatch (each main path launched its kernels and never a plain version);
 8. ``maxwell_bkw --steps 10 --Nv 32 --Ns 12`` (RK4 relaxation through K1,
-   float64) and the same relaxation through c2c (1e-12 relative);
+   float64, its operator replayed from a CUDA graph: K1 counted twice, the
+   warm-up and the capture), the same relaxation through the graphed K1
+   operator bitwise equal to the eager one, and through c2c (1e-12
+   relative);
 9. ``health.selfcheck`` on the card for fused, rfft + use_pallas and dft,
    and with a corrupted ``Precomp`` (must fail);
 10. ``fft_benchmark`` and ``loop_benchmark`` at 32^3, Ns=12, float64;
 11. times (CUDA events, 2 warm-ups, 10 trials, a plain version 1 and 5;
     median and mean): K1 at 32^3
     and 64^3; K2, K4, K5, K6 at the main paths' shapes with their bounds,
-    plain versions and K5's and K6's library yardsticks, K5's device time
-    (profiler; both launches on its split route, whose scratch's bytes are
-    printed beside the bound, which counts only the function's own);
+    plain versions and K5's and K6's library yardsticks, K5's and K6's
+    device time (profiler; both of K5's launches on its split route, whose
+    scratch's bytes are printed beside the bound, which counts only the
+    function's own);
     ``collide`` through each route
     (K1, staged rfft and c2c, rfft + use_pallas, K2 + hook, K4, dft at
     32^3) at 32^3 and 64^3; K3 (first held to its plain
@@ -148,12 +154,19 @@ Phases, in order; any failure raises and the script exits non-zero:
     K7, K8 and K12 wrappers copied in an eager eval (none for K7 and K12), a
     second f leaving the first Q intact, the graph pool's memory against the
     eager peak, paired wall times (10 rounds at 32^3, 6 at 64^3) and one
-    profiled replay and eager eval.
+    profiled replay and eager eval;
+22. every route of ``make_collision_operator(cfg)`` (``jit=True``: the eval
+    replayed from one CUDA graph) against the eager ``collide`` on the same
+    precomp, bitwise (capture, replay, a second f): rfft + use_pallas at
+    32^3 and 64^3 in float64 and float32 (with the BKW digits through the
+    replay in float64), K1 at 32^3 and 64^3 and on the TG-2D batch (256 x
+    16^3), kron (K3) on 256 x 8^3, c2c at 32^3; counts, pool memory,
+    paired walls and a profiled replay and eager eval, as in phase 21.
 
 The ds evals of phases 13, 15, 16 and 18 (but the phased route) go through
 ``make_ds_collision_operator``, so they replay CUDA graphs; phase 20's route
 rule and ``selfcheck_ds`` call ``collide_ds`` eagerly.  A
-``[N total]`` line after phases 3-11, 16, 20 and 21 gives the seconds since
+``[N total]`` line after phases 3-11, 16 and 20-22 gives the seconds since
 the device check.  The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
 """
@@ -1403,6 +1416,126 @@ def ds_graph_phase(bt, dev, card, ks, st):
         torch.cuda.empty_cache()
 
 
+# ---- every route of make_collision_operator replayed from one CUDA graph (phase 22) ----
+# (label, CollisionConfig kwargs, grid, cells: None for one BKW f, else a
+# stack; "tg" the TG-2D batch of 16 x 16 cells)
+OPERATOR_GRAPH_CASES = [
+    ("rfft + use_pallas", dict(impl="rfft", use_pallas=True, dtype="float64"), 32, None),
+    ("rfft + use_pallas", dict(impl="rfft", use_pallas=True, dtype="float32"), 32, None),
+    ("rfft + use_pallas", dict(impl="rfft", use_pallas=True, dtype="float64"), 64, None),
+    ("rfft + use_pallas", dict(impl="rfft", use_pallas=True, dtype="float32"), 64, None),
+    ("fused (K1)", dict(impl="fused", fused_scheme="ct"), 32, None),
+    ("fused (K1)", dict(impl="fused", fused_scheme="ct"), 64, None),
+    ("fused (K1), TG-2D batch", dict(impl="fused", fused_scheme="ct"), 16, "tg"),
+    ("fused kron (K3)", dict(impl="fused", fused_scheme="kron"), 8, 256),
+    ("c2c", dict(impl="c2c"), 32, None),
+]
+OPERATOR_FAMILIES = ("alpha_multiply_kernel", "gain_reduce_kernel", "dft_kernel",
+                     "kron_gemm_kernel", "fft")
+
+
+def operator_graph_phase(bt, dev, card, ks):
+    """Phase 22: ``make_collision_operator(cfg)`` (``jit=True``) replays each
+    route's eval from one CUDA graph; each held bitwise to the eager eval
+    (``collide`` on the same precomp) on the capture, a replay and a second
+    f, which leaves the first Q intact; the BKW digits through the replayed
+    rfft + use_pallas route in float64; the capture's seconds and launches
+    (twice an eager eval's: the warm-up and the capture; a replay none);
+    the graph pool against the eager peak; paired wall times (host clock to
+    a synchronise, alternated, medians of ``GRAPH_ROUNDS``), and one
+    profiled replay and eager eval (device time, idle share, kernels).
+    Each operator is dropped before the next case."""
+    from boltzfft_torch.cli.taylor_green_2d3v import taylor_green_f0
+
+    for label, kw, n, cells in OPERATOR_GRAPH_CASES:
+        cfg = bt.CollisionConfig(nv=n, ns=12, **kw)
+        graphed, pre = bt.make_collision_operator(cfg)
+        _, rsq, f = bkw(bt, cfg, dev)
+        if cells == "tg":
+            f = taylor_green_f0(cfg, 16, device=dev, u0=0.8, temperature=3.0)
+            f = f.reshape(-1, n, n, n)
+        elif cells:
+            f = torch.stack([f * (1.0 - 0.5 * i / cells) for i in range(cells)])
+        name = f"{label} {n}^3 {cfg.dtype}" + ("" if f.dim() == 3 else f" E {f.shape[0]}")
+        eager = lambda: bt.collide(cfg, pre, f)
+        eager()  # settles the chunks and builds the tables on this precomp
+        torch.cuda.synchronize()
+        reset_counts(ks)
+        torch.cuda.reset_peak_memory_stats()
+        a0 = torch.cuda.memory_allocated()
+        q_eager = eager()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - a0
+        c_eager = counts(ks)
+        torch.cuda.empty_cache()
+        r0 = torch.cuda.memory_reserved()
+        reset_counts(ks)
+        t0 = time.perf_counter()
+        q_graph = graphed(f, pre)
+        torch.cuda.synchronize()
+        cap_s = time.perf_counter() - t0
+        c_cap = counts(ks)
+        torch.cuda.empty_cache()
+        pool = torch.cuda.memory_reserved() - r0
+        reset_counts(ks)
+        q_replay = graphed(f, pre)
+        torch.cuda.synchronize()
+        c_replay = counts(ks)
+        ok = torch.equal(q_graph, q_eager) and torch.equal(q_replay, q_eager)
+        print(f"[22 graph] {name}: make_collision_operator(cfg) (jit=True) capture (warm-up +"
+              f" capture) {cap_s:.3f} s; capture and replay bitwise equal to eager {ok} | {card}")
+        print(f"  launches of an eager eval {c_eager}; of the first graphed call {c_cap}; of a"
+              f" replay {c_replay}")
+        check(ok, f"graph {name}: Q differs from the eager eval")
+        check(all(v == 0 for v in c_replay.values()) and plain_calls(c_cap) == 0
+              and all(c_cap[k] == 2 * c_eager[k] for k in c_eager), f"graph {name}: counts")
+        keep = q_replay.clone()
+        f2 = 1.1 * f
+        q2 = graphed(f2, pre)
+        q2_eager = bt.collide(cfg, pre, f2)
+        torch.cuda.synchronize()
+        ok2 = torch.equal(q_replay, keep) and torch.equal(q2, q2_eager)
+        print(f"  a second f (1.1 f): equal to eager {torch.equal(q2, q2_eager)}; the first Q"
+              f" kept {torch.equal(q_replay, keep)}")
+        check(ok2, f"graph {name}: a second replay overwrote or differs")
+        del keep, q2, q2_eager, f2
+        if label == "rfft + use_pallas" and cfg.dtype == "float64":
+            e = bt.error_norms_device(q_replay, bt.bkw_dfdt(rsq, 6.5), cfg.velocity_grid.dv)
+            ref, rtol = BKW_DIGITS[n]
+            print(f"  BKW through the replay: L1 {e['L1']:.5e} L2 {e['L2']:.5e} Linf"
+                  f" {e['Linf']:.5e} (reference {ref[0]:.4e} {ref[1]:.4e} {ref[2]:.4e}, rtol {rtol:g})")
+            for got, want, lab in zip((e["L1"], e["L2"], e["Linf"]), ref, ("L1", "L2", "Linf")):
+                check(abs(got - want) <= rtol * want, f"graph {name} {lab} {got:.5e} vs {want:.4e}")
+        print(f"  memory: the graph's pool {pool / 2**20:.1f} MiB reserved (memory_reserved"
+              f" across the first graphed call, caches emptied); the eager eval's peak"
+              f" {peak / 2**20:.1f} MiB allocated | {card}")
+        runs = {"eager": eager, "graph": lambda: graphed(f, pre)}
+        wall = {k: [] for k in runs}
+        rounds = GRAPH_ROUNDS.get(n, 10)
+        for rnd in range(rounds):
+            for k in (("eager", "graph") if rnd % 2 == 0 else ("graph", "eager")):
+                t0 = time.perf_counter()
+                runs[k]()
+                torch.cuda.synchronize()
+                wall[k].append((time.perf_counter() - t0) * 1e3)
+        d = [a - b for a, b in zip(wall["eager"], wall["graph"])]
+        print(f"[22 graph] {name}: wall per eval over {rounds} paired rounds, eager median"
+              f" {statistics.median(wall['eager']):.4f} ms (min {min(wall['eager']):.4f}, max"
+              f" {max(wall['eager']):.4f}), graph median {statistics.median(wall['graph']):.4f} ms"
+              f" (min {min(wall['graph']):.4f}, max {max(wall['graph']):.4f}); eager minus graph"
+              f" round by round: median {statistics.median(d):.4f} (min {min(d):.4f}, max"
+              f" {max(d):.4f}) | {card}")
+        for what, fn, k in (("one replay", runs["graph"], "graph"), ("one eager eval", eager, "eager")):
+            fam, wall_us = profile_eval(fn, OPERATOR_FAMILIES)
+            print_profile(f"{name}, {what}", fam, wall_us, card, 22)
+            busy = sum(v[0] for v in fam.values()) / 1e3
+            med = statistics.median(wall[k])
+            print(f"  the profiler's device time against the unprofiled median wall: {busy:.4f} of"
+                  f" {med:.4f} ms, idle share {100 * (1 - busy / med):.1f}% | {card}")
+        del q_eager, q_graph, q_replay, runs, graphed, pre, f, eager
+        torch.cuda.empty_cache()
+
+
 def _leaves(tree):
     out = []
     if tree is None:
@@ -1558,12 +1691,20 @@ def main() -> int:
             scale = max(float(y.abs().max()) for y in a_ref)
             same = all(torch.equal(x, y) for x, y in zip(a, a_ref))
             rerun = all(torch.equal(x, y) for x, y in zip(a, a2))
-            ok = err <= TOL[dtype] * scale and rerun
+            ok = same and rerun
             print(f"  K6 {dtype} {n}^3 chunk {tuple(a[0].shape)}: max|d| {err:.3e} = {err / scale:.3e}"
                   f" of max (tol {TOL[dtype]:g}); bitwise equal to plain {same}; run to run"
                   f" bitwise {rerun} {'ok' if ok else 'FAIL'}")
             check(ok, f"K6 != plain version at {dtype} {n}^3")
             max_err[("k6", dtype, n)] = err
+            if n == 32:  # a ragged shape: one partial tile of a 6-node chunk
+                cd = cfg.complex_dtype
+                rng = np.random.default_rng(6)
+                rag = [torch.as_tensor(rng.standard_normal(s) + 1j * rng.standard_normal(s),
+                                       dtype=cd, device=dev) for s in ((6, 8), (6, 40), (8, 40))]
+                parity_check({}, f"K6 {dtype} ragged B 6, N 8, M2 40 ({k6.plan(6, 8, 40, cd.itemsize, True)})",
+                             "k6", lambda: k6.alpha_multiply(*rag),
+                             lambda: k6.alpha_multiply_reference(*rag))
             # K5 at each node block against its plain version at the same
             # node block, and its two routes (one launch; node blocks through
             # the scratch) against each other
@@ -1640,7 +1781,7 @@ def main() -> int:
     for dtype in ("float64", "float32"):
         for n in (32, 64):
             cfg = bt.CollisionConfig(nv=n, ns=12, impl="fused", dtype=dtype)
-            collide, pre = bt.make_collision_operator(cfg, device="cuda")
+            collide, pre = bt.make_collision_operator(cfg, jit=False, device="cuda")
             _, _, f = bkw(bt, cfg, dev)
             before = k1.LAUNCHES
             main_q[(dtype, n)] = collide(f, pre)
@@ -1674,7 +1815,7 @@ def main() -> int:
         else:
             check(d32 <= 2e-5 * scale, f"64^3 |Q32 - Q64| {d32:.3e} > 2e-5 max|Q|")
         cfg_c = bt.CollisionConfig(nv=n, ns=12, impl="c2c")
-        coll_c, pre_c = bt.make_collision_operator(cfg_c, device="cuda")
+        coll_c, pre_c = bt.make_collision_operator(cfg_c, jit=False, device="cuda")
         _, _, f64 = bkw(bt, cfg_c, dev)
         qc = coll_c(f64, pre_c)
         q_c2c[n] = qc
@@ -1694,7 +1835,7 @@ def main() -> int:
                     _, _, f = bkw(bt, cfg, dev)
                     q = bt.collide(cfg, pre, f, gain_reduce=lambda x: x)
                 else:
-                    collide, pre = bt.make_collision_operator(cfg, device="cuda")
+                    collide, pre = bt.make_collision_operator(cfg, jit=False, device="cuda")
                     _, _, f = bkw(bt, cfg, dev)
                     q = collide(f, pre)
                 torch.cuda.synchronize()
@@ -1746,8 +1887,8 @@ def main() -> int:
     for dtype in ("float64", "float32"):
         cfg = bt.CollisionConfig(nv=16, ns=12, impl="fused", dtype=dtype)
         cfg_k = dataclasses.replace(cfg, fused_scheme="kron")
-        collide, pre = bt.make_collision_operator(cfg, device="cuda")
-        collide_k, pre_k = bt.make_collision_operator(cfg_k, device="cuda")
+        collide, pre = bt.make_collision_operator(cfg, jit=False, device="cuda")
+        collide_k, pre_k = bt.make_collision_operator(cfg_k, jit=False, device="cuda")
         g = cfg.velocity_grid
         vmax = float(abs(g.v).max())
         d2, d3, dsod = 1.0 / 16, 1.0 / 8, 1.0 / 32
@@ -1782,7 +1923,7 @@ def main() -> int:
             check(c[kern] == 2 * steps and others == 0, f"{dtype} {label}: dispatch {c}")
     cfg, collide, pre, step2, f2 = solvers["float64"]
     cfg_c = bt.CollisionConfig(nv=16, ns=12, impl="c2c")
-    coll_c, pre_c = bt.make_collision_operator(cfg_c, device="cuda")
+    coll_c, pre_c = bt.make_collision_operator(cfg_c, jit=False, device="cuda")
     d2 = 1.0 / 16
     step_c = transport.make_inhomogeneous_step_2d(
         cfg_c, coll_c, dx=d2, dy=d2, dt=transport.cfl_dt(float(abs(cfg.velocity_grid.v).max()), d2),
@@ -1798,7 +1939,7 @@ def main() -> int:
     # ---- 7. determinism and dispatch -----------------------------------
     for dtype in ("float64", "float32"):
         cfg = bt.CollisionConfig(nv=32, ns=12, impl="fused", dtype=dtype)
-        collide, pre = bt.make_collision_operator(cfg, device="cuda")
+        collide, pre = bt.make_collision_operator(cfg, jit=False, device="cuda")
         _, _, f = bkw(bt, cfg, dev)
         a, b = collide(f, pre), collide(f, pre)
         fs = torch.stack([f, 0.8 * f])
@@ -1836,7 +1977,7 @@ def main() -> int:
     k3_default = {}
     for dtype in ("float64", "float32"):
         cfg8 = bt.CollisionConfig(nv=8, ns=12, impl="fused", dtype=dtype)
-        collide8, pre8 = bt.make_collision_operator(cfg8, device="cuda")
+        collide8, pre8 = bt.make_collision_operator(cfg8, jit=False, device="cuda")
         _, _, f8 = bkw(bt, cfg8, dev)
         cells8 = torch.stack([f8 * (1.0 - 0.5 * i / 256) for i in range(256)])
         reset_counts(ks)
@@ -1873,15 +2014,23 @@ def main() -> int:
     print(f"[8 relaxation] maxwell_bkw {' '.join(argv)}: exit {rc}, counts {c8}")
     for line in lines[-7:]:
         print(f"  | {line}")
-    check(rc == 0 and c8["k1"] == 40 and plain_calls(c8) == 0, f"maxwell_bkw --steps: rc {rc} {c8}")
+    # the driver's operator replays a CUDA graph: its 40 evals count the
+    # warm-up and the capture, and 38 replays count nothing
+    check(rc == 0 and c8["k1"] == 2 and plain_calls(c8) == 0, f"maxwell_bkw --steps: rc {rc} {c8}")
     trajs = {}
-    for impl in ("fused", "c2c"):
-        cfg = bt.CollisionConfig(nv=32, ns=12, impl=impl)
-        collide, pre = bt.make_collision_operator(cfg, device="cuda")
+    for impl, jit in (("fused", True), ("fused eager", False), ("c2c", True)):
+        cfg = bt.CollisionConfig(nv=32, ns=12, impl=impl.split()[0])
+        collide, pre = bt.make_collision_operator(cfg, jit, device="cuda")
         g, rsq, _ = bkw(bt, cfg, dev)
         f0 = torch.as_tensor(bt.bkw_f(rsq, 5.5), dtype=cfg.real_dtype, device=dev)
         trajs[impl] = bt.make_relaxation(collide, pre, dt=0.125, n_steps=10, method="rk4",
                                          record=lambda x: bt.moments(x, g.v, g.dv))(f0)
+        del collide, pre
+    same8 = (torch.equal(trajs["fused"].f, trajs["fused eager"].f)
+             and torch.equal(trajs["fused"].recorded.mass, trajs["fused eager"].recorded.mass))
+    print(f"  10 RK4 steps through K1, the operator's CUDA graph (jit=True) against eager"
+          f" (jit=False): f and mass trace bitwise equal {same8}")
+    check(same8, "relaxation: the graphed K1 operator's bits differ from eager")
     d = max_rel(trajs["fused"].f, trajs["c2c"].f)
     dm = max_rel(trajs["fused"].recorded.mass, trajs["c2c"].recorded.mass)
     print(f"  10 RK4 steps through K1 vs through c2c (cuFFT), float64: f {d:.3e}, mass trace"
@@ -2018,6 +2167,10 @@ def main() -> int:
             print(f"[11 bound] K5 {n}^3 {dtype} split route's scratch (block sums written and"
                   f" read back, not in the bound): {scratch} B, {1e3 * scratch / PEAK_BYTES:.4f}"
                   f" ms at the memory rate | {card}")
+            p6 = k6.plan(c6, n, m2, csize * 2, True)
+            dev6 = device_ms(lambda: k6.alpha_multiply(*k6_args), "alpha_multiply_kernel")
+            print(f"[11 device] K6 {n}^3 {dtype} ({p6}): {dev6 if dev6 is None else f'{dev6:.4f}'}"
+                  f" ms per call (profiler) against its bound {b_k6[0]:.4f} ms | {card}")
             fam5 = profile_calls(lambda: k5.gain_reduce(*k5_args, **k5_kw),
                                  ("gain_reduce_kernel", "block_sum_kernel"), 10)
             dev5 = None if fam5 is None else sum(v[0] for k, v in fam5.items() if k != "other") / 1e4
@@ -2034,7 +2187,7 @@ def main() -> int:
                 ("k6", "alpha_multiply", b_k6, ROUTES[0][0]),
                 ("k5", "gain_reduce", b_k5, ROUTES[0][0]),
             ):
-                dms = {"dev_ms": dev5} if key == "k5" else {}
+                dms = {"dev_ms": {"k5": dev5, "k6": dev6}[key]} if key in ("k5", "k6") else {}
                 rc_ = route_counts[(route_label, dtype, n)]
                 tc = {} if len(b_ms) == 2 else {"bound_unit": TC_UNIT[dtype]}
                 entry(f"{kname}[{dtype},{n}^3,Ns=12]", kname, dtype, rc_[key], rc_[key + "_plain"],
@@ -2177,6 +2330,8 @@ def main() -> int:
     lap(20)
     ds_graph_phase(bt, dev, card, ks, st)
     lap(21)
+    operator_graph_phase(bt, dev, card, ks)
+    lap(22)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -74,10 +74,10 @@ def test_gain_reduce_node_block_matches_boltzfft(node_block):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-13 * np.abs(want).max())
 
 
-def test_alpha_multiply_matches_boltzfft():
+@pytest.mark.parametrize("b,n,m2", [(6, 8, 8 * 5), (7, 5, 15)])  # (7, 5, 15): odd M2
+def test_alpha_multiply_matches_boltzfft(b, n, m2):
     jnp, _, pk = _jax()
     rng = np.random.RandomState(1)
-    b, n, m2 = 6, 8, 8 * 5
     ax = rng.randn(b, n) + 1j * rng.randn(b, n)
     ayz = rng.randn(b, m2) + 1j * rng.randn(b, m2)
     fh = rng.randn(n, m2) + 1j * rng.randn(n, m2)
@@ -108,7 +108,7 @@ def test_pallas_collide_matches_boltzfft(kw):
     q_j = np.asarray(collide_j(jnp.asarray(f), pre_j))
 
     cfg = bt.CollisionConfig(**kw)
-    collide, pre = bt.make_collision_operator(cfg, "cpu")
+    collide, pre = bt.make_collision_operator(cfg, device="cpu")
     c5, c6 = k5.REFERENCE_CALLS, k6.REFERENCE_CALLS
     q = collide(torch.as_tensor(f), pre)
     assert k5.REFERENCE_CALLS - c5 == cfg.n_chunks("cpu") == k6.REFERENCE_CALLS - c6

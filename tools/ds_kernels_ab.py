@@ -14,23 +14,30 @@ CUDA graph where the checkout honours ``jit=True``) and through
 ``collide_ds`` (eager), each with its wall time, the profiler's device time,
 launches and idle share, a hash of its hi and lo bytes, K5 on the rfft +
 use_pallas route's node
-chunk in float64 and float32.  Prints one JSON line per measurement: CUDA
+chunk in float64 and float32, and (``k6``) K6 on that route's first node
+chunk in float64 and float32 (events, device time, a hash of its output),
+its two inverse transforms as two ``irfftn`` calls and as one over the
+stacked 2B grids, and the route's whole eval, eager (``collide``) and
+through ``make_collision_operator`` (replayed from a CUDA graph where the
+checkout's factory takes ``jit``): wall, device time, idle share,
+launches and a hash of Q.  Prints one JSON line per measurement: CUDA
 events around one call (median of ``--trials``, the wrapper's host time
 included) and the kernel's device time per call from ``torch.profiler``
 over 10 calls.
 
     python3 tools/ds_kernels_ab.py [--root DIR] [--label NAME] [--grids 32 64]
-        [--parts k7 k10 k11 k12 eval k5]
+        [--parts k7 k10 k11 k12 eval k5 k6]
 
 ``--root`` names the directory that holds the ``boltzfft_torch`` package to
 time (default: this checkout), so that two versions can be timed in turns
 in one run on one card: parent, change, change, parent.  ``--parts``
 chooses what to time (default: ``k7 k10 k11 k12 eval``; K5 only when
-named).
+named; K6 likewise).
 """
 
 import argparse
 import hashlib
+import inspect
 import json
 import statistics
 import subprocess
@@ -49,7 +56,7 @@ def main() -> int:
     ap.add_argument("--grids", type=int, nargs="+", default=[32, 64])
     ap.add_argument("--trials", type=int, default=20)
     ap.add_argument("--parts", nargs="+", default=["k7", "k10", "k11", "k12", "eval"],
-                    choices=["k7", "k10", "k11", "k12", "eval", "k5"])
+                    choices=["k7", "k10", "k11", "k12", "eval", "k5", "k6"])
     args = ap.parse_args()
     sys.path.insert(0, args.root)
     import numpy as np
@@ -58,7 +65,9 @@ def main() -> int:
     import boltzfft_torch as bt
     from boltzfft_torch import ds
     from boltzfft_torch import ds_operator as dso
+    from boltzfft_torch import operator as op
     from boltzfft_torch import oz
+    from boltzfft_torch.kernels import alpha_multiply as k6
     from boltzfft_torch.kernels import gain_reduce as k5
     from boltzfft_torch.kernels import oz_gmain12 as k10
     from boltzfft_torch.kernels import oz_hadamard as k12
@@ -242,7 +251,96 @@ def main() -> int:
                                       card=card)), flush=True)
                 del h, pre5
                 torch.cuda.empty_cache()
+        if "k6" in args.parts:
+            for dtype in ("float64", "float32"):
+                k6_part(args, bt, op, k6, n, dtype, dev, card, events_ms, device_ms, profile)
     return 0
+
+
+def k6_part(args, bt, op, k6, n, dtype, dev, card, events_ms, device_ms, profile):
+    """K6 on the rfft + use_pallas route's first node chunk, the chunk's two
+    inverse transforms (two calls, one over 2B grids) and the route's whole
+    eval, eager and graphed where the factory takes ``jit``."""
+    import torch
+
+    def digest(*ts):
+        return hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in ts)).hexdigest()[:16]
+
+    cfg = bt.CollisionConfig(nv=n, ns=12, impl="rfft", use_pallas=True, dtype=dtype)
+    pre = bt.build_precomp(cfg, dev)
+    f = torch.as_tensor(bt.bkw_f(cfg.velocity_grid.r_squared(), 6.5), dtype=cfg.real_dtype,
+                        device=dev)
+    b = pre.rho.shape[0]
+    c = min(cfg.chunk(dev), b)
+    while b % c:
+        c -= 1
+    nh = n // 2 + 1
+    fh = torch.fft.rfftn(f, dim=(-3, -2, -1)).reshape(n, -1)
+    ax, ay, az = op._alpha_factors(cfg, pre, pre.rho[:c], pre.sigma[:c])
+    k6_args = (ax, (ay[:, :, None] * az[:, None, :]).reshape(c, -1), fh)
+    fn = lambda: k6.alpha_multiply(*k6_args)
+    a1f, a2f = fn()
+    print(json.dumps(dict(label=args.label, kernel="K6", n=n, dtype=dtype, b=c,
+                          bits=digest(a1f, a2f), events_ms=events_ms(fn),
+                          device_ms=device_ms(fn, "alpha_multiply_kernel", per="call"),
+                          card=card)), flush=True)
+    if hasattr(k6, "plan"):  # the entry takes its launch as given: sweep nb and the block
+        m2 = fh.shape[1]
+        p = k6.plan(c, n, m2, fh.element_size(), True)
+        out = torch.empty((2, c, n, m2), dtype=fh.dtype, device=dev)
+        ref = torch.stack((a1f, a2f))
+        for threads in (128, 256):
+            for nb in (1, 2, 4, 8, 16):
+                sweep = lambda: k6._entry(fh.dtype)(
+                    k6_args[0].data_ptr(), k6_args[1].data_ptr(), fh.data_ptr(),
+                    out.data_ptr(), c, n, m2, p.vec, threads, nb,
+                    torch.cuda.current_stream().cuda_stream)
+                out.zero_()
+                rc = sweep()
+                torch.cuda.synchronize()
+                print(json.dumps(dict(label=args.label, kernel="K6 launch sweep", n=n, dtype=dtype,
+                                      vec=p.vec, threads=threads, nb=nb, plan_nb=p.nb, rc=rc,
+                                      same_bits=torch.equal(out, ref),
+                                      device_ms=device_ms(sweep, "alpha_multiply_kernel",
+                                                          per="call"),
+                                      card=card)), flush=True)
+        del out, ref
+    stacked = torch.stack((a1f, a2f)).reshape(2 * c, n, n, nh)
+    two = lambda: [torch.fft.irfftn(a.reshape(c, n, n, nh), s=(n, n, n), dim=(-3, -2, -1))
+                   for a in (a1f, a2f)]
+    one = lambda: torch.fft.irfftn(stacked, s=(n, n, n), dim=(-3, -2, -1))
+    same = torch.equal(one(), torch.cat(two()))
+    for name, t in (("two irfftn", two), ("one irfftn over 2B", one)):
+        print(json.dumps(dict(label=args.label, kernel=f"K6 chunk inverse, {name}", n=n,
+                              dtype=dtype, b=c, same_bits=same, events_ms=events_ms(t),
+                              device_ms=device_ms(t, "", per="call"), card=card)), flush=True)
+    del stacked, a1f, a2f
+    evals = [("rfft+pallas eval eager", lambda: bt.collide(cfg, pre, f))]
+    if "jit" in inspect.signature(bt.make_collision_operator).parameters:
+        collide, pre_g = bt.make_collision_operator(cfg, device=dev)
+        evals.append(("rfft+pallas eval graphed", lambda: collide(f, pre_g)))
+    for name, ev in evals:
+        for _ in range(2):
+            q = ev()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(EVAL_TRIALS):
+            t0 = time.perf_counter()
+            ev()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        by, wall = profile(ev, 1)
+        busy = sum(v[0] for v in by.values())
+        print(json.dumps(dict(label=args.label, kernel=name, n=n, dtype=dtype, bits=digest(q),
+                              wall_ms=statistics.median(walls), walls_ms=walls,
+                              profiled_wall_ms=wall / 1e3, device_ms=busy / 1e3,
+                              idle_share=1 - busy / wall,
+                              launches=sum(v[1] for v in by.values()),
+                              k6_device_ms=sum(v[0] for k, v in by.items()
+                                               if "alpha_multiply" in k) / 1e3,
+                              card=card)), flush=True)
+    del evals, pre
+    torch.cuda.empty_cache()
 
 
 def ds_leaves(x):
