@@ -3,8 +3,9 @@ PyTorch, with its kernels hand-written in CUDA for Hopper (K1, the whole
 collision eval; K2/K4, the gain spectrum by per-axis DFTs; K3, by the
 Kronecker scheme; K5/K6, the node reduction and phase multiply of the rfft
 route; K7-K12, the Ozaki-sliced contractions and Hadamard sums of the
-double-single engine), the RK relaxation loop, and the spatially inhomogeneous solver
-around it.
+double-single engine), the RK relaxation loop, the spatially inhomogeneous solver
+around it, and their sharding over several devices (one ``torch.distributed``
+rank each).
 
 The PyTorch counterpart of ``boltzfft`` (JAX), which stays the reference.
 Imports torch and NumPy only, never jax::
@@ -21,8 +22,17 @@ Imports torch and NumPy only, never jax::
 
 from . import ds, transport
 from .bkw import bkw_dfdt, bkw_f, bkw_k, maxwellian
+from .checkpoint import RelaxCheckpointer
 from .conserve import ConservePrecomp, build_conserve_precomp, conservative, project
-from .ds_operator import DsPrecomp, build_ds_precomp, collide_ds, make_ds_collision_operator
+from .distributed import initialize_distributed, make_multihost_mesh, process_local_ensemble_slice
+from .ds_operator import (
+    DsPrecomp,
+    build_ds_precomp,
+    collide_ds,
+    make_ds_collision_operator,
+    make_sharded_ds_collision_operator,
+    place_ds,
+)
 from .grid import VelocityGrid, domain_from_support
 from .moments import Moments, entropy, moments
 from .operator import collide, gain_spectrum, make_collision_operator, pick_scheme
@@ -33,6 +43,14 @@ from .quadrature import (
     antipodal_reduce,
     gauss_legendre,
     spherical_design,
+)
+from .sharding import (
+    ENSEMBLE_AXIS,
+    NODE_AXIS,
+    make_mesh,
+    make_sharded_collision_operator,
+    place,
+    place_cells,
 )
 from .stats import RunStats, error_norms, error_norms_device, time_fn
 from .timestepper import (
@@ -49,16 +67,20 @@ from .weights import (
     build_precomp,
     ds_precomp_from_numpy,
     precomp_from_numpy,
+    repad_nodes,
     sincc,
 )
 
 __all__ = [
     "CollisionConfig",
+    "ENSEMBLE_AXIS",
     "ConservePrecomp",
     "DsPrecomp",
     "Moments",
+    "NODE_AXIS",
     "Precomp",
     "Quadrature1D",
+    "RelaxCheckpointer",
     "RunStats",
     "SPHERICAL_DESIGN_FILES",
     "SphericalQuadrature",
@@ -83,15 +105,25 @@ __all__ = [
     "euler_step",
     "gain_spectrum",
     "gauss_legendre",
+    "initialize_distributed",
     "make_collision_operator",
     "make_ds_collision_operator",
+    "make_mesh",
+    "make_multihost_mesh",
     "make_relaxation",
+    "make_sharded_collision_operator",
+    "make_sharded_ds_collision_operator",
     "maxwellian",
     "moments",
     "pick_scheme",
+    "place",
+    "place_cells",
+    "place_ds",
     "precomp_from_numpy",
+    "process_local_ensemble_slice",
     "project",
     "relax",
+    "repad_nodes",
     "rk2_step",
     "rk4_step",
     "sincc",

@@ -8,11 +8,19 @@
     python -m boltzfft_torch.cli.sod_1d3v --Nv 16 --nx 32 --steps 20
     python -m boltzfft_torch.cli.taylor_green_2d3v --cells 16 --steps 20
     python -m boltzfft_torch.cli.taylor_green_3d3v --cells 8 --steps 10
+    python -m boltzfft_torch.cli.ensemble_bkw --ensemble 256 --Nv 32 --impl fused --steps 2
+    torchrun --nproc-per-node 4 -m boltzfft_torch.cli.taylor_green_2d3v --mesh 2x2
+
+A sharded driver (``--mesh``, ``--mesh-cells``, ``ensemble_bkw``) runs one
+rank per device under a launcher such as ``torchrun`` (NCCL on the cards,
+gloo with ``--device cpu``); rank 0 prints its lines from moments reduced
+over every rank.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import math
 
 
@@ -126,12 +134,52 @@ def open_device(name: str):
     return device
 
 
-def no_mesh(flag: str) -> None:
-    """The spatially decomposed CLIs wait for the multi-device port."""
-    raise NotImplementedError(
-        f"{flag}: the sharded transport steps are not ported yet "
-        "(ROADMAP Queue 1, step 4); run on one device"
-    )
+@contextlib.contextmanager
+def ranks(device):
+    """The scope of a sharded driver: this process joins the launcher's
+    ranks (:func:`boltzfft_torch.initialize_distributed`; without a
+    launcher a mesh of one rank starts its own group), ranks other than 0
+    print nothing to stdout (the driver's lines come once, from rank 0,
+    from moments reduced over every rank), and a group started here is
+    left at the end."""
+    import io
+
+    import torch.distributed as dist
+
+    import boltzfft_torch as bt
+
+    started = not dist.is_initialized()
+    bt.initialize_distributed(device=device)
+    quiet = dist.is_initialized() and dist.get_rank() != 0
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) if quiet else contextlib.nullcontext():
+            yield
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def parse_mesh(p, text: str, n_axes: int, cells: int) -> tuple:
+    """``--mesh MXxMY[xMZ]`` as ints; a parser error if malformed or if
+    ``cells`` does not divide by each."""
+    try:
+        dims = tuple(int(s) for s in text.lower().split("x"))
+        if len(dims) != n_axes:
+            raise ValueError
+    except ValueError:
+        p.error(f"--mesh must look like {'x'.join(['2'] * n_axes)}, got {text!r}")
+    if any(cells % m for m in dims):
+        p.error(f"--cells {cells} not divisible by mesh {'x'.join(map(str, dims))}")
+    return dims
+
+
+def all_sum(t, mesh):
+    """``t`` summed over every rank (``t`` itself without a mesh)."""
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.all_reduce(t)
+    return t
 
 
 def report_h(h0: float, h_trace, steps: int) -> tuple:

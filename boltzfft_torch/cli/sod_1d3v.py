@@ -3,9 +3,12 @@
 Solves ``df/dt + v_x df/dx = Q(f,f)/Kn`` with Strang splitting (periodic
 MUSCL/MC transport by default, first-order upwind via --scheme; collisions on
 all cells in one operator call), printing density profiles and conservation
-diagnostics.
+diagnostics.  ``--mesh-cells N`` spreads the cells over N ranks: an
+ensemble-sharded operator collides each rank's cells, and the advection
+exchanges halos between neighbouring ranks.
 
     python -m boltzfft_torch.cli.sod_1d3v --Nv 16 --Ns 12 --nx 32 --steps 20
+    torchrun --nproc-per-node 2 -m boltzfft_torch.cli.sod_1d3v --mesh-cells 2
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ def main(argv=None):
     p.add_argument("--dt", type=float, default=None,
                    help="time step (default: CFL-limited for the transport)")
     p.add_argument("--mesh-cells", type=int, default=None,
-                   help="shard cells over this many devices (not ported yet)")
+                   help="shard cells over this many devices (ensemble axis)")
     p.add_argument("--scheme", choices=["muscl", "upwind"], default="muscl",
                    help="advection scheme (muscl = 2nd-order TVD, default)")
     p.add_argument("--conserve", action="store_true",
@@ -38,16 +41,26 @@ def main(argv=None):
                         "a fraction of the total dissipation |H_end - H_0|")
     args = p.parse_args(argv)
 
-    from boltzfft_torch.cli import no_mesh, open_device, report_h, resolve_impl
+    from boltzfft_torch.cli import open_device, ranks
 
-    if args.mesh_cells and args.mesh_cells > 1:
-        no_mesh("--mesh-cells")
     device = open_device(args.device)
+    if not (args.mesh_cells and args.mesh_cells > 1):
+        return _run(args, device, None)
 
+    import boltzfft_torch as bt
+
+    with ranks(device):
+        mesh = bt.make_mesh([(bt.ENSEMBLE_AXIS, args.mesh_cells)], device=device)
+        return _run(args, device, mesh)
+
+
+def _run(args, device, mesh):
     import torch
+    import torch.distributed as dist
 
     import boltzfft_torch as bt
     from boltzfft_torch import transport
+    from boltzfft_torch.cli import all_sum, report_h, resolve_impl
 
     cfg = bt.CollisionConfig(nv=args.Nv, ns=args.Ns,
                              impl=resolve_impl(args.impl, device),
@@ -57,16 +70,30 @@ def main(argv=None):
     dx = args.x_length / args.nx
     dt = args.dt or transport.cfl_dt(float(np.abs(np.asarray(g.v)).max()), dx)
 
-    collide_fn, pre = bt.make_collision_operator(cfg, device=device)
+    if mesh is not None:
+        collide_fn, pre = bt.make_sharded_collision_operator(
+            cfg, mesh, node_axis=None, ensemble_axis=bt.ENSEMBLE_AXIS)
+    else:
+        collide_fn, pre = bt.make_collision_operator(cfg, device=device)
     if args.conserve:
         collide_fn = bt.conservative(
             collide_fn, bt.build_conserve_precomp(cfg, temperature=1.0, device=device)
         )
-    step = transport.make_inhomogeneous_step(
-        cfg, collide_fn, dx=dx, dt=dt, knudsen=args.knudsen, scheme=args.scheme,
-    )
+    if mesh is not None:
+        # each rank advects its block of cells, with halos from its neighbours
+        step = transport._make_sharded_step_nd(
+            cfg, collide_fn, mesh, deltas=(dx,), dt=dt, axes=(bt.ENSEMBLE_AXIS,),
+            knudsen=args.knudsen, scheme=args.scheme, jit=False,
+        )
+    else:
+        step = transport.make_inhomogeneous_step(
+            cfg, collide_fn, dx=dx, dt=dt, knudsen=args.knudsen, scheme=args.scheme,
+        )
 
     f = transport.sod_initial_condition(cfg, args.nx, device=device)
+    mass0 = float(transport.density_profile(f, g.dv).sum())
+    if mesh is not None:
+        f = bt.place_cells(f, mesh, x_axis=bt.ENSEMBLE_AXIS)
     print(f"\nSod 1D×3V: nx={args.nx} dx={dx:.4f} dt={dt:.4f} "
           f"Kn={args.knudsen} Nv={args.Nv} Ns={args.Ns} impl={cfg.impl} "
           f"scheme={args.scheme}")
@@ -76,15 +103,19 @@ def main(argv=None):
         # the kinetic evolution
         return torch.sum(bt.entropy(f, g.dv)) * dx
 
-    mass0 = float(transport.density_profile(f, g.dv).sum())
-    h0 = float(h_total(f))
+    h0 = float(all_sum(h_total(f), mesh))
     t0 = time.perf_counter()
     h_tr = []
     for _ in range(args.steps):
         f = step(f, pre)
         h_tr.append(h_total(f))
-    rho = transport.density_profile(f, g.dv).cpu().numpy()
-    h_trace = torch.stack(h_tr).cpu().numpy() if h_tr else np.zeros(0)
+    rho = transport.density_profile(f, g.dv)
+    if mesh is not None:  # the ranks' blocks of cells, in order
+        parts = [torch.empty_like(rho) for _ in range(mesh.size())]
+        dist.all_gather(parts, rho.contiguous(), group=mesh.get_group(bt.ENSEMBLE_AXIS))
+        rho = torch.cat(parts)
+    rho = rho.cpu().numpy()
+    h_trace = all_sum(torch.stack(h_tr), mesh).cpu().numpy() if h_tr else np.zeros(0)
     wall = time.perf_counter() - t0
     mass1 = float(rho.sum())
 

@@ -9,9 +9,12 @@ Taylor-Green velocity field
 initializes per-cell Maxwellians; the vortex decays through the coupled
 kinetics (phase mixing + collisional viscosity).  One device: the collision
 substep evaluates all cells in one operator call (at the default 16³
-velocities with --impl auto on a card, one K3 launch).
+velocities with --impl auto on a card, one K3 launch).  ``--mesh MXxMY``
+decomposes the cells over MX x MY ranks (``transport.make_sharded_step_2d``:
+halo exchanges between neighbours, each rank colliding its own cells).
 
     python -m boltzfft_torch.cli.taylor_green_2d3v --cells 16 --Nv 16 --steps 20
+    torchrun --nproc-per-node 4 -m boltzfft_torch.cli.taylor_green_2d3v --mesh 2x2
 """
 
 from __future__ import annotations
@@ -68,7 +71,8 @@ def main(argv=None):
     p.add_argument("--dt", type=float, default=None,
                    help="time step (default: CFL-limited for the transport)")
     p.add_argument("--mesh", type=str, default=None, metavar="MXxMY",
-                   help="spatial device decomposition (not ported yet)")
+                   help="spatial decomposition over MX x MY ranks, e.g. 2x2 "
+                        "(default: single device, cells batched)")
     p.add_argument("--scheme", choices=["muscl", "upwind"], default="muscl")
     p.add_argument("--conserve", action="store_true",
                    help="project every Q onto vanishing invariant moments\n(conservative): exact per-step mass/momentum/energy")
@@ -81,16 +85,26 @@ def main(argv=None):
                         "a fraction of the total dissipation |H_end - H_0|")
     args = p.parse_args(argv)
 
-    from boltzfft_torch.cli import no_mesh, open_device, report_h, resolve_impl
+    from boltzfft_torch.cli import open_device, parse_mesh, ranks
 
-    if args.mesh:
-        no_mesh("--mesh")
+    mesh_dims = parse_mesh(p, args.mesh, 2, args.cells) if args.mesh else None
     device = open_device(args.device)
+    if not mesh_dims:
+        return _run(args, device, None)
 
+    import boltzfft_torch as bt
+
+    with ranks(device):
+        mesh = bt.make_mesh([("cx", mesh_dims[0]), ("cy", mesh_dims[1])], device=device)
+        return _run(args, device, mesh)
+
+
+def _run(args, device, mesh):
     import torch
 
     import boltzfft_torch as bt
     from boltzfft_torch import transport
+    from boltzfft_torch.cli import all_sum, report_h, resolve_impl, vhs_kwargs
 
     dtype = args.dtype
     cfg = bt.CollisionConfig(
@@ -109,21 +123,33 @@ def main(argv=None):
             collide_fn,
             bt.build_conserve_precomp(cfg, temperature=args.temperature, device=device),
         )
-    step = transport.make_inhomogeneous_step_2d(
-        cfg, collide_fn, dx=d, dy=d, dt=dt, knudsen=args.knudsen,
-        scheme=args.scheme,
-    )
-    mode = "single device, cells batched"
+    if mesh is not None:
+        mx, my = mesh.shape
+        step = transport.make_sharded_step_2d(
+            cfg, collide_fn, mesh, dx=d, dy=d, dt=dt, knudsen=args.knudsen,
+            x_axis="cx", y_axis="cy", scheme=args.scheme, jit=False,
+        )
+        mode = (f"spatial decomposition {mx}x{my} devices, "
+                f"{nc // mx}x{nc // my} cells/shard")
+    else:
+        step = transport.make_inhomogeneous_step_2d(
+            cfg, collide_fn, dx=d, dy=d, dt=dt, knudsen=args.knudsen,
+            scheme=args.scheme,
+        )
+        mode = "single device, cells batched"
 
     f0 = taylor_green_f0(cfg, nc, u0=args.u0, temperature=args.temperature,
                          length=args.x_length, device=device)
+    if mesh is not None:
+        f0 = bt.place_cells(f0, mesh, x_axis="cx", y_axis="cy")
 
     dv3 = g.cell_volume
     vx = torch.as_tensor(g.vx, dtype=cfg.real_dtype, device=device).reshape(1, 1, -1, 1, 1)
     vy = torch.as_tensor(g.vy, dtype=cfg.real_dtype, device=device).reshape(1, 1, 1, -1, 1)
 
     def diagnostics(f):
-        # moments reduce on the device; the host reads them after the run
+        # moments reduce on the device (sums over this rank's cells, summed
+        # over the ranks after the run); the host reads them after the run
         rho = torch.sum(f, dim=(2, 3, 4)) * dv3
         mom_x = torch.sum(f * vx, dim=(2, 3, 4)) * dv3
         mom_y = torch.sum(f * vy, dim=(2, 3, 4)) * dv3
@@ -137,14 +163,14 @@ def main(argv=None):
           f"Ns={args.Ns} impl={cfg.impl} dtype={dtype} scheme={args.scheme}")
     print(f"dt={dt:.4f} Kn={args.knudsen} U0={args.u0} ({mode})")
 
-    mass0, ke0, h0 = (float(v) for v in diagnostics(f0))
+    mass0, ke0, h0 = (float(v) for v in all_sum(diagnostics(f0), mesh))
     for trial in range(args.trials):
         t0 = time.perf_counter()
         f, trace = f0, []
         for _ in range(args.steps):
             f = step(f, pre)
             trace.append(diagnostics(f))
-        trace = torch.stack(trace).cpu().numpy()  # waits for the card
+        trace = all_sum(torch.stack(trace), mesh).cpu().numpy()  # waits for the card
         wall = time.perf_counter() - t0
         tag = " (kernel build)" if trial == 0 and args.trials > 1 else ""
         print(f"trial {trial}: {args.steps} steps in {wall:.2f}s = "

@@ -10,9 +10,12 @@ The 3D Taylor-Green field
 
 (k = 2π/L) initializes per-cell Maxwellians, monitored by total mass, bulk
 kinetic energy and the Boltzmann H functional.  One device: the collision
-substep evaluates all Cx·Cy·Cz cells in one operator call.
+substep evaluates all Cx·Cy·Cz cells in one operator call.  ``--mesh
+MXxMYxMZ`` decomposes the cells over MX x MY x MZ ranks
+(``transport.make_sharded_step_3d``).
 
     python -m boltzfft_torch.cli.taylor_green_3d3v --cells 8 --Nv 16 --steps 10
+    torchrun --nproc-per-node 8 -m boltzfft_torch.cli.taylor_green_3d3v --mesh 2x2x2
 """
 
 from __future__ import annotations
@@ -72,7 +75,8 @@ def main(argv=None):
     p.add_argument("--dt", type=float, default=None,
                    help="time step (default: CFL-limited for the transport)")
     p.add_argument("--mesh", type=str, default=None, metavar="MXxMYxMZ",
-                   help="spatial device decomposition (not ported yet)")
+                   help="spatial decomposition over MX x MY x MZ ranks, e.g. "
+                        "2x2x2 (default: single device, cells batched)")
     p.add_argument("--scheme", choices=["muscl", "upwind"], default="muscl")
     p.add_argument("--conserve", action="store_true",
                    help="project every Q onto vanishing invariant moments\n(conservative): exact per-step mass/momentum/energy")
@@ -84,16 +88,26 @@ def main(argv=None):
                         "a fraction of the total dissipation |H_end - H_0|")
     args = p.parse_args(argv)
 
-    from boltzfft_torch.cli import no_mesh, open_device, report_h, resolve_impl
+    from boltzfft_torch.cli import open_device, parse_mesh, ranks
 
-    if args.mesh:
-        no_mesh("--mesh")
+    mesh_dims = parse_mesh(p, args.mesh, 3, args.cells) if args.mesh else None
     device = open_device(args.device)
+    if not mesh_dims:
+        return _run(args, device, None)
 
+    import boltzfft_torch as bt
+
+    with ranks(device):
+        mesh = bt.make_mesh(list(zip(("cx", "cy", "cz"), mesh_dims)), device=device)
+        return _run(args, device, mesh)
+
+
+def _run(args, device, mesh):
     import torch
 
     import boltzfft_torch as bt
     from boltzfft_torch import transport
+    from boltzfft_torch.cli import all_sum, report_h, resolve_impl, vhs_kwargs
 
     dtype = args.dtype
     cfg = bt.CollisionConfig(
@@ -112,14 +126,26 @@ def main(argv=None):
             collide_fn,
             bt.build_conserve_precomp(cfg, temperature=args.temperature, device=device),
         )
-    step = transport.make_inhomogeneous_step_3d(
-        cfg, collide_fn, dx=d, dy=d, dz=d, dt=dt, knudsen=args.knudsen,
-        scheme=args.scheme,
-    )
-    mode = "single device, cells batched"
+    if mesh is not None:
+        mx, my, mz = mesh.shape
+        step = transport.make_sharded_step_3d(
+            cfg, collide_fn, mesh, dx=d, dy=d, dz=d, dt=dt,
+            knudsen=args.knudsen, x_axis="cx", y_axis="cy", z_axis="cz",
+            scheme=args.scheme, jit=False,
+        )
+        mode = (f"spatial decomposition {mx}x{my}x{mz} devices, "
+                f"{nc // mx}x{nc // my}x{nc // mz} cells/shard")
+    else:
+        step = transport.make_inhomogeneous_step_3d(
+            cfg, collide_fn, dx=d, dy=d, dz=d, dt=dt, knudsen=args.knudsen,
+            scheme=args.scheme,
+        )
+        mode = "single device, cells batched"
 
     f0 = taylor_green_f0_3d(cfg, nc, u0=args.u0, temperature=args.temperature,
                             length=args.x_length, device=device)
+    if mesh is not None:
+        f0 = bt.place_cells(f0, mesh, x_axis="cx", y_axis="cy", z_axis="cz")
 
     dv3 = g.cell_volume
     cell_vol = d ** 3
@@ -142,14 +168,14 @@ def main(argv=None):
           f"Ns={args.Ns} impl={cfg.impl} dtype={dtype} scheme={args.scheme}")
     print(f"dt={dt:.4f} Kn={args.knudsen} U0={args.u0} ({mode})")
 
-    mass0, ke0, h0 = (float(v) for v in diagnostics(f0))
+    mass0, ke0, h0 = (float(v) for v in all_sum(diagnostics(f0), mesh))
     for trial in range(args.trials):
         t0 = time.perf_counter()
         f, trace = f0, []
         for _ in range(args.steps):
             f = step(f, pre)
             trace.append(diagnostics(f))
-        trace = torch.stack(trace).cpu().numpy()  # waits for the card
+        trace = all_sum(torch.stack(trace), mesh).cpu().numpy()  # waits for the card
         wall = time.perf_counter() - t0
         tag = " (kernel build)" if trial == 0 and args.trials > 1 else ""
         print(f"trial {trial}: {args.steps} steps in {wall:.2f}s = "

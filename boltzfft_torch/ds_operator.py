@@ -28,7 +28,9 @@ the card), Hermitian downstream on grids <= 32 per axis and
 in JAX.  The Hermitian and group-batch rules were measured on a TPU; the
 port keeps them as its starting rules until they are measured on the card.
 
-The sharded operator waits for the multi-device slice.
+:func:`make_sharded_ds_collision_operator` spreads the radial groups over
+the ranks of a mesh dim (:mod:`boltzfft_torch.sharding`) and folds the
+partial gain spectra in ds arithmetic after one ``all_gather``.
 """
 
 from __future__ import annotations
@@ -785,5 +787,154 @@ def make_ds_collision_operator(
         if not isinstance(f, DS):
             f = ds.from_float(torch.as_tensor(f, dtype=dtype, device=device))
         return run(f, precomp)
+
+    return collide_fn, pre
+
+
+# ---------------------------------------------------------------------------
+# several devices: radial-group sharding with a compensated fold across ranks
+# ---------------------------------------------------------------------------
+
+#: The tables with one row per radial group (sharded); the rest are whole.
+_RADIAL_FIELDS = ("ax", "ay", "az", "gain_w", "beta1", "pm1", "pm2", "pmz_half2", "nyq_coef",
+                  "pmz_half1w", "nyq_coef_w")
+
+
+def _pad_radial(pre: DsPrecomp, n_groups: int) -> DsPrecomp:
+    """Pad the leading radial axis to ``n_groups`` with zero groups: their
+    ``gain_w = 0``, so they add exactly nothing to the gain sum (their
+    phase and beta1 rows are zeros, finite and unused)."""
+    have = pre.gain_w.hi.shape[0]
+    if n_groups == have:
+        return pre
+
+    def pad(a):
+        return torch.cat([a, a.new_zeros((n_groups - have,) + tuple(a.shape[1:]))])
+
+    return pre._replace(**{k: tree_map(pad, getattr(pre, k)) for k in _RADIAL_FIELDS})
+
+
+def _radial_rows(pre: DsPrecomp, n: int, k: int) -> DsPrecomp:
+    g = pre.gain_w.hi.shape[0]
+    if g % n:
+        raise ValueError(f"{g} radial groups do not divide over {n} shards")
+    s = slice(k * (g // n), (k + 1) * (g // n))
+    return pre._replace(**{f: tree_map(lambda a: a[s], getattr(pre, f)) for f in _RADIAL_FIELDS})
+
+
+def place_ds(pre: DsPrecomp, mesh, radial_axis: Optional[str] = "node") -> DsPrecomp:
+    """This rank's ds tables on its device: its shard of the radial groups
+    along ``radial_axis`` (``None``: all of them); the shared tables whole."""
+    from . import sharding as _sh
+
+    dev = _sh.mesh_device(mesh)
+    if pre.gain_w.hi.device != dev:
+        pre = tree_map(lambda a: a.to(dev), pre)
+    return _radial_rows(pre, _sh.axis_size(mesh, radial_axis), _sh.axis_index(mesh, radial_axis))
+
+
+def _folded_gather(group, n: int) -> Callable[[CDS], CDS]:
+    """The cross-rank gain reduction: one ``all_gather`` of the four float32
+    parts of every rank's partial spectrum, folded with ``ds.cadd`` in rank
+    order (deterministic, ~49 bits, the same on every rank).  A float32
+    ``all_reduce`` would round the pairs back to 2^-24."""
+    import torch.distributed as dist
+
+    def reduce(q: CDS) -> CDS:
+        mine = torch.stack((q.re.hi, q.re.lo, q.im.hi, q.im.lo))
+        parts = [torch.empty_like(mine) for _ in range(n)]
+        dist.all_gather(parts, mine, group=group)
+        as_cds = lambda p: CDS(DS(p[0], p[1]), DS(p[2], p[3]))
+        acc = as_cds(parts[0])
+        for p in parts[1:]:
+            acc = ds.cadd(acc, as_cds(p))
+        return acc
+
+    return reduce
+
+
+def make_sharded_ds_collision_operator(
+    cfg: CollisionConfig,
+    mesh,
+    radial_axis: Optional[str] = "node",
+    ensemble_axis: Optional[str] = None,
+    jit: bool = True,
+    dtype=torch.float32,
+    sub_batch: int = 2,
+    contract: Optional[str] = None,
+    oz_cmax: Optional[int] = None,
+    g_stream: Optional[str] = None,
+    herm_downstream: Optional[bool] = None,
+    group_batch: Optional[int] = None,
+    oz_merge: Optional[bool] = None,
+    gmain_fused=None,
+    g1_reversal: Optional[bool] = None,
+) -> Tuple[Callable[[DS, DsPrecomp], DS], DsPrecomp]:
+    """ds collision evals sharded over ``mesh``, on this rank's device.
+
+    The radial quadrature groups spread over ``radial_axis`` (the ds group
+    loop runs over them).  The cross-rank gain reduction is
+    :func:`_folded_gather` through ``collide_ds(gain_reduce=)``.
+    ``ensemble_axis`` also shards a leading ensemble axis of ``f`` (this
+    rank's block, no communication).  Returns ``(collide_fn, precomp)``
+    with the radial tables padded to shard evenly; ``collide_fn`` takes the
+    padded tables or this rank's :func:`place_ds` shard.
+
+    The other arguments go to :func:`collide_ds` on every rank.  Its auto
+    rules see the rank's radial group count, so ``group_batch``'s may
+    differ from the unsharded operator's: pass it to compare the two.
+    ``jit=True`` on CUDA replays the eval from a CUDA graph (an NCCL
+    ``all_gather`` is captured with it; a gloo one raises: pass
+    ``jit=False``).  On the CPU ``jit`` changes nothing."""
+    from . import sharding as _sh
+
+    if radial_axis is None and ensemble_axis is None:
+        raise ValueError("need at least one of radial_axis/ensemble_axis")
+    device = _sh.mesh_device(mesh)
+    n_shards = _sh.axis_size(mesh, radial_axis)
+    _sh.axis_size(mesh, ensemble_axis)
+    pre = build_ds_precomp(cfg, dtype, device=device)
+    n_gl = pre.gain_w.hi.shape[0]
+    pre = _pad_radial(pre, -(-n_gl // n_shards) * n_shards)
+    n_global = pre.gain_w.hi.shape[0]
+    group = mesh.get_group(radial_axis) if radial_axis and n_shards > 1 else None
+    reducer = _folded_gather(group, n_shards) if group is not None else None
+    one = partial(
+        collide_ds, cfg, sub_batch=sub_batch, contract=contract or default_contract(device),
+        gain_reduce=reducer, oz_cmax=oz_cmax, g_stream=g_stream,
+        herm_downstream=herm_downstream, group_batch=group_batch, oz_merge=oz_merge,
+        gmain_fused=gmain_fused, g1_reversal=g1_reversal,
+    )
+
+    def body(f, p):
+        if ensemble_axis is None:
+            return one(p, f)
+        qs = [one(p, tree_map(lambda a, i=i: a[i], f)) for i in range(f.hi.shape[0])]
+        return tree_map(lambda *a: torch.stack(a), *qs)
+
+    run = body
+    if jit and device.type == "cuda":
+        run = _sh._replay(body, mesh, group, "make_sharded_ds_collision_operator")
+    shards = {}  # id of a padded global precomp -> (it, this rank's shard)
+
+    def local(p):
+        g = p.gain_w.hi.shape[0]
+        if g == n_global // n_shards:
+            return p
+        if g != n_global:
+            raise ValueError(
+                f"ds precomp with {g} radial groups: expected the sharded operator's "
+                f"{n_global} or this rank's {n_global // n_shards}")
+        hit = shards.get(id(p))
+        if hit is None or hit[0] is not p:
+            hit = shards[id(p)] = (p, place_ds(p, mesh, radial_axis))
+            while len(shards) > 2:
+                shards.pop(next(iter(shards)))
+        return hit[1]
+
+    def collide_fn(f, precomp):
+        if not isinstance(f, DS):
+            f = ds.from_float(torch.as_tensor(f, dtype=dtype, device=device))
+        return run(f, local(precomp))
 
     return collide_fn, pre

@@ -11,16 +11,19 @@ one call of the operator on the flattened ``(cells, Nvx, Nvy, Nvz)`` stack
 ``impl="fused"`` that is one K1 launch per substep (one K3 launch on the
 kron route, ``operator.pick_scheme``).
 
-The node- and cell-sharded steps (``make_sharded_step_2d``/``_3d`` and their
-halo exchange) are not ported yet (ROADMAP Queue 1, step 9).
+:func:`make_sharded_step_2d` and :func:`make_sharded_step_3d` decompose the
+cell grid over the dims of a mesh (:mod:`boltzfft_torch.sharding`): each rank
+advects its block extended by a halo from its neighbours (ring sends and
+receives, :func:`_halo_exchange`) and collides its own cells.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .bkw import maxwellian
 from .weights import CollisionConfig, Precomp
@@ -108,17 +111,32 @@ def _make_step_nd(
     dt: float,
     knudsen: float,
     scheme: str,
+    halos: Optional[Tuple[Optional[Callable], ...]] = None,
 ) -> Callable[[torch.Tensor, Precomp], torch.Tensor]:
     """Strang-split step over ``len(deltas)`` leading periodic cell axes:
     palindromic ``A0(dt/2) .. A_{n-1}(dt/2) C(dt) A_{n-1}(dt/2) .. A0(dt/2)``
     with the i-th spatial axis advected by the i-th velocity coordinate, and
-    the collision substep an RK2 midpoint on ``Q / Kn``."""
+    the collision substep an RK2 midpoint on ``Q / Kn``.
+
+    ``halos``: per cell axis, ``None`` (the axis is whole and periodic) or
+    ``halo(f, axis, width)``, which returns ``f`` extended by ``width``
+    cells on each side along ``axis``; the stencil then runs on the
+    extended block and keeps its interior, the same arithmetic per cell."""
     if scheme not in _AXIS_SCHEMES:
         raise ValueError(
             f"scheme must be one of {sorted(_AXIS_SCHEMES)}, got {scheme!r}"
         )
-    advect = _AXIS_SCHEMES[scheme]
+    scheme_advect = _AXIS_SCHEMES[scheme]
+    halo_w = 2 if scheme == "muscl" else 1
     ndim = len(deltas)
+    halos = halos or (None,) * ndim
+
+    def advect(f, v, d, dtt, axis):
+        if halos[axis] is None:
+            return scheme_advect(f, v, d, dtt, axis)
+        ext = halos[axis](f, axis, halo_w)
+        return scheme_advect(ext, v, d, dtt, axis).narrow(axis, halo_w, f.shape[axis])
+
     g = cfg.velocity_grid
     coords = (g.vx, g.vy, g.vz)[:ndim]
     inv_kn = 1.0 / knudsen
@@ -209,6 +227,139 @@ def make_inhomogeneous_step_3d(
     ``(Cx*Cy*Cz, ...)`` stack."""
     return _make_step_nd(cfg, collide_fn, deltas=(dx, dy, dz), dt=dt,
                          knudsen=knudsen, scheme=scheme)
+
+
+def _halo_exchange(f: torch.Tensor, axis: int, width: int, mesh, axis_name: str) -> torch.Tensor:
+    """Periodic halo exchange along the mesh dim ``axis_name``: ``f``
+    extended by ``width`` cells from each neighbouring rank along ``axis``
+    (a ring: the global periodic boundary is the ring's closure).  Each rank
+    sends its trailing cells to its right neighbour, where they become the
+    left halo, and its leading cells to its left neighbour; a dim of one
+    rank copies its own edges (a rank cannot send to itself)."""
+    from .sharding import axis_index, axis_size
+
+    n = axis_size(mesh, axis_name)
+    m = f.shape[axis]
+    lo = f.narrow(axis, 0, width).contiguous()
+    hi = f.narrow(axis, m - width, width).contiguous()
+    if n == 1:
+        left, right = hi, lo
+    else:
+        group = mesh.get_group(axis_name)
+        ranks = dist.get_process_group_ranks(group)
+        k = axis_index(mesh, axis_name)
+        left, right = torch.empty_like(hi), torch.empty_like(lo)
+        to_right, to_left = ranks[(k + 1) % n], ranks[(k - 1) % n]
+        ops = [  # tag 1: trailing cells going right; tag 2: leading cells going left
+            dist.P2POp(dist.isend, hi, to_right, group, 1),
+            dist.P2POp(dist.irecv, left, to_left, group, 1),
+            dist.P2POp(dist.isend, lo, to_left, group, 2),
+            dist.P2POp(dist.irecv, right, to_right, group, 2),
+        ]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return torch.cat([left, f, right], dim=axis)
+
+
+def _make_sharded_step_nd(
+    cfg: CollisionConfig,
+    collide_fn: Callable[[torch.Tensor, Precomp], torch.Tensor],
+    mesh,
+    *,
+    deltas: Tuple[float, ...],
+    dt: float,
+    axes: Tuple[Optional[str], ...],
+    knudsen: float,
+    scheme: str,
+    jit: bool,
+) -> Callable[[torch.Tensor, Precomp], torch.Tensor]:
+    """The N-dimensional decomposed Strang step (see
+    :func:`make_sharded_step_2d`): :func:`_make_step_nd`'s arithmetic, each
+    sharded axis advected on its block extended by :func:`_halo_exchange`
+    (width 2 for MUSCL, 1 for upwind), the collisions on the rank's own
+    cells.  ``jit`` is the JAX package's; the port's steps, sharded or not,
+    run the transport eagerly around the operator ``collide_fn`` (which
+    replays its own graph when it was built with ``jit=True``)."""
+    from .sharding import axis_size
+
+    if scheme not in _AXIS_SCHEMES:
+        raise ValueError(
+            f"scheme must be one of {sorted(_AXIS_SCHEMES)}, got {scheme!r}"
+        )
+    for name in axes:
+        axis_size(mesh, name)
+
+    def exchange(name):
+        def halo(f, axis, width):
+            if f.shape[axis] < width:
+                raise ValueError(
+                    f"local cell block of {f.shape[axis]} along axis {axis} is "
+                    f"smaller than the {scheme!r} stencil's halo width "
+                    f"{width}; use more cells or fewer shards on that axis"
+                )
+            return _halo_exchange(f, axis, width, mesh, name)
+
+        return halo
+
+    return _make_step_nd(
+        cfg, collide_fn, deltas=deltas, dt=dt, knudsen=knudsen, scheme=scheme,
+        halos=tuple(None if name is None else exchange(name) for name in axes),
+    )
+
+
+def make_sharded_step_2d(
+    cfg: CollisionConfig,
+    collide_fn: Callable[[torch.Tensor, Precomp], torch.Tensor],
+    mesh,
+    *,
+    dx: float,
+    dy: float,
+    dt: float,
+    x_axis: Optional[str] = None,
+    y_axis: Optional[str] = None,
+    knudsen: float = 1.0,
+    scheme: str = "muscl",
+    jit: bool = True,
+) -> Callable[[torch.Tensor, Precomp], torch.Tensor]:
+    """2D x 3V Strang step with the cell grid ``(Cx, Cy)`` decomposed over
+    the mesh dims ``x_axis`` / ``y_axis`` (``None``: that direction whole
+    on every rank).
+
+    ``step(f, pre)`` takes and returns this rank's block ``(Cx/mx, Cy/my,
+    Nvx, Nvy, Nvz)`` (:func:`boltzfft_torch.place_cells`).  The advection
+    runs on the block extended by a halo from the neighbouring ranks; the
+    collision substep calls ``collide_fn`` (an unsharded operator) on the
+    block's own cells, with no cross-rank traffic.  Every velocity
+    transform stays on its rank."""
+    return _make_sharded_step_nd(
+        cfg, collide_fn, mesh, deltas=(dx, dy), dt=dt,
+        axes=(x_axis, y_axis), knudsen=knudsen, scheme=scheme, jit=jit,
+    )
+
+
+def make_sharded_step_3d(
+    cfg: CollisionConfig,
+    collide_fn: Callable[[torch.Tensor, Precomp], torch.Tensor],
+    mesh,
+    *,
+    dx: float,
+    dy: float,
+    dz: float,
+    dt: float,
+    x_axis: Optional[str] = None,
+    y_axis: Optional[str] = None,
+    z_axis: Optional[str] = None,
+    knudsen: float = 1.0,
+    scheme: str = "muscl",
+    jit: bool = True,
+) -> Callable[[torch.Tensor, Precomp], torch.Tensor]:
+    """3D x 3V Strang step with the cell grid ``(Cx, Cy, Cz)`` decomposed
+    over up to three mesh dims; as :func:`make_sharded_step_2d`, with
+    ``f`` this rank's block ``(Cx/mx, Cy/my, Cz/mz, Nvx, Nvy, Nvz)``."""
+    return _make_sharded_step_nd(
+        cfg, collide_fn, mesh, deltas=(dx, dy, dz), dt=dt,
+        axes=(x_axis, y_axis, z_axis), knudsen=knudsen, scheme=scheme, jit=jit,
+    )
 
 
 def sod_initial_condition(

@@ -408,3 +408,26 @@ def ds_precomp_from_numpy(pre, *, device):
 
     get = pre.get if isinstance(pre, Mapping) else (lambda k: getattr(pre, k, None))
     return DsPrecomp(**{f: _ds_tree(get(f), device) for f in DsPrecomp._fields})
+
+
+def repad_nodes(pre: Precomp, target_b: int) -> Precomp:
+    """Grow the padded node axis of a ``Precomp`` to ``target_b`` entries
+    (``boltzfft.weights.repad_nodes``).
+
+    Extra entries carry ``gain_w == 0`` (and a harmless unit node ``rho = 1``,
+    ``sigma = (0, 0, 1)``), so they change nothing numerically: the node
+    axis then divides evenly across ranks and chunks."""
+    b = pre.rho.shape[0]
+    if target_b < b:
+        raise ValueError(f"target_b={target_b} < current node count {b}")
+    if target_b == b:
+        return pre
+    pad = target_b - b
+    like = dict(dtype=pre.rho.dtype, device=pre.rho.device)
+    unit = torch.tensor([[0.0, 0.0, 1.0]], **like).expand(pad, 3)
+    return dataclasses.replace(
+        pre,
+        rho=torch.cat([pre.rho, torch.ones(pad, **like)]),
+        sigma=torch.cat([pre.sigma, unit]),
+        gain_w=torch.cat([pre.gain_w, torch.zeros(pad, **like)]),
+    )

@@ -163,10 +163,24 @@ Phases, in order; any failure raises and the script exits non-zero:
     16^3), kron (K3) on 256 x 8^3, c2c at 32^3; counts, pool memory,
     paired walls and a profiled replay and eager eval, as in phase 21.
 
+23. the multi-device slice on the one card: (a) a 1-rank NCCL mesh
+    (``make_mesh()`` with no process group), ``make_sharded_collision_operator``
+    on the fused (K1) and rfft + use_pallas (K6, K5) routes at 32^3 and 64^3
+    in float64 and float32, and ``make_sharded_ds_collision_operator`` at
+    32^3 on its card defaults, each bitwise equal to its unsharded
+    operator, with the BKW (and ds) digits and paired walls; (b)
+    ``ensemble_bkw --ensemble 256 --Nv 32 --Ns 12 --impl fused --steps 2``
+    in float64 (BASELINE config 5's size), its H gate and mass line, its
+    evals/s; (c) two gloo ranks sharing the card (NCCL takes one rank a
+    card), spawned as ``chip_smoke.py --two-rank``: the node-sharded fused
+    route (K2 on each rank, then the all_reduce) at 32^3 and 64^3 float64
+    and the 2-shard ds operator at 32^3, each within 1e-12 max|Q| of its
+    unsharded eval, with the digits.
+
 The ds evals of phases 13, 15, 16 and 18 (but the phased route) go through
 ``make_ds_collision_operator``, so they replay CUDA graphs; phase 20's route
 rule and ``selfcheck_ds`` call ``collide_ds`` eagerly.  A
-``[N total]`` line after phases 3-11, 16 and 20-22 gives the seconds since
+``[N total]`` line after phases 3-11, 16 and 20-23 gives the seconds since
 the device check.  The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
 """
@@ -184,6 +198,7 @@ import subprocess
 import sys
 import time
 from functools import partial
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -1536,6 +1551,309 @@ def operator_graph_phase(bt, dev, card, ks):
         torch.cuda.empty_cache()
 
 
+# ---- the multi-device slice on one card (phase 23) -------------------------------
+SHARDED_ROUNDS = 5  # paired rounds of the 1-rank mesh's walls against the unsharded operator's
+ENSEMBLE_ARGV = ["--ensemble", "256", "--Nv", "32", "--Ns", "12", "--impl", "fused", "--steps",
+                 "2", "--dtype", "float64"]  # BASELINE config 5's size, its steps cut to 2
+TWO_RANK_TIMEOUT = 600
+
+
+def paired_walls(runs, rounds=SHARDED_ROUNDS):
+    """Host-clock walls of each run (to a synchronise), alternated round by
+    round; the medians in ms."""
+    wall = {k: [] for k in runs}
+    for rnd in range(rounds):
+        for k in (list(runs) if rnd % 2 == 0 else list(runs)[::-1]):
+            t0 = time.perf_counter()
+            runs[k]()
+            torch.cuda.synchronize()
+            wall[k].append((time.perf_counter() - t0) * 1e3)
+    return {k: statistics.median(v) for k, v in wall.items()}
+
+
+def bkw_gate(bt, cfg, q, rsq, name):
+    """The BKW digits of a float64 Q at 32^3 / 64^3, checked; the line."""
+    e = bt.error_norms_device(q, bt.bkw_dfdt(rsq, 6.5), cfg.velocity_grid.dv)
+    ref, rtol = BKW_DIGITS[cfg.nv]
+    for got, want, lab in zip((e["L1"], e["L2"], e["Linf"]), ref, ("L1", "L2", "Linf")):
+        check(abs(got - want) <= rtol * want, f"{name} {lab} {got:.5e} vs {want:.4e}")
+    return (f"BKW L1 {e['L1']:.5e} L2 {e['L2']:.5e} Linf {e['Linf']:.5e} (reference"
+            f" {ref[0]:.4e} {ref[1]:.4e} {ref[2]:.4e}, rtol {rtol:g})")
+
+
+def ds_gate(bt, cfg, q, q_c2c, name):
+    """The ds digits at 32^3 and the 1e-12 agreement with the f64 c2c Q."""
+    l1, l2, linf, dc = ds_digits(bt, cfg, q, q_c2c)
+    ref, rtol = DS_DIGITS_32
+    for got, want, lab in zip((l1, l2, linf), ref, ("L1", "L2", "Linf")):
+        check(abs(got - want) <= rtol * want, f"{name} {lab} {got:.5e} vs {want:.4e}")
+    check(dc <= 1e-12, f"{name} vs f64 c2c {dc:.3e}")
+    return (f"ds digits L1 {l1:.5e} L2 {l2:.5e} Linf {linf:.5e} (reference {ref[0]:.4e}"
+            f" {ref[1]:.4e} {ref[2]:.4e}, rtol {rtol:g}); vs f64 c2c {dc:.3e} max|Q|")
+
+
+def two_rank_main(rank: int, store: str, out: str) -> int:
+    """One of phase 23 (c)'s two ranks, sharing card 0 over gloo (NCCL takes
+    one rank a card): the node-sharded fused route (K2 on each rank, then
+    the all_reduce) at 32^3 and 64^3 f64 and the 2-shard ds operator at
+    32^3 (the all_gather and the ds fold), eager (gloo cannot be captured).
+    Rank 0 holds them to the unsharded evals; the result goes to a JSON
+    file."""
+    import torch.distributed as dist
+
+    import boltzfft_torch as bt
+    from boltzfft_torch import ds
+
+    ks = kernel_modules()
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=2)
+    mesh = bt.make_mesh([(bt.NODE_AXIS, 2)], device="cuda")
+    res = {"rank": rank, "backend": dist.get_backend(), "fused": {}}
+    try:
+        bt.make_sharded_collision_operator(bt.CollisionConfig(nv=32, ns=12, impl="fused"), mesh)
+        res["jit"] = "no error"
+    except ValueError as err:
+        res["jit"] = str(err)
+    for n in (32, 64):
+        cfg = bt.CollisionConfig(nv=n, ns=12, impl="fused")
+        g, rsq, f = bkw(bt, cfg, dev)
+        sharded, pre = bt.make_sharded_collision_operator(cfg, mesh, jit=False)
+        pre = bt.place(pre, mesh)
+        sharded(f, pre)
+        torch.cuda.synchronize()
+        reset_counts(ks)
+        q = sharded(f, pre)
+        torch.cuda.synchronize()
+        row = {"counts": counts(ks), "nodes": pre.rho.shape[0],
+               "hash": hashlib.sha256(q.cpu().numpy().tobytes()).hexdigest()[:16]}
+        dist.barrier()
+        row["ms"] = paired_walls({"sharded": lambda: sharded(f, pre)})["sharded"]
+        if rank == 0:
+            ref, ref_pre = bt.make_collision_operator(cfg, jit=False, device=dev)
+            q_ref = ref(f, ref_pre)
+            row["err"] = float((q - q_ref).abs().max() / q_ref.abs().max())
+            row["bkw"] = bkw_gate(bt, cfg, q, rsq, f"2 ranks fused {n}^3")
+            row["unsharded_ms"] = paired_walls({"k1": lambda: ref(f, ref_pre)})["k1"]
+        res["fused"][n] = row
+    cfg = bt.CollisionConfig(nv=32, ns=12, impl="c2c", dtype="float32")
+    sharded, pre = bt.make_sharded_ds_collision_operator(cfg, mesh, jit=False)
+    pre = bt.place_ds(pre, mesh)
+    f = ds.from_f64(bt.bkw_f(cfg.velocity_grid.r_squared(), 6.5), torch.float32, dev)
+    sharded(f, pre)
+    torch.cuda.synchronize()
+    reset_counts(ks)
+    q = sharded(f, pre)
+    torch.cuda.synchronize()
+    row = {"counts": counts(ks), "groups": pre.gain_w.hi.shape[0], "hash": q_hash(q)}
+    dist.barrier()
+    row["ms"] = paired_walls({"sharded": lambda: sharded(f, pre)})["sharded"]
+    if rank == 0:
+        ref, ref_pre = bt.make_ds_collision_operator(cfg, jit=False, device=dev)
+        q_ref = ref(f, ref_pre)
+        a, b = ds.to_f64(q), ds.to_f64(q_ref)
+        row["err"] = float(np.abs(a - b).max() / np.abs(b).max())
+        row["digits"] = ds_gate(bt, cfg, q, c2c_q(bt, dev), "2 ranks ds 32^3")
+        row["unsharded_ms"] = paired_walls({"ds": lambda: ref(f, ref_pre)})["ds"]
+    res["ds"] = row
+    Path(out, f"rank{rank}.json").write_text(json.dumps(res))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def c2c_q(bt, dev):
+    """The float64 staged c2c Q of the 32^3 BKW state (the ds gates' oracle)."""
+    cfg = bt.CollisionConfig(nv=32, ns=12, impl="c2c")
+    c2c, pre = bt.make_collision_operator(cfg, jit=False, device=dev)
+    return c2c(bkw(bt, cfg, dev)[2], pre)
+
+
+def kernel_modules():
+    """The kernel wrappers, by their counters' names."""
+    from types import SimpleNamespace
+
+    from boltzfft_torch.kernels import alpha_multiply as k6
+    from boltzfft_torch.kernels import fused_collide as k1
+    from boltzfft_torch.kernels import fused_gain as k3
+    from boltzfft_torch.kernels import fused_gain_dft as k24
+    from boltzfft_torch.kernels import gain_reduce as k5
+    from boltzfft_torch.kernels import oz_contract as k8
+    from boltzfft_torch.kernels import oz_gmain as k9
+    from boltzfft_torch.kernels import oz_gmain12 as k10
+    from boltzfft_torch.kernels import oz_hadamard as k12
+    from boltzfft_torch.kernels import oz_hadamard_full as k11
+    from boltzfft_torch.kernels import oz_preslice as k7
+
+    return SimpleNamespace(k1=k1, k3=k3, k24=k24, k5=k5, k6=k6, k7=k7, k8=k8, k9=k9, k10=k10,
+                           k11=k11, k12=k12)
+
+
+def sharded_phase(bt, dev, card, ks):
+    """Phase 23, the multi-device slice on one card: (a) a 1-rank NCCL mesh
+    at full width, each sharded operator bitwise equal to its unsharded
+    one, with the BKW (and ds) digits; (b) the ensemble driver at BASELINE
+    config 5's size; (c) two gloo ranks sharing the card, spawned here."""
+    import torch.distributed as dist
+
+    from boltzfft_torch import ds
+    from boltzfft_torch.cli import ensemble_bkw
+
+    # ---- (a) a 1-rank NCCL mesh: the sharded operators are the unsharded ones
+    mesh = bt.make_mesh(device=dev)  # no process group yet: one of this process alone
+    print(f"[23 mesh] make_mesh(): {dict(zip(mesh.mesh_dim_names, mesh.shape))}, backend"
+          f" {dist.get_backend()}, world {dist.get_world_size()} | {card}")
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1, "a 1-rank NCCL group")
+    routes = (("fused (K1)", dict(impl="fused"), ("k1",)),
+              ("rfft + use_pallas", dict(impl="rfft", use_pallas=True), ("k6", "k5")))
+    for label, kw, needed in routes:
+        for n in (32, 64):
+            for dtype in ("float64", "float32"):
+                cfg = bt.CollisionConfig(nv=n, ns=12, dtype=dtype, **kw)
+                g, rsq, f = bkw(bt, cfg, dev)
+                ref, ref_pre = bt.make_collision_operator(cfg)
+                sharded, pre = bt.make_sharded_collision_operator(cfg, mesh)
+                pre = bt.place(pre, mesh)
+                q_ref = ref(f, ref_pre)
+                torch.cuda.synchronize()
+                reset_counts(ks)
+                q = sharded(f, pre)
+                torch.cuda.synchronize()
+                c = counts(ks)
+                name = f"{label} {n}^3 {dtype}"
+                ok = torch.equal(q, q_ref) and torch.equal(sharded(f, pre), q_ref)
+                check(ok, f"1-rank mesh {name}: not bitwise equal to make_collision_operator")
+                check(all(c[k] > 0 for k in needed) and plain_calls(c) == 0,
+                      f"1-rank mesh {name}: launches {c}")
+                ms = paired_walls({"sharded": lambda: sharded(f, pre), "unsharded": lambda: ref(f, ref_pre)})
+                digits = bkw_gate(bt, cfg, q, rsq, f"1-rank mesh {name}") if dtype == "float64" else ""
+                print(f"[23 mesh] {name}: make_sharded_collision_operator (jit=True, 1 node rank)"
+                      f" bitwise equal to make_collision_operator {ok}; launches of the first"
+                      f" call (warm-up + capture) {{{', '.join(f'{k}: {c[k]}' for k in needed)}}};"
+                      f" wall medians of {SHARDED_ROUNDS} paired rounds: sharded"
+                      f" {ms['sharded']:.4f} ms, unsharded {ms['unsharded']:.4f} ms | {card}")
+                if digits:
+                    print(f"  {digits}")
+                del ref, ref_pre, sharded, pre, q, q_ref
+                torch.cuda.empty_cache()
+    cfg = bt.CollisionConfig(nv=32, ns=12, impl="c2c", dtype="float32")
+    ref, ref_pre = bt.make_ds_collision_operator(cfg, device=dev)
+    sharded, pre = bt.make_sharded_ds_collision_operator(cfg, mesh)
+    pre = bt.place_ds(pre, mesh)
+    f = ds.from_f64(bt.bkw_f(cfg.velocity_grid.r_squared(), 6.5), torch.float32, dev)
+    q_ref = ref(f, ref_pre)
+    torch.cuda.synchronize()
+    reset_counts(ks)
+    q = sharded(f, pre)
+    torch.cuda.synchronize()
+    c = counts(ks)
+    ok = same(q, q_ref)
+    check(ok, "1-rank mesh ds 32^3: not bitwise equal to make_ds_collision_operator")
+    check(all(c[k] > 0 for k in ("k7", "k8", "k9", "k12")) and plain_calls(c) == 0,
+          f"1-rank mesh ds 32^3: launches {c}")
+    digits = ds_gate(bt, cfg, q, c2c_q(bt, dev), "1-rank mesh ds 32^3")
+    ms = paired_walls({"sharded": lambda: sharded(f, pre), "unsharded": lambda: ref(f, ref_pre)})
+    print(f"[23 mesh] ds 32^3 (card defaults): make_sharded_ds_collision_operator (jit=True,"
+          f" 1 radial rank) bitwise equal to make_ds_collision_operator {ok}; launches of the"
+          f" first call {{{', '.join(f'{k}: {c[k]}' for k in ('k7', 'k8', 'k9', 'k12'))}}};"
+          f" wall medians of {SHARDED_ROUNDS} paired rounds: sharded {ms['sharded']:.4f} ms,"
+          f" unsharded {ms['unsharded']:.4f} ms | {card}")
+    print(f"  {digits}")
+    del ref, ref_pre, sharded, pre, q, q_ref
+    torch.cuda.empty_cache()
+
+    # ---- (b) the ensemble driver at BASELINE config 5's size
+    reset_counts(ks)
+    rc, lines = run_driver(ensemble_bkw.main, ENSEMBLE_ARGV)
+    c = counts(ks)
+    out = "\n".join(lines)
+    timed = ("first call", "collision evals")
+    print("\n".join(f"  {ln}" + (f" | {card}" if ln.startswith(timed) else "") for ln in lines))
+    check(rc == 0, "ensemble_bkw: the H gate failed")
+    check(c["k1"] > 0 and plain_calls(c) == 0, f"ensemble_bkw: launches {c}")
+    lo, hi = (float(v) for v in out.split("final mass range: [")[1].split("]")[0].split(","))
+    m0 = float(np.sum(bt.bkw_f(bt.CollisionConfig(nv=32, ns=12).velocity_grid.r_squared(), 5.5))
+               * bt.CollisionConfig(nv=32, ns=12).velocity_grid.dv ** 3)
+    drift = max(abs(lo - m0), abs(hi - m0)) / m0
+    check(np.isfinite(lo) and np.isfinite(hi) and drift <= MASS_TOL, f"ensemble_bkw mass {lo} {hi}")
+    rate = out.split("evals/s aggregate")[0].split("->")[-1].strip()
+    print(f"[23 ensemble] ensemble_bkw {' '.join(ENSEMBLE_ARGV)}: rc {rc} (H gate), final mass"
+          f" range [{lo:.6f}, {hi:.6f}] against the BKW mass {m0:.6f} (rel {drift:.2e}, tol"
+          f" {MASS_TOL:g}); {rate} collision evals/s (the steady run: 256 x 2 steps x 4 evals,"
+          f" K1 on 256-member batches replayed from a CUDA graph); launches {{k1: {c['k1']}}} |"
+          f" {card}")
+    # where the ensemble eval's time goes: one replay of the driver's operator
+    cfg = bt.CollisionConfig(nv=32, ns=12, impl="fused")
+    coll, pre = bt.make_sharded_collision_operator(
+        cfg, bt.make_mesh([(bt.ENSEMBLE_AXIS, 1)], device=dev), node_axis=None,
+        ensemble_axis=bt.ENSEMBLE_AXIS)
+    rsq = cfg.velocity_grid.r_squared()
+    fe = torch.as_tensor(np.stack([bt.bkw_f(rsq, t) for t in 5.5 + 2.0 * np.arange(256) / 256]),
+                         dtype=cfg.real_dtype, device=dev)
+    coll(fe, pre)
+    torch.cuda.synchronize()
+    fam, wall_us = profile_eval(lambda: coll(fe, pre), OPERATOR_FAMILIES)
+    print_profile("the ensemble eval, E = 256 x 32^3 f64, one replay", fam, wall_us, card, 23)
+    del coll, pre, fe
+    torch.cuda.empty_cache()
+
+    # ---- (c) two gloo ranks sharing the card
+    import subprocess
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, __file__, "--two-rank", str(r),
+                                   str(Path(tmp, "store")), tmp],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        logs = []
+        try:
+            for proc in procs:
+                logs.append(proc.communicate(timeout=TWO_RANK_TIMEOUT)[0])
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        wall = time.perf_counter() - t0
+        for r, (proc, log) in enumerate(zip(procs, logs)):
+            if proc.returncode:
+                print(f"--- rank {r} of 2 (rc {proc.returncode}):\n{log[-6000:]}")
+        check(all(p.returncode == 0 for p in procs), "two gloo ranks on one card failed")
+        res = [json.loads(Path(tmp, f"rank{r}.json").read_text()) for r in range(2)]
+    r0, r1 = res
+    print(f"[23 two ranks] 2 processes on card 0 over {r0['backend']} in {wall:.1f} s (start-up"
+          f" included); jit=True with the gloo all_reduce: {r0['jit']!r} | {card}")
+    check("pass jit=False" in r0["jit"], "jit=True over gloo on CUDA did not raise")
+    for n in (32, 64):
+        a, b = r0["fused"][str(n)], r1["fused"][str(n)]
+        check(a["hash"] == b["hash"], f"two ranks fused {n}^3: the ranks' Q differ")
+        check(a["err"] <= 1e-12, f"two ranks fused {n}^3: {a['err']:.3e} max|Q| from K1")
+        check(all(x["counts"]["k2"] == 1 and plain_calls(x["counts"]) == 0 for x in (a, b)),
+              f"two ranks fused {n}^3: launches {a['counts']} {b['counts']}")
+        print(f"[23 two ranks] fused {n}^3 float64, node-sharded ({a['nodes']} nodes a rank):"
+              f" K2 launches per rank per eval {a['counts']['k2']}, {b['counts']['k2']}; vs the"
+              f" unsharded K1 eval {a['err']:.3e} max|Q| (tol 1e-12); eager walls (2 ranks"
+              f" sharing one card, gloo through the host: no scaling measured) rank 0"
+              f" {a['ms']:.3f} ms, rank 1 {b['ms']:.3f} ms, unsharded K1 {a['unsharded_ms']:.3f}"
+              f" ms | {card}")
+        print(f"  {a['bkw']}")
+    a, b = r0["ds"], r1["ds"]
+    needed = ("k7", "k8", "k9", "k12")
+    check(a["hash"] == b["hash"], "two ranks ds: the ranks' Q differ")
+    check(a["err"] <= 1e-12, f"two ranks ds: {a['err']:.3e} max|Q| from the unsharded eval")
+    check(all(all(x["counts"][k] > 0 for k in needed) and plain_calls(x["counts"]) == 0
+              for x in (a, b)), f"two ranks ds: launches {a['counts']} {b['counts']}")
+    print(f"[23 two ranks] ds 32^3 (card defaults), 2 radial shards ({a['groups']} groups):"
+          f" launches per rank {{{', '.join(f'{k}: {a['counts'][k]}' for k in needed)}}};"
+          f" vs the unsharded ds eval {a['err']:.3e} max|Q| (tol 1e-12); eager walls rank 0"
+          f" {a['ms']:.3f} ms, rank 1 {b['ms']:.3f} ms, unsharded {a['unsharded_ms']:.3f} ms |"
+          f" {card}")
+    print(f"  {a['digits']}")
+    dist.destroy_process_group()
+
+
 def _leaves(tree):
     out = []
     if tree is None:
@@ -2332,6 +2650,8 @@ def main() -> int:
     lap(21)
     operator_graph_phase(bt, dev, card, ks)
     lap(22)
+    sharded_phase(bt, dev, card, ks)
+    lap(23)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -2340,4 +2660,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--two-rank"]:  # a rank of phase 23 (c), spawned by the phase
+        sys.exit(two_rank_main(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

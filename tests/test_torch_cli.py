@@ -1,6 +1,7 @@
 """The port's transport CLIs on the CPU (plain versions of the kernels):
 the runs pass their gates and print boltzfft's lines, ``--impl auto``
-resolves by device, and what is not ported yet raises."""
+resolves by device, and the sharded flags (``--mesh``, ``--mesh-cells``,
+``ensemble_bkw``) on gloo ranks print the JAX drivers' lines."""
 
 import inspect
 
@@ -42,14 +43,69 @@ def test_taylor_green_3d_runs_and_decays(capsys):
     assert "bulk-KE" in out and "H trace" in out
 
 
-@pytest.mark.parametrize("main,flag", [
-    (sod_1d3v.main, ["--mesh-cells", "2"]),
-    (taylor_green_2d3v.main, ["--mesh", "2x2"]),
-    (taylor_green_3d3v.main, ["--mesh", "2x2x2"]),
-])
-def test_mesh_not_ported(main, flag):
-    with pytest.raises(NotImplementedError, match="step 4"):
-        main(SMALL + flag)
+# The sharded flags on gloo ranks (tests/torch_rank_worker.py), each against
+# the JAX driver with the same flags on its virtual CPU devices: the lines
+# of reduced moments agree (the timing and mesh lines are each run's own).
+SHARDED = {  # case -> (ranks, driver, flags, the lines compared)
+    "ensemble": (2, "ensemble_bkw", ["--ensemble", "4", "--ens-mesh", "2"],
+                 ("final mass range", "final temperature range", "H range")),
+    "sod": (2, "sod_1d3v", ["--nx", "8", "--n-radial", "4", "--mesh-cells", "2"],
+            ("total mass", "H trace", "H:", "  x=")),
+    "tg2d": (4, "taylor_green_2d3v", ["--cells", "4", "--n-radial", "4", "--mesh", "2x2",
+                                      "--mass-tol", "0.05"],
+             ("total mass", "bulk-KE", "H trace", "H:")),
+    "tg3d": (4, "taylor_green_3d3v", ["--cells", "4", "--n-radial", "4", "--mesh", "2x2x1",
+                                      "--mass-tol", "0.05"],
+             ("total mass", "bulk-KE", "H trace", "H:")),
+}
+SHARED = ["--Nv", "8", "--Ns", "6", "--steps", "2"]
+
+
+def _case(key):
+    world, driver, flags, _ = SHARDED[key]
+    return ":".join(["cli", driver] + flags + SHARED + ["--device", "cpu"])
+
+
+@pytest.fixture(scope="module")
+def sharded_runs(tmp_path_factory):
+    from torch_rank_worker import launch
+
+    tmp = tmp_path_factory.mktemp("ranks")
+    out = {}
+    for world in sorted({w for w, *_ in SHARDED.values()}):
+        keys = [k for k, v in SHARDED.items() if v[0] == world]
+        res = launch(world, [_case(k) for k in keys], tmp)
+        for k in keys:
+            out[k] = [r[_case(k)] for r in res]
+    return out
+
+
+@pytest.mark.parametrize("key", list(SHARDED))
+def test_sharded_flags_match_the_reference_driver(sharded_runs, key):
+    import contextlib
+    import importlib
+    import io
+
+    world, driver, flags, prefixes = SHARDED[key]
+    runs = sharded_runs[key]
+    assert [r["rc"] for r in runs] == [0] * world
+    assert all(r["out"] == "" for r in runs[1:])  # rank 0 prints
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert importlib.import_module(f"boltzfft.cli.{driver}").main(flags + SHARED) == 0
+    pick = lambda text: [ln for ln in text.splitlines() if ln.startswith(prefixes)]
+    got, want = pick(runs[0]["out"]), pick(buf.getvalue())
+    assert got and got == want
+    if key in ("tg2d", "tg3d"):
+        dims = flags[flags.index("--mesh") + 1]
+        assert f"(spatial decomposition {dims} devices" in runs[0]["out"]
+
+
+def test_bad_mesh_split_is_a_parser_error():
+    with pytest.raises(SystemExit):
+        taylor_green_2d3v.main(SMALL + ["--cells", "6", "--mesh", "4x2"])
+    with pytest.raises(SystemExit):
+        taylor_green_3d3v.main(SMALL + ["--cells", "4", "--mesh", "2x2"])
 
 
 def test_cuda_without_card_raises():

@@ -125,11 +125,7 @@ def test_ds_constructors_default_to_the_card(make, arg):
 #: or will not have ("Do not port"), and the port's names beyond the
 #: reference's.
 NOT_YET_PORTED = {
-    "make_mesh", "make_sharded_collision_operator", "place", "place_cells", "NODE_AXIS",
-    "ENSEMBLE_AXIS", "repad_nodes", "initialize_distributed", "make_multihost_mesh",
-    "process_local_ensemble_slice", "make_sharded_ds_collision_operator", "place_ds",
-    "RelaxCheckpointer", "autotune", "autotune_ds", "autotune_fused", "save_precomp",
-    "load_precomp", "trace",
+    "autotune", "autotune_ds", "autotune_fused", "save_precomp", "load_precomp", "trace",
 }
 DO_NOT_PORT = {"enable_compilation_cache", "fused_fits_vmem"}
 PORT_ONLY = {"antipodal_reduce", "ds_precomp_from_numpy", "pick_scheme", "precomp_from_numpy",
