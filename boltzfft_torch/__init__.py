@@ -4,8 +4,10 @@ collision eval; K2/K4, the gain spectrum by per-axis DFTs; K3, by the
 Kronecker scheme; K5/K6, the node reduction and phase multiply of the rfft
 route; K7-K12, the Ozaki-sliced contractions and Hadamard sums of the
 double-single engine), the RK relaxation loop, the spatially inhomogeneous solver
-around it, and their sharding over several devices (one ``torch.distributed``
-rank each).
+around it, their sharding over several devices (one ``torch.distributed``
+rank each), and the tooling around them: the autotuners (``autotune``,
+``autotune_ds``), the tables' archives (``save_precomp``, ``load_precomp``),
+``trace`` and the examples (``boltzfft_torch.examples``).
 
 The PyTorch counterpart of ``boltzfft`` (JAX), which stays the reference.
 Imports torch and NumPy only, never jax::
@@ -22,6 +24,7 @@ Imports torch and NumPy only, never jax::
 
 from . import ds, transport
 from .bkw import bkw_dfdt, bkw_f, bkw_k, maxwellian
+from .cache import load_precomp, save_precomp
 from .checkpoint import RelaxCheckpointer
 from .conserve import ConservePrecomp, build_conserve_precomp, conservative, project
 from .distributed import initialize_distributed, make_multihost_mesh, process_local_ensemble_slice
@@ -52,7 +55,7 @@ from .sharding import (
     place,
     place_cells,
 )
-from .stats import RunStats, error_norms, error_norms_device, time_fn
+from .stats import RunStats, error_norms, error_norms_device, time_fn, trace
 from .timestepper import (
     Trajectory,
     euler_step,
@@ -61,6 +64,7 @@ from .timestepper import (
     rk2_step,
     rk4_step,
 )
+from .tune import autotune, autotune_ds, autotune_fused
 from .weights import (
     CollisionConfig,
     Precomp,
@@ -87,6 +91,9 @@ __all__ = [
     "Trajectory",
     "VelocityGrid",
     "antipodal_reduce",
+    "autotune",
+    "autotune_ds",
+    "autotune_fused",
     "bkw_dfdt",
     "bkw_f",
     "bkw_k",
@@ -106,6 +113,7 @@ __all__ = [
     "gain_spectrum",
     "gauss_legendre",
     "initialize_distributed",
+    "load_precomp",
     "make_collision_operator",
     "make_ds_collision_operator",
     "make_mesh",
@@ -126,8 +134,10 @@ __all__ = [
     "repad_nodes",
     "rk2_step",
     "rk4_step",
+    "save_precomp",
     "sincc",
     "spherical_design",
     "time_fn",
+    "trace",
     "transport",
 ]

@@ -771,9 +771,28 @@ def make_ds_collision_operator(
     PyTorch and the hand-written kernels (no compiler may contract the
     EFTs).  On the CPU ``jit`` changes nothing."""
     device = torch.device(device)
+    collide_fn = ds_collide_fn(
+        cfg, jit, dtype, sub_batch, contract, oz_cmax, g_stream, group_batch, oz_merge,
+        gmain_fused, g1_reversal, device=device,
+    )
+    return collide_fn, build_ds_precomp(cfg, dtype, device=device)
+
+
+def ds_collide_fn(
+    cfg: CollisionConfig, jit: bool = True, dtype=torch.float32,
+    sub_batch: int = 2, contract: Optional[str] = None,
+    oz_cmax: Optional[int] = None, g_stream: Optional[str] = None,
+    group_batch: Optional[int] = None, oz_merge: Optional[bool] = None,
+    gmain_fused=None, g1_reversal: Optional[bool] = None, *, device="cuda",
+) -> Callable[[DS, DsPrecomp], DS]:
+    """:func:`make_ds_collision_operator`'s ``collide_fn`` alone, for tables
+    built once elsewhere (``autotune_ds`` times one per ``sub_batch`` on one
+    ``DsPrecomp``).  Each call makes its own graph cache under ``jit=True``
+    on CUDA: a graph is keyed by the precomp and the shapes only, so two
+    operators that differ in their arguments must not share one."""
+    device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device='cuda' requested but torch.cuda.is_available() is False")
-    pre = build_ds_precomp(cfg, dtype, device=device)
     fn = partial(
         collide_ds, cfg, sub_batch=sub_batch, contract=contract or default_contract(device),
         oz_cmax=oz_cmax, g_stream=g_stream, group_batch=group_batch, oz_merge=oz_merge,
@@ -788,7 +807,7 @@ def make_ds_collision_operator(
             f = ds.from_float(torch.as_tensor(f, dtype=dtype, device=device))
         return run(f, precomp)
 
-    return collide_fn, pre
+    return collide_fn
 
 
 # ---------------------------------------------------------------------------

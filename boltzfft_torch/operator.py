@@ -87,22 +87,31 @@ def _settled(pre: Precomp, key, make):
     return pre.derived[key]
 
 
+def divisor_chunk(c: int, b: int) -> int:
+    """The largest divisor of the node count ``b`` that is at most ``c``."""
+    c = min(c, b)
+    while b % c:
+        c -= 1
+    return c
+
+
+def node_chunk_for(cfg: CollisionConfig, device, n_nodes: Optional[int] = None) -> int:
+    """The staged pipelines' nodes per chunk on ``device``: ``cfg.chunk`` of
+    the device (on CUDA a share of the free memory) cut to a divisor of the
+    node count (:func:`divisor_chunk`); ``n_nodes`` defaults to the padded
+    count ``build_precomp`` gives (a shard passes its own rows)."""
+    device = torch.device(device)
+    b = cfg.n_nodes_padded(device) if n_nodes is None else n_nodes
+    return divisor_chunk(cfg.chunk(device), b)
+
+
 def node_chunk(cfg: CollisionConfig, pre: Precomp) -> int:
-    """The staged pipelines' nodes per chunk for ``pre``: ``cfg.chunk`` of
-    its device (on CUDA a share of the free memory) cut to a divisor of the
-    node count, settled at the first call.  The chunk sets the order of the
-    node sum, and the free memory moves between calls (a CUDA graph's pool
-    holds some), so it is read once."""
-
-    def make():
-        b = pre.rho.shape[0]
-        c = min(cfg.chunk(pre.device), b)
-        while b % c:
-            # a node count the configured chunk doesn't divide: largest divisor
-            c -= 1
-        return c
-
-    return _settled(pre, ("chunk", cfg), make)
+    """:func:`node_chunk_for` ``pre``'s device and rows, settled at the
+    first call.  The chunk sets the order of the node sum, and the free
+    memory moves between calls (a CUDA graph's pool holds some), so it is
+    read once."""
+    return _settled(pre, ("chunk", cfg),
+                    lambda: node_chunk_for(cfg, pre.device, pre.rho.shape[0]))
 
 
 def kernel_chunk(cfg: CollisionConfig, pre: Precomp, f: torch.Tensor) -> Optional[int]:

@@ -1,13 +1,16 @@
-"""Run-timing statistics and error norms (mirror of ``boltzfft/stats.py``).
+"""Run-timing statistics, tracing and error norms (mirror of ``boltzfft/stats.py``).
 
 ``RunStats`` is the reference's min/max/mean/stdev summary over trial times;
-``time_fn`` times a function on the device that it runs on; ``error_norms`` and
-``error_norms_device`` are the reference's L1/L2/Linf conventions.
+``time_fn`` times a function on the device that it runs on; ``trace`` records
+a block with ``torch.profiler``; ``error_norms`` and ``error_norms_device``
+are the reference's L1/L2/Linf conventions.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import socket
 import time
 from typing import Callable, Sequence
 
@@ -85,6 +88,47 @@ def time_fn(
     else:
         raise ValueError(f"time_fn: no timer for device {device}")
     return RunStats.from_times(times), out
+
+
+class trace:
+    """Context manager around ``torch.profiler.profile``: the block's CPU
+    activity always, and its CUDA activity (kernels, copies) whenever
+    ``torch.cuda.is_available()``.  On exit it writes one Chrome-trace JSON
+    under ``log_dir`` (``<host>_<pid>.<ns>.pt.trace.json``, the name
+    ``torch.profiler.tensorboard_trace_handler`` gives; Perfetto and
+    TensorBoard read it); its path is ``self.path``.  Exceptions raised in
+    the block pass through; a profiler that fails to start raises.
+
+    Usage::
+
+        with bt.trace("/tmp/boltz-trace"):
+            collide(f, pre)
+    """
+
+    def __init__(self, log_dir: str):
+        self.log_dir = log_dir
+        self.path = None
+        self._prof = None
+
+    def __enter__(self):
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        os.makedirs(self.log_dir, exist_ok=True)
+        prof = torch.profiler.profile(activities=acts)
+        prof.__enter__()
+        self._prof = prof
+        return self
+
+    def __exit__(self, *exc):
+        prof, self._prof = self._prof, None
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()  # the block's kernels end inside the trace
+        prof.__exit__(None, None, None)
+        name = f"{socket.gethostname()}_{os.getpid()}.{time.time_ns()}.pt.trace.json"
+        self.path = os.path.join(self.log_dir, name)
+        prof.export_chrome_trace(self.path)
+        return False
 
 
 def _vol(dv, cell_volume) -> float:

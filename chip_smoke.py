@@ -176,11 +176,28 @@ Phases, in order; any failure raises and the script exits non-zero:
     route (K2 on each rank, then the all_reduce) at 32^3 and 64^3 float64
     and the 2-shard ds operator at 32^3, each within 1e-12 max|Q| of its
     unsharded eval, with the digits.
+24. the tooling and examples slice: (a) ``save_precomp`` / ``load_precomp``
+    at 32^3 and 64^3 float64 on rfft + use_pallas and K1, the loaded
+    tables' replayed eval bitwise equal to the saved ones', with the BKW
+    digits, the archive's bytes and the load seconds; (b) ``autotune`` on
+    rfft + use_pallas at 32^3 and 64^3 in float64 and float32 and on c2c at
+    32^3: each candidate's ms per eval, the winner, its K5/K6 launches per
+    eval, its digits, and the memory given back; (c) ``autotune_ds`` at
+    32^3 and 64^3 on the card defaults (each ``sub_batch``'s ms per replayed
+    eval, the winner's ds digits); (d) ``trace`` around one replayed K1
+    eval, its JSON holding K1's kernels as often as ``torch.profiler``
+    counts them on a replay and its kernels' summed ms within 10% of the
+    profiler's (the events more or fewer than its count, and the first
+    call's window, printed); (e) the seven examples' ``main``
+    at their defaults (``convergence_study --max-nv 64``, its 64^3 Linf
+    3.0685e-12; ``precision_ladder --Nv 32``; ``adjoint_fit --impl fused``;
+    ``mixing_2d3v`` and ``taylor_green_2d3v`` unsharded and on a 1-rank
+    NCCL mesh, line for line equal), each with its gate and wall.
 
 The ds evals of phases 13, 15, 16 and 18 (but the phased route) go through
 ``make_ds_collision_operator``, so they replay CUDA graphs; phase 20's route
 rule and ``selfcheck_ds`` call ``collide_ds`` eagerly.  A
-``[N total]`` line after phases 3-11, 16 and 20-23 gives the seconds since
+``[N total]`` line after phases 3-11, 16 and 20-24 gives the seconds since
 the device check.  The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
 """
@@ -188,6 +205,7 @@ the device check.  The last two lines are a JSON summary of the kernels and
 from __future__ import annotations
 
 import ast
+import collections
 import contextlib
 import dataclasses
 import hashlib
@@ -561,13 +579,13 @@ def gates(name, f, mass, h):
     check(ok, f"{name}: mass or H-theorem gate")
 
 
-def run_driver(main, argv):
-    """Run a CLI's ``main`` with its standard output captured; returns
-    (exit code, lines)."""
+def run_driver(fn, *args, **kw):
+    """Run ``fn(*args, **kw)`` (a CLI's ``main(argv)``, a tuner) with its
+    standard output captured; returns (its result, lines)."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = main(argv)
-    return rc, [line for line in buf.getvalue().splitlines() if line.strip()]
+        out = fn(*args, **kw)
+    return out, [line for line in buf.getvalue().splitlines() if line.strip()]
 
 
 # ---- the ds engine (K7, K8, K9, K12) ------------------------------------
@@ -637,6 +655,13 @@ def parity_check(max_err, label, key, fn, ref):
     return a
 
 
+def self_device_us(e) -> float:
+    """A ``key_averages`` row's own device microseconds (older torch names
+    the attribute ``self_cuda_time_total``)."""
+    t = getattr(e, "self_device_time_total", None)
+    return t if t is not None else e.self_cuda_time_total
+
+
 def profile_eval(fn, families):
     """One call under ``torch.profiler``: ({family: [device us, launches]}
     with the rest under "other", wall us)."""
@@ -650,8 +675,7 @@ def profile_eval(fn, families):
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        t = getattr(e, "self_device_time_total", None)
-        t = t if t is not None else e.self_cuda_time_total
+        t = self_device_us(e)
         key = next((k for k in families if k in e.key), "other")
         fam[key][0] += t
         fam[key][1] += e.count
@@ -1459,9 +1483,11 @@ def operator_graph_phase(bt, dev, card, ks):
     the graph pool against the eager peak; paired wall times (host clock to
     a synchronise, alternated, medians of ``GRAPH_ROUNDS``), and one
     profiled replay and eager eval (device time, idle share, kernels).
-    Each operator is dropped before the next case."""
+    Each operator is dropped before the next case.  Returns each case's
+    replay device ms (the profiler's), by case name."""
     from boltzfft_torch.cli.taylor_green_2d3v import taylor_green_f0
 
+    replay_device = {}  # case name -> one replay's device ms (the profiler's)
     for label, kw, n, cells in OPERATOR_GRAPH_CASES:
         cfg = bt.CollisionConfig(nv=n, ns=12, **kw)
         graphed, pre = bt.make_collision_operator(cfg)
@@ -1544,11 +1570,14 @@ def operator_graph_phase(bt, dev, card, ks):
             fam, wall_us = profile_eval(fn, OPERATOR_FAMILIES)
             print_profile(f"{name}, {what}", fam, wall_us, card, 22)
             busy = sum(v[0] for v in fam.values()) / 1e3
+            if k == "graph":
+                replay_device[name] = busy
             med = statistics.median(wall[k])
             print(f"  the profiler's device time against the unprofiled median wall: {busy:.4f} of"
                   f" {med:.4f} ms, idle share {100 * (1 - busy / med):.1f}% | {card}")
         del q_eager, q_graph, q_replay, runs, graphed, pre, f, eager
         torch.cuda.empty_cache()
+    return replay_device
 
 
 # ---- the multi-device slice on one card (phase 23) -------------------------------
@@ -1852,6 +1881,302 @@ def sharded_phase(bt, dev, card, ks):
           f" {card}")
     print(f"  {a['digits']}")
     dist.destroy_process_group()
+
+
+# ---- the tooling and examples slice (phase 24) ---------------------------------
+K1_SYMBOLS = ("plane_dft_kernel", "line_dft_kernel")  # K1's transforms (fused_collide.cu)
+F32_LINF_32 = 4.5e-5  # the float32 gate at 32^3 (PERF.md section 2)
+F32_VS_F64_64 = 2e-5  # float32 at 64^3 within this of float64, in units of max|Q|
+CONVERGENCE_LINF_64 = (3.0685e-12, 1e-3)  # the reference's 64^3 Linf and its rtol
+TRACE_MS_RTOL = 0.10  # a traced replay's summed kernel ms against the profiler's on another
+
+
+def k1_launches(counts) -> int:
+    """K1's transform launches in a ``{kernel name: count}``."""
+    return sum(v for k, v in counts.items() if any(s in k for s in K1_SYMBOLS))
+MEM_SLACK = 64 << 20  # allocated bytes a tuner may leave behind
+TOOLING_KERNELS = ("k1", "k5", "k6", "k7", "k8", "k9", "k10", "k12")
+
+
+def ds_check(bt, cfg, q, q_c2c, name):
+    """The ds digits of a ds Q at 32^3 / 64^3, checked; the line."""
+    l1, l2, linf, dc = ds_digits(bt, cfg, q, q_c2c)
+    check(dc <= 1e-12, f"{name}: vs f64 c2c {dc:.3e}")
+    if cfg.nv == 32:
+        ref, rtol = DS_DIGITS_32
+        for got, want, lab in zip((l1, l2, linf), ref, ("L1", "L2", "Linf")):
+            check(abs(got - want) <= rtol * want, f"{name} {lab} {got:.5e} vs {want:.4e}")
+        gate = f"reference {ref[0]:.4e} {ref[1]:.4e} {ref[2]:.4e}, rtol {rtol:g}"
+    else:
+        check(DS_LINF_64[0] <= linf <= DS_LINF_64[1], f"{name} Linf {linf:.5e}")
+        gate = f"Linf in [{DS_LINF_64[0]:.4e}, {DS_LINF_64[1]:.4e}]"
+    return (f"ds digits L1 {l1:.5e} L2 {l2:.5e} Linf {linf:.5e} ({gate}); vs f64 c2c"
+            f" {dc:.3e} max|Q| (tol 1e-12)")
+
+
+def tooling_phase(bt, dev, card, ks, replay_device):
+    """Phase 24, the tooling and examples slice: (a) ``save_precomp`` /
+    ``load_precomp`` (a loaded precomp's replayed eval bitwise equal to the
+    saved one's); (b) ``autotune`` on rfft + use_pallas (32^3, 64^3, f64 and
+    f32) and c2c 32^3: each candidate's ms per eval, the winner, its K5/K6
+    launches per eval, its digits, the memory given back; (c) ``autotune_ds``
+    at 32^3 and 64^3 on the card defaults (the ``sub_batch`` re-measure):
+    each candidate's ms, the winner's ds digits; (d) ``trace`` around
+    replayed K1 evals, held to the profiler's kernel count and time; (e) the seven examples' ``main`` at their defaults,
+    each with its gate and wall.  The counts are set to 0 at the phase's
+    start and read at its end: every kernel of its path must have launched."""
+    import tempfile
+
+    from boltzfft_torch import ds, tune
+    from boltzfft_torch.examples import (
+        adjoint_fit,
+        bkw_relaxation,
+        convergence_study,
+        mixing_2d3v,
+        ozaki_contraction,
+        precision_ladder,
+        taylor_green_2d3v,
+    )
+
+    reset_counts(ks)
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- (a) the tables' archive on the card
+        for n in (32, 64):
+            for label, kw in (("rfft + use_pallas", dict(impl="rfft", use_pallas=True)),
+                              ("fused (K1)", dict(impl="fused"))):
+                cfg = bt.CollisionConfig(nv=n, ns=12, **kw)
+                collide, pre = bt.make_collision_operator(cfg)
+                _, rsq, f = bkw(bt, cfg, dev)
+                q = collide(f, pre)
+                path = Path(tmp, f"pre_{n}.npz")
+                t0 = time.perf_counter()
+                bt.save_precomp(path, cfg, pre)
+                save_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                cfg2, pre2 = bt.load_precomp(path)
+                torch.cuda.synchronize()
+                load_s = time.perf_counter() - t0
+                q2, q3 = collide(f, pre2), collide(f, pre2)  # the capture on pre2, a replay
+                torch.cuda.synchronize()
+                ok = cfg2 == cfg and torch.equal(q2, q) and torch.equal(q3, q)
+                check(ok, f"loaded precomp {label} {n}^3: its replayed eval differs")
+                digits = bkw_gate(bt, cfg, q2, rsq, f"loaded precomp {label} {n}^3")
+                print(f"[24 precomp] {label} {n}^3 float64: save_precomp"
+                      f" {path.stat().st_size} bytes in {save_s:.3f} s; load_precomp(device='cuda')"
+                      f" {load_s:.3f} s; the loaded tables' replayed eval bitwise equal to the"
+                      f" saved ones' {ok} | {card}")
+                print(f"  {digits}")
+                del collide, pre, pre2, q, q2, q3, f
+                torch.cuda.empty_cache()
+
+        # ---- (b) autotune on the staged routes
+        q64 = {}
+        cases = [(n, dtype, dict(impl="rfft", use_pallas=True))
+                 for n in (32, 64) for dtype in ("float64", "float32")]
+        cases.append((32, "float64", dict(impl="c2c")))
+        for n, dtype, kw in cases:
+            cfg = bt.CollisionConfig(nv=n, ns=12, dtype=dtype, **kw)
+            label = f"{'rfft + use_pallas' if cfg.use_pallas else cfg.impl} {n}^3 {dtype}"
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            m0 = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            tuned, lines = run_driver(bt.autotune, cfg, verbose=True)
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            left = torch.cuda.memory_allocated() - m0
+            print(f"[24 autotune] {label}: {len(lines)} candidates in {wall:.2f} s; winner"
+                  f" node_chunk={tuned.node_chunk} (chunk {bt.operator.node_chunk_for(tuned, dev)} of"
+                  f" {cfg.n_nodes} nodes); memory allocated after the call minus before"
+                  f" {left / 2**20:.2f} MiB (tol {MEM_SLACK >> 20} MiB) | {card}")
+            for ln in lines:
+                ms = float(ln.split("->")[1].split()[0]) * 1e3 if "->" in ln else None
+                print(f"  {ln}" + (f" = {ms:.4f} ms per eval | {card}" if ms else ""))
+            check(tuned.node_chunk is not None and all("->" in ln for ln in lines),
+                  f"autotune {label}: {lines}")
+            check(left <= MEM_SLACK, f"autotune {label}: {left} bytes not given back")
+            eager, pre = bt.make_collision_operator(tuned, jit=False)
+            _, rsq, f = bkw(bt, tuned, dev)
+            eager(f, pre)
+            torch.cuda.synchronize()
+            c0 = counts(ks)
+            eager(f, pre)
+            torch.cuda.synchronize()
+            per = {k: v - c0[k] for k, v in counts(ks).items()}
+            graphed, _ = bt.make_collision_operator(tuned)
+            q = graphed(f, pre)
+            if dtype == "float64":
+                gate = bkw_gate(bt, tuned, q, rsq, f"tuned {label}")
+                q64[n] = q
+            elif n == 32:
+                linf = bt.error_norms_device(q, bt.bkw_dfdt(rsq, 6.5), tuned.velocity_grid.dv)["Linf"]
+                check(linf <= F32_LINF_32, f"tuned {label}: Linf {linf:.5e}")
+                gate = f"Linf {linf:.5e} (gate {F32_LINF_32:g})"
+            else:
+                d = float((q.double() - q64[n]).abs().max() / q64[n].abs().max())
+                check(d <= F32_VS_F64_64, f"tuned {label}: {d:.3e} max|Q| from float64")
+                gate = f"{d:.3e} max|Q| from the tuned float64 Q (gate {F32_VS_F64_64:g})"
+            print(f"  the winner: K5 {per['k5']} and K6 {per['k6']} launches per eval (an eager"
+                  f" eval); replayed: {gate}")
+            check(plain_calls(per) == 0
+                  and (not cfg.use_pallas or (per["k5"] > 0 and per["k6"] > 0)),
+                  f"tuned {label}: launches {per}")
+            del eager, graphed, pre, f, q
+            torch.cuda.empty_cache()
+        del q64
+
+        # ---- (c) autotune_ds on the card defaults: the sub_batch re-measure
+        for n in (32, 64):
+            cfg = bt.CollisionConfig(nv=n, ns=12)
+            c2c, pre = bt.make_collision_operator(bt.CollisionConfig(nv=n, ns=12, impl="c2c"),
+                                                  jit=False)
+            q_c2c = c2c(bkw(bt, cfg, dev)[2], pre)
+            del c2c, pre
+            for probe in (1, 2):  # twice, the memo cleared: is the winner repeatable?
+                tune._MEMO.clear()
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                m0 = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                sb, lines = run_driver(bt.autotune_ds, cfg, verbose=True)
+                wall = time.perf_counter() - t0
+                torch.cuda.synchronize()
+                left = torch.cuda.memory_allocated() - m0
+                print(f"[24 autotune_ds] {n}^3 Ns=12 (oz, card defaults; k=2, trials=2), probe"
+                      f" {probe} of 2: {len(lines)} candidates in {wall:.2f} s; winner"
+                      f" sub_batch={sb} (the default stays 2); memory allocated after minus"
+                      f" before {left / 2**20:.2f} MiB | {card}")
+                for ln in lines:
+                    print(f"  {ln} = {float(ln.split('->')[1].split()[0]) * 1e3:.4f} ms per"
+                          f" replayed eval (best of 2 chains of 2) | {card}")
+                check(len(lines) == 5 and all("->" in ln for ln in lines),
+                      f"autotune_ds {n}^3: {lines}")
+                check(left <= MEM_SLACK, f"autotune_ds {n}^3: {left} bytes not given back")
+            collide, pre = bt.make_ds_collision_operator(cfg, sub_batch=sb)
+            f = ds.from_f64(bt.bkw_f(cfg.velocity_grid.r_squared(), 6.5), device=dev)
+            q = collide(f, pre)
+            print(f"  the winner's eval: {ds_check(bt, cfg, q, q_c2c, f'autotune_ds {n}^3')}")
+            del collide, pre, f, q, q_c2c
+            torch.cuda.empty_cache()
+
+        # ---- (d) trace: the first call's window (the eager warm-up, the
+        # capture and the first replay), then two windows of one replay
+        # each, held to the profiler's K1 launches and time on a replay (the
+        # profiler drops some of a replay's small kernels in some windows)
+        cfg = bt.CollisionConfig(nv=32, ns=12, impl="fused")
+        collide, pre = bt.make_collision_operator(cfg)
+        _, rsq, f = bkw(bt, cfg, dev)
+
+        def traced():
+            torch.cuda.synchronize()
+            with bt.trace(str(Path(tmp, "trace"))) as tr:
+                out = collide(f, pre)
+            events = json.loads(Path(tr.path).read_text())["traceEvents"]
+            return out, tr.path, [e for e in events if e.get("cat") == "kernel"]
+
+        q, _, first = traced()
+        q2, path, kern = traced()
+        q3, _, again = traced()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            collide(f, pre)
+            torch.cuda.synchronize()
+        prof_kern = [e for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and not e.key.startswith(("Memcpy", "Memset"))]
+        want = collections.Counter({e.key: e.count for e in prof_kern})
+        ms_prof = sum(self_device_us(e) for e in prof_kern) / 1e3
+        k1 = sorted({e["name"].split("(")[0] for e in kern
+                     if any(s in e["name"] for s in K1_SYMBOLS)})
+        ref = replay_device.get("fused (K1) 32^3 float64")
+        print(f"[24 trace] bt.trace around replayed K1 evals, 32^3 float64: {path.split('/')[-1]}"
+              f" ({Path(path).stat().st_size} bytes); torch.profiler's key_averages on"
+              f" another replay: {sum(want.values())} kernel launches ({k1_launches(want)} of K1),"
+              f" {ms_prof:.4f} ms (phase 22's, copies included:"
+              f" {'not measured' if ref is None else f'{ref:.4f} ms'}); K1's {k1} | {card}")
+        short = lambda name: name.split("(")[0].split("<")[0].split()[-1]  # noqa: E731
+        for label, events, times in (("first call (warm-up, capture, replay)", first, 2),
+                                     ("one replay", kern, 1), ("another replay", again, 1)):
+            got = collections.Counter(e["name"] for e in events)
+            ref_n = collections.Counter({k: times * v for k, v in want.items()})
+            extra, missing = got - ref_n, ref_n - got
+            print(f"  window, {label}: {len(events)} kernel events ({k1_launches(got)} of K1),"
+                  f" {sum(e.get('dur', 0.0) for e in events) / 1e3:.4f} ms summed; against"
+                  f" {times}x the profiler's launches, {sum(extra.values())} more"
+                  f" {dict(collections.Counter(short(k) for k in extra.elements()))} and"
+                  f" {sum(missing.values())} fewer"
+                  f" {dict(collections.Counter(short(k) for k in missing.elements()))} | {card}")
+        check(kern and k1 and torch.equal(q2, q) and torch.equal(q3, q),
+              "trace: no K1 kernel event, or Q differs")
+        for events in (kern, again):
+            got = collections.Counter(e["name"] for e in events)
+            busy = sum(e.get("dur", 0.0) for e in events) / 1e3
+            check(k1_launches(got) == k1_launches(want),
+                  f"trace: {k1_launches(got)} K1 launches against the profiler's"
+                  f" {k1_launches(want)}")
+            check(abs(busy - ms_prof) <= TRACE_MS_RTOL * ms_prof,
+                  f"trace: {busy:.4f} ms summed against the profiler's {ms_prof:.4f} ms")
+        del collide, pre, f, q, q2, q3
+        torch.cuda.empty_cache()
+
+    # ---- (e) the seven examples at their defaults
+    def example(mod, argv):
+        t0 = time.perf_counter()
+        rc, lines = run_driver(mod.main, argv)
+        torch.cuda.synchronize()
+        return rc, lines, time.perf_counter() - t0
+
+    def show(name, lines, wall):
+        print(f"[24 example] {name}: {wall:.2f} s wall | {card}")
+        print("\n".join(f"  {ln}" for ln in lines))
+
+    rc, lines, wall = example(convergence_study, ["--max-nv", "64"])
+    show("convergence_study --max-nv 64", lines, wall)
+    row = next(ln for ln in lines if ln.split()[0] == "64")
+    linf, (want, rtol) = float(row.split()[3]), CONVERGENCE_LINF_64
+    check(rc is None and abs(linf - want) <= rtol * want, f"convergence_study 64^3 Linf {linf}")
+    rc, lines, wall = example(bkw_relaxation, [])
+    show("bkw_relaxation (32^3, Ns=12, 12 RK4 steps)", lines, wall)
+    err = float(lines[-1].split(":")[-1])
+    mass = [float(ln.split()[1]) for ln in lines[2:-1]]
+    check(rc is None and np.isfinite(err) and len(mass) == 12
+          and max(abs(m - mass[0]) for m in mass) <= MASS_TOL * mass[0],
+          f"bkw_relaxation: rc {rc}, Linf {err}, mass {mass}")
+    rc, lines, wall = example(precision_ladder, ["--Nv", "32"])
+    show("precision_ladder --Nv 32", lines, wall)
+    rows = {ln[:16].strip(): ln.split() for ln in lines[2:]}
+    check(rc == 0 and set(rows) == {"fused default", "fused highest", "rfft", "ds (compensated)"}
+          and all(np.isfinite(float(r[-3])) for r in rows.values())
+          and all(float(r[-2]) <= 1e-4 for k, r in rows.items() if k != "ds (compensated)"),
+          f"precision_ladder: rc {rc} {rows}")
+    c0 = counts(ks)
+    rc, lines, wall = example(adjoint_fit, ["--impl", "fused"])
+    k1_adjoint = counts(ks)["k1"] - c0["k1"]
+    show(f"adjoint_fit --impl fused (K1 forwards: {k1_adjoint})", lines, wall)
+    check(rc == 0 and k1_adjoint > 0, f"adjoint_fit --impl fused: rc {rc}, K1 {k1_adjoint}")
+    rc, lines, wall = example(ozaki_contraction, [])
+    show("ozaki_contraction", lines, wall)
+    rel = float(lines[1].split(":")[1])
+    check(rc is None and rel <= 1e-13, f"ozaki_contraction: rel err {rel}")
+    for name, mod, local, sharded in (
+            ("mixing_2d3v", mixing_2d3v, [], ["--shard"]),
+            ("taylor_green_2d3v", taylor_green_2d3v, ["--local"], [])):
+        rc0, l0, w0 = example(mod, local)
+        rc1, l1, w1 = example(mod, sharded)
+        drop = ("spatial decomposition", "unsharded solver")
+        same_lines = [ln for ln in l0 if not ln.startswith(drop)] == [
+            ln for ln in l1 if not ln.startswith(drop)]
+        show(f"{name} {' '.join(local) or '(unsharded)'}", l0, w0)
+        print(f"[24 example] {name} {' '.join(sharded) or '(a 1-rank NCCL mesh)'}: {w1:.2f} s"
+              f" wall; {l1[0]}; every other line equal to the unsharded run's {same_lines} |"
+              f" {card}")
+        check(rc0 == 0 == rc1 and same_lines and l1[0].startswith("spatial decomposition: 1x1"),
+              f"{name}: rc {rc0} / {rc1}, lines\n{l0}\n{l1}")
+    c = counts(ks)
+    print(f"[24 launches] the phase's path: {{{', '.join(f'{k}: {c[k]}' for k in TOOLING_KERNELS)}}};"
+          f" plain calls {plain_calls(c)}")
+    check(all(c[k] > 0 for k in TOOLING_KERNELS) and plain_calls(c) == 0,
+          f"phase 24: launches {c}")
 
 
 def _leaves(tree):
@@ -2587,8 +2912,7 @@ def main() -> int:
         for e in prof.key_averages():
             if e.device_type != torch.autograd.DeviceType.CUDA:
                 continue
-            t = getattr(e, "self_device_time_total", None)
-            t = t if t is not None else e.self_cuda_time_total
+            t = self_device_us(e)
             nm = e.key.lower()
             if "dft_kernel" in nm:
                 fam["K1 transforms (plane_dft_kernel, line_dft_kernel)"] += t
@@ -2648,10 +2972,12 @@ def main() -> int:
     lap(20)
     ds_graph_phase(bt, dev, card, ks, st)
     lap(21)
-    operator_graph_phase(bt, dev, card, ks)
+    replay_device = operator_graph_phase(bt, dev, card, ks)
     lap(22)
     sharded_phase(bt, dev, card, ks)
     lap(23)
+    tooling_phase(bt, dev, card, ks, replay_device)
+    lap(24)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -124,9 +124,7 @@ def test_ds_constructors_default_to_the_card(make, arg):
 #: Names of ``boltzfft.__all__`` the port does not have yet (ROADMAP Queue 1)
 #: or will not have ("Do not port"), and the port's names beyond the
 #: reference's.
-NOT_YET_PORTED = {
-    "autotune", "autotune_ds", "autotune_fused", "save_precomp", "load_precomp", "trace",
-}
+NOT_YET_PORTED = set()
 DO_NOT_PORT = {"enable_compilation_cache", "fused_fits_vmem"}
 PORT_ONLY = {"antipodal_reduce", "ds_precomp_from_numpy", "pick_scheme", "precomp_from_numpy",
              "transport"}

@@ -482,6 +482,25 @@ def cli(name="ensemble_bkw", *argv):
     return {"rc": rc, "out": buf.getvalue()}
 
 
+# ---- the examples -------------------------------------------------------------
+
+
+@case
+def example(name, *argv):
+    """An example's ``main`` on every rank; ``NAME=value`` arguments first
+    set the module's integer constants (``mixing_2d3v``'s ``CELLS``)."""
+    import importlib
+
+    mod = importlib.import_module(f"boltzfft_torch.examples.{name}")
+    consts = dict(a.split("=") for a in argv if "=" in a)
+    for k, v in consts.items():
+        setattr(mod, k, int(v))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main([a for a in argv if "=" not in a])
+    return {"rc": rc, "out": buf.getvalue()}
+
+
 # ---- two ranks sharing one card over gloo (the card's tests) ----------------------
 
 
