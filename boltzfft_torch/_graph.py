@@ -1,9 +1,12 @@
-"""CUDA-graph replay of an eval: the card's counterpart of ``jax.jit``.
+"""CUDA-graph replay of a compile unit: the card's counterpart of ``jax.jit``.
 
 :class:`Replayed` wraps ``fn(x, pre)``, where ``x`` is a tree of CUDA
 tensors (a :class:`boltzfft_torch.ds.DS`, or one tensor f) and ``pre`` the
-tables: the ds eval (``make_ds_collision_operator``) and every route of
-``make_collision_operator``.  The
+tables.  Its units are those the JAX package jits: the eval (every route of
+``make_collision_operator``, ``make_ds_collision_operator`` and the sharded
+operators), one step of ``make_relaxation`` (with its ``record``), a
+sharded Strang step built with ``jit=True``, and the spatial drivers'
+step-plus-diagnostics body.  The
 first call for a (``pre`` object, ``x``'s shapes and dtypes) runs ``fn`` once
 eagerly on a side stream, which builds and loads the kernel library and
 fills the plan caches outside capture, then captures one ``fn`` into a
@@ -19,6 +22,13 @@ takes from a cache of its own (``ds_operator._grid_consts``, the K3 tables
 in ``pre.derived``) it passes
 through :func:`hold`, which keeps it alive with the graph being captured,
 so a cache that evicts or is cleared never frees memory a replay reads.
+
+Replayed units nest as nested ``jax.jit`` calls do: while one runs its
+warm-up or its capture, a :class:`Replayed` it calls (a step's operator)
+runs its eager ``fn``, so the outer graph captures the inner kernels, and
+the inner one captures no graph of its own (a second pool that would never
+be replayed).  The inner eval settles its chunks as it does eagerly, so the
+bits are the same.
 
 A capture that fails raises, with the cause: there is no eager fallback.
 The kernel wrappers' launch counters count Python calls, so a replay moves
@@ -39,6 +49,12 @@ KEEP = 2
 
 # what the capture under way holds (None outside a capture)
 _held: list | None = None
+# warm-ups and captures under way (a Replayed called inside one runs eagerly)
+_depth = 0
+#: Captures keep their ``cudaGraph_t`` beside the executable graph
+#: (``CUDAGraph(keep_graph=True)``), so ``debug_dump`` and
+#: ``raw_cuda_graph`` can read its nodes; off, it is freed once built.
+DEBUG = False
 
 
 def hold(obj):
@@ -71,6 +87,8 @@ class Replayed:
         self._graphs: OrderedDict = OrderedDict()
 
     def __call__(self, x, pre):
+        if _depth:  # inside an outer unit's warm-up or capture: its graph takes our kernels
+            return self.fn(x, pre)
         leaves = _leaves(x)
         key = (id(pre),) + tuple((t.shape, t.dtype, t.device) for t in leaves)
         entry = self._graphs.get(key)
@@ -85,21 +103,28 @@ class Replayed:
         return tree_map(torch.clone, entry.out)
 
     def _capture(self, x, pre, dev: torch.device) -> _Captured:
-        global _held
+        global _held, _depth
         static = tree_map(torch.clone, x)
-        with torch.cuda.device(dev):
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                self.fn(static, pre)  # warm-up, outside capture
-            torch.cuda.current_stream().wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            _held = held = []
-            try:
-                with torch.cuda.graph(graph):
-                    out = self.fn(static, pre)
-            except RuntimeError as err:
-                raise RuntimeError(f"capturing the eval into a CUDA graph failed: {err}") from err
-            finally:
-                _held = None
+        _depth += 1
+        try:
+            with torch.cuda.device(dev):
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    self.fn(static, pre)  # warm-up, outside capture
+                torch.cuda.current_stream().wait_stream(side)
+                graph = torch.cuda.CUDAGraph(keep_graph=DEBUG)
+                _held = held = []
+                try:
+                    with torch.cuda.graph(graph):
+                        out = self.fn(static, pre)
+                    if DEBUG:
+                        graph.instantiate()
+                except RuntimeError as err:
+                    raise RuntimeError(f"capturing {getattr(self.fn, '__name__', 'fn')} into a"
+                                       f" CUDA graph failed: {err}") from err
+                finally:
+                    _held = None
+        finally:
+            _depth -= 1
         return _Captured(pre, graph, static, out, held)

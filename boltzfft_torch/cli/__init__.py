@@ -14,7 +14,9 @@
 A sharded driver (``--mesh``, ``--mesh-cells``, ``ensemble_bkw``) runs one
 rank per device under a launcher such as ``torchrun`` (NCCL on the cards,
 gloo with ``--device cpu``); rank 0 prints its lines from moments reduced
-over every rank.
+over every rank.  The spatial drivers chain their steps as the JAX drivers'
+``lax.scan`` does, through :func:`step_body` and :func:`march`: on the card
+each step and its diagnostics replay from one CUDA graph.
 """
 
 from __future__ import annotations
@@ -180,6 +182,34 @@ def all_sum(t, mesh):
 
         dist.all_reduce(t)
     return t
+
+
+def step_body(step, diagnostics, device, *, jit: bool = True):
+    """The JAX drivers' scan body ``body(f, pre) = (f', diagnostics(f'))``
+    with ``f' = step(f, pre)``; on the card (``jit``) replayed from one CUDA
+    graph per step (:class:`boltzfft_torch._graph.Replayed`: the transport,
+    the operator's kernels, halo exchanges and the diagnostics' reductions
+    in it), with the eager body's bits."""
+    import torch
+
+    from boltzfft_torch import _graph
+
+    def body(f, pre):
+        f = step(f, pre)
+        return f, diagnostics(f)
+
+    return _graph.Replayed(body) if jit and torch.device(device).type == "cuda" else body
+
+
+def march(body, f, pre, steps: int):
+    """``steps`` calls of a :func:`step_body`; returns the final f and the
+    per-step diagnostics as a list (the device reduces, the host reads them
+    after the run)."""
+    trace = []
+    for _ in range(steps):
+        f, d = body(f, pre)
+        trace.append(d)
+    return f, trace
 
 
 def report_h(h0: float, h_trace, steps: int) -> tuple:

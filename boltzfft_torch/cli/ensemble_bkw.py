@@ -154,18 +154,14 @@ def _run_checkpointed(args, bt, collide_fn, pre, f0, v, g):
     capacity that can be taken away: resumes from the latest step in
     ``--checkpoint-dir`` when there is one."""
     seg = args.checkpoint_every or args.steps
-    # one runner per segment length: the last (or a resumed, misaligned)
-    # segment is min(seg, remaining) steps, so the checkpointed trajectory is
-    # step for step an uninterrupted run's (no overshoot past --steps)
-    runners = {}
-
-    def run_for(n_steps):
-        if n_steps not in runners:
-            runners[n_steps] = bt.make_relaxation(
-                collide_fn, pre, dt=args.dt, n_steps=n_steps, method="rk4",
-                record=lambda f: bt.moments(f, v, g.dv),
-            )
-        return runners[n_steps]
+    # a segment of k steps is k one-step runs: the last (or a resumed,
+    # misaligned) segment is min(seg, remaining) steps, so the checkpointed
+    # trajectory is step for step an uninterrupted run's (no overshoot past
+    # --steps), and one step's CUDA graph serves every segment length
+    run1 = bt.make_relaxation(
+        collide_fn, pre, dt=args.dt, n_steps=1, method="rk4",
+        record=lambda f: bt.moments(f, v, g.dv),
+    )
 
     with bt.RelaxCheckpointer(args.checkpoint_dir) as ck:
         start, t_sim, f = 0, 0.0, f0
@@ -178,8 +174,9 @@ def _run_checkpointed(args, bt, collide_fn, pre, f0, v, g):
         t0 = time.perf_counter()
         while step < args.steps:
             this_seg = min(seg, args.steps - step)
-            traj = run_for(this_seg)(f)
-            f = traj.f
+            for _ in range(this_seg):
+                traj = run1(f)
+                f = traj.f
             step += this_seg
             t_sim += this_seg * args.dt
             ck.save(step, f, t_sim)

@@ -2,8 +2,8 @@
 
 Solves ``df/dt + v_x df/dx = Q(f,f)/Kn`` with Strang splitting (periodic
 MUSCL/MC transport by default, first-order upwind via --scheme; collisions on
-all cells in one operator call), printing density profiles and conservation
-diagnostics.  ``--mesh-cells N`` spreads the cells over N ranks: an
+all cells in one operator call; on a card each step and its H replay from
+one CUDA graph), printing density profiles and conservation diagnostics.  ``--mesh-cells N`` spreads the cells over N ranks: an
 ensemble-sharded operator collides each rank's cells, and the advection
 exchanges halos between neighbouring ranks.
 
@@ -60,7 +60,7 @@ def _run(args, device, mesh):
 
     import boltzfft_torch as bt
     from boltzfft_torch import transport
-    from boltzfft_torch.cli import all_sum, report_h, resolve_impl
+    from boltzfft_torch.cli import all_sum, march, report_h, resolve_impl, step_body
 
     cfg = bt.CollisionConfig(nv=args.Nv, ns=args.Ns,
                              impl=resolve_impl(args.impl, device),
@@ -104,11 +104,9 @@ def _run(args, device, mesh):
         return torch.sum(bt.entropy(f, g.dv)) * dx
 
     h0 = float(all_sum(h_total(f), mesh))
+    body = step_body(step, h_total, device)  # one CUDA graph a step on the card
     t0 = time.perf_counter()
-    h_tr = []
-    for _ in range(args.steps):
-        f = step(f, pre)
-        h_tr.append(h_total(f))
+    f, h_tr = march(body, f, pre, args.steps)
     rho = transport.density_profile(f, g.dv)
     if mesh is not None:  # the ranks' blocks of cells, in order
         parts = [torch.empty_like(rho) for _ in range(mesh.size())]

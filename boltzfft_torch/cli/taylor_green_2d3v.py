@@ -9,7 +9,8 @@ Taylor-Green velocity field
 initializes per-cell Maxwellians; the vortex decays through the coupled
 kinetics (phase mixing + collisional viscosity).  One device: the collision
 substep evaluates all cells in one operator call (at the default 16³
-velocities with --impl auto on a card, one K3 launch).  ``--mesh MXxMY``
+velocities with --impl auto on a card, one K1 launch), and on a card each
+step and its diagnostics replay from one CUDA graph.  ``--mesh MXxMY``
 decomposes the cells over MX x MY ranks (``transport.make_sharded_step_2d``:
 halo exchanges between neighbours, each rank colliding its own cells).
 
@@ -50,6 +51,32 @@ def taylor_green_f0(cfg, nc: int, *, u0: float, temperature: float,
         maxwellian(vsq, density=1.0, temperature=temperature),
         dtype=cfg.real_dtype, device=device,
     )
+
+
+def diagnostics_fn(cfg, d: float, device):
+    """The driver's per-step monitor ``f -> [mass, bulk KE, H]`` for cells
+    of side ``d``: moments reduce on the device (sums over this rank's
+    cells, summed over the ranks after the run), the host reads them after
+    the run."""
+    import torch
+
+    from boltzfft_torch.moments import entropy
+
+    g = cfg.velocity_grid
+    dv3 = g.cell_volume
+    vx = torch.as_tensor(g.vx, dtype=cfg.real_dtype, device=device).reshape(1, 1, -1, 1, 1)
+    vy = torch.as_tensor(g.vy, dtype=cfg.real_dtype, device=device).reshape(1, 1, 1, -1, 1)
+
+    def diagnostics(f):
+        rho = torch.sum(f, dim=(2, 3, 4)) * dv3
+        mom_x = torch.sum(f * vx, dim=(2, 3, 4)) * dv3
+        mom_y = torch.sum(f * vy, dim=(2, 3, 4)) * dv3
+        ke = 0.5 * torch.sum((mom_x**2 + mom_y**2) / rho) * d * d
+        # total Boltzmann H = sum_cells H(f_cell) dx dy, non-increasing
+        h = torch.sum(entropy(f, cell_volume=dv3)) * d * d
+        return torch.stack([torch.sum(rho) * d * d, ke, h])
+
+    return diagnostics
 
 
 def main(argv=None):
@@ -104,7 +131,7 @@ def _run(args, device, mesh):
 
     import boltzfft_torch as bt
     from boltzfft_torch import transport
-    from boltzfft_torch.cli import all_sum, report_h, resolve_impl, vhs_kwargs
+    from boltzfft_torch.cli import all_sum, march, report_h, resolve_impl, step_body, vhs_kwargs
 
     dtype = args.dtype
     cfg = bt.CollisionConfig(
@@ -143,33 +170,17 @@ def _run(args, device, mesh):
     if mesh is not None:
         f0 = bt.place_cells(f0, mesh, x_axis="cx", y_axis="cy")
 
-    dv3 = g.cell_volume
-    vx = torch.as_tensor(g.vx, dtype=cfg.real_dtype, device=device).reshape(1, 1, -1, 1, 1)
-    vy = torch.as_tensor(g.vy, dtype=cfg.real_dtype, device=device).reshape(1, 1, 1, -1, 1)
-
-    def diagnostics(f):
-        # moments reduce on the device (sums over this rank's cells, summed
-        # over the ranks after the run); the host reads them after the run
-        rho = torch.sum(f, dim=(2, 3, 4)) * dv3
-        mom_x = torch.sum(f * vx, dim=(2, 3, 4)) * dv3
-        mom_y = torch.sum(f * vy, dim=(2, 3, 4)) * dv3
-        ke = 0.5 * torch.sum((mom_x**2 + mom_y**2) / rho) * d * d
-        # total Boltzmann H = sum_cells H(f_cell) dx dy, non-increasing
-        h = torch.sum(bt.entropy(f, cell_volume=dv3)) * d * d
-        return torch.stack([torch.sum(rho) * d * d, ke, h])
-
+    diagnostics = diagnostics_fn(cfg, d, device)
     print(f"\nkinetic Taylor-Green 2D×3V: {nc}x{nc} cells x "
           f"{'x'.join(str(s) for s in cfg.grid_shape)} velocities, "
           f"Ns={args.Ns} impl={cfg.impl} dtype={dtype} scheme={args.scheme}")
     print(f"dt={dt:.4f} Kn={args.knudsen} U0={args.u0} ({mode})")
 
     mass0, ke0, h0 = (float(v) for v in all_sum(diagnostics(f0), mesh))
+    body = step_body(step, diagnostics, device)  # one CUDA graph a step on the card
     for trial in range(args.trials):
         t0 = time.perf_counter()
-        f, trace = f0, []
-        for _ in range(args.steps):
-            f = step(f, pre)
-            trace.append(diagnostics(f))
+        f, trace = march(body, f0, pre, args.steps)
         trace = all_sum(torch.stack(trace), mesh).cpu().numpy()  # waits for the card
         wall = time.perf_counter() - t0
         tag = " (kernel build)" if trial == 0 and args.trials > 1 else ""

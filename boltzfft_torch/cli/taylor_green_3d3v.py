@@ -10,7 +10,8 @@ The 3D Taylor-Green field
 
 (k = 2π/L) initializes per-cell Maxwellians, monitored by total mass, bulk
 kinetic energy and the Boltzmann H functional.  One device: the collision
-substep evaluates all Cx·Cy·Cz cells in one operator call.  ``--mesh
+substep evaluates all Cx·Cy·Cz cells in one operator call, and on a card
+each step and its diagnostics replay from one CUDA graph.  ``--mesh
 MXxMYxMZ`` decomposes the cells over MX x MY x MZ ranks
 (``transport.make_sharded_step_3d``).
 
@@ -55,6 +56,31 @@ def taylor_green_f0_3d(cfg, nc: int, *, u0: float, temperature: float,
         )
         out[i] = maxwellian(vsq, density=1.0, temperature=temperature)
     return torch.as_tensor(out, dtype=cfg.real_dtype, device=device)
+
+
+def diagnostics_fn(cfg, d: float, device):
+    """The driver's per-step monitor ``f -> [mass, bulk KE, H]`` for cells
+    of side ``d``: moments reduce on the device, the host reads them after
+    the run.  The bulk KE leaves out mom_z, as boltzfft's CLI does."""
+    import torch
+
+    from boltzfft_torch.moments import entropy
+
+    g = cfg.velocity_grid
+    dv3 = g.cell_volume
+    cell_vol = d ** 3
+    vx = torch.as_tensor(g.vx, dtype=cfg.real_dtype, device=device).reshape(1, 1, 1, -1, 1, 1)
+    vy = torch.as_tensor(g.vy, dtype=cfg.real_dtype, device=device).reshape(1, 1, 1, 1, -1, 1)
+
+    def diagnostics(f):
+        rho = torch.sum(f, dim=(3, 4, 5)) * dv3
+        mom_x = torch.sum(f * vx, dim=(3, 4, 5)) * dv3
+        mom_y = torch.sum(f * vy, dim=(3, 4, 5)) * dv3
+        ke = 0.5 * torch.sum((mom_x**2 + mom_y**2) / rho) * cell_vol
+        h = torch.sum(entropy(f, cell_volume=dv3)) * cell_vol
+        return torch.stack([torch.sum(rho) * cell_vol, ke, h])
+
+    return diagnostics
 
 
 def main(argv=None):
@@ -107,7 +133,7 @@ def _run(args, device, mesh):
 
     import boltzfft_torch as bt
     from boltzfft_torch import transport
-    from boltzfft_torch.cli import all_sum, report_h, resolve_impl, vhs_kwargs
+    from boltzfft_torch.cli import all_sum, march, report_h, resolve_impl, step_body, vhs_kwargs
 
     dtype = args.dtype
     cfg = bt.CollisionConfig(
@@ -147,21 +173,7 @@ def _run(args, device, mesh):
     if mesh is not None:
         f0 = bt.place_cells(f0, mesh, x_axis="cx", y_axis="cy", z_axis="cz")
 
-    dv3 = g.cell_volume
-    cell_vol = d ** 3
-    vx = torch.as_tensor(g.vx, dtype=cfg.real_dtype, device=device).reshape(1, 1, 1, -1, 1, 1)
-    vy = torch.as_tensor(g.vy, dtype=cfg.real_dtype, device=device).reshape(1, 1, 1, 1, -1, 1)
-
-    def diagnostics(f):
-        # moments reduce on the device; the host reads them after the run.
-        # The bulk KE leaves out mom_z, as boltzfft's CLI does.
-        rho = torch.sum(f, dim=(3, 4, 5)) * dv3
-        mom_x = torch.sum(f * vx, dim=(3, 4, 5)) * dv3
-        mom_y = torch.sum(f * vy, dim=(3, 4, 5)) * dv3
-        ke = 0.5 * torch.sum((mom_x**2 + mom_y**2) / rho) * cell_vol
-        h = torch.sum(bt.entropy(f, cell_volume=dv3)) * cell_vol
-        return torch.stack([torch.sum(rho) * cell_vol, ke, h])
-
+    diagnostics = diagnostics_fn(cfg, d, device)
     n_cells = nc ** 3
     print(f"\nkinetic Taylor-Green 3D×3V: {nc}^3 cells x "
           f"{'x'.join(str(s) for s in cfg.grid_shape)} velocities, "
@@ -169,12 +181,10 @@ def _run(args, device, mesh):
     print(f"dt={dt:.4f} Kn={args.knudsen} U0={args.u0} ({mode})")
 
     mass0, ke0, h0 = (float(v) for v in all_sum(diagnostics(f0), mesh))
+    body = step_body(step, diagnostics, device)  # one CUDA graph a step on the card
     for trial in range(args.trials):
         t0 = time.perf_counter()
-        f, trace = f0, []
-        for _ in range(args.steps):
-            f = step(f, pre)
-            trace.append(diagnostics(f))
+        f, trace = march(body, f0, pre, args.steps)
         trace = all_sum(torch.stack(trace), mesh).cpu().numpy()  # waits for the card
         wall = time.perf_counter() - t0
         tag = " (kernel build)" if trial == 0 and args.trials > 1 else ""

@@ -933,7 +933,7 @@ def make_sharded_ds_collision_operator(
 
     run = body
     if jit and device.type == "cuda":
-        run = _sh._replay(body, mesh, group, "make_sharded_ds_collision_operator")
+        run = _sh._replay(body, [group], "make_sharded_ds_collision_operator")
     shards = {}  # id of a padded global precomp -> (it, this rank's shard)
 
     def local(p):

@@ -49,7 +49,7 @@ def _run(device, mesh):
     import torch
 
     import boltzfft_torch as bt
-    from boltzfft_torch import transport
+    from boltzfft_torch import _graph, transport
     from boltzfft_torch.bkw import maxwellian
 
     from ._mesh import gather_cells
@@ -97,9 +97,11 @@ def _run(device, mesh):
             cfg, collide, dx=dx, dy=dy, dt=dt, knudsen=0.5
         )
 
+    # one CUDA graph a step on the card (the JAX example jits the step loop)
+    run = _graph.Replayed(step) if device.type == "cuda" else step
     f1 = f0
     for _ in range(steps):
-        f1 = step(f1, pre)
+        f1 = run(f1, pre)
     rho1 = torch.sum(f1, dim=(2, 3, 4)) * dv3
     if mesh is not None:
         rho1 = gather_cells(rho1, mesh)

@@ -63,7 +63,7 @@ def _run(args, device, mesh):
     import torch
 
     import boltzfft_torch as bt
-    from boltzfft_torch import transport
+    from boltzfft_torch import _graph, transport
     from boltzfft_torch.bkw import maxwellian
     from boltzfft_torch.cli import all_sum
 
@@ -120,13 +120,15 @@ def _run(args, device, mesh):
         mass, ke = all_sum(torch.stack([torch.sum(rho) * d * d, ke]), mesh).tolist()
         return mass, ke
 
+    # one CUDA graph a step on the card, as the JAX example jits its step
+    run1 = _graph.Replayed(step) if device.type == "cuda" else step
     mass0, ke0 = diagnostics(f0)
     print(f"kinetic Taylor-Green: {nc}x{nc} cells x {cfg.nv}^3 velocities, "
           f"dt={dt:.4f}, Kn={args.knudsen}")
     print(f"step  0: mass {mass0:.6f}  bulk-KE {ke0:.6f}")
     f = f0
     for s in range(1, args.steps + 1):
-        f = step(f, pre)
+        f = run1(f, pre)
         if s % max(1, args.steps // 4) == 0 or s == args.steps:
             mass, ke = diagnostics(f)
             print(f"step {s:2d}: mass {mass:.6f}  bulk-KE {ke:.6f} "

@@ -2,14 +2,24 @@
 mass, momentum, energy and temperature, and the Boltzmann H functional.
 
 Tensor reductions over the trailing (cell-centred) velocity axes, on the
-device of ``f``; leading axes (cells, an ensemble) broadcast.
+device of ``f``; leading axes (cells, an ensemble) broadcast.  Host
+coordinates are uploaded once per (values, dtype, device), so a ``record``
+of moments can be captured into a step's CUDA graph.
 """
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
+
+from ._graph import hold
+
+#: Uploaded coordinate arrays kept, the least recently used going first.
+KEEP_COORDS = 16
+_coords: OrderedDict = OrderedDict()  # (bytes, shape, dtype, torch dtype, device) -> tensor
 
 
 class Moments(NamedTuple):
@@ -56,7 +66,7 @@ def moments(f: torch.Tensor, v, dv: Optional[float] = None, *,
     else:
         v = (v, v, v)
         w = _cell_weight(dv, cell_volume)
-    vx, vy, vz = (torch.as_tensor(c, dtype=f.dtype, device=f.device) for c in v)
+    vx, vy, vz = (_on(c, f.dtype, f.device) for c in v)
     mass = torch.sum(f, dim=_V_AXES) * w
     mx = torch.sum(f * vx[:, None, None], dim=_V_AXES) * w
     my = torch.sum(f * vy[None, :, None], dim=_V_AXES) * w
@@ -67,3 +77,20 @@ def moments(f: torch.Tensor, v, dv: Optional[float] = None, *,
     u_sq = torch.sum((momentum / mass[..., None]) ** 2, dim=-1)
     temperature = (2.0 * energy / mass - u_sq) / 3.0
     return Moments(mass=mass, momentum=momentum, energy=energy, temperature=temperature)
+
+
+def _on(c, dtype, device) -> torch.Tensor:
+    """Coordinates ``c`` as a ``dtype`` tensor on ``device``: a tensor there
+    cast in place, anything else uploaded once and cached (passed through
+    ``_graph.hold``, so an eviction frees nothing a graph reads)."""
+    if isinstance(c, torch.Tensor) and c.device == device:
+        return c.to(dtype)
+    a = np.asarray(c.cpu() if isinstance(c, torch.Tensor) else c)
+    key = (a.tobytes(), a.shape, a.dtype.str, dtype, device)
+    t = _coords.get(key)
+    if t is None:
+        t = _coords[key] = torch.as_tensor(a, dtype=dtype, device=device)
+        while len(_coords) > KEEP_COORDS:
+            _coords.popitem(last=False)
+    _coords.move_to_end(key)
+    return hold(t)

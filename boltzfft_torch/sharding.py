@@ -193,14 +193,16 @@ def _all_reduce(group):
     return reduce
 
 
-def _replay(fn: Callable, mesh: DeviceMesh, group, what: str) -> Callable:
-    """``fn(f, pre)`` replayed from a CUDA graph: where it holds no
-    collective, or an NCCL one (the capture takes it too).  A gloo
-    collective cannot be captured, so that raises."""
-    if group is not None and dist.get_backend(group) != "nccl":
-        raise ValueError(
-            f"{what}(jit=True) replays a CUDA graph, which cannot capture the "
-            f"{dist.get_backend(group)} collective of this mesh; pass jit=False")
+def _replay(fn: Callable, groups, what: str) -> Callable:
+    """``fn(f, pre)`` replayed from a CUDA graph: where the process
+    ``groups`` it communicates over (None entries: no traffic) are all
+    NCCL's (the capture takes their collectives too).  A gloo collective
+    cannot be captured, so that raises."""
+    for group in groups:
+        if group is not None and dist.get_backend(group) != "nccl":
+            raise ValueError(
+                f"{what}(jit=True) replays a CUDA graph, which cannot capture the "
+                f"{dist.get_backend(group)} collective of this mesh; pass jit=False")
     return _graph.Replayed(fn)
 
 
@@ -268,7 +270,7 @@ def make_sharded_collision_operator(
 
     run = body
     if jit and device.type == "cuda":
-        run = _replay(body, mesh, group, "make_sharded_collision_operator")
+        run = _replay(body, [group], "make_sharded_collision_operator")
 
     def collide_fn(f, precomp):
         if run is not body and torch.is_grad_enabled() and f.requires_grad:

@@ -14,7 +14,8 @@ kron route, ``operator.pick_scheme``).
 :func:`make_sharded_step_2d` and :func:`make_sharded_step_3d` decompose the
 cell grid over the dims of a mesh (:mod:`boltzfft_torch.sharding`): each rank
 advects its block extended by a halo from its neighbours (ring sends and
-receives, :func:`_halo_exchange`) and collides its own cells.
+receives, :func:`_halo_exchange`) and collides its own cells; built with
+``jit=True`` on a CUDA mesh, a step replays from one CUDA graph.
 """
 
 from __future__ import annotations
@@ -235,7 +236,9 @@ def _halo_exchange(f: torch.Tensor, axis: int, width: int, mesh, axis_name: str)
     (a ring: the global periodic boundary is the ring's closure).  Each rank
     sends its trailing cells to its right neighbour, where they become the
     left halo, and its leading cells to its left neighbour; a dim of one
-    rank copies its own edges (a rank cannot send to itself)."""
+    rank copies its own edges (a rank cannot send to itself).  A gloo group
+    moves a card's cells through host copies (gloo sends no CUDA tensor
+    point to point)."""
     from .sharding import axis_index, axis_size
 
     n = axis_size(mesh, axis_name)
@@ -246,6 +249,8 @@ def _halo_exchange(f: torch.Tensor, axis: int, width: int, mesh, axis_name: str)
         left, right = hi, lo
     else:
         group = mesh.get_group(axis_name)
+        if f.is_cuda and dist.get_backend(group) == "gloo":  # gloo sends host tensors only
+            hi, lo = hi.cpu(), lo.cpu()
         ranks = dist.get_process_group_ranks(group)
         k = axis_index(mesh, axis_name)
         left, right = torch.empty_like(hi), torch.empty_like(lo)
@@ -258,6 +263,7 @@ def _halo_exchange(f: torch.Tensor, axis: int, width: int, mesh, axis_name: str)
         ]
         for work in dist.batch_isend_irecv(ops):
             work.wait()
+        left, right = left.to(f.device), right.to(f.device)
     return torch.cat([left, f, right], dim=axis)
 
 
@@ -277,10 +283,14 @@ def _make_sharded_step_nd(
     :func:`make_sharded_step_2d`): :func:`_make_step_nd`'s arithmetic, each
     sharded axis advected on its block extended by :func:`_halo_exchange`
     (width 2 for MUSCL, 1 for upwind), the collisions on the rank's own
-    cells.  ``jit`` is the JAX package's; the port's steps, sharded or not,
-    run the transport eagerly around the operator ``collide_fn`` (which
-    replays its own graph when it was built with ``jit=True``)."""
-    from .sharding import axis_size
+    cells.  ``jit=True`` on a CUDA mesh replays the whole step from one
+    CUDA graph (:func:`boltzfft_torch.sharding._replay`): the transport,
+    the halo exchanges and the operator's kernels (``collide_fn`` runs
+    eagerly inside the capture); the bits of ``jit=False``, which runs the
+    step eagerly around the operator.  A mesh whose exchanges cannot be
+    captured (a gloo group of several ranks holding CUDA tensors) raises
+    here: pass ``jit=False``.  On the CPU ``jit`` changes nothing."""
+    from .sharding import _replay, axis_size, mesh_device
 
     if scheme not in _AXIS_SCHEMES:
         raise ValueError(
@@ -301,10 +311,15 @@ def _make_sharded_step_nd(
 
         return halo
 
-    return _make_step_nd(
+    step = _make_step_nd(
         cfg, collide_fn, deltas=deltas, dt=dt, knudsen=knudsen, scheme=scheme,
         halos=tuple(None if name is None else exchange(name) for name in axes),
     )
+    if not (jit and mesh_device(mesh).type == "cuda"):
+        return step
+    groups = [mesh.get_group(name) for name in axes
+              if name is not None and axis_size(mesh, name) > 1]
+    return _replay(step, groups, f"make_sharded_step_{len(deltas)}d")
 
 
 def make_sharded_step_2d(
@@ -330,7 +345,13 @@ def make_sharded_step_2d(
     runs on the block extended by a halo from the neighbouring ranks; the
     collision substep calls ``collide_fn`` (an unsharded operator) on the
     block's own cells, with no cross-rank traffic.  Every velocity
-    transform stays on its rank."""
+    transform stays on its rank.
+
+    ``jit=True`` (JAX's default) on a CUDA mesh replays each step from one
+    CUDA graph, the exchanges and the operator's kernels in it, with the
+    eager step's bits; over gloo ranks holding CUDA tensors it raises when
+    the step is built (pass ``jit=False``).  On the CPU ``jit`` changes
+    nothing."""
     return _make_sharded_step_nd(
         cfg, collide_fn, mesh, deltas=(dx, dy), dt=dt,
         axes=(x_axis, y_axis), knudsen=knudsen, scheme=scheme, jit=jit,

@@ -49,10 +49,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``impl="fused"``, K3) on a 256-cell stack against the staged c2c, and
    dispatch (each main path launched its kernels and never a plain version);
 8. ``maxwell_bkw --steps 10 --Nv 32 --Ns 12`` (RK4 relaxation through K1,
-   float64, its operator replayed from a CUDA graph: K1 counted twice, the
-   warm-up and the capture), the same relaxation through the graphed K1
-   operator bitwise equal to the eager one, and through c2c (1e-12
-   relative);
+   float64, each step replayed from one CUDA graph: K1 counted 8 times, the
+   warm-up and the capture of a 4-eval step), the same relaxation graphed
+   (``make_relaxation(jit=True)``) bitwise equal to the eager one, and
+   through c2c (1e-12 relative);
 9. ``health.selfcheck`` on the card for fused, rfft + use_pallas and dft,
    and with a corrupted ``Precomp`` (must fail);
 10. ``fft_benchmark`` and ``loop_benchmark`` at 32^3, Ns=12, float64;
@@ -194,10 +194,29 @@ Phases, in order; any failure raises and the script exits non-zero:
     ``mixing_2d3v`` and ``taylor_green_2d3v`` unsharded and on a 1-rank
     NCCL mesh, line for line equal), each with its gate and wall.
 
+25. the whole-program slice: each unit the JAX package compiles whole,
+    replayed from one CUDA graph a step, against its eager run (the
+    operator eager too) and against the eager step around the graphed
+    operator, bitwise on the final f and every trace entry, with the path's
+    gates, launches (the first graphed run counts two eager steps', a
+    replay none, the inner operators keep no graph), the step graph's nodes
+    (its debug dump, under ``chiprun_out/step_graphs``), paired walls, the
+    pool against the eager peak and one profiled replay and eager step: the
+    TG-2D / TG-3D / Sod drivers' bodies (``cli.step_body``) at the phase-6
+    sizes, on K1 (TG-2D in float64 and float32) and on K3 at 8^3; RK4
+    through ``make_relaxation`` at 32^3 (K1) and 64^3 (rfft + use_pallas)
+    float64, 10 steps, and ds RK4 at 32^3 and 64^3, 4 steps; the ensemble
+    (E = 256 x 32^3 float64, 2 steps); the decomposed TG-2D step built with
+    ``jit=True`` on a 1-rank NCCL mesh; and the TG-2D, TG-3D and Sod drivers'
+    printed lines, graphed against their body run eagerly.
+
+``python3 chip_smoke.py --phase25`` runs the device check, the build and
+phase 25 alone, and prints no summary (a development aid).
+
 The ds evals of phases 13, 15, 16 and 18 (but the phased route) go through
 ``make_ds_collision_operator``, so they replay CUDA graphs; phase 20's route
 rule and ``selfcheck_ds`` call ``collide_ds`` eagerly.  A
-``[N total]`` line after phases 3-11, 16 and 20-24 gives the seconds since
+``[N total]`` line after phases 3-11, 16 and 20-25 gives the seconds since
 the device check.  The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
 """
@@ -214,6 +233,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from functools import partial
 from pathlib import Path
@@ -628,9 +648,11 @@ def oz_bound(macs, fold_flops, nbytes):
 
 
 def same(a, b):
-    """Bitwise equality of two trees of tensors."""
-    if isinstance(a, tuple):
-        return all(same(x, y) for x, y in zip(a, b))
+    """Bitwise equality of two trees (tuples, lists, ds pairs, None) of tensors."""
+    if a is None or b is None:
+        return a is None and b is None
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
     return torch.equal(a, b)
 
 
@@ -2190,6 +2212,415 @@ def _leaves(tree):
     return [tree]
 
 
+# ---- whole-program units replayed from CUDA graphs (phase 25) --------------------
+STEP_ROUNDS = 3  # paired rounds of each cell's graphed run and its eager run around the graphed operator
+RELAX_LINF = 1e-2  # a relaxation's Linf against the analytic BKW f(t_end), relative to max f
+NODE_TYPES = ("KERNEL", "MEMCPY", "MEMSET", "HOST", "GRAPH", "EMPTY", "WAIT_EVENT",
+              "EVENT_RECORD", "EXT_SEMAS_SIGNAL", "EXT_SEMAS_WAIT", "MEM_ALLOC", "MEM_FREE",
+              "BATCH_MEM_OP", "CONDITIONAL")  # cudaGraphNodeType's order
+STEP_FAMILIES = ("line_dft_kernel", "plane_dft_kernel", "kron_gemm_kernel", "alpha_multiply",
+                 "gain_reduce", "oz_contract", "gmain", "hwh_kernel", "hadamard_", "preslice",
+                 "fft", "nccl")
+
+
+def graph_nodes(graph, path: Path) -> dict:
+    """The nodes of a captured CUDA graph by type (KERNEL, MEMCPY, ...) and
+    its kernel nodes by family (``STEP_FAMILIES``, the rest "other"), read
+    from its debug dump (``CUDAGraph.debug_dump``, DOT); where the dump
+    names no node, the types alone from the CUDA runtime
+    (``cudaGraphGetNodes`` / ``cudaGraphNodeGetType`` on
+    ``raw_cuda_graph()``).  The capture ran with ``_graph.DEBUG`` on, so
+    the graph kept its ``cudaGraph_t``.  {} where neither works."""
+    import ctypes
+    import re
+
+    graph.debug_dump(str(path))
+    text = path.read_text() if path.exists() else ""
+    path.unlink(missing_ok=True)  # 0.1-26 MB a graph: counted, not kept
+    out = collections.Counter()
+    for label in re.split(r'"graph_\d+_node_\d+"\[style', text)[1:]:  # node lines, not edges
+        label = label.split('"];')[0]
+        kind = next((t for t in NODE_TYPES if re.search(rf"\b{t}\b", label)), "unlabelled")
+        out[kind] += 1
+        if kind == "KERNEL":
+            out["kernel: " + next((f for f in STEP_FAMILIES if f in label), "other")] += 1
+    if out:
+        return dict(out)
+    try:
+        rt = ctypes.CDLL("libcudart.so.12")
+        handle = ctypes.c_void_p(graph.raw_cuda_graph())
+        n = ctypes.c_size_t(0)
+        check(rt.cudaGraphGetNodes(handle, None, ctypes.byref(n)) == 0, "cudaGraphGetNodes")
+        nodes = (ctypes.c_void_p * n.value)()
+        check(rt.cudaGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0, "cudaGraphGetNodes")
+        kind = ctypes.c_int(0)
+        for node in nodes:
+            check(rt.cudaGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0,
+                  "cudaGraphNodeGetType")
+            out[NODE_TYPES[kind.value] if kind.value < len(NODE_TYPES) else str(kind.value)] += 1
+    except (OSError, AttributeError, RuntimeError) as err:
+        print(f"  the CUDA runtime's node count failed: {err}")
+    return dict(out)
+
+
+def inner_graphs(op) -> int:
+    """Graphs held by the Replayed units in an operator's closure."""
+    from boltzfft_torch._graph import Replayed
+
+    return sum(len(c.cell_contents._graphs) for c in (op.__closure__ or ())
+               if isinstance(c.cell_contents, Replayed))
+
+
+def tree_clone(tree):
+    """A copy of a tree of tensors (named tuples kept)."""
+    if tree is None:
+        return None
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_clone(x) for x in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_clone(x) for x in tree)
+    return tree.clone()
+
+
+class StepCell(collections.namedtuple(
+        "StepCell", "name steps unit pre graphed eager eager_op eager_step kernels families gate ops")):
+    """A phase-25 cell: ``unit`` the Replayed step; ``graphed()``,
+    ``eager()`` (the operator eager too) and ``eager_op()`` (the step eager
+    around the graphed operator, the path before the step was graphed)
+    each -> (final f, per-step trace); ``eager_step(f)`` one eager step;
+    ``gate(f, trace)`` prints and checks the path's own gates; ``ops`` the
+    graphed operators the unit calls (they must keep no graph).
+    ``eager_op`` is None where a second graph pool does not fit beside the
+    step's; the fully eager run is timed once, before the step's graph."""
+
+
+def relax_cell(bt, name, ops, pre, f0, dt, steps, record, kernels, families, gate):
+    """A ``make_relaxation`` cell: ``ops`` = (the graphed operator of the
+    unit, another graphed one for ``eager_op``, an eager one)."""
+    op_g, op_o, op_e = ops
+    mk = lambda op, jit, n=steps: bt.make_relaxation(op, pre, dt=dt, n_steps=n, method="rk4",
+                                                     record=record, jit=jit)
+    run_g, run_e, one = mk(op_g, True), mk(op_e, False), mk(op_e, False, 1)
+    pair = lambda run: (lambda: tuple(run(f0)))
+    return StepCell(name, steps, run_g.step, pre, pair(run_g), pair(run_e),
+                    op_o and pair(mk(op_o, False)), lambda f: one(f), kernels, families, gate,
+                    (op_g,))
+
+
+def body_cell(name, dev, steps_, diag, pre, f0, steps, kernels, families, gate, ops):
+    """A driver-body cell (``cli.step_body`` + ``cli.march``): ``steps_`` =
+    (the step around the unit's graphed operator, around another graphed
+    operator, around an eager one)."""
+    from boltzfft_torch.cli import march, step_body
+
+    body_g = step_body(steps_[0], diag, dev)
+    body_o, body_e = (step_body(s, diag, dev, jit=False) for s in steps_[1:])
+    run = lambda body: (lambda: march(body, f0, pre, steps))
+    return StepCell(name, steps, body_g, pre, run(body_g), run(body_e), run(body_o),
+                    lambda f: body_e(f, pre), kernels, families, gate, ops)
+
+
+def run_step_cell(cell, ks, card):
+    """Phase 25's measurements of one cell (see ``step_graph_phase``)."""
+    n = cell.steps
+    if cell.eager_op:
+        cell.eager_op()  # the operator captures its own graph, outside the counts
+        torch.cuda.synchronize()
+    reset_counts(ks)
+    torch.cuda.reset_peak_memory_stats()
+    a0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    want = cell.eager()
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3 / n
+    peak = torch.cuda.max_memory_allocated() - a0
+    c_eager = counts(ks)
+    # one eager step profiled now: beside the step graph's pool it may not fit (the ensemble)
+    prof_eager = profile_eval(lambda: cell.eager_step(want[0]), cell.families)
+    torch.cuda.empty_cache()
+    r0 = torch.cuda.memory_reserved()
+    reset_counts(ks)
+    t0 = time.perf_counter()
+    first = cell.graphed()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    c_cap = counts(ks)
+    inner = sum(inner_graphs(op) for op in cell.ops)
+    torch.cuda.empty_cache()
+    pool = torch.cuda.memory_reserved() - r0
+    keep = tree_clone(first)
+    reset_counts(ks)
+    again = cell.graphed()
+    torch.cuda.synchronize()
+    c_rep = counts(ks)
+    ok = same(first, want) and same(again, want) and same(first, keep)
+    ok_o = same(cell.eager_op(), want) if cell.eager_op else "not run"
+    per_step = {k: v // n for k, v in c_eager.items()}
+    counts_ok = (all(v % n == 0 and c_cap[k] == 2 * per_step[k] for k, v in c_eager.items())
+                 and all(c_cap[k] > 0 for k in cell.kernels) and plain_calls(c_cap) == 0
+                 and all(v == 0 for v in c_rep.values()))
+    print(f"[25 graph] {cell.name}: {n} steps, one CUDA graph a step; graphed run (twice) bitwise"
+          f" equal to eager on the final f and every trace entry {ok}, the first run's results"
+          f" kept across the second; eager around the graphed operator equal too {ok_o} | {card}")
+    print(f"  launches of one eager step {{{', '.join(f'{k}: {per_step[k]}' for k in cell.kernels)}}};"
+          f" of the first graphed run (warm-up + capture)"
+          f" {{{', '.join(f'{k}: {c_cap[k]}' for k in cell.kernels)}}}; of a second run"
+          f" {sum(c_rep.values())}; graphs kept by the inner operators {inner}")
+    check(ok and ok_o, f"step graph {cell.name}: bits differ from the eager run")
+    del want, again, keep
+    check(counts_ok, f"step graph {cell.name}: counts eager {c_eager} capture {c_cap} replay {c_rep}")
+    check(inner == 0, f"step graph {cell.name}: an inner operator captured a graph of its own")
+    cell.gate(*first)
+    (entry,) = cell.unit._graphs.values()
+    with tempfile.TemporaryDirectory() as tmp:
+        nodes = graph_nodes(entry.graph, Path(tmp, "step.dot"))
+    kinds = {k: v for k, v in nodes.items() if not k.startswith("kernel: ")}
+    fams = {k[8:]: v for k, v in nodes.items() if k.startswith("kernel: ")}
+    print(f"  step graph nodes: {kinds or 'not measured'}; kernel nodes by family"
+          f" {fams or 'not measured'} | {card}")
+    runs = {"graph": cell.graphed}
+    if cell.eager_op:
+        runs["eager, operator graphed"] = cell.eager_op
+    wall = {k: [] for k in runs}
+    for rnd in range(STEP_ROUNDS):
+        for k in (list(runs) if rnd % 2 == 0 else list(runs)[::-1]):
+            t0 = time.perf_counter()
+            runs[k]()
+            torch.cuda.synchronize()
+            wall[k].append((time.perf_counter() - t0) * 1e3 / n)
+    med = {k: statistics.median(v) for k, v in wall.items()}
+    print(f"[25 wall] {cell.name}: ms per step, medians of {STEP_ROUNDS} paired rounds of {n}"
+          f" steps (min-max): " + "; ".join(
+              f"{k} {med[k]:.4f} ({min(v):.4f}-{max(v):.4f})" for k, v in wall.items())
+          + f"; eager (the operator too), one run {eager_ms:.4f}; first graphed run"
+          f" {1e3 * first_s:.1f} ms (warm-up + capture + {n - 1} replays), so the capture about"
+          f" {1e3 * first_s - (n - 1) * med['graph']:.1f} ms | {card}")
+    print(f"  memory: the step graph's pool {pool / 2**20:.1f} MiB reserved (memory_reserved"
+          f" across the first graphed run, caches emptied); the eager run's peak"
+          f" {peak / 2**20:.1f} MiB allocated | {card}")
+    med["eager"] = eager_ms
+    f_last = first[0]
+    for what, prof, key in (
+            ("one replayed step", profile_eval(lambda: cell.unit(f_last, cell.pre), cell.families),
+             "graph"),
+            ("one eager step", prof_eager, "eager")):
+        fam, wall_us = prof
+        print_profile(f"{cell.name}, {what}", fam, wall_us, card, 25)
+        busy = sum(v[0] for v in fam.values()) / 1e3
+        print(f"  device time against the unprofiled wall per step ({key}): {busy:.4f} of"
+              f" {med[key]:.4f} ms, idle share {100 * (1 - busy / med[key]):.1f}% | {card}")
+    return med
+
+
+def step_graph_phase(bt, dev, card, ks):
+    """Phase 25, the whole-program slice: each unit the JAX package compiles
+    whole replayed from one CUDA graph a step, against its eager run (the
+    operator eager too) and the eager step around the graphed operator,
+    bitwise on the final f and every trace entry; the path's gates; launches
+    (the first graphed run counts two eager steps', the warm-up and the
+    capture; a replay none; the inner operators keep no graph); the step
+    graph's nodes; paired walls; the pool against the eager peak; one
+    profiled replay and eager step.  Cells: the TG-2D body on 16x16 cells x
+    16^3 Ns=12 (K1, float64 and float32, 10 steps), on K3 at 8^3 (3 steps),
+    TG-3D on 8^3 cells (2 steps), Sod on 32 cells (5 steps), RK4 through
+    ``make_relaxation`` at 32^3 on K1 and 64^3 on rfft + use_pallas
+    (float64, 10 steps, moments and H recorded), ds RK4 at 32^3 and 64^3 on
+    the card defaults (4 steps), the ensemble (E = 256 x 32^3 f64, 2 steps),
+    and the decomposed TG-2D step on a 1-rank NCCL mesh built with
+    ``jit=True``; first, the TG-2D, TG-3D and Sod drivers' printed lines,
+    graphed against their body run eagerly."""
+    import gc
+
+    import torch.distributed as dist
+
+    from boltzfft_torch import _graph, cli, ds, transport
+    from boltzfft_torch.cli import march, sod_1d3v
+    from boltzfft_torch.cli import taylor_green_2d3v as tg2
+    from boltzfft_torch.cli import taylor_green_3d3v as tg3
+    from boltzfft_torch.ds_operator import ds_collide_fn, make_ds_collision_operator
+
+    _graph.DEBUG = True  # the step graphs keep their nodes for the count
+    tg = dict(u0=0.8, temperature=3.0)
+
+    # ---- the drivers' printed lines: graphed (their default) against the
+    # same driver with its body eager (cli.step_body with jit=False)
+    for mod, argv in ((tg2, ["--steps", "10", "--trials", "1"]),
+                      (tg3, ["--cells", "8", "--steps", "2", "--trials", "1"]),
+                      (sod_1d3v, ["--Nv", "16", "--nx", "32", "--steps", "5"])):
+        lines = {}
+        for jit in (True, False):
+            real = cli.step_body
+            cli.step_body = partial(real, jit=jit)
+            try:
+                rc, out = run_driver(mod.main, argv + ["--device", "cuda"])
+            finally:
+                cli.step_body = real
+            check(rc == 0, f"{mod.__name__} {argv}: rc {rc}")
+            lines[jit] = [ln for ln in out if " steps in " not in ln]
+        same_lines = lines[True] == lines[False]
+        print(f"[25 driver] {mod.__name__.split('.')[-1]} {' '.join(argv)}: graphed body's lines"
+              f" equal to the eager body's (the timing line aside) {same_lines} | {card}")
+        print("\n".join(f"  | {ln}" for ln in lines[True][-4:]))
+        check(same_lines, f"{mod.__name__}: printed lines differ graphed / eager")
+
+    def ops3(cfg):
+        made = [bt.make_collision_operator(cfg, jit, device=dev) for jit in (True, True, False)]
+        return [op for op, _ in made], made[0][1]  # one precomp for all three
+
+    def spatial_gate(name, dv3, cell_vol, mass0, h0, col_m, col_h):
+        def gate(f, trace):
+            tr = torch.stack(trace).cpu().numpy()
+            mass = [mass0] + ([float(v) for v in tr[:, col_m]] if col_m is not None
+                              else [float(torch.sum(f) * dv3 * cell_vol)])
+            gates(f"{name} (graphed)", f, mass, [h0] + [float(v) for v in tr[:, col_h]])
+        return gate
+
+    def tg2d(dtype, kron=False):
+        kw = dict(nv=8, fused_scheme="kron") if kron else dict(nv=16)
+        cfg = bt.CollisionConfig(ns=12, impl="fused", dtype=dtype, **kw)
+        ops, pre = ops3(cfg)
+        vmax = float(abs(cfg.velocity_grid.v).max())
+        d = 1.0 / 16
+        steps_ = [transport.make_inhomogeneous_step_2d(
+            cfg, op, dx=d, dy=d, dt=transport.cfl_dt(vmax, d), knudsen=0.2) for op in ops]
+        diag = tg2.diagnostics_fn(cfg, d, dev)
+        f0 = tg2.taylor_green_f0(cfg, 16, device=dev, **tg)
+        m0, _, h0 = (float(v) for v in diag(f0))
+        name = (f"TG-2D 16x16 cells x {cfg.nv}^3 {dtype} "
+                + ("(kron, K3)" if kron else "(K1)"))
+        return body_cell(name, dev, steps_, diag, pre, f0, 3 if kron else 10,
+                         ("k3",) if kron else ("k1",), OPERATOR_FAMILIES,
+                         spatial_gate(name, cfg.velocity_grid.cell_volume, d * d, m0, h0, 0, 2),
+                         ops[:1])
+
+    def tg3d():
+        cfg = bt.CollisionConfig(nv=16, ns=12, impl="fused")
+        ops, pre = ops3(cfg)
+        vmax = float(abs(cfg.velocity_grid.v).max())
+        d = 1.0 / 8
+        steps_ = [transport.make_inhomogeneous_step_3d(
+            cfg, op, dx=d, dy=d, dz=d, dt=transport.cfl_dt(vmax, d), knudsen=0.2) for op in ops]
+        diag = tg3.diagnostics_fn(cfg, d, dev)
+        f0 = tg3.taylor_green_f0_3d(cfg, 8, device=dev, **tg)
+        m0, _, h0 = (float(v) for v in diag(f0))
+        name = "TG-3D 8^3 cells x 16^3 float64 (K1)"
+        return body_cell(name, dev, steps_, diag, pre, f0, 2, ("k1",), OPERATOR_FAMILIES,
+                         spatial_gate(name, cfg.velocity_grid.cell_volume, d ** 3, m0, h0, 0, 2),
+                         ops[:1])
+
+    def sod():
+        cfg = bt.CollisionConfig(nv=16, ns=12, impl="fused")
+        ops, pre = ops3(cfg)
+        g = cfg.velocity_grid
+        d = 1.0 / 32
+        steps_ = [transport.make_inhomogeneous_step(
+            cfg, op, dx=d, dt=transport.cfl_dt(float(abs(g.v).max()), d), knudsen=0.5)
+            for op in ops]
+        h_total = lambda f: torch.sum(bt.entropy(f, g.dv)) * d  # the driver's H
+        f0 = transport.sod_initial_condition(cfg, 32, device=dev)
+        name = "Sod 32 cells x 16^3 float64 (K1)"
+        gate = spatial_gate(name, g.cell_volume, d, float(torch.sum(f0) * g.cell_volume * d),
+                            float(h_total(f0)), None, 0)
+        return body_cell(name, dev, steps_, lambda f: h_total(f).reshape(1), pre, f0, 5,
+                         ("k1",), OPERATOR_FAMILIES, gate, ops[:1])
+
+    def relax_gate(name, cfg, f0, t_end):
+        g = cfg.velocity_grid
+
+        def gate(f, rec):
+            if rec is not None:  # mass and H, summed over an ensemble's members
+                moms, h = rec
+                mass = [float(torch.sum(bt.moments(f0, g.v, g.dv).mass))] + [
+                    float(v) for v in moms.mass.reshape(moms.mass.shape[0], -1).sum(1)]
+                hs = [float(torch.sum(bt.entropy(f0, g.dv)))] + [
+                    float(v) for v in h.reshape(h.shape[0], -1).sum(1)]
+                gates(f"{name} (graphed)", f, mass, hs)
+            if t_end is None:
+                return
+            x = ds.to_f64(f) if isinstance(f, ds.DS) else f.double().cpu().numpy()
+            exact = bt.bkw_f(g.r_squared(), t_end)
+            linf = float(np.abs(x - exact).max() / np.abs(exact).max())
+            print(f"  {name}: Linf against the analytic BKW f(t_end = {t_end}) {linf:.4e} of"
+                  f" max f (tol {RELAX_LINF:g})")
+            check(np.isfinite(linf) and linf <= RELAX_LINF, f"{name}: relaxation Linf {linf}")
+        return gate
+
+    def bkw_relax(n):
+        kw = dict(impl="fused") if n == 32 else dict(impl="rfft", use_pallas=True)
+        cfg = bt.CollisionConfig(nv=n, ns=12, **kw)
+        ops, pre = ops3(cfg)
+        g = cfg.velocity_grid
+        f0 = torch.as_tensor(bt.bkw_f(g.r_squared(), 5.5), dtype=cfg.real_dtype, device=dev)
+        record = lambda x: (bt.moments(x, g.v, g.dv), bt.entropy(x, g.dv))
+        name = f"BKW RK4 {n}^3 Ns=12 float64 ({'K1' if n == 32 else 'rfft + use_pallas, K6 K5'})"
+        return relax_cell(bt, name, ops, pre, f0, 0.125, 10, record,
+                          ("k1",) if n == 32 else ("k5", "k6"), OPERATOR_FAMILIES,
+                          relax_gate(name, cfg, f0, 5.5 + 10 * 0.125))
+
+    def ds_relax(n):
+        cfg = bt.CollisionConfig(nv=n, ns=12, impl="c2c", dtype="float32")
+        op, pre = make_ds_collision_operator(cfg, device=dev)
+        ops = [op] + [ds_collide_fn(cfg, jit, device=dev) for jit in (True, False)]
+        f0 = ds.from_f64(bt.bkw_f(cfg.velocity_grid.r_squared(), 5.5), torch.float32, dev)
+        name = f"ds RK4 {n}^3 Ns=12 (card defaults)"
+        return relax_cell(bt, name, ops, pre, f0, 0.25, 4, None,
+                          ("k7", "k8", "k9" if n == 32 else "k10", "k12"), DS_FAMILIES,
+                          relax_gate(name, cfg, f0, 5.5 + 4 * 0.25))
+
+    def ensemble():
+        mesh = bt.make_mesh([(bt.ENSEMBLE_AXIS, 1)], device=dev)
+        check(dist.get_backend() == "nccl", "phase 25: a 1-rank NCCL group")
+        cfg = bt.CollisionConfig(nv=32, ns=12, impl="fused")
+        # K1 on 256 members holds two 18 GiB buffers: the step graph's pool and the
+        # eager warm-up's fill the card, so no second graphed operator (eager_op)
+        made = [bt.make_sharded_collision_operator(cfg, mesh, node_axis=None,
+                                                   ensemble_axis=bt.ENSEMBLE_AXIS, jit=jit)
+                for jit in (True, False)]
+        g = cfg.velocity_grid
+        f0 = torch.as_tensor(np.stack([bt.bkw_f(g.r_squared(), t)
+                                       for t in 5.5 + 2.0 * np.arange(256) / 256]),
+                             dtype=cfg.real_dtype, device=dev)
+        record = lambda f: (bt.moments(f, g.v, g.dv), bt.entropy(f, g.dv))  # ensemble_bkw's
+        name = "ensemble E = 256 x 32^3 float64, RK4 (K1)"
+        return relax_cell(bt, name, [made[0][0], None, made[1][0]], made[0][1], f0, 0.1, 2, record,
+                          ("k1",), OPERATOR_FAMILIES, relax_gate(name, cfg, f0, None))
+
+    def sharded_tg2d():
+        mesh = bt.make_mesh([("cx", 1), ("cy", 1)], device=dev)
+        cfg = bt.CollisionConfig(nv=16, ns=12, impl="fused")
+        ops, pre = ops3(cfg)
+        d = 1.0 / 16
+        kw = dict(dx=d, dy=d, dt=transport.cfl_dt(float(abs(cfg.velocity_grid.v).max()), d),
+                  knudsen=0.2, x_axis="cx", y_axis="cy")
+        unit = transport.make_sharded_step_2d(cfg, ops[0], mesh, **kw)
+        check(isinstance(unit, _graph.Replayed), "make_sharded_step_2d(jit=True) on NCCL: no graph")
+        eager = [transport.make_sharded_step_2d(cfg, op, mesh, jit=False, **kw) for op in ops[1:]]
+        diag = tg2.diagnostics_fn(cfg, d, dev)
+        f0 = tg2.taylor_green_f0(cfg, 16, device=dev, **tg)
+        m0, _, h0 = (float(v) for v in diag(f0))
+        name = "sharded TG-2D step (jit=True), 1-rank NCCL mesh, 16x16 cells x 16^3 float64"
+        cell = body_cell(name, dev, [unit, *eager], diag, pre, f0, 10, ("k1",), OPERATOR_FAMILIES,
+                         spatial_gate(name, cfg.velocity_grid.cell_volume, d * d, m0, h0, 0, 2),
+                         ops[:1])
+        # the unit is the sharded step itself, the diagnostics run eagerly after it
+        body = lambda f, p: (lambda x: (x, diag(x)))(unit(f, p))
+        return cell._replace(unit=unit, graphed=lambda: march(body, f0, pre, 10))
+
+    meds = {}
+    for build in (partial(tg2d, "float64"), partial(tg2d, "float64", kron=True),
+                  partial(tg2d, "float32"), tg3d, sod, partial(bkw_relax, 32),
+                  partial(bkw_relax, 64), partial(ds_relax, 32), partial(ds_relax, 64),
+                  ensemble, sharded_tg2d):
+        cell = build()
+        meds[cell.name] = run_step_cell(cell, ks, card)
+        del cell  # its graphs and pools go before the next cell's
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    _graph.DEBUG = False
+    return meds
+
+
 def main() -> int:
     # ---- 1. device -----------------------------------------------------
     if not torch.cuda.is_available():
@@ -2252,6 +2683,11 @@ def main() -> int:
         hmma = counts_tc.get(f"{k}<float>", none)["HMMA"]
         print(f"[2 sass] {k}: DMMA {dmma} (double), HMMA {hmma} (float, 3xTF32)")
         check(dmma > 0 and hmma > 0, f"{k} is not on the tensor cores: {counts_tc}")
+
+    if sys.argv[1:2] == ["--phase25"]:  # a development aid: phase 25 alone, no summary
+        step_graph_phase(bt, dev, card, ks)
+        lap(25)
+        return 0
 
     # ---- 3. kernels against their plain versions on the card -----------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2657,9 +3093,9 @@ def main() -> int:
     print(f"[8 relaxation] maxwell_bkw {' '.join(argv)}: exit {rc}, counts {c8}")
     for line in lines[-7:]:
         print(f"  | {line}")
-    # the driver's operator replays a CUDA graph: its 40 evals count the
-    # warm-up and the capture, and 38 replays count nothing
-    check(rc == 0 and c8["k1"] == 2 and plain_calls(c8) == 0, f"maxwell_bkw --steps: rc {rc} {c8}")
+    # the driver's relaxation replays one RK4 step (4 evals) from a CUDA
+    # graph: the warm-up and the capture count 8 launches, 9 replays nothing
+    check(rc == 0 and c8["k1"] == 8 and plain_calls(c8) == 0, f"maxwell_bkw --steps: rc {rc} {c8}")
     trajs = {}
     for impl, jit in (("fused", True), ("fused eager", False), ("c2c", True)):
         cfg = bt.CollisionConfig(nv=32, ns=12, impl=impl.split()[0])
@@ -2667,13 +3103,13 @@ def main() -> int:
         g, rsq, _ = bkw(bt, cfg, dev)
         f0 = torch.as_tensor(bt.bkw_f(rsq, 5.5), dtype=cfg.real_dtype, device=dev)
         trajs[impl] = bt.make_relaxation(collide, pre, dt=0.125, n_steps=10, method="rk4",
-                                         record=lambda x: bt.moments(x, g.v, g.dv))(f0)
+                                         record=lambda x: bt.moments(x, g.v, g.dv), jit=jit)(f0)
         del collide, pre
     same8 = (torch.equal(trajs["fused"].f, trajs["fused eager"].f)
              and torch.equal(trajs["fused"].recorded.mass, trajs["fused eager"].recorded.mass))
-    print(f"  10 RK4 steps through K1, the operator's CUDA graph (jit=True) against eager"
-          f" (jit=False): f and mass trace bitwise equal {same8}")
-    check(same8, "relaxation: the graphed K1 operator's bits differ from eager")
+    print(f"  10 RK4 steps through K1, the step's CUDA graph (jit=True) against eager"
+          f" (jit=False, the operator too): f and mass trace bitwise equal {same8}")
+    check(same8, "relaxation: the graphed RK4 step's bits differ from eager")
     d = max_rel(trajs["fused"].f, trajs["c2c"].f)
     dm = max_rel(trajs["fused"].recorded.mass, trajs["c2c"].recorded.mass)
     print(f"  10 RK4 steps through K1 vs through c2c (cuFFT), float64: f {d:.3e}, mass trace"
@@ -2978,6 +3414,8 @@ def main() -> int:
     lap(23)
     tooling_phase(bt, dev, card, ks, replay_device)
     lap(24)
+    step_graph_phase(bt, dev, card, ks)
+    lap(25)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -346,6 +346,41 @@ def step(dims="2x2", cells="4x4", scheme="muscl", steps="2"):
 
 
 @case
+def step_jit(dims="2x2", cells="4x4"):
+    """The decomposed 2-D step built with ``jit=True`` and with ``jit=False``
+    (2 steps each; on the CPU ``jit`` changes nothing), and ``jit=True`` on
+    these gloo ranks with the mesh's device taken for a card: it raises
+    when the step is built."""
+    import torch
+
+    import boltzfft_torch as bt
+    from boltzfft_torch import sharding, transport
+
+    dims = tuple(int(s) for s in dims.split("x"))
+    cells = tuple(int(s) for s in cells.split("x"))
+    cfg, f = _cells_f(cells)
+    coll, pre = bt.make_collision_operator(cfg, jit=False, device="cpu")
+    mesh = bt.make_mesh(list(zip(("cx", "cy"), dims)))
+    kw = dict(dx=0.3, dy=0.2, dt=0.01, knudsen=1.0, x_axis="cx", y_axis="cy")
+    out = {}
+    for jit in (True, False):
+        st = transport.make_sharded_step_2d(cfg, coll, mesh, jit=jit, **kw)
+        block = bt.place_cells(f, mesh, x_axis="cx", y_axis="cy")
+        for _ in range(2):
+            block = st(block, pre)
+        out[jit] = _np(block)
+    real = sharding.mesh_device
+    sharding.mesh_device = lambda m: torch.device("cuda")
+    try:
+        out["card"] = _raises(lambda: transport.make_sharded_step_2d(cfg, coll, mesh, **kw))
+    finally:
+        sharding.mesh_device = real
+    out["offsets"] = tuple(bt.sharding.axis_index(mesh, n) * (c // d)
+                           for n, c, d in zip(("cx", "cy"), cells, dims))
+    return out
+
+
+@case
 def cells(dims="2x2"):
     """place_cells of a (4, 6[, 2], 2, 2, 2) arange on this rank."""
     import torch
@@ -588,6 +623,70 @@ def nccl_ops():
     qa, qr = ds.to_f64(b), ds.to_f64(ref(f, ref_pre))
     out["ds_err"] = float(np.abs(qa - qr).max() / np.abs(qr).max())
     return out
+
+
+@case
+def card_step_jit():
+    """Gloo ranks holding CUDA tensors: ``make_sharded_step_2d(jit=True)``
+    raises when built (gloo's exchanges cannot be captured); the eager
+    step (``jit=False``, halos through host copies), 2 steps, against the
+    unsharded step on the same card, bitwise."""
+    import torch
+
+    import boltzfft_torch as bt
+    from boltzfft_torch import transport
+
+    torch.cuda.set_device(0)
+    n = _world()
+    mesh = bt.make_mesh([("cx", n), ("cy", 1)], device="cuda")
+    cfg, f = _cells_f((2 * n, 2))
+    coll, pre = bt.make_collision_operator(cfg, jit=False)
+    kw = dict(dx=0.3, dy=0.2, dt=0.01, knudsen=1.0)
+    msg = _raises(lambda: transport.make_sharded_step_2d(cfg, coll, mesh, x_axis="cx",
+                                                         y_axis="cy", **kw))
+    st = transport.make_sharded_step_2d(cfg, coll, mesh, x_axis="cx", y_axis="cy", jit=False, **kw)
+    whole = transport.make_inhomogeneous_step_2d(cfg, coll, **kw)
+    f = f.cuda()
+    block, want = bt.place_cells(f, mesh, x_axis="cx", y_axis="cy"), f
+    for _ in range(2):
+        block, want = st(block, pre), whole(want, pre)
+    k = bt.sharding.axis_index(mesh, "cx")
+    return {"jit": msg, "same": bool(torch.equal(block, want[2 * k:2 * k + 2]))}
+
+
+@case
+def nccl_step():
+    """NCCL ranks, a card each, along one mesh dim: the decomposed TG-2D
+    step at 16^3 on K1 built with ``jit=True`` (the halo sends and
+    receives captured in the step's graph) against ``jit=False``, bitwise
+    over 2 steps, twice."""
+    import torch
+
+    import boltzfft_torch as bt
+    from boltzfft_torch import transport
+    from boltzfft_torch.cli.taylor_green_2d3v import taylor_green_f0
+
+    n = _world()
+    mesh = bt.make_mesh([("cx", n), ("cy", 1)])
+    cfg = bt.CollisionConfig(nv=16, ns=12, impl="fused")
+    coll, pre = bt.make_collision_operator(cfg)
+    d = 1.0 / (4 * n)
+    kw = dict(dx=d, dy=d, dt=transport.cfl_dt(float(abs(cfg.velocity_grid.v).max()), d),
+              knudsen=0.2, x_axis="cx", y_axis="cy")
+    f0 = bt.place_cells(taylor_green_f0(cfg, 4 * n, u0=0.8, temperature=3.0),
+                        mesh, x_axis="cx", y_axis="cy")
+    runs = {}
+    for jit in (True, False):
+        st = transport.make_sharded_step_2d(cfg, coll, mesh, jit=jit, **kw)
+        outs = []
+        for _ in range(2):
+            f = f0
+            for _ in range(2):
+                f = st(f, pre)
+            outs.append(f)
+        runs[jit] = outs
+    torch.cuda.synchronize()
+    return {"same": all(torch.equal(a, b) for a in runs[True] for b in runs[False])}
 
 
 # ---------------------------------------------------------------------------
