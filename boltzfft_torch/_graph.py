@@ -57,6 +57,12 @@ _depth = 0
 DEBUG = False
 
 
+def jit(fn: Callable, device) -> Callable:
+    """``fn(x, pre)`` as ``jax.jit`` makes it: a :class:`Replayed` on a CUDA
+    ``device``, ``fn`` itself elsewhere."""
+    return Replayed(fn) if torch.device(device).type == "cuda" else fn
+
+
 def hold(obj):
     """``obj``, kept alive as long as the graph being captured (if any)."""
     if _held is not None:

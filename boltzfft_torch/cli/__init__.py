@@ -184,21 +184,19 @@ def all_sum(t, mesh):
     return t
 
 
-def step_body(step, diagnostics, device, *, jit: bool = True):
+def step_body(step, diagnostics, device):
     """The JAX drivers' scan body ``body(f, pre) = (f', diagnostics(f'))``
-    with ``f' = step(f, pre)``; on the card (``jit``) replayed from one CUDA
-    graph per step (:class:`boltzfft_torch._graph.Replayed`: the transport,
-    the operator's kernels, halo exchanges and the diagnostics' reductions
-    in it), with the eager body's bits."""
-    import torch
-
+    with ``f' = step(f, pre)``; on the card replayed from one CUDA graph per
+    step (:func:`boltzfft_torch._graph.jit`: the transport, the operator's
+    kernels, halo exchanges and the diagnostics' reductions in it), with the
+    eager body's bits."""
     from boltzfft_torch import _graph
 
     def body(f, pre):
         f = step(f, pre)
         return f, diagnostics(f)
 
-    return _graph.Replayed(body) if jit and torch.device(device).type == "cuda" else body
+    return _graph.jit(body, device)
 
 
 def march(body, f, pre, steps: int):

@@ -98,7 +98,7 @@ def _run(device, mesh):
         )
 
     # one CUDA graph a step on the card (the JAX example jits the step loop)
-    run = _graph.Replayed(step) if device.type == "cuda" else step
+    run = _graph.jit(step, device)
     f1 = f0
     for _ in range(steps):
         f1 = run(f1, pre)

@@ -121,7 +121,7 @@ def _run(args, device, mesh):
         return mass, ke
 
     # one CUDA graph a step on the card, as the JAX example jits its step
-    run1 = _graph.Replayed(step) if device.type == "cuda" else step
+    run1 = _graph.jit(step, device)
     mass0, ke0 = diagnostics(f0)
     print(f"kinetic Taylor-Green: {nc}x{nc} cells x {cfg.nv}^3 velocities, "
           f"dt={dt:.4f}, Kn={args.knudsen}")

@@ -102,6 +102,16 @@ def _coefs_for(f, dt: float) -> Optional[dict]:
     return None
 
 
+def _march(one: Callable, f0, n_steps: int, record) -> Trajectory:
+    """``n_steps`` calls of the one-step unit ``one(f) -> (f_next,
+    record(f_next))``, the records stacked (None without a ``record``)."""
+    f, recs = f0, []
+    for _ in range(n_steps):
+        f, rec = one(f)
+        recs.append(rec)
+    return Trajectory(f=f, recorded=_stack(recs) if record is not None and recs else None)
+
+
 def relax(
     rhs: RHS,
     f0: torch.Tensor,
@@ -116,14 +126,12 @@ def relax(
     stacked along a leading time axis."""
     step = _stepper(method)
     coefs = _coefs_for(f0, dt)
-    f = f0
-    recs = []
-    for _ in range(n_steps):
+
+    def one(f):
         f = step(rhs, f, dt, coefs)
-        if record is not None:
-            recs.append(record(f))
-    recorded = _stack(recs) if record is not None and recs else None
-    return Trajectory(f=f, recorded=recorded)
+        return f, (record(f) if record is not None else None)
+
+    return _march(one, f0, n_steps, record)
 
 
 def make_relaxation(
@@ -169,12 +177,7 @@ def make_relaxation(
                     "make_relaxation(jit=True) replays a CUDA graph, which has no backward;"
                     " build it with jit=False to differentiate")
             one = replayed
-        f, recs = f0, []
-        for _ in range(n_steps):
-            f, rec = one(f, pre)
-            recs.append(rec)
-        recorded = _stack(recs) if record is not None and recs else None
-        return Trajectory(f=f, recorded=recorded)
+        return _march(lambda f: one(f, pre), f0, n_steps, record)
 
     run.step = replayed if replayed is not None else body
     return run

@@ -210,9 +210,6 @@ Phases, in order; any failure raises and the script exits non-zero:
     ``jit=True`` on a 1-rank NCCL mesh; and the TG-2D, TG-3D and Sod drivers'
     printed lines, graphed against their body run eagerly.
 
-``python3 chip_smoke.py --phase25`` runs the device check, the build and
-phase 25 alone, and prints no summary (a development aid).
-
 The ds evals of phases 13, 15, 16 and 18 (but the phased route) go through
 ``make_ds_collision_operator``, so they replay CUDA graphs; phase 20's route
 rule and ``selfcheck_ds`` call ``collide_ds`` eagerly.  A
@@ -2226,12 +2223,9 @@ STEP_FAMILIES = ("line_dft_kernel", "plane_dft_kernel", "kron_gemm_kernel", "alp
 def graph_nodes(graph, path: Path) -> dict:
     """The nodes of a captured CUDA graph by type (KERNEL, MEMCPY, ...) and
     its kernel nodes by family (``STEP_FAMILIES``, the rest "other"), read
-    from its debug dump (``CUDAGraph.debug_dump``, DOT); where the dump
-    names no node, the types alone from the CUDA runtime
-    (``cudaGraphGetNodes`` / ``cudaGraphNodeGetType`` on
-    ``raw_cuda_graph()``).  The capture ran with ``_graph.DEBUG`` on, so
-    the graph kept its ``cudaGraph_t``.  {} where neither works."""
-    import ctypes
+    from its debug dump (``CUDAGraph.debug_dump``, DOT).  The capture ran
+    with ``_graph.DEBUG`` on, so the graph kept its ``cudaGraph_t``.  {}
+    where the dump names no node."""
     import re
 
     graph.debug_dump(str(path))
@@ -2244,22 +2238,6 @@ def graph_nodes(graph, path: Path) -> dict:
         out[kind] += 1
         if kind == "KERNEL":
             out["kernel: " + next((f for f in STEP_FAMILIES if f in label), "other")] += 1
-    if out:
-        return dict(out)
-    try:
-        rt = ctypes.CDLL("libcudart.so.12")
-        handle = ctypes.c_void_p(graph.raw_cuda_graph())
-        n = ctypes.c_size_t(0)
-        check(rt.cudaGraphGetNodes(handle, None, ctypes.byref(n)) == 0, "cudaGraphGetNodes")
-        nodes = (ctypes.c_void_p * n.value)()
-        check(rt.cudaGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0, "cudaGraphGetNodes")
-        kind = ctypes.c_int(0)
-        for node in nodes:
-            check(rt.cudaGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0,
-                  "cudaGraphNodeGetType")
-            out[NODE_TYPES[kind.value] if kind.value < len(NODE_TYPES) else str(kind.value)] += 1
-    except (OSError, AttributeError, RuntimeError) as err:
-        print(f"  the CUDA runtime's node count failed: {err}")
     return dict(out)
 
 
@@ -2283,15 +2261,19 @@ def tree_clone(tree):
 
 
 class StepCell(collections.namedtuple(
-        "StepCell", "name steps unit pre graphed eager eager_op eager_step kernels families gate ops")):
+        "StepCell", "name steps unit pre graphed eager eager_op eager_step kernels families gate ops"
+        " apart", defaults=(None,))):
     """A phase-25 cell: ``unit`` the Replayed step; ``graphed()``,
     ``eager()`` (the operator eager too) and ``eager_op()`` (the step eager
     around the graphed operator, the path before the step was graphed)
     each -> (final f, per-step trace); ``eager_step(f)`` one eager step;
     ``gate(f, trace)`` prints and checks the path's own gates; ``ops`` the
-    graphed operators the unit calls (they must keep no graph).
-    ``eager_op`` is None where a second graph pool does not fit beside the
-    step's; the fully eager run is timed once, before the step's graph."""
+    graphed operators the unit calls (they must keep no graph).  The fully
+    eager run is timed once, before the step's graph.  ``apart``, where
+    set, is the graphed operator of ``eager_op`` whose pool does not fit
+    beside the step graph's (the ensemble): ``eager_op`` is timed in rounds
+    of its own before the step graph is built, and that operator's graph
+    freed."""
 
 
 def relax_cell(bt, name, ops, pre, f0, dt, steps, record, kernels, families, gate):
@@ -2303,8 +2285,41 @@ def relax_cell(bt, name, ops, pre, f0, dt, steps, record, kernels, families, gat
     run_g, run_e, one = mk(op_g, True), mk(op_e, False), mk(op_e, False, 1)
     pair = lambda run: (lambda: tuple(run(f0)))
     return StepCell(name, steps, run_g.step, pre, pair(run_g), pair(run_e),
-                    op_o and pair(mk(op_o, False)), lambda f: one(f), kernels, families, gate,
-                    (op_g,))
+                    pair(mk(op_o, False)), lambda f: one(f), kernels, families, gate, (op_g,))
+
+
+def eager_body(step, diagnostics, device=None):
+    """``cli.step_body``'s body, run eagerly: ``(f, pre) -> (f', diagnostics(f'))``."""
+    def body(f, pre):
+        f = step(f, pre)
+        return f, diagnostics(f)
+
+    return body
+
+
+def drop_graphs(op):
+    """Free the graphs of the Replayed units in an operator's closure."""
+    from boltzfft_torch._graph import Replayed
+
+    for c in op.__closure__ or ():
+        if isinstance(c.cell_contents, Replayed):
+            c.cell_contents._graphs.clear()
+
+
+def pool_segments(graph) -> str:
+    """A graph's private memory pool, segment by segment, largest first:
+    each segment's MiB and the MiB of the blocks it is split into (``*``
+    marks a block in use: the graph's outputs)."""
+    pid = tuple(graph.pool())
+    segs = sorted((sg for sg in torch.cuda.memory_snapshot()
+                   if tuple(sg.get("segment_pool_id", ())) == pid),
+                  key=lambda sg: -sg["total_size"])
+    mib = lambda n: f"{n / 2**20:.0f}"
+    return (f"{len(segs)} segments: " + "; ".join(
+        mib(sg["total_size"]) + " [" + " ".join(
+            mib(b["size"]) + ("*" if b["state"] == "active_allocated" else "")
+            for b in sg["blocks"][:8]) + (" ..." if len(sg["blocks"]) > 8 else "") + "]"
+        for sg in segs[:5]) + (" ..." if len(segs) > 5 else ""))
 
 
 def body_cell(name, dev, steps_, diag, pre, f0, steps, kernels, families, gate, ops):
@@ -2314,7 +2329,7 @@ def body_cell(name, dev, steps_, diag, pre, f0, steps, kernels, families, gate, 
     from boltzfft_torch.cli import march, step_body
 
     body_g = step_body(steps_[0], diag, dev)
-    body_o, body_e = (step_body(s, diag, dev, jit=False) for s in steps_[1:])
+    body_o, body_e = (eager_body(s, diag) for s in steps_[1:])
     run = lambda body: (lambda: march(body, f0, pre, steps))
     return StepCell(name, steps, body_g, pre, run(body_g), run(body_e), run(body_o),
                     lambda f: body_e(f, pre), kernels, families, gate, ops)
@@ -2322,22 +2337,39 @@ def body_cell(name, dev, steps_, diag, pre, f0, steps, kernels, families, gate, 
 
 def run_step_cell(cell, ks, card):
     """Phase 25's measurements of one cell (see ``step_graph_phase``)."""
+    import gc
+
     n = cell.steps
-    if cell.eager_op:
+    if not cell.apart:
         cell.eager_op()  # the operator captures its own graph, outside the counts
         torch.cuda.synchronize()
     reset_counts(ks)
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    a0 = torch.cuda.memory_allocated()
+    a0, r0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
     t0 = time.perf_counter()
     want = cell.eager()
     torch.cuda.synchronize()
     eager_ms = (time.perf_counter() - t0) * 1e3 / n
     peak = torch.cuda.max_memory_allocated() - a0
+    peak_r = torch.cuda.max_memory_reserved() - r0
     c_eager = counts(ks)
     # one eager step profiled now: beside the step graph's pool it may not fit (the ensemble)
     prof_eager = profile_eval(lambda: cell.eager_step(want[0]), cell.families)
     torch.cuda.empty_cache()
+    apart = {}
+    if cell.apart:  # the eager step around the graphed operator, then its graph freed
+        ok_o = same(cell.eager_op(), want)
+        torch.cuda.synchronize()
+        apart = {"eager, operator graphed (rounds of its own, before the step graph)": []}
+        for _ in range(STEP_ROUNDS):
+            t0 = time.perf_counter()
+            cell.eager_op()
+            torch.cuda.synchronize()
+            apart[next(iter(apart))].append((time.perf_counter() - t0) * 1e3 / n)
+        drop_graphs(cell.apart)
+        gc.collect()
+        torch.cuda.empty_cache()
     r0 = torch.cuda.memory_reserved()
     reset_counts(ks)
     t0 = time.perf_counter()
@@ -2348,13 +2380,16 @@ def run_step_cell(cell, ks, card):
     inner = sum(inner_graphs(op) for op in cell.ops)
     torch.cuda.empty_cache()
     pool = torch.cuda.memory_reserved() - r0
+    (entry,) = cell.unit._graphs.values()
+    segments = pool_segments(entry.graph)
     keep = tree_clone(first)
     reset_counts(ks)
     again = cell.graphed()
     torch.cuda.synchronize()
     c_rep = counts(ks)
     ok = same(first, want) and same(again, want) and same(first, keep)
-    ok_o = same(cell.eager_op(), want) if cell.eager_op else "not run"
+    if not cell.apart:
+        ok_o = same(cell.eager_op(), want)
     per_step = {k: v // n for k, v in c_eager.items()}
     counts_ok = (all(v % n == 0 and c_cap[k] == 2 * per_step[k] for k, v in c_eager.items())
                  and all(c_cap[k] > 0 for k in cell.kernels) and plain_calls(c_cap) == 0
@@ -2371,15 +2406,18 @@ def run_step_cell(cell, ks, card):
     check(counts_ok, f"step graph {cell.name}: counts eager {c_eager} capture {c_cap} replay {c_rep}")
     check(inner == 0, f"step graph {cell.name}: an inner operator captured a graph of its own")
     cell.gate(*first)
-    (entry,) = cell.unit._graphs.values()
     with tempfile.TemporaryDirectory() as tmp:
         nodes = graph_nodes(entry.graph, Path(tmp, "step.dot"))
     kinds = {k: v for k, v in nodes.items() if not k.startswith("kernel: ")}
     fams = {k[8:]: v for k, v in nodes.items() if k.startswith("kernel: ")}
     print(f"  step graph nodes: {kinds or 'not measured'}; kernel nodes by family"
           f" {fams or 'not measured'} | {card}")
+    t0 = time.perf_counter()
+    entry.graph.replay()
+    launch_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
     runs = {"graph": cell.graphed}
-    if cell.eager_op:
+    if not cell.apart:
         runs["eager, operator graphed"] = cell.eager_op
     wall = {k: [] for k in runs}
     for rnd in range(STEP_ROUNDS):
@@ -2388,16 +2426,19 @@ def run_step_cell(cell, ks, card):
             runs[k]()
             torch.cuda.synchronize()
             wall[k].append((time.perf_counter() - t0) * 1e3 / n)
+    wall.update(apart)
     med = {k: statistics.median(v) for k, v in wall.items()}
     print(f"[25 wall] {cell.name}: ms per step, medians of {STEP_ROUNDS} paired rounds of {n}"
           f" steps (min-max): " + "; ".join(
               f"{k} {med[k]:.4f} ({min(v):.4f}-{max(v):.4f})" for k, v in wall.items())
           + f"; eager (the operator too), one run {eager_ms:.4f}; first graphed run"
           f" {1e3 * first_s:.1f} ms (warm-up + capture + {n - 1} replays), so the capture about"
-          f" {1e3 * first_s - (n - 1) * med['graph']:.1f} ms | {card}")
+          f" {1e3 * first_s - (n - 1) * med['graph']:.1f} ms; the host's time in one"
+          f" graph.replay() call {launch_ms:.3f} ms | {card}")
     print(f"  memory: the step graph's pool {pool / 2**20:.1f} MiB reserved (memory_reserved"
           f" across the first graphed run, caches emptied); the eager run's peak"
-          f" {peak / 2**20:.1f} MiB allocated | {card}")
+          f" {peak / 2**20:.1f} MiB allocated, {peak_r / 2**20:.1f} MiB reserved | {card}")
+    print(f"  the step graph's pool, MiB: {segments} | {card}")
     med["eager"] = eager_ms
     f_last = first[0]
     for what, prof, key in (
@@ -2443,14 +2484,14 @@ def step_graph_phase(bt, dev, card, ks):
     tg = dict(u0=0.8, temperature=3.0)
 
     # ---- the drivers' printed lines: graphed (their default) against the
-    # same driver with its body eager (cli.step_body with jit=False)
+    # same driver with its body eager (cli.step_body swapped for eager_body)
     for mod, argv in ((tg2, ["--steps", "10", "--trials", "1"]),
                       (tg3, ["--cells", "8", "--steps", "2", "--trials", "1"]),
                       (sod_1d3v, ["--Nv", "16", "--nx", "32", "--steps", "5"])):
         lines = {}
         for jit in (True, False):
             real = cli.step_body
-            cli.step_body = partial(real, jit=jit)
+            cli.step_body = real if jit else eager_body
             try:
                 rc, out = run_driver(mod.main, argv + ["--device", "cuda"])
             finally:
@@ -2571,19 +2612,21 @@ def step_graph_phase(bt, dev, card, ks):
         mesh = bt.make_mesh([(bt.ENSEMBLE_AXIS, 1)], device=dev)
         check(dist.get_backend() == "nccl", "phase 25: a 1-rank NCCL group")
         cfg = bt.CollisionConfig(nv=32, ns=12, impl="fused")
-        # K1 on 256 members holds two 18 GiB buffers: the step graph's pool and the
-        # eager warm-up's fill the card, so no second graphed operator (eager_op)
+        # K1 on 256 members holds two 18 GiB buffers: a second graphed operator's pool
+        # does not fit beside the step graph's, so its eager step is timed apart
         made = [bt.make_sharded_collision_operator(cfg, mesh, node_axis=None,
                                                    ensemble_axis=bt.ENSEMBLE_AXIS, jit=jit)
-                for jit in (True, False)]
+                for jit in (True, True, False)]
         g = cfg.velocity_grid
         f0 = torch.as_tensor(np.stack([bt.bkw_f(g.r_squared(), t)
                                        for t in 5.5 + 2.0 * np.arange(256) / 256]),
                              dtype=cfg.real_dtype, device=dev)
         record = lambda f: (bt.moments(f, g.v, g.dv), bt.entropy(f, g.dv))  # ensemble_bkw's
         name = "ensemble E = 256 x 32^3 float64, RK4 (K1)"
-        return relax_cell(bt, name, [made[0][0], None, made[1][0]], made[0][1], f0, 0.1, 2, record,
-                          ("k1",), OPERATOR_FAMILIES, relax_gate(name, cfg, f0, None))
+        ops = [op for op, _ in made]
+        cell = relax_cell(bt, name, ops, made[0][1], f0, 0.1, 2, record, ("k1",),
+                          OPERATOR_FAMILIES, relax_gate(name, cfg, f0, None))
+        return cell._replace(apart=ops[1])
 
     def sharded_tg2d():
         mesh = bt.make_mesh([("cx", 1), ("cy", 1)], device=dev)
@@ -2683,11 +2726,6 @@ def main() -> int:
         hmma = counts_tc.get(f"{k}<float>", none)["HMMA"]
         print(f"[2 sass] {k}: DMMA {dmma} (double), HMMA {hmma} (float, 3xTF32)")
         check(dmma > 0 and hmma > 0, f"{k} is not on the tensor cores: {counts_tc}")
-
-    if sys.argv[1:2] == ["--phase25"]:  # a development aid: phase 25 alone, no summary
-        step_graph_phase(bt, dev, card, ks)
-        lap(25)
-        return 0
 
     # ---- 3. kernels against their plain versions on the card -----------
     torch.backends.cuda.matmul.allow_tf32 = False

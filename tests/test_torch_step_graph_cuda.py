@@ -34,6 +34,15 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _eager_body(step, diagnostics):
+    """``step_body``'s body run eagerly."""
+    def body(f, pre):
+        f = step(f, pre)
+        return f, diagnostics(f)
+
+    return body
+
+
 def _same(a, b):
     if isinstance(a, ds.DS):
         return torch.equal(a.hi, b.hi) and torch.equal(a.lo, b.lo)
@@ -190,7 +199,7 @@ def test_driver_body_graphed_matches_eager(cuda_device, name):
     captured = counter.LAUNCHES - before
     keep = (f1.clone(), [t.clone() for t in tr1])
     f2, tr2 = march(body, f0, pre, 2)
-    fe, tre = march(step_body(step_e, diag, cuda_device, jit=False), f0, pre, 2)
+    fe, tre = march(_eager_body(step_e, diag), f0, pre, 2)
     torch.cuda.synchronize()
     assert _same(f1, fe) and _same(tr1, tre) and _same(f2, fe) and _same(tr2, tre)
     assert _same(f1, keep[0]) and _same(tr1, keep[1])
@@ -240,8 +249,14 @@ def test_gloo_ranks_on_the_card_raise_under_jit(cuda_device, tmp_path):
 
 @pytest.mark.cuda
 def test_nccl_ranks_capture_the_halo_exchange(cuda_device, tmp_path):
+    """On every card along x, and on a 2-D mesh where the cards allow one:
+    the step built with jit=True and the driver's graphed body give the
+    eager bits."""
     n = torch.cuda.device_count()
     if n < 2:
         pytest.skip("needs two or more cards (NCCL takes one rank a card)")
-    for r in launch(n, ["nccl_step"], tmp_path, backend="nccl"):
-        assert r["nccl_step"]["same"]
+    meshes = [f"{n}x1"] + ([f"2x{n // 2}"] if n >= 4 and n % 2 == 0 else [])
+    for r in launch(n, [f"nccl_step:{m}" for m in meshes], tmp_path, backend="nccl"):
+        for m in meshes:
+            res = r[f"nccl_step:{m}"]
+            assert res["same"] and res["body_same"] and res["body_graphed"], (m, res)

@@ -655,25 +655,31 @@ def card_step_jit():
 
 
 @case
-def nccl_step():
-    """NCCL ranks, a card each, along one mesh dim: the decomposed TG-2D
-    step at 16^3 on K1 built with ``jit=True`` (the halo sends and
-    receives captured in the step's graph) against ``jit=False``, bitwise
-    over 2 steps, twice."""
+def nccl_step(dims=""):
+    """NCCL ranks, a card each, on a ``dims`` cell mesh (default: every
+    rank along x): the decomposed TG-2D step at 16^3 on K1 built with
+    ``jit=True`` (the halo sends and receives captured in the step's graph)
+    against ``jit=False``, bitwise over 2 steps, twice; and the TG-2D
+    driver's body (:func:`boltzfft_torch.cli.step_body` around the
+    ``jit=False`` step, as ``--mesh`` builds it) against the same body run
+    eagerly, bitwise on f and on every diagnostics entry."""
     import torch
 
     import boltzfft_torch as bt
     from boltzfft_torch import transport
-    from boltzfft_torch.cli.taylor_green_2d3v import taylor_green_f0
+    from boltzfft_torch.cli import march, step_body
+    from boltzfft_torch.cli.taylor_green_2d3v import diagnostics_fn, taylor_green_f0
 
-    n = _world()
-    mesh = bt.make_mesh([("cx", n), ("cy", 1)])
+    mx, my = (int(s) for s in (dims or f"{_world()}x1").split("x"))
+    mesh = bt.make_mesh([("cx", mx), ("cy", my)])
+    dev = bt.sharding.mesh_device(mesh)
     cfg = bt.CollisionConfig(nv=16, ns=12, impl="fused")
     coll, pre = bt.make_collision_operator(cfg)
-    d = 1.0 / (4 * n)
+    nc = 4 * max(mx, my)
+    d = 1.0 / nc
     kw = dict(dx=d, dy=d, dt=transport.cfl_dt(float(abs(cfg.velocity_grid.v).max()), d),
               knudsen=0.2, x_axis="cx", y_axis="cy")
-    f0 = bt.place_cells(taylor_green_f0(cfg, 4 * n, u0=0.8, temperature=3.0),
+    f0 = bt.place_cells(taylor_green_f0(cfg, nc, u0=0.8, temperature=3.0),
                         mesh, x_axis="cx", y_axis="cy")
     runs = {}
     for jit in (True, False):
@@ -685,8 +691,19 @@ def nccl_step():
                 f = st(f, pre)
             outs.append(f)
         runs[jit] = outs
+    st = transport.make_sharded_step_2d(cfg, coll, mesh, jit=False, **kw)
+    diagnostics = diagnostics_fn(cfg, d, dev)
+
+    def eager(f, pre):
+        f = st(f, pre)
+        return f, diagnostics(f)
+
+    graphed = step_body(st, diagnostics, dev)
+    (fg, tg), (fe, te) = march(graphed, f0, pre, 2), march(eager, f0, pre, 2)
     torch.cuda.synchronize()
-    return {"same": all(torch.equal(a, b) for a in runs[True] for b in runs[False])}
+    return {"same": all(torch.equal(a, b) for a in runs[True] for b in runs[False]),
+            "body_same": bool(torch.equal(fg, fe) and all(map(torch.equal, tg, te))),
+            "body_graphed": graphed is not eager and type(graphed).__name__ == "Replayed"}
 
 
 # ---------------------------------------------------------------------------
