@@ -42,14 +42,15 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-#: Flags added for single sources.  The ds engine's kernels (K7-K12)
-#: need every + - * rounded on its own, so nvcc must not contract a*b + c
-#: into one FMA there (``csrc/oz_common.cuh``).  Never ``--use_fast_math``:
-#: it flushes denormals.
+#: Flags added for single sources.  The ds engine's kernels (K7-K12 and
+#: the elementwise chains) need every + - * rounded on its own, so nvcc must
+#: not contract a*b + c into one FMA there (``csrc/oz_common.cuh``,
+#: ``csrc/ds_elementwise.cu``).  Never ``--use_fast_math`` or ``-ftz=true``:
+#: they flush denormals.
 FILE_FLAGS = {
     name: ["--fmad=false"]
     for name in ("oz_preslice.cu", "oz_contract.cu", "oz_gmain3.cu", "oz_gmain12.cu",
-                 "oz_hadamard.cu", "oz_hadamard_half.cu")
+                 "oz_hadamard.cu", "oz_hadamard_half.cu", "ds_elementwise.cu")
 }
 
 _P = ctypes.c_void_p
@@ -96,6 +97,9 @@ _ENTRY_ARGS_F32 = {
     # the 37-pointer table, the node count, groups, 3 dims, the run, the
     # block size and the stream
     "bfft_oz_hadamard_half": [_P] + [_I] * 7 + [_P],
+    # the chain's op code, double pairs or not, the table of addresses,
+    # sizes and strides, the grid and the stream
+    "bfft_ds_elementwise": [_I, _I, _P, _I, _P],
 }
 
 _lib = None

@@ -7,12 +7,24 @@ relative).  The primitives are the classical error-free transformations
 
 They are right only if every ``+``, ``-`` and ``*`` is rounded on its own.
 The JAX package pins each intermediate with ``lax.reduce_precision``
-(its ``_opaque``) because XLA fuses, duplicates and FMA-contracts.  Eager
-PyTorch runs each operator as one kernel with one correctly rounded result,
-so nothing here needs a pin.  Two rules keep it so: these functions must
-never run under ``torch.compile`` (its code generator may contract ``a*b + c``
-into one FMA), and no fused multiply-add operator (``addcmul``, ``addcdiv``,
-``torch.add(..., alpha=)`` with a product) may replace a product and a sum.
+(its ``_opaque``) because XLA fuses, duplicates and FMA-contracts.  The
+port keeps the rule in two halves.
+
+- CPU tensors run the chains below op by op: eager PyTorch runs each
+  operator as one kernel with one correctly rounded result, so nothing
+  needs a pin.  These functions must never run under ``torch.compile`` (its
+  code generator may contract ``a*b + c`` into one FMA), and no fused
+  multiply-add operator (``addcmul``, ``addcdiv``, ``torch.add(...,
+  alpha=)`` with a product) may replace a product and a sum.
+- On CUDA tensors the ds operators (``add``, ``sub``, ``mul``, ``mul_f``,
+  ``cadd``, ``cmul``, ``cmul_ds``, ``cmul_both``) and the compositions the
+  engine makes of them (``axpy``, ``caxpy``, ``sub_mul``, ``cadd_signed``,
+  ``add_signed``) each run as one launch of ``csrc/ds_elementwise.cu``
+  (:mod:`boltzfft_torch.kernels.ds_elementwise`), the card's counterpart of
+  the loop XLA fuses each chain into: every operation through a
+  round-to-nearest intrinsic (``__fadd_rn``, ...), built with
+  ``--fmad=false``, so the bits are the chain's.  ``two_sum``,
+  ``quick_two_sum``, ``split`` and ``two_prod`` stay plain on every device.
 """
 
 from __future__ import annotations
@@ -132,30 +144,24 @@ def neg(x: DS) -> DS:
 
 def add(x: DS, y: DS) -> DS:
     """IEEE-style ds add (11 flops, error O(2^-2p))."""
-    s, e = two_sum(x.hi, y.hi)
-    e = e + (x.lo + y.lo)
-    s, e = quick_two_sum(s, e)
-    return DS(s, e)
+    return _ew.add(x, y)
 
 
 def sub(x: DS, y: DS) -> DS:
-    return add(x, neg(y))
+    """``add(x, neg(y))``."""
+    return _ew.sub(x, y)
 
 
 def mul(x: DS, y: DS) -> DS:
     """ds multiply (~25 flops; drops only the lo*lo term, O(2^-2p))."""
-    p, e = two_prod(x.hi, y.hi)
-    e = e + (x.hi * y.lo + x.lo * y.hi)
-    p, e = quick_two_sum(p, e)
-    return DS(p, e)
+    return _ew.mul(x, y)
 
 
 def mul_f(x: DS, a) -> DS:
-    """ds times a plain hardware float (exact split of the single product)."""
-    p, e = two_prod(x.hi, a)
-    e = e + x.lo * a
-    p, e = quick_two_sum(p, e)
-    return DS(p, e)
+    """ds times a plain hardware float (exact split of the single product):
+    a tensor, or a Python scalar taken as a float of the pairs' dtype (rounded
+    to it)."""
+    return _ew.mul_f(x, a)
 
 
 # ---------------------------------------------------------------------------
@@ -169,7 +175,8 @@ def cds_from_f64(a, dtype=torch.float32, device="cuda") -> CDS:
 
 
 def cds_from_real(x: DS) -> CDS:
-    return CDS(x, DS(torch.zeros_like(x.hi), torch.zeros_like(x.lo)))
+    z = torch.zeros_like(x.hi)  # one zero plane for both words, as zeros() makes
+    return CDS(x, DS(z, z))
 
 
 def cds_to_c128(x: CDS) -> np.ndarray:
@@ -181,14 +188,13 @@ def czeros(shape, dtype=torch.float32, device="cuda") -> CDS:
 
 
 def cadd(x: CDS, y: CDS) -> CDS:
-    return CDS(add(x.re, y.re), add(x.im, y.im))
+    """Complex ds add."""
+    return _ew.cadd(x, y)
 
 
 def cmul(x: CDS, y: CDS) -> CDS:
-    return CDS(
-        sub(mul(x.re, y.re), mul(x.im, y.im)),
-        add(mul(x.re, y.im), mul(x.im, y.re)),
-    )
+    """Complex ds multiply: ``(sub(xr yr, xi yi), add(xr yi, xi yr))``."""
+    return _ew.cmul(x, y)
 
 
 def cconj(x: CDS) -> CDS:
@@ -197,18 +203,44 @@ def cconj(x: CDS) -> CDS:
 
 def cmul_both(a: CDS, f: CDS) -> tuple:
     """``(a * f, conj(a) * f)`` sharing the four component products."""
-    rr = mul(a.re, f.re)
-    ii = mul(a.im, f.im)
-    ri = mul(a.re, f.im)
-    ir = mul(a.im, f.re)
-    t1 = CDS(sub(rr, ii), add(ri, ir))
-    t2 = CDS(add(rr, ii), sub(ri, ir))
-    return t1, t2
+    return _ew.cmul_both(a, f)
 
 
 def cmul_ds(x: CDS, w: DS) -> CDS:
     """Complex ds times real ds."""
-    return CDS(mul(x.re, w), mul(x.im, w))
+    return _ew.cmul_ds(x, w)
+
+
+# ---------------------------------------------------------------------------
+# the compositions the engine makes (one launch each on the card; the JAX
+# package writes them out and XLA fuses each into one loop)
+# ---------------------------------------------------------------------------
+
+
+def axpy(f: DS, k: DS, s: DS) -> DS:
+    """``add(f, mul(k, s))``: the RK stage input and update."""
+    return _ew.axpy(f, k, s)
+
+
+def caxpy(acc: CDS, x: CDS, w: DS) -> CDS:
+    """``cadd(acc, cmul_ds(x, w))``: the gain accumulation."""
+    return _ew.caxpy(acc, x, w)
+
+
+def sub_mul(a: DS, b: DS, c: DS) -> DS:
+    """``sub(a, mul(b, c))``: the gain minus loss assembly."""
+    return _ew.sub_mul(a, b, c)
+
+
+def cadd_signed(p: CDS, t: CDS, pattern: torch.Tensor) -> CDS:
+    """``cadd(p, t * pattern)``, every plane of ``t`` multiplied by the
+    (broadcast) ``pattern``: the Nyquist corrections' exact +-1 folds."""
+    return _ew.cadd_signed(p, t, pattern)
+
+
+def add_signed(p: DS, t: DS, pattern: torch.Tensor) -> DS:
+    """``add(p, t * pattern)``, the real form of :func:`cadd_signed`."""
+    return _ew.add_signed(p, t, pattern)
 
 
 # ---------------------------------------------------------------------------
@@ -272,3 +304,8 @@ def transform3(x: CDS, m, real_in: bool = False, real_out: bool = False) -> CDS:
     return _roll_axis(  # x
         contract_last(_roll_axis(x, -3, -1), mx, real_out=real_out), -1, -3
     )
+
+
+# the kernels' wrappers import this module's types and transforms, so they
+# come last
+from .kernels import ds_elementwise as _ew  # noqa: E402

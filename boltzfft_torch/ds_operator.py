@@ -94,6 +94,10 @@ DS_PIPELINE_CMAX = 6
 DS_PIPELINE_FOLD_TAIL = None
 #: Default of collide_ds(oz_merge=None): K-merged per-node stages.
 DS_PIPELINE_MERGE = True
+#: Radial steps whose main-block tables the half path lays out in one go
+#: (``_interleave``): the eval holds a copy of 8 steps' tables at a time,
+#: not of all of them, for 6 more launches per chunk.
+LAYOUT_STEPS = 8
 
 
 def _pipeline_slicing(cfg: CollisionConfig):
@@ -297,17 +301,17 @@ def _nyq_corrections(cfg, pre, f_hat, ck, conj: bool, coef=None):
     pt = ds.cmul(coef[6], corner)
 
     # fold the line and point terms into the plane fields (exact +-1
-    # patterns, compensated adds):
+    # patterns, compensated adds; one launch each on the card):
     #   g = r_main + sx(jx).px'(jy,jz) + sy(jy).py'(jx,jz) + sz(jz).pz(jx,jy)
     _, syv, szv = gc.signs
-    expand = lambda t, idx, pat: tree_map(lambda a: a[idx] * pat, t)
     b = (al, al)
-    px = ds.cadd(px, expand(ly, b + (al, None), szv[None, None, None, :]))
-    px = ds.cadd(px, expand(lz, b + (None, al), syv[None, None, :, None]))
-    px = ds.cadd(px, expand(pt, b + (None, None), gc.syz[None, None]))
-    py = ds.cadd(py, expand(lx, b + (al, None), szv[None, None, None, :]))
-    # py and pz come out transposed (z, resp. y, the outer axis): laid out
-    # in order once per eval, since K12 reads every plane along its last axis
+    px = ds.cadd_signed(px, _cindex(ly, b + (al, None)), szv[None, None, None, :])
+    px = ds.cadd_signed(px, _cindex(lz, b + (None, al)), syv[None, None, :, None])
+    px = ds.cadd_signed(px, _cindex(pt, b + (None, None)), gc.syz[None, None])
+    py = ds.cadd_signed(py, _cindex(lx, b + (al, None)), szv[None, None, None, :])
+    # K12 reads every plane along its last axis.  The card's kernels write
+    # their outputs in order; the CPU's eager ops keep py and pz transposed
+    # (z, resp. y, the outer axis), laid out in order here once per eval
     return tuple(tree_map(lambda a: a.contiguous(), p) for p in (px, py, pz))
 
 
@@ -332,6 +336,25 @@ def _g_main_half(fhs, x_pre, m_y, m_x, m_zh, cmax, w, ftail, merged=False,
     t = ck(t, m_x, merged=mok(m_x))
     t = tree_map(lambda a: a.permute(0, 3, 1, 2), t)  # (C, Nx, Ny, Nzh)
     return ck(t, m_zh, real_out=True, merged=mok(m_zh)).re  # (C, Nx, Ny, Nz)
+
+
+def _interleave(t1, t2, cut: Optional[int]):
+    """Stream 1's and stream 2's per-node tables ``(G, C, ...)`` as the
+    main block's launches take them: per group, ``cut`` nodes of stream 1
+    then the same nodes of stream 2, cut after cut (``None``: all ``C`` at
+    once), ``(G, 2 C, ...)``.  The launch for nodes ``[j0, j1)`` reads rows
+    ``[2 j0, 2 j1)``."""
+    def one(a, b):
+        g, c = a.shape[:2]
+        k = c if cut is None else cut
+        if c % k:
+            cuts = [slice(j, min(j + k, c)) for j in range(0, c, k)]
+            return torch.cat([t for s in cuts for t in (a[:, s], b[:, s])], dim=1)
+        rest = tuple(a.shape[2:])
+        split = lambda t: t.reshape((g, c // k, k) + rest)
+        return torch.stack((split(a), split(b)), dim=2).reshape((g, 2 * c) + rest)
+
+    return tree_map(one, t1, t2)
 
 
 def _rev_v(a):
@@ -441,8 +464,7 @@ def _inv_herm_half(u: CDS, p: CDS, ck, m_xy, m_zh, inv_nz: DS, szv) -> DS:
     p = ck(p, my)
     pr = ds._swap_last2(ck(ds._swap_last2(p), mx, real_out=True)).re
     pr = ds.mul(pr, inv_nz)
-    corr = DS(pr.hi[..., None] * szv, pr.lo[..., None] * szv)
-    return ds.add(main, corr)
+    return ds.add_signed(main, DS(pr.hi[..., None], pr.lo[..., None]), szv)
 
 
 def collide_ds(
@@ -580,7 +602,7 @@ def collide_ds(
             _, mxy2, mzh2g, c1g, c2g, gwn = xs
         elif half:
             b1h = b1 = xs[0]
-            _, mxy1, mxy2, mzh1g, mzh2g, c1g, c2g = xs
+            _, my12, mx12, mzh12, c1g, c2g = xs
         elif nodemat:
             gw, b1, pm1, pm2 = xs
         else:
@@ -596,15 +618,11 @@ def collide_ds(
                                       cmax, slw, ftail, merged=mg, grid_shape=cfg.grid_shape,
                                       fused=fuse3)
                     r1 = _g1_from_g2(r2, take(gwn))
-                else:
-                    cat = lambda a, b: tree_map(lambda x, y: torch.cat((x, y)), a, b)
-                    r12 = _g_main_half(
-                        fhs, f_pre_h,
-                        cat(take(mxy1[1]), take(mxy2[1])),
-                        cat(take(mxy1[0]), take(mxy2[0])),
-                        cat(take(mzh1g), take(mzh2g)),
-                        cmax, slw, ftail, merged=mg, grid_shape=cfg.grid_shape, fused=fuse3,
-                    )
+                else:  # the sub-batch's rows of the interleaved tables (_interleave)
+                    rows = slice(2 * j0, 2 * sl.stop) if gb == 1 else slice(None)
+                    m_y, m_x, m_zh = (tree_map(lambda a: a[rows], m) for m in (my12, mx12, mzh12))
+                    r12 = _g_main_half(fhs, f_pre_h, m_y, m_x, m_zh, cmax, slw, ftail, merged=mg,
+                                       grid_shape=cfg.grid_shape, fused=fuse3)
                     c = r12.hi.shape[0] // 2
                     r1 = tree_map(lambda a: a[:c], r12)
                     r2 = tree_map(lambda a: a[c:], r12)
@@ -638,28 +656,29 @@ def collide_ds(
             g2 = tf_inv(t2)
             h = ds.cmul(g1, g2)
             for j in range(h.re.hi.shape[0]):
-                term = ds.cmul_ds(_cindex(h, j), _cindex(gw, j0 + j))
-                s = term if s is None else ds.cadd(s, term)
+                hj, wj = _cindex(h, j), _cindex(gw, j0 + j)
+                s = ds.cmul_ds(hj, wj) if s is None else ds.caxpy(s, hj, wj)
         if half and herm:
             hm, q = _fwd_herm_half(s, ckc, fwd_xy, pre.vfwd_zh_sl, signs[2])
             if gb > 1:
                 for g in range(gb):
                     tk = lambda t, _g=g: tree_map(lambda a: a[_g], t)
-                    acc = ds.cadd(acc, ds.cmul_ds(tk(hm), tk(b1h)))
+                    acc = ds.caxpy(acc, tk(hm), tk(b1h))
                 return acc, q
-            return ds.cadd(acc, ds.cmul_ds(hm, b1h)), q
+            return ds.caxpy(acc, hm, b1h), q
         if half:
             h_hat = tf_fwd(ds.cds_from_real(s), real_in=True)
             if gb > 1:
                 for g in range(gb):
                     tk = lambda t, _g=g: tree_map(lambda a: a[_g], t)
-                    acc = ds.cadd(acc, ds.cmul_ds(tk(h_hat), tk(b1)))
+                    acc = ds.caxpy(acc, tk(h_hat), tk(b1))
                 return acc, None
         else:
             h_hat = tf_fwd(s)
-        return ds.cadd(acc, ds.cmul_ds(h_hat, b1)), None
+        return ds.caxpy(acc, h_hat, b1), None
 
     fdt = f.hi.dtype
+    lay = None  # the half path's table layout (_interleave), per chunk of steps
     if half:
         nxg, nyg, nzg = cfg.grid_shape
         acc = ds.czeros((nxg, nyg, nzg // 2) if herm else cfg.grid_shape, fdt, dev)
@@ -681,6 +700,13 @@ def collide_ds(
             nod = lambda t: tree_map(
                 lambda a: a.reshape((n_gl // gb, gb * a.shape[1]) + tuple(a.shape[2:])), t)
             xs = (grp(xs[0]),) + tuple(nod(t) for t in xs[1:])
+        if not rev1:
+            # each main-block launch reads one table of both streams' nodes:
+            # laid out once per chunk of radial steps, a launch takes its rows
+            cut = min(ns, sb) if gb == 1 else None
+            lay = lambda x: (x[0], _interleave(x[1][1], x[2][1], cut),
+                             _interleave(x[1][0], x[2][0], cut), _interleave(x[3], x[4], cut),
+                             x[5], x[6])
     elif nodemat:
         acc = ds.czeros(cfg.grid_shape, fdt, dev)
         xs = (pre.gain_w, pre.beta1, pre.pm1, pre.pm2)
@@ -689,9 +715,13 @@ def collide_ds(
         xs = (pre.ax, pre.ay, pre.az, pre.gain_w, pre.beta1)
     n_steps = pre.gain_w.hi.shape[0] // gb
     qs = []
-    for r in range(n_steps):  # the JAX package's lax.scan over radial groups
-        acc, q = group(acc, tree_map(lambda a: a[r], xs))
-        qs.append(q)
+    step = LAYOUT_STEPS if lay else max(n_steps, 1)
+    for r0 in range(0, n_steps, step):
+        xc = tree_map(lambda a: a[r0:r0 + step], xs)
+        xc = lay(xc) if lay else xc
+        for r in range(min(step, n_steps - r0)):  # the JAX package's lax.scan over radial groups
+            acc, q = group(acc, tree_map(lambda a: a[r], xc))
+            qs.append(q)
     q_gain_hat = acc
 
     if half and herm:
@@ -713,7 +743,7 @@ def collide_ds(
                              ckc, inv_xy, pre.vinv_zh_sl, gc.inv_nz, signs[2])
         q_gain = tree_map(lambda a: a[0], inv)
         loss = tree_map(lambda a: a[1], inv)
-        return ds.sub(q_gain, ds.mul(loss, f))
+        return ds.sub_mul(q_gain, loss, f)
 
     if gain_reduce is not None:
         q_gain_hat = gain_reduce(q_gain_hat)
@@ -721,7 +751,7 @@ def collide_ds(
     inv = tf_inv(both, real_out=True).re
     q_gain = tree_map(lambda a: a[0], inv)
     loss = tree_map(lambda a: a[1], inv)
-    return ds.sub(q_gain, ds.mul(loss, f))
+    return ds.sub_mul(q_gain, loss, f)
 
 
 def default_contract(device="cuda") -> str:

@@ -322,10 +322,14 @@ def _fused_collide_cuda(
     csize = 16 if rd == torch.float64 else 8
     if chunk is None:
         chunk = _chunk_nodes(n_nodes, radial_group, n_batch, n3, csize, dev)
-    fh = torch.empty((n_batch, n3), dtype=cd, device=dev)
-    y = torch.empty((n_batch, 2, n3), dtype=cd, device=dev)
+    # the two node-stream buffers first: the caching allocator then puts the
+    # small ones in free small blocks, never a piece of a freed stream
+    # buffer, which would make the next call's second stream buffer a new
+    # segment (a third 18 GiB one on an RK4 step of 256 x 32^3 f64)
     t1 = torch.empty((2 * n_batch * chunk, n3), dtype=cd, device=dev)
     t2 = torch.empty_like(t1)
+    fh = torch.empty((n_batch, n3), dtype=cd, device=dev)
+    y = torch.empty((n_batch, 2, n3), dtype=cd, device=dev)
     q = torch.empty_like(fb)
 
     lib = load_library()

@@ -221,8 +221,8 @@ def _nodemat(x, m, cmax, w, repeat, fold_tail, x_pre, real_out, merged, run) -> 
 
 def _to_cds(out, shape) -> CDS:
     reh, rel, imh, iml = (None if a is None else a.reshape(shape) for a in out)
-    if imh is None:
-        imh, iml = torch.zeros_like(reh), torch.zeros_like(rel)
+    if imh is None:  # real_out: one zero plane for both words (a launch fewer)
+        imh = iml = torch.zeros_like(reh)
     return CDS(DS(reh, rel), DS(imh, iml))
 
 

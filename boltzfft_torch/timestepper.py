@@ -42,7 +42,7 @@ def _axpy(f, a: float, k, coefs: Optional[dict] = None):
         # the scalar is split too: fl32(dt/6) alone costs 2^-24 relative per
         # stage, swamping the ds state's 2^-48
         s = coefs[a] if coefs is not None else _ds.from_f64(np.float64(a), k.hi.dtype, k.hi.device)
-        return _ds.add(f, _ds.mul(k, s))
+        return _ds.axpy(f, k, s)  # add(f, mul(k, s)): one launch on the card
     return f + a * k
 
 

@@ -102,7 +102,9 @@ Phases, in order; any failure raises and the script exits non-zero:
     K12 and K9 at 32^3, K10 at 64^3 launched; no plain call), which count
     twice those of an eager eval with the operator's arguments, the
     launches of one eval that the kernels line reports, a hash of each
-    Q's hi and lo bytes beside its digits; ``g1_reversal`` and ``oz_cmax=4``
+    Q's hi and lo bytes beside its digits, the replayed Q bitwise equal to
+    the eager eval with the ds elementwise chains plain
+    (``kernels.ds_elementwise.plain_chains``); ``g1_reversal`` and ``oz_cmax=4``
     at 64^3, and the staged K8 chain at 32^3 bitwise equal to K9's route;
 14. ``health.selfcheck_ds`` on the card (16^3, ns=6, oz vs vpu < 1e-11);
 15. ``maxwell_bkw --impl ds --Nv 32 --Ns 12``, ``--trials 3`` and ``--steps 4``;
@@ -132,7 +134,8 @@ Phases, in order; any failure raises and the script exits non-zero:
     default route, launching its kernels and no plain version (the graphed
     "full" and "12" operators' first calls twice an eager eval's launches,
     which are the counts reported); "12" bitwise equal to the staged route
-    and, at 32^3, to K9's;
+    and, at 32^3, to K9's; each route bitwise equal to its eval with the ds
+    elementwise chains plain;
 19. ``maxwell_bkw --impl ds --Nv 32 --Ns 12 --trials 3`` with
     ``--g-stream full`` and with ``--gmain-fused 12``;
 20. times: each route's eval (1 warm-up, 5 trials at 32^3, 3 at 64^3) and a
@@ -144,7 +147,8 @@ Phases, in order; any failure raises and the script exits non-zero:
     main-block route rule (``ds_operator._gmain_mode``): the whole ds eval
     through K9 (32^3), K10 and the staged chain in 6 paired rounds, the
     round-by-round differences, each route's profiled device time, and the
-    rule's pick;
+    rule's pick; the phased route's eager eval against the same eval with
+    the ds elementwise chains plain, 4 paired rounds;
 21. the ds eval replayed from one CUDA graph (``make_ds_collision_operator(
     jit=True)``, a fresh capture) against the eager ``collide_ds``: the
     default route at 32^3 and 64^3 (the hash of Q's hi and lo bytes equal to
@@ -153,8 +157,11 @@ Phases, in order; any failure raises and the script exits non-zero:
     the warm-up and the capture; a replay moves none) and the operands the
     K7, K8 and K12 wrappers copied in an eager eval (none for K7 and K12), a
     second f leaving the first Q intact, the graph pool's memory against the
-    eager peak, paired wall times (10 rounds at 32^3, 6 at 64^3) and one
-    profiled replay and eager eval;
+    eager peak, the same eval captured with the ds elementwise chains plain
+    (bitwise equal), the graph's kernel nodes (its debug dump) and the
+    host's time in one ``replay()``, paired wall times of the graph and the
+    eager eval (10 rounds at 32^3, 6 at 64^3) and one profiled replay and
+    eager eval;
 22. every route of ``make_collision_operator(cfg)`` (``jit=True``: the eval
     replayed from one CUDA graph) against the eager ``collide`` on the same
     precomp, bitwise (capture, replay, a second f): rfft + use_pallas at
@@ -175,7 +182,9 @@ Phases, in order; any failure raises and the script exits non-zero:
     card), spawned as ``chip_smoke.py --two-rank``: the node-sharded fused
     route (K2 on each rank, then the all_reduce) at 32^3 and 64^3 float64
     and the 2-shard ds operator at 32^3, each within 1e-12 max|Q| of its
-    unsharded eval, with the digits.
+    unsharded eval, with the digits, the ds operator bitwise equal on each
+    rank to its eval with the ds elementwise chains plain (the cross-rank
+    fold's ``ds.cadd`` too).
 24. the tooling and examples slice: (a) ``save_precomp`` / ``load_precomp``
     at 32^3 and 64^3 float64 on rfft + use_pallas and K1, the loaded
     tables' replayed eval bitwise equal to the saved ones', with the BKW
@@ -200,7 +209,7 @@ Phases, in order; any failure raises and the script exits non-zero:
     operator, bitwise on the final f and every trace entry, with the path's
     gates, launches (the first graphed run counts two eager steps', a
     replay none, the inner operators keep no graph), the step graph's nodes
-    (its debug dump, under ``chiprun_out/step_graphs``), paired walls, the
+    (its debug dump), paired walls, the
     pool against the eager peak and one profiled replay and eager step: the
     TG-2D / TG-3D / Sod drivers' bodies (``cli.step_body``) at the phase-6
     sizes, on K1 (TG-2D in float64 and float32) and on K3 at 8^3; RK4
@@ -208,14 +217,27 @@ Phases, in order; any failure raises and the script exits non-zero:
     float64, 10 steps, and ds RK4 at 32^3 and 64^3, 4 steps; the ensemble
     (E = 256 x 32^3 float64, 2 steps); the decomposed TG-2D step built with
     ``jit=True`` on a 1-rank NCCL mesh; and the TG-2D, TG-3D and Sod drivers'
-    printed lines, graphed against their body run eagerly.
+    printed lines, graphed against their body run eagerly.  The ds RK4 cells
+    also capture the step graph with the ds elementwise chains plain:
+    bitwise equal.
+26. the ds engine's elementwise chains (``csrc/ds_elementwise.cu``, one
+    launch a chain of ``boltzfft_torch/ds.py``): each kernel against its
+    plain chain, bitwise, on the operands of its largest call in one eager
+    default eval at 32^3 and 64^3, read in place (RK's axpy in one RK4
+    step), and in float64 pairs at the same shapes; the chains the eval does
+    not run on operands made from its cmul operands; each kernel's time
+    (events), its plain chain's, its device time per launch (profiler, and
+    replayed from a graph of 20 launches), its bound (bytes over 3.35 TB/s against its float operations over the
+    float32 peak) and its launches per eval, per RK4 step and per RK4 step
+    graph (phase 25's count).
 
 The ds evals of phases 13, 15, 16 and 18 (but the phased route) go through
 ``make_ds_collision_operator``, so they replay CUDA graphs; phase 20's route
 rule and ``selfcheck_ds`` call ``collide_ds`` eagerly.  A
-``[N total]`` line after phases 3-11, 16 and 20-25 gives the seconds since
-the device check.  The last two lines are a JSON summary of the kernels and
-``{"ok": true, "device": {...}}``.
+``[N total]`` line after phases 3-11, 16 and 20-26 gives the seconds since
+the device check. The plain versions of K7-K12 run with the ds chains plain.
+The last two lines are a JSON summary of the kernels and ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -321,6 +343,19 @@ KERNEL_SOURCES = {  # name -> (source, the TPU kernel it replaces)
     "gmain12_nodemat": ("boltzfft_torch/csrc/oz_gmain12.cu", "boltzfft/oz.py:1536"),
     "hadamard_wsum": ("boltzfft_torch/csrc/oz_hadamard.cu", "boltzfft/oz.py:1728"),
 }
+# The ds elementwise chains (csrc/ds_elementwise.cu) stand for no Pallas kernel:
+# each for the loop XLA fuses a chain of the JAX package into under jit, at
+# the chain's JAX line (the ds operator, or the call site of a composition)
+EW_SOURCE = "boltzfft_torch/csrc/ds_elementwise.cu"
+EW_REPLACES = {
+    "add": "boltzfft/ds.py:150", "sub": "boltzfft/ds.py:158", "mul": "boltzfft/ds.py:162",
+    "mul_f": "boltzfft/ds.py:170", "cadd": "boltzfft/ds.py:200", "cmul": "boltzfft/ds.py:204",
+    "cmul_both": "boltzfft/ds.py:215", "cmul_ds": "boltzfft/ds.py:233",
+    "axpy": "boltzfft/timestepper.py:33", "caxpy": "boltzfft/ds_operator.py:1062",
+    "sub_mul": "boltzfft/ds_operator.py:1154", "cadd_signed": "boltzfft/ds_operator.py:417",
+    "add_signed": "boltzfft/ds_operator.py:625",
+}
+KERNEL_SOURCES.update({f"ds_{op}": (EW_SOURCE, line) for op, line in EW_REPLACES.items()})
 
 
 def check(cond: bool, what: str) -> None:
@@ -548,6 +583,8 @@ def reset_counts(ks):
     ks.k8.PHASED_LAUNCHES = 0
     for s in ("ct", "transpose"):
         ks.k24.LAUNCHES[s] = ks.k24.REFERENCE_CALLS[s] = 0
+    for s in ks.ew.OPS:
+        ks.ew.LAUNCHES[s] = ks.ew.REFERENCE_CALLS[s] = 0
 
 
 def counts(ks):
@@ -563,7 +600,9 @@ def counts(ks):
                 k9=ks.k9.LAUNCHES, k9_plain=ks.k9.REFERENCE_CALLS,
                 k10=ks.k10.LAUNCHES, k10_plain=ks.k10.REFERENCE_CALLS,
                 k11=ks.k11.LAUNCHES, k11_plain=ks.k11.REFERENCE_CALLS,
-                k12=ks.k12.LAUNCHES, k12_plain=ks.k12.REFERENCE_CALLS)
+                k12=ks.k12.LAUNCHES, k12_plain=ks.k12.REFERENCE_CALLS,
+                ew=sum(ks.ew.LAUNCHES.values()), ew_plain=sum(ks.ew.REFERENCE_CALLS.values()),
+                **{f"ew_{s}": v for s, v in ks.ew.LAUNCHES.items()})
 
 
 def plain_calls(c):
@@ -613,7 +652,7 @@ DS_TRIALS = {32: 5, 64: 3}
 PEAK_BF16 = 989e12  # dense bf16 tensor-core FLOP/s of an H100 SXM at 700 W
 # the ds kernels as the profiler names them (the default route's five first)
 DS_FAMILIES = ("oz_contract_kernel", "gmain3_kernel", "hwh_kernel", "preslice_kernel",
-               "gmain12_kernel", "hadamard_")
+               "gmain12_kernel", "hadamard_", "ds_elementwise_kernel")
 DS_KERNEL_NAMES = {  # kernels-line name -> the profiler's
     "preslice_rows": "preslice_kernel", "oz_contract": "oz_contract_kernel",
     "oz_contract_phased": "oz_contract_kernel", "gmain3_nodemat": "gmain3_kernel",
@@ -659,12 +698,25 @@ def max_diff(a, b):
     return float((a.double() - b.double()).abs().max())
 
 
+def plain(fn):
+    """``fn`` with the ds engine's elementwise chains run plain on the card
+    (``kernels.ds_elementwise.plain_chains``): a kernel's plain version is
+    plain PyTorch throughout."""
+    from boltzfft_torch.kernels import ds_elementwise as ew
+
+    def run():
+        with ew.plain_chains():
+            return fn()
+
+    return run
+
+
 def parity_check(max_err, label, key, fn, ref):
     """The kernel (twice) against its plain version on the same inputs:
     bitwise equal, and bitwise run to run; records max|kernel - plain| under
     ``key``.  Returns the kernel's result."""
     a, b = fn(), fn()
-    r = ref()
+    r = plain(ref)()
     torch.cuda.synchronize()
     err, bit, rerun = max_diff(a, r), same(a, r), same(a, b)
     max_err[key] = max(max_err.get(key, 0.0), err)
@@ -885,7 +937,7 @@ def ds_phases(bt, dev, card, ks, q_c2c, entry, report):
         q = collides[n](fs[n], pres[n])
         torch.cuda.synchronize()
         c = counts(ks)
-        needed = ("k7", "k8", "k12") + (("k9",) if n <= 32 else ("k10",))
+        needed = ("k7", "k8", "k12", "ew") + (("k9",) if n <= 32 else ("k10",))
         check(all(c[k] > 0 for k in needed) and plain_calls(c) == 0
               and all(c[k] == 0 for k in ("k1", "k2", "k3", "k4", "k5", "k6")),
               f"ds main path {n}^3: dispatch {c}")
@@ -898,6 +950,12 @@ def ds_phases(bt, dev, card, ks, q_c2c, entry, report):
         ds_counts[n] = counts(ks)
         check(all(c[k] == 2 * ds_counts[n][k] for k in c),
               f"ds main path {n}^3: first graphed call {c} != 2 x eager {ds_counts[n]}")
+        # the replayed eval against the same eval with every ds chain plain
+        q_plain = plain(lambda: dso.collide_ds(cfgs[n], pres[n], fs[n], contract="oz"))()
+        print(f"[13 ds digits] {n}^3: the replayed eval (fused ds chains, {c['ew'] // 2} launches"
+              f" an eval) bitwise equal to the eager eval with the chains plain"
+              f" {same(q, q_plain)} | {card}")
+        check(same(q, q_plain), f"ds main path {n}^3: fused ds chains != plain chains")
         ds_q[n] = q
     for n in grids:
         g = cfgs[n].velocity_grid
@@ -968,7 +1026,7 @@ def ds_phases(bt, dev, card, ks, q_c2c, entry, report):
         inputs[n]["profile"] = fam
 
     def row(name, key, n, kname, fn, ref, b, lib=None, lib_label="complex128 matmul"):
-        ms, pms = time_ms(fn), time_ms(ref, PLAIN_TRIALS, 1)
+        ms, pms = time_ms(fn), time_ms(plain(ref), PLAIN_TRIALS, 1)
         lms = time_ms(lib) if lib is not None else None
         dms = device_ms(fn, DS_KERNEL_NAMES[kname])
         report(f"{name} kernel", ms, "call", 16)
@@ -1065,6 +1123,7 @@ def ds_phases(bt, dev, card, ks, q_c2c, entry, report):
 # ---- the ds engine's other routes (K8 phased, K10, K11) ---------------------
 ROUTE_TRIALS = {32: 5, 64: 3}  # after 1 warm-up
 RULE_ROUNDS = 6  # paired rounds of the main-block routes' evals (phase 20)
+PHASED_ROUNDS = 4  # paired rounds of the phased eager eval, ds chains fused / plain (phase 20)
 ROUTE_KERNELS = {  # the counts each route's eval must show (and no plain call)
     "full": ("k7", "k8", "k11"),
     "phased": ("k8", "k8p", "k11"),
@@ -1206,6 +1265,13 @@ def ds_route_phases(bt, dev, card, ks, q_c2c, entry, report, st):
                 check(DS_LINF_64[0] <= linf <= DS_LINF_64[1], f"route {name} 64^3 Linf {linf:.5e}")
             again = fn(f, pre)
             check(same(again, q), f"route {name} {n}^3 not reproducible")
+            # the same eval with every ds chain plain (eager)
+            q_plain = plain(lambda: dso.collide_ds(cfg, pre, f, contract="oz",
+                                                   **graphed_kw.get(name, {})))()
+            print(f"  route {name} {n}^3 bitwise equal to its eval with the ds chains plain:"
+                  f" {same(q, q_plain)}")
+            check(same(q, q_plain) and c["ew"] > 0, f"route {name} {n}^3: fused ds chains != plain")
+            del q_plain
             if name == "12":
                 staged = dso.collide_ds(cfg, pre, f, contract="oz", gmain_fused=False)
                 print(f"  route 12 {n}^3 bitwise equal to gmain_fused=False (staged K8):"
@@ -1221,6 +1287,25 @@ def ds_route_phases(bt, dev, card, ks, q_c2c, entry, report, st):
             report(f"ds eval route {name} {n}^3 Ns=12", ms, phase=20)
             fam, wall_us = profile_eval(lambda: fn(f, pre), DS_FAMILIES)
             print_profile(f"ds eval route {name} {n}^3", fam, wall_us, card, 20)
+        # the phased route's eager eval with the ds chains fused and plain
+        fn, pre = routes["phased"]
+        runs = {"fused": lambda: fn(f, pre), "plain": plain(lambda: fn(f, pre))}
+        wall = {k: [] for k in runs}
+        for rnd in range(PHASED_ROUNDS):
+            for k in (list(runs) if rnd % 2 == 0 else list(runs)[::-1]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                runs[k]()
+                torch.cuda.synchronize()
+                wall[k].append((time.perf_counter() - t0) * 1e3)
+        d = [a - b for a, b in zip(wall["fused"], wall["plain"])]
+        print(f"[20 phased] {n}^3 Ns=12 eager phased eval, wall over {PHASED_ROUNDS} paired rounds:"
+              + "; ".join(f" ds chains {k} median {statistics.median(v):.3f} ms (min"
+                          f" {min(v):.3f}, max {max(v):.3f})" for k, v in wall.items())
+              + f"; fused minus plain round by round: median {statistics.median(d):.3f} (min"
+              f" {min(d):.3f}, max {max(d):.3f}) | {card}")
+        fam, wall_us = profile_eval(runs["plain"], DS_FAMILIES)
+        print_profile(f"ds eval route phased {n}^3, ds chains plain", fam, wall_us, card, 20)
         if n == small:
             st["full"] = routes["full"]
         del routes
@@ -1242,7 +1327,7 @@ def ds_route_phases(bt, dev, card, ks, q_c2c, entry, report, st):
 
     # ---- 20. kernel times at the routes' shapes ----------------------------
     def row(name, kname, key, launches, fn, ref, b, lib=None, lib_label="complex128 einsum"):
-        ms, pms = time_ms(fn), time_ms(ref, PLAIN_TRIALS, 1)
+        ms, pms = time_ms(fn), time_ms(plain(ref), PLAIN_TRIALS, 1)
         lms = time_ms(lib) if lib is not None else None
         dms = device_ms(fn, DS_KERNEL_NAMES[kname])
         report(f"{name} kernel", ms, "call", 20)
@@ -1382,13 +1467,16 @@ def ds_graph_phase(bt, dev, card, ks, st):
     its seconds, the launches it counted (an eager warm-up and the capture)
     against an eager eval's, the memory its graph pool holds against the
     eager eval's peak; a replay moves no counter and a second f leaves the
-    first Q intact; paired wall times (host clock to a synchronise), and one
+    first Q intact; the same graph captured with the ds chains plain, bitwise;
+    the graph's kernel nodes (its debug dump) and the host's time in one
+    ``replay()``; paired wall times (host clock to a synchronise), and one
     profiled replay and eager eval (device time, idle share, launches)."""
-    from boltzfft_torch import ds
+    from boltzfft_torch import _graph, ds
     from boltzfft_torch import ds_operator as dso
 
     cfgs, fs, pres = st["cfgs"], st["fs"], st["pres"]
     small, big = DS_GRIDS
+    _graph.DEBUG = True  # the graphs keep their nodes for the count
     cases = ((small, "default", st["collides"][small], {}),
              (big, "default", st["collides"][big], {}),
              (small, "full", st["full"][0], {"g_stream": "full"}))
@@ -1448,10 +1536,31 @@ def ds_graph_phase(bt, dev, card, ks, st):
         print(f"  memory: the graph's pool {pool / 2**20:.1f} MiB reserved (memory_reserved"
               f" across the first graphed call, caches emptied); the eager eval's peak"
               f" {peak / 2**20:.1f} MiB allocated | {card}")
+        # the same eval captured with every ds chain plain: the same bits
+        before = dso.ds_collide_fn(cfg, True, device=dev, **kw)
+        q_before = plain(lambda: before(f, pre_g))()
+        torch.cuda.synchronize()
+        print(f"  the graph captured with the ds chains plain: bitwise equal to eager"
+              f" {same(q_before, q_eager)}")
+        check(same(q_before, q_eager), f"ds graph {n}^3 {route}: plain chains' graph != eager")
+        del before, q_before
+        g = replayed_graph(graphed, pre_g)
+        with tempfile.TemporaryDirectory() as tmp:
+            nd = graph_nodes(g, Path(tmp, "eval.dot"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g.replay()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        kern = sum(v for k, v in nd.items() if k.startswith("kernel: "))
+        print(f"[21 ds graph] {n}^3 {route}: {kern} kernel nodes (debug dump) by family"
+              f" {{{', '.join(f'{k[8:]}: {v}' for k, v in nd.items() if k.startswith('kernel: '))}}},"
+              f" all nodes by type {{{', '.join(f'{k}: {v}' for k, v in nd.items() if ':' not in k)}}};"
+              f" the host's time in one replay() {host_ms:.3f} ms | {card}")
         runs = {"eager": eager, "graph": lambda: graphed(f, pre_g)}
         wall = {k: [] for k in runs}
         for rnd in range(GRAPH_ROUNDS[n]):
-            for k in (("eager", "graph") if rnd % 2 == 0 else ("graph", "eager")):
+            for k in (list(runs) if rnd % 2 == 0 else list(runs)[::-1]):
                 t0 = time.perf_counter()
                 runs[k]()
                 torch.cuda.synchronize()
@@ -1472,6 +1581,152 @@ def ds_graph_phase(bt, dev, card, ks, st):
                   f" {med:.3f} ms, idle share {100 * (1 - busy / med):.1f}% | {card}")
         del q_eager, q_graph, q_replay, runs, pre_g
         torch.cuda.empty_cache()
+    _graph.DEBUG = False
+
+
+# ---- the ds engine's elementwise chains as fused kernels (phase 26) -------------
+# float operations per output element of each chain (a ds add 11, a ds
+# multiply 24: Dekker's two_prod 17, 4 for the cross terms, 3 to renormalise)
+EW_FLOPS = {"add": 11, "sub": 11, "mul": 24, "mul_f": 22, "cadd": 22, "cmul": 118,
+            "cmul_ds": 48, "cmul_both": 140, "axpy": 35, "caxpy": 70, "sub_mul": 35,
+            "cadd_signed": 26, "add_signed": 13}
+
+
+def graph_us(fn, launches=20, trials=5) -> float:
+    """Microseconds per launch of ``fn`` replayed from one CUDA graph of
+    ``launches`` calls, CUDA events around a replay (median of ``trials``):
+    the kernel and the gap between two graph nodes, with no host work in
+    between.  The profiler can miss kernels this short (``device_ms``)."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(trials):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b) * 1e3 / launches)
+    del graph
+    return statistics.median(out)
+
+
+def own_elements(t) -> int:
+    """Elements a tensor holds: its broadcast (stride 0) dims counted once."""
+    return int(np.prod([n for n, st in zip(t.shape, t.stride()) if st != 0] or [1]))
+
+
+def ds_elementwise_phase(bt, dev, card, ks, st, entry, ds_step):
+    """Phase 26: each ds elementwise kernel (``csrc/ds_elementwise.cu``)
+    against its plain chain, bitwise, on the operands of its largest call in
+    one eager default eval at 32^3 and 64^3 (RK's axpy in one RK4 step),
+    read in place, and in float64 pairs at the same shapes (chains the eval
+    does not run: on operands made from the eval's cmul operands); each
+    kernel's time, its plain chain's, its device time per launch
+    (profiler, and replayed from a graph of 20 launches) and its bound;
+    launches per eval and per RK4 step, and per RK4 step graph as phase 25
+    counted them (``ds_step``)."""
+    from boltzfft_torch import ds
+    from boltzfft_torch import ds_operator as dso
+
+    ew = ks.ew
+    cfgs, fs, pres, collides = st["cfgs"], st["fs"], st["pres"], st["collides"]
+    max_err = {}
+    real = {op: getattr(ew, op) for op in ew.OPS}
+    leaves = lambda tree: [x for x in _leaves(tree) if isinstance(x, torch.Tensor)]
+    for n in DS_GRIDS:
+        calls = {}  # chain -> (output elements, args) of its largest call
+
+        def recorder(op):
+            def run(*args):
+                out = real[op](*args)
+                size = leaves(out)[0].numel()
+                if size > calls.get(op, (-1,))[0]:
+                    calls[op] = (size, args)
+                return out
+            return run
+
+        for op in ew.OPS:
+            setattr(ew, op, recorder(op))
+        try:
+            reset_counts(ks)
+            dso.collide_ds(cfgs[n], pres[n], fs[n], contract="oz")
+            torch.cuda.synchronize()
+            c_eval = counts(ks)
+            reset_counts(ks)
+            bt.rk4_step(lambda x: collides[n](x, pres[n]), fs[n], 0.25)  # the evals replay
+            torch.cuda.synchronize()
+            c_step = counts(ks)
+        finally:
+            for op in ew.OPS:
+                setattr(ew, op, real[op])
+        per_eval = {op: c_eval[f"ew_{op}"] for op in ew.OPS if c_eval[f"ew_{op}"]}
+        print(f"[26 ds chains] {n}^3 Ns=12, the card's default eval: fused ds chain launches per"
+              f" eval {per_eval} ({c_eval['ew']} in all, {c_eval['ew_plain']} plain); per RK4 step"
+              f" 4 x those + axpy {c_step['ew_axpy']} | {card}")
+        check(c_eval["ew_plain"] == 0 and c_step["ew_axpy"] == 7, f"ds chains {n}^3: counts")
+        x, y = calls["cmul"][1]
+        pat = calls["cadd_signed"][1][2]
+        made = {"add": (x.re, y.re), "sub": (x.re, y.im), "mul": (x.re, y.im),
+                "mul_f": (x.re, y.re.hi), "cadd": (x, y), "cmul_both": (x, y),
+                "cmul_ds": (x, y.re), "axpy": (x.re, y.re, x.im), "caxpy": (x, y, x.re),
+                "sub_mul": (x.im, y.re, x.re), "add_signed": (x.re, y.re, pat)}
+        gen = torch.Generator(device=dev).manual_seed(n)
+
+        def as_f64(args, signed):
+            """The operands as float64 pairs, perturbed; a sign pattern kept."""
+            def one(a):
+                a = a.double()
+                return a + a.abs() * 1e-9 * torch.randn(a.shape, generator=gen, device=dev,
+                                                         dtype=torch.float64)
+            return ds.tree_map(one, args[:-1]) + args[-1:] if signed else ds.tree_map(one, args)
+
+        for op in ew.OPS:
+            on_path = op in calls
+            args = calls[op][1] if on_path else made[op]
+            shape = tuple(leaves(getattr(ew, op)(*args))[0].shape)
+            kernel = lambda a=args, o=op: getattr(ew, o)(*a)
+            label = f"{op} {n}^3 {'eval' if on_path else 'made'} operands {shape}"
+            parity_check(max_err, f"ds chain {label}, float32 pairs", (op, n), kernel, kernel)
+            a64 = as_f64(args, op.endswith("_signed"))
+            k64 = lambda a=a64, o=op: getattr(ew, o)(*a)
+            parity_check(max_err, f"ds chain {label}, float64 pairs", (op, n, "f64"), k64, k64)
+            if not on_path:
+                continue
+            ins = leaves(args)
+            out_n = int(np.prod(shape))
+            nbytes = sum(own_elements(t) * t.element_size() for t in ins) \
+                + ew.OPS[op][2] * out_n * 4
+            b = bound(EW_FLOPS[op] * out_n, nbytes, "float32")
+            ms, pms = time_ms(kernel), time_ms(plain(kernel), PLAIN_TRIALS, 1)
+            dms = device_ms(kernel, "ds_elementwise_kernel")
+            gus = graph_us(kernel)
+            launches = c_step["ew_axpy"] if op == "axpy" else c_eval[f"ew_{op}"]
+            dev_txt = ("not measured" if dms is None else
+                       f"{1e3 * dms:.2f} us = {dms / b[0]:.1f}x the bound")
+            dev_txt += (f"; replayed from a graph of 20 launches {gus:.2f} us a launch"
+                        f" = {gus / (1e3 * b[0]):.1f}x the bound")
+            print(f"[26 time] ds_{op}[{n}^3,{shape}]: kernel median {statistics.median(ms):.4f} ms"
+                  f" (events, the wrapper's host time included), plain chain median"
+                  f" {statistics.median(pms):.4f} ms; device time per launch (profiler) {dev_txt};"
+                  f" bound {1e3 * b[0]:.2f} us ({b[1]}: {nbytes / 1e6:.3f} MB,"
+                  f" {EW_FLOPS[op] * out_n / 1e6:.2f} MFLOP); launches per"
+                  f" {'RK4 step' if op == 'axpy' else 'eval'} {launches}, per RK4 step graph"
+                  f" {ds_step[n][f'ew_{op}']} | {card}")
+            entry(f"ds_{op}[{n}^3,{'x'.join(map(str, shape))}]", f"ds_{op}", "float32", launches,
+                  0, max(max_err[(op, n)], max_err[(op, n, "f64")]), ms, pms, b[0], b[1], None,
+                  dms, graph_us=gus, per_step_graph=ds_step[n][f"ew_{op}"])
+        del calls, made, x, y, pat
 
 
 # ---- every route of make_collision_operator replayed from one CUDA graph (phase 22) ----
@@ -1694,6 +1949,8 @@ def two_rank_main(rank: int, store: str, out: str) -> int:
     q = sharded(f, pre)
     torch.cuda.synchronize()
     row = {"counts": counts(ks), "groups": pre.gain_w.hi.shape[0], "hash": q_hash(q)}
+    q_plain = plain(lambda: sharded(f, pre))()  # every ds chain plain, the fold's too
+    row["plain_equal"] = same(q, q_plain)
     dist.barrier()
     row["ms"] = paired_walls({"sharded": lambda: sharded(f, pre)})["sharded"]
     if rank == 0:
@@ -1722,6 +1979,7 @@ def kernel_modules():
     from types import SimpleNamespace
 
     from boltzfft_torch.kernels import alpha_multiply as k6
+    from boltzfft_torch.kernels import ds_elementwise as ew
     from boltzfft_torch.kernels import fused_collide as k1
     from boltzfft_torch.kernels import fused_gain as k3
     from boltzfft_torch.kernels import fused_gain_dft as k24
@@ -1734,7 +1992,7 @@ def kernel_modules():
     from boltzfft_torch.kernels import oz_preslice as k7
 
     return SimpleNamespace(k1=k1, k3=k3, k24=k24, k5=k5, k6=k6, k7=k7, k8=k8, k9=k9, k10=k10,
-                           k11=k11, k12=k12)
+                           k11=k11, k12=k12, ew=ew)
 
 
 def sharded_phase(bt, dev, card, ks):
@@ -1888,16 +2146,18 @@ def sharded_phase(bt, dev, card, ks):
               f" ms | {card}")
         print(f"  {a['bkw']}")
     a, b = r0["ds"], r1["ds"]
-    needed = ("k7", "k8", "k9", "k12")
+    needed = ("k7", "k8", "k9", "k12", "ew", "ew_cadd")
     check(a["hash"] == b["hash"], "two ranks ds: the ranks' Q differ")
     check(a["err"] <= 1e-12, f"two ranks ds: {a['err']:.3e} max|Q| from the unsharded eval")
+    check(a["plain_equal"] and b["plain_equal"], "two ranks ds: fused ds chains != plain chains")
     check(all(all(x["counts"][k] > 0 for k in needed) and plain_calls(x["counts"]) == 0
               for x in (a, b)), f"two ranks ds: launches {a['counts']} {b['counts']}")
     print(f"[23 two ranks] ds 32^3 (card defaults), 2 radial shards ({a['groups']} groups):"
           f" launches per rank {{{', '.join(f'{k}: {a['counts'][k]}' for k in needed)}}};"
           f" vs the unsharded ds eval {a['err']:.3e} max|Q| (tol 1e-12); eager walls rank 0"
-          f" {a['ms']:.3f} ms, rank 1 {b['ms']:.3f} ms, unsharded {a['unsharded_ms']:.3f} ms |"
-          f" {card}")
+          f" {a['ms']:.3f} ms, rank 1 {b['ms']:.3f} ms, unsharded {a['unsharded_ms']:.3f} ms;"
+          f" each rank's Q bitwise equal to its eval with the ds chains plain (the cross-rank"
+          f" fold's ds.cadd too) {a['plain_equal']}, {b['plain_equal']} | {card}")
     print(f"  {a['digits']}")
     dist.destroy_process_group()
 
@@ -2217,7 +2477,7 @@ NODE_TYPES = ("KERNEL", "MEMCPY", "MEMSET", "HOST", "GRAPH", "EMPTY", "WAIT_EVEN
               "BATCH_MEM_OP", "CONDITIONAL")  # cudaGraphNodeType's order
 STEP_FAMILIES = ("line_dft_kernel", "plane_dft_kernel", "kron_gemm_kernel", "alpha_multiply",
                  "gain_reduce", "oz_contract", "gmain", "hwh_kernel", "hadamard_", "preslice",
-                 "fft", "nccl")
+                 "ds_elementwise", "fft", "nccl")
 
 
 def graph_nodes(graph, path: Path) -> dict:
@@ -2241,6 +2501,16 @@ def graph_nodes(graph, path: Path) -> dict:
     return dict(out)
 
 
+def replayed_graph(op, pre):
+    """The CUDA graph an operator built with ``jit=True`` replays for
+    ``pre`` (its last capture)."""
+    from boltzfft_torch._graph import Replayed
+
+    (rep,) = [c.cell_contents for c in op.__closure__ or ()
+              if isinstance(c.cell_contents, Replayed)]
+    return [e for e in rep._graphs.values() if e.pre is pre][-1].graph
+
+
 def inner_graphs(op) -> int:
     """Graphs held by the Replayed units in an operator's closure."""
     from boltzfft_torch._graph import Replayed
@@ -2262,7 +2532,7 @@ def tree_clone(tree):
 
 class StepCell(collections.namedtuple(
         "StepCell", "name steps unit pre graphed eager eager_op eager_step kernels families gate ops"
-        " apart", defaults=(None,))):
+        " apart plain", defaults=(None, None))):
     """A phase-25 cell: ``unit`` the Replayed step; ``graphed()``,
     ``eager()`` (the operator eager too) and ``eager_op()`` (the step eager
     around the graphed operator, the path before the step was graphed)
@@ -2273,7 +2543,9 @@ class StepCell(collections.namedtuple(
     set, is the graphed operator of ``eager_op`` whose pool does not fit
     beside the step graph's (the ensemble): ``eager_op`` is timed in rounds
     of its own before the step graph is built, and that operator's graph
-    freed."""
+    freed.  ``plain``, where set (the ds cells), is the run of a second
+    step graph, captured on its first run with the ds engine's elementwise
+    chains plain: it must give the same bits."""
 
 
 def relax_cell(bt, name, ops, pre, f0, dt, steps, record, kernels, families, gate):
@@ -2419,6 +2691,10 @@ def run_step_cell(cell, ks, card):
     runs = {"graph": cell.graphed}
     if not cell.apart:
         runs["eager, operator graphed"] = cell.eager_op
+    if cell.plain:  # the step graph with the ds chains plain, captured now
+        ok_p = same(plain(cell.plain)(), first)
+        print(f"  the step graph captured with the ds chains plain: bitwise equal {ok_p}")
+        check(ok_p, f"step graph {cell.name}: fused ds chains != plain chains")
     wall = {k: [] for k in runs}
     for rnd in range(STEP_ROUNDS):
         for k in (list(runs) if rnd % 2 == 0 else list(runs)[::-1]):
@@ -2441,16 +2717,15 @@ def run_step_cell(cell, ks, card):
     print(f"  the step graph's pool, MiB: {segments} | {card}")
     med["eager"] = eager_ms
     f_last = first[0]
-    for what, prof, key in (
-            ("one replayed step", profile_eval(lambda: cell.unit(f_last, cell.pre), cell.families),
-             "graph"),
-            ("one eager step", prof_eager, "eager")):
+    profs = [("one replayed step", profile_eval(lambda: cell.unit(f_last, cell.pre), cell.families),
+              "graph"), ("one eager step", prof_eager, "eager")]
+    for what, prof, key in profs:
         fam, wall_us = prof
         print_profile(f"{cell.name}, {what}", fam, wall_us, card, 25)
         busy = sum(v[0] for v in fam.values()) / 1e3
         print(f"  device time against the unprofiled wall per step ({key}): {busy:.4f} of"
               f" {med[key]:.4f} ms, idle share {100 * (1 - busy / med[key]):.1f}% | {card}")
-    return med
+    return med, {k: v // 2 for k, v in c_cap.items()}
 
 
 def step_graph_phase(bt, dev, card, ks):
@@ -2469,7 +2744,10 @@ def step_graph_phase(bt, dev, card, ks):
     the card defaults (4 steps), the ensemble (E = 256 x 32^3 f64, 2 steps),
     and the decomposed TG-2D step on a 1-rank NCCL mesh built with
     ``jit=True``; first, the TG-2D, TG-3D and Sod drivers' printed lines,
-    graphed against their body run eagerly."""
+    graphed against their body run eagerly.  The ds cells' step graphs are
+    also captured with the ds chains plain, bitwise.  Returns the ds RK4
+    cells' launches per step graph (half the first graphed run's count:
+    the warm-up and the capture), ``{grid: counts}``."""
     import gc
 
     import torch.distributed as dist
@@ -2604,9 +2882,12 @@ def step_graph_phase(bt, dev, card, ks):
         ops = [op] + [ds_collide_fn(cfg, jit, device=dev) for jit in (True, False)]
         f0 = ds.from_f64(bt.bkw_f(cfg.velocity_grid.r_squared(), 5.5), torch.float32, dev)
         name = f"ds RK4 {n}^3 Ns=12 (card defaults)"
-        return relax_cell(bt, name, ops, pre, f0, 0.25, 4, None,
-                          ("k7", "k8", "k9" if n == 32 else "k10", "k12"), DS_FAMILIES,
+        cell = relax_cell(bt, name, ops, pre, f0, 0.25, 4, None,
+                          ("k7", "k8", "k9" if n == 32 else "k10", "k12", "ew_axpy"), DS_FAMILIES,
                           relax_gate(name, cfg, f0, 5.5 + 4 * 0.25))
+        run_p = bt.make_relaxation(ds_collide_fn(cfg, True, device=dev), pre, dt=0.25, n_steps=4,
+                                   method="rk4", jit=True)
+        return cell._replace(plain=lambda: tuple(run_p(f0)))
 
     def ensemble():
         mesh = bt.make_mesh([(bt.ENSEMBLE_AXIS, 1)], device=dev)
@@ -2649,19 +2930,21 @@ def step_graph_phase(bt, dev, card, ks):
         body = lambda f, p: (lambda x: (x, diag(x)))(unit(f, p))
         return cell._replace(unit=unit, graphed=lambda: march(body, f0, pre, 10))
 
-    meds = {}
+    ds_step = {}  # the ds RK4 cells' launches per step graph, by grid
     for build in (partial(tg2d, "float64"), partial(tg2d, "float64", kron=True),
                   partial(tg2d, "float32"), tg3d, sod, partial(bkw_relax, 32),
                   partial(bkw_relax, 64), partial(ds_relax, 32), partial(ds_relax, 64),
                   ensemble, sharded_tg2d):
         cell = build()
-        meds[cell.name] = run_step_cell(cell, ks, card)
+        _, per_graph = run_step_cell(cell, ks, card)
+        if getattr(build, "func", None) is ds_relax:
+            ds_step[build.args[0]] = per_graph
         del cell  # its graphs and pools go before the next cell's
         gc.collect()
         torch.cuda.empty_cache()
     dist.destroy_process_group()
     _graph.DEBUG = False
-    return meds
+    return ds_step
 
 
 def main() -> int:
@@ -2677,8 +2960,6 @@ def main() -> int:
     def lap(phase):
         print(f"[{phase} total] {time.perf_counter() - t_start:.1f} s after the device check")
 
-    from types import SimpleNamespace
-
     import boltzfft_torch as bt
     from boltzfft_torch import _build, health
     from boltzfft_torch import operator as op
@@ -2686,20 +2967,9 @@ def main() -> int:
     from boltzfft_torch.cli import fft_benchmark, loop_benchmark, maxwell_bkw
     from boltzfft_torch.cli.taylor_green_2d3v import taylor_green_f0
     from boltzfft_torch.cli.taylor_green_3d3v import taylor_green_f0_3d
-    from boltzfft_torch.kernels import alpha_multiply as k6
-    from boltzfft_torch.kernels import fused_collide as k1
-    from boltzfft_torch.kernels import fused_gain as k3
-    from boltzfft_torch.kernels import fused_gain_dft as k24
-    from boltzfft_torch.kernels import gain_reduce as k5
-    from boltzfft_torch.kernels import oz_contract as k8
-    from boltzfft_torch.kernels import oz_gmain as k9
-    from boltzfft_torch.kernels import oz_gmain12 as k10
-    from boltzfft_torch.kernels import oz_hadamard as k12
-    from boltzfft_torch.kernels import oz_hadamard_full as k11
-    from boltzfft_torch.kernels import oz_preslice as k7
 
-    ks = SimpleNamespace(k1=k1, k3=k3, k24=k24, k5=k5, k6=k6, k7=k7, k8=k8, k9=k9, k10=k10,
-                         k11=k11, k12=k12)
+    ks = kernel_modules()
+    k1, k3, k24, k5, k6 = ks.k1, ks.k3, ks.k24, ks.k5, ks.k6
 
     # ---- 2. build ------------------------------------------------------
     t0 = time.perf_counter()
@@ -3452,8 +3722,10 @@ def main() -> int:
     lap(23)
     tooling_phase(bt, dev, card, ks, replay_device)
     lap(24)
-    step_graph_phase(bt, dev, card, ks)
+    ds_step = step_graph_phase(bt, dev, card, ks)
     lap(25)
+    ds_elementwise_phase(bt, dev, card, ks, st, entry, ds_step)
+    lap(26)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -236,7 +236,8 @@ def test_entry_argtypes_match_the_sources():
         if name in entries:  # the f32/f64 pairs come from macros, not read here
             assert entries[name] == argtypes, name
     assert {"bfft_oz_contract", "bfft_oz_gmain12", "bfft_oz_gmain12_plan",
-            "bfft_oz_hadamard"} <= set(entries)
+            "bfft_oz_hadamard", "bfft_ds_elementwise"} <= set(entries)
+    assert set(_build._ENTRY_ARGS_F32) <= set(entries)
 
 
 def _k11_layouts(name):
