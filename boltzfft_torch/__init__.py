@@ -7,7 +7,8 @@ double-single engine), the RK relaxation loop, the spatially inhomogeneous solve
 around it, their sharding over several devices (one ``torch.distributed``
 rank each), and the tooling around them: the autotuners (``autotune``,
 ``autotune_ds``), the tables' archives (``save_precomp``, ``load_precomp``),
-``trace`` and the examples (``boltzfft_torch.examples``).
+``trace``, the spans and counters of ``obs``, and the examples
+(``boltzfft_torch.examples``).
 
 The PyTorch counterpart of ``boltzfft`` (JAX), which stays the reference.
 Imports torch and NumPy only, never jax::
@@ -22,7 +23,7 @@ Imports torch and NumPy only, never jax::
 ``device="cpu"`` runs the plain PyTorch versions; ``jit=False`` runs eagerly.
 """
 
-from . import ds, transport
+from . import ds, obs, transport
 from .bkw import bkw_dfdt, bkw_f, bkw_k, maxwellian
 from .cache import load_precomp, save_precomp
 from .checkpoint import RelaxCheckpointer

@@ -29,6 +29,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+from . import obs
+
 _PKG_DIR = Path(__file__).resolve().parent
 _SRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "boltzfft_torch"
@@ -70,8 +72,14 @@ _ENTRY_ARGS = {
     "bfft_gain_reduce": [_P] * 4 + [_P] * 2 + [_I] * 4 + [_D] * 3 + [_P],
 }
 #: argtypes of the entry points without an f32/f64 pair (the ds engine's,
-#: and K1's plan).
+#: K1's plan, and obs's marks and node counts).
 _ENTRY_ARGS_F32 = {
+    # the ring, its head, its size, the span code and the stream: obs's mark
+    "bfft_obs_mark": [_P, _P, _I, _I, _P],
+    # a cudaGraph_t and the int64 output
+    "bfft_graph_nodes": [_P, _P],
+    # the capturing stream and the int64 output
+    "bfft_capture_nodes": [_P, _P],
     # B, M, node_block and the 3-int output: K5's plan
     "bfft_gain_reduce_plan": [_I] * 3 + [_P],
     # Nx, Ny, Nz, is_f64 and the 3-int output: K1's shared-memory plan
@@ -132,11 +140,16 @@ def _nvcc() -> str:
     )
 
 
+def _current(digest: str) -> bool:
+    return LIB_PATH.exists() and _HASH_PATH.exists() and _HASH_PATH.read_text() == digest
+
+
 def build() -> Path:
     """Compile the kernels if the library is missing or out of date."""
     digest = _digest()
-    if LIB_PATH.exists() and _HASH_PATH.exists() and _HASH_PATH.read_text() == digest:
+    if _current(digest):
         return LIB_PATH
+    obs.count("library", "builds")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     pid = os.getpid()
@@ -252,7 +265,9 @@ def load_library() -> ctypes.CDLL:
     """The built kernel library with its entry points' signatures set."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        with obs.span("library", built=not _current(_digest())):
+            lib = ctypes.CDLL(str(build()))
+        obs.count("library", "loads")
         for stem, argtypes in _ENTRY_ARGS.items():
             for suffix in ("_f32", "_f64"):
                 fn = getattr(lib, stem + suffix)

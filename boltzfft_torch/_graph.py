@@ -33,6 +33,16 @@ bits are the same.
 A capture that fails raises, with the cause: there is no eager fallback.
 The kernel wrappers' launch counters count Python calls, so a replay moves
 none of them; the warm-up and the capture each count once.
+
+Each unit has a name (``relaxation.step``, ``step_body``,
+``sharded_step_2d``, ``collide``, ``collide_ds``, ...), under which
+:mod:`boltzfft_torch.obs` counts its captures, evictions and graph nodes,
+and, while obs is on, keeps its spans: ``replay`` (``replay.copy_in``,
+``replay.launch``, ``replay.clone_out``), ``capture`` (``capture.warmup``,
+``capture.graph``) and the device span ``step`` around the captured ``fn``
+(its graph's first and last nodes).  A capture made with obs on keeps its
+``cudaGraph_t`` (``CUDAGraph(keep_graph=True)``), so ``debug_dump`` and
+``raw_cuda_graph`` can read its nodes; off, it is freed once built.
 """
 
 from __future__ import annotations
@@ -42,6 +52,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from . import obs
 from .ds import tree_map
 
 #: Graphs a :class:`Replayed` keeps alive, the least recently used going first.
@@ -51,16 +62,12 @@ KEEP = 2
 _held: list | None = None
 # warm-ups and captures under way (a Replayed called inside one runs eagerly)
 _depth = 0
-#: Captures keep their ``cudaGraph_t`` beside the executable graph
-#: (``CUDAGraph(keep_graph=True)``), so ``debug_dump`` and
-#: ``raw_cuda_graph`` can read its nodes; off, it is freed once built.
-DEBUG = False
 
 
-def jit(fn: Callable, device) -> Callable:
-    """``fn(x, pre)`` as ``jax.jit`` makes it: a :class:`Replayed` on a CUDA
-    ``device``, ``fn`` itself elsewhere."""
-    return Replayed(fn) if torch.device(device).type == "cuda" else fn
+def jit(fn: Callable, device, name: str | None = None) -> Callable:
+    """``fn(x, pre)`` as ``jax.jit`` makes it: a :class:`Replayed` (named
+    ``name``) on a CUDA ``device``, ``fn`` itself elsewhere."""
+    return Replayed(fn, name) if torch.device(device).type == "cuda" else fn
 
 
 def hold(obj):
@@ -86,46 +93,80 @@ class _Captured(NamedTuple):
 
 class Replayed:
     """``fn(x, pre)`` replayed from a CUDA graph per (``pre``, ``x``'s
-    shapes, dtypes and device); at most :data:`KEEP` graphs stay alive."""
+    shapes, dtypes and device); at most :data:`KEEP` graphs stay alive.
+    ``name`` (``fn``'s own by default) names the unit in :mod:`obs`."""
 
-    def __init__(self, fn: Callable):
+    def __init__(self, fn: Callable, name: str | None = None):
         self.fn = fn
+        self.name = name or getattr(fn, "__name__", "fn")
         self._graphs: OrderedDict = OrderedDict()
 
     def __call__(self, x, pre):
         if _depth:  # inside an outer unit's warm-up or capture: its graph takes our kernels
             return self.fn(x, pre)
+        if obs.on:
+            return self._observed(x, pre)
         leaves = _leaves(x)
+        entry = self._entry(leaves, x, pre)
+        for dst, src in zip(_leaves(entry.x), leaves):
+            dst.copy_(src)
+        entry.graph.replay()
+        return tree_map(torch.clone, entry.out)
+
+    def _observed(self, x, pre):
+        """``__call__`` with its spans (obs on)."""
+        with obs.unit(self.name):
+            leaves = _leaves(x)
+            entry = self._entry(leaves, x, pre)
+            with obs.span("replay"):
+                with obs.span("replay.copy_in"):
+                    for dst, src in zip(_leaves(entry.x), leaves):
+                        dst.copy_(src)
+                with obs.span("replay.launch"):
+                    entry.graph.replay()
+                with obs.span("replay.clone_out"):
+                    return tree_map(torch.clone, entry.out)
+
+    def _entry(self, leaves, x, pre) -> _Captured:
         key = (id(pre),) + tuple((t.shape, t.dtype, t.device) for t in leaves)
         entry = self._graphs.get(key)
         if entry is None or entry.pre is not pre:
             entry = self._graphs[key] = self._capture(x, pre, leaves[0].device)
             while len(self._graphs) > KEEP:
                 self._graphs.popitem(last=False)
+                obs.count("evictions", self.name)
         self._graphs.move_to_end(key)
-        for dst, src in zip(_leaves(entry.x), leaves):
-            dst.copy_(src)
-        entry.graph.replay()
-        return tree_map(torch.clone, entry.out)
+        return entry
+
+    def _step(self, x, pre, like):
+        with obs.span("step", like=like):
+            return self.fn(x, pre)
 
     def _capture(self, x, pre, dev: torch.device) -> _Captured:
         global _held, _depth
         static = tree_map(torch.clone, x)
+        observed = obs.on
+        like = _leaves(static)[0]
         _depth += 1
         try:
-            with torch.cuda.device(dev):
+            with torch.cuda.device(dev), obs.span("capture"):
+                if observed:
+                    obs.prepare(dev)
                 side = torch.cuda.Stream()
                 side.wait_stream(torch.cuda.current_stream())
-                with torch.cuda.stream(side):
-                    self.fn(static, pre)  # warm-up, outside capture
+                with torch.cuda.stream(side), obs.span("capture.warmup"):
+                    self._step(static, pre, like)  # warm-up, outside capture
                 torch.cuda.current_stream().wait_stream(side)
-                graph = torch.cuda.CUDAGraph(keep_graph=DEBUG)
+                obs.capture_nodes(dev)  # the library's runtime starts outside the capture
+                graph = torch.cuda.CUDAGraph(keep_graph=observed)
                 _held = held = []
                 try:
-                    with torch.cuda.graph(graph):
-                        out = self.fn(static, pre)
-                    if DEBUG:
-                        graph.instantiate()
+                    with obs.span("capture.graph"):
+                        with torch.cuda.graph(graph):
+                            out = self._step(static, pre, like)
+                            nodes = obs.capture_nodes(dev)
+                        if observed:
+                            graph.instantiate()
                 except RuntimeError as err:
                     raise RuntimeError(f"capturing {getattr(self.fn, '__name__', 'fn')} into a"
                                        f" CUDA graph failed: {err}") from err
@@ -133,4 +174,7 @@ class Replayed:
                     _held = None
         finally:
             _depth -= 1
+        obs.count("captures", self.name)
+        if nodes is not None:
+            obs.note("graph_nodes", self.name, nodes)
         return _Captured(pre, graph, static, out, held)

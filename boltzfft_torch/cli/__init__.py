@@ -196,7 +196,7 @@ def step_body(step, diagnostics, device):
         f = step(f, pre)
         return f, diagnostics(f)
 
-    return _graph.jit(body, device)
+    return _graph.jit(body, device, "step_body")
 
 
 def march(body, f, pre, steps: int):

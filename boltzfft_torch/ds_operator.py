@@ -43,6 +43,7 @@ import torch
 
 from . import ds
 from . import modes as _modes
+from . import obs
 from . import oz
 from . import quadrature as _quad
 from . import weights as _weights
@@ -828,9 +829,12 @@ def ds_collide_fn(
         oz_cmax=oz_cmax, g_stream=g_stream, group_batch=group_batch, oz_merge=oz_merge,
         gmain_fused=gmain_fused, g1_reversal=g1_reversal,
     )
-    run = lambda f, precomp: fn(precomp, f)
+    def run(f, precomp):
+        with obs.span("collide", like=f.hi):
+            return fn(precomp, f)
+
     if jit and device.type == "cuda":
-        run = Replayed(run)
+        run = Replayed(run, "collide_ds")
 
     def collide_fn(f, precomp):
         if not isinstance(f, DS):
@@ -956,14 +960,16 @@ def make_sharded_ds_collision_operator(
     )
 
     def body(f, p):
-        if ensemble_axis is None:
-            return one(p, f)
-        qs = [one(p, tree_map(lambda a, i=i: a[i], f)) for i in range(f.hi.shape[0])]
-        return tree_map(lambda *a: torch.stack(a), *qs)
+        with obs.span("collide", like=f.hi):
+            if ensemble_axis is None:
+                return one(p, f)
+            qs = [one(p, tree_map(lambda a, i=i: a[i], f)) for i in range(f.hi.shape[0])]
+            return tree_map(lambda *a: torch.stack(a), *qs)
 
     run = body
     if jit and device.type == "cuda":
-        run = _sh._replay(body, [group], "make_sharded_ds_collision_operator")
+        run = _sh._replay(body, [group], "make_sharded_ds_collision_operator",
+                          "sharded_collide_ds")
     shards = {}  # id of a padded global precomp -> (it, this rank's shard)
 
     def local(p):

@@ -33,6 +33,8 @@ import math
 
 import torch
 
+from .. import obs
+
 #: Launches of the CUDA kernel (one per :func:`fused_collide` call on CUDA).
 LAUNCHES = 0
 #: Calls of the plain PyTorch version.
@@ -322,6 +324,8 @@ def _fused_collide_cuda(
     csize = 16 if rd == torch.float64 else 8
     if chunk is None:
         chunk = _chunk_nodes(n_nodes, radial_group, n_batch, n3, csize, dev)
+    obs.note("k1_plan", f"{n_batch}x{nx}x{ny}x{nz}",
+             {"nodes_per_chunk": chunk, "chunks_per_eval": -(-n_nodes // chunk)})
     # the two node-stream buffers first: the caching allocator then puts the
     # small ones in free small blocks, never a piece of a freed stream
     # buffer, which would make the next call's second stream buffer a new

@@ -47,7 +47,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from . import _graph
+from . import _graph, obs
 from .kernels import alpha_multiply as _k6
 from .kernels import fused_collide as _k1
 from .kernels import fused_gain as _k3
@@ -377,13 +377,15 @@ def make_collision_operator(
         raise RuntimeError("device='cuda' requested but torch.cuda.is_available() is False")
     if cfg.impl == "fused" and device.type == "cuda":
         _k1.check_grid(cfg.grid_shape, cfg.real_dtype)
-    pre = build_precomp(cfg, device)
+    with obs.span("precomp"):
+        pre = build_precomp(cfg, device)
 
     def collide_fn(f, precomp):
-        return collide(cfg, precomp, f)
+        with obs.span("collide", like=f):
+            return collide(cfg, precomp, f)
 
     if jit and device.type == "cuda":
-        replayed = _graph.Replayed(collide_fn)
+        replayed = _graph.Replayed(collide_fn, "collide")
 
         def collide_fn(f, precomp):  # noqa: F811
             if torch.is_grad_enabled() and f.requires_grad:

@@ -34,7 +34,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
-from . import _graph
+from . import _graph, obs
 from .kernels import fused_collide as _k1
 from .operator import collide
 from .weights import CollisionConfig, Precomp, build_precomp, repad_nodes
@@ -193,17 +193,17 @@ def _all_reduce(group):
     return reduce
 
 
-def _replay(fn: Callable, groups, what: str) -> Callable:
-    """``fn(f, pre)`` replayed from a CUDA graph: where the process
-    ``groups`` it communicates over (None entries: no traffic) are all
-    NCCL's (the capture takes their collectives too).  A gloo collective
-    cannot be captured, so that raises."""
+def _replay(fn: Callable, groups, what: str, name: str) -> Callable:
+    """``fn(f, pre)`` replayed from a CUDA graph (the unit ``name``): where
+    the process ``groups`` it communicates over (None entries: no traffic)
+    are all NCCL's (the capture takes their collectives too).  A gloo
+    collective cannot be captured, so that raises."""
     for group in groups:
         if group is not None and dist.get_backend(group) != "nccl":
             raise ValueError(
                 f"{what}(jit=True) replays a CUDA graph, which cannot capture the "
                 f"{dist.get_backend(group)} collective of this mesh; pass jit=False")
-    return _graph.Replayed(fn)
+    return _graph.Replayed(fn, name)
 
 
 def local_precomp(pre: Precomp, mesh: DeviceMesh, node_axis: Optional[str],
@@ -266,11 +266,12 @@ def make_sharded_collision_operator(
             raise ValueError(
                 f"an ensemble-sharded operator takes this rank's block (E, Nx, Ny, Nz), "
                 f"got {tuple(f.shape)}")
-        return collide(cfg, p, f, gain_reduce=hook)
+        with obs.span("collide", like=f):
+            return collide(cfg, p, f, gain_reduce=hook)
 
     run = body
     if jit and device.type == "cuda":
-        run = _replay(body, [group], "make_sharded_collision_operator")
+        run = _replay(body, [group], "make_sharded_collision_operator", "sharded_collide")
 
     def collide_fn(f, precomp):
         if run is not body and torch.is_grad_enabled() and f.requires_grad:

@@ -164,7 +164,7 @@ def make_relaxation(
         f = stepper(lambda x: collide_fn(x, p), f, dt, c)
         return f, (record(f) if record is not None else None)
 
-    replayed = _graph.Replayed(body) if jit else None
+    replayed = _graph.Replayed(body, "relaxation.step") if jit else None
 
     def run(f0):
         lead = f0.hi if isinstance(f0, _ds.DS) else f0

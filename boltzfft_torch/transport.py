@@ -26,8 +26,12 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from . import obs
 from .bkw import maxwellian
 from .weights import CollisionConfig, Precomp
+
+#: The cell axes' names in spans (``advect.x``, ``halo.y``).
+AXES = "xyz"
 
 
 def _advect_upwind_axis(f, v, dx, dt, axis):
@@ -122,7 +126,8 @@ def _make_step_nd(
     ``halos``: per cell axis, ``None`` (the axis is whole and periodic) or
     ``halo(f, axis, width)``, which returns ``f`` extended by ``width``
     cells on each side along ``axis``; the stencil then runs on the
-    extended block and keeps its interior, the same arithmetic per cell."""
+    extended block and keeps its interior, the same arithmetic per cell.
+    Each advection is the :mod:`obs` span ``advect.<axis>``."""
     if scheme not in _AXIS_SCHEMES:
         raise ValueError(
             f"scheme must be one of {sorted(_AXIS_SCHEMES)}, got {scheme!r}"
@@ -133,10 +138,11 @@ def _make_step_nd(
     halos = halos or (None,) * ndim
 
     def advect(f, v, d, dtt, axis):
-        if halos[axis] is None:
-            return scheme_advect(f, v, d, dtt, axis)
-        ext = halos[axis](f, axis, halo_w)
-        return scheme_advect(ext, v, d, dtt, axis).narrow(axis, halo_w, f.shape[axis])
+        with obs.span(f"advect.{AXES[axis]}", like=f):
+            if halos[axis] is None:
+                return scheme_advect(f, v, d, dtt, axis)
+            ext = halos[axis](f, axis, halo_w)
+            return scheme_advect(ext, v, d, dtt, axis).narrow(axis, halo_w, f.shape[axis])
 
     g = cfg.velocity_grid
     coords = (g.vx, g.vy, g.vz)[:ndim]
@@ -238,33 +244,35 @@ def _halo_exchange(f: torch.Tensor, axis: int, width: int, mesh, axis_name: str)
     left halo, and its leading cells to its left neighbour; a dim of one
     rank copies its own edges (a rank cannot send to itself).  A gloo group
     moves a card's cells through host copies (gloo sends no CUDA tensor
-    point to point)."""
+    point to point).  The whole exchange is the :mod:`obs` span
+    ``halo.<axis>``."""
     from .sharding import axis_index, axis_size
 
-    n = axis_size(mesh, axis_name)
-    m = f.shape[axis]
-    lo = f.narrow(axis, 0, width).contiguous()
-    hi = f.narrow(axis, m - width, width).contiguous()
-    if n == 1:
-        left, right = hi, lo
-    else:
-        group = mesh.get_group(axis_name)
-        if f.is_cuda and dist.get_backend(group) == "gloo":  # gloo sends host tensors only
-            hi, lo = hi.cpu(), lo.cpu()
-        ranks = dist.get_process_group_ranks(group)
-        k = axis_index(mesh, axis_name)
-        left, right = torch.empty_like(hi), torch.empty_like(lo)
-        to_right, to_left = ranks[(k + 1) % n], ranks[(k - 1) % n]
-        ops = [  # tag 1: trailing cells going right; tag 2: leading cells going left
-            dist.P2POp(dist.isend, hi, to_right, group, 1),
-            dist.P2POp(dist.irecv, left, to_left, group, 1),
-            dist.P2POp(dist.isend, lo, to_left, group, 2),
-            dist.P2POp(dist.irecv, right, to_right, group, 2),
-        ]
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
-        left, right = left.to(f.device), right.to(f.device)
-    return torch.cat([left, f, right], dim=axis)
+    with obs.span(f"halo.{AXES[axis]}", like=f):
+        n = axis_size(mesh, axis_name)
+        m = f.shape[axis]
+        lo = f.narrow(axis, 0, width).contiguous()
+        hi = f.narrow(axis, m - width, width).contiguous()
+        if n == 1:
+            left, right = hi, lo
+        else:
+            group = mesh.get_group(axis_name)
+            if f.is_cuda and dist.get_backend(group) == "gloo":  # gloo sends host tensors only
+                hi, lo = hi.cpu(), lo.cpu()
+            ranks = dist.get_process_group_ranks(group)
+            k = axis_index(mesh, axis_name)
+            left, right = torch.empty_like(hi), torch.empty_like(lo)
+            to_right, to_left = ranks[(k + 1) % n], ranks[(k - 1) % n]
+            ops = [  # tag 1: trailing cells going right; tag 2: leading cells going left
+                dist.P2POp(dist.isend, hi, to_right, group, 1),
+                dist.P2POp(dist.irecv, left, to_left, group, 1),
+                dist.P2POp(dist.isend, lo, to_left, group, 2),
+                dist.P2POp(dist.irecv, right, to_right, group, 2),
+            ]
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+            left, right = left.to(f.device), right.to(f.device)
+        return torch.cat([left, f, right], dim=axis)
 
 
 def _make_sharded_step_nd(
@@ -319,7 +327,8 @@ def _make_sharded_step_nd(
         return step
     groups = [mesh.get_group(name) for name in axes
               if name is not None and axis_size(mesh, name) > 1]
-    return _replay(step, groups, f"make_sharded_step_{len(deltas)}d")
+    return _replay(step, groups, f"make_sharded_step_{len(deltas)}d",
+                   f"sharded_step_{len(deltas)}d")
 
 
 def make_sharded_step_2d(

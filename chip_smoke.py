@@ -1471,12 +1471,12 @@ def ds_graph_phase(bt, dev, card, ks, st):
     the graph's kernel nodes (its debug dump) and the host's time in one
     ``replay()``; paired wall times (host clock to a synchronise), and one
     profiled replay and eager eval (device time, idle share, launches)."""
-    from boltzfft_torch import _graph, ds
+    from boltzfft_torch import ds, obs
     from boltzfft_torch import ds_operator as dso
 
     cfgs, fs, pres = st["cfgs"], st["fs"], st["pres"]
     small, big = DS_GRIDS
-    _graph.DEBUG = True  # the graphs keep their nodes for the count
+    obs.enable()  # the graphs keep their nodes for the count
     cases = ((small, "default", st["collides"][small], {}),
              (big, "default", st["collides"][big], {}),
              (small, "full", st["full"][0], {"g_stream": "full"}))
@@ -1581,7 +1581,7 @@ def ds_graph_phase(bt, dev, card, ks, st):
                   f" {med:.3f} ms, idle share {100 * (1 - busy / med):.1f}% | {card}")
         del q_eager, q_graph, q_replay, runs, pre_g
         torch.cuda.empty_cache()
-    _graph.DEBUG = False
+    obs.disable()
 
 
 # ---- the ds engine's elementwise chains as fused kernels (phase 26) -------------
@@ -2477,14 +2477,14 @@ NODE_TYPES = ("KERNEL", "MEMCPY", "MEMSET", "HOST", "GRAPH", "EMPTY", "WAIT_EVEN
               "BATCH_MEM_OP", "CONDITIONAL")  # cudaGraphNodeType's order
 STEP_FAMILIES = ("line_dft_kernel", "plane_dft_kernel", "kron_gemm_kernel", "alpha_multiply",
                  "gain_reduce", "oz_contract", "gmain", "hwh_kernel", "hadamard_", "preslice",
-                 "ds_elementwise", "fft", "nccl")
+                 "ds_elementwise", "fft", "nccl", "obs_mark")
 
 
 def graph_nodes(graph, path: Path) -> dict:
     """The nodes of a captured CUDA graph by type (KERNEL, MEMCPY, ...) and
     its kernel nodes by family (``STEP_FAMILIES``, the rest "other"), read
     from its debug dump (``CUDAGraph.debug_dump``, DOT).  The capture ran
-    with ``_graph.DEBUG`` on, so the graph kept its ``cudaGraph_t``.  {}
+    with ``obs`` on, so the graph kept its ``cudaGraph_t``.  {}
     where the dump names no node."""
     import re
 
@@ -2752,13 +2752,13 @@ def step_graph_phase(bt, dev, card, ks):
 
     import torch.distributed as dist
 
-    from boltzfft_torch import _graph, cli, ds, transport
+    from boltzfft_torch import _graph, cli, ds, obs, transport
     from boltzfft_torch.cli import march, sod_1d3v
     from boltzfft_torch.cli import taylor_green_2d3v as tg2
     from boltzfft_torch.cli import taylor_green_3d3v as tg3
     from boltzfft_torch.ds_operator import ds_collide_fn, make_ds_collision_operator
 
-    _graph.DEBUG = True  # the step graphs keep their nodes for the count
+    obs.enable()  # the step graphs keep their nodes for the count
     tg = dict(u0=0.8, temperature=3.0)
 
     # ---- the drivers' printed lines: graphed (their default) against the
@@ -2943,7 +2943,7 @@ def step_graph_phase(bt, dev, card, ks):
         gc.collect()
         torch.cuda.empty_cache()
     dist.destroy_process_group()
-    _graph.DEBUG = False
+    obs.disable()
     return ds_step
 
 
