@@ -27,29 +27,35 @@
 // inverses and the assembly.  On the TPU the two differ only in how Mosaic's
 // 128-lane tiles are fed (a Cooley-Tukey split of the lane axes against
 // per-axis transforms with vector transposes, _dft3).  Here every transform
-// is a dense per-axis DFT with the node phase folded in, which is _dft3's
-// algorithm, so one entry serves both; the wrappers keep JAX's grid checks
+// is a per-axis DFT with the node phase folded in, which is _dft3's
+// algorithm (its y and z axes split at 64 points, whichever scheme called),
+// so one entry serves both; the wrappers keep JAX's grid checks
 // (any even grid for ct, cubic for transpose).  Its bound is the same
 // arithmetic as K1's, less the four transforms it skips.
 //
-// What bounds it on this card: the tensor-core arithmetic.  Every transform
-// is a dense N-term DFT along one axis, O(N) FLOPs per point per axis; per
-// node two streams of three axes at 8 real FLOPs per complex multiply-add
-// give 48 N^4 FLOPs, so an eval costs about 10 GFLOP at 32^3 and 310 GFLOP
-// at 64^3 (Ns = 12, 192 and 384 nodes): 4.6 ms at 64^3 on the DMMA peak (67
-// TFLOP/s, double), 1.9 ms as 3xTF32 (3 tf32 products at 495 TFLOP/s).
-// Next come the node streams' bytes: each is written once after its y and z
-// axes and read once by the x axis, 2 * 2B * N^3 complex words, 6.4 GB at
-// 64^3 in double (1.9 ms at 3.35 TB/s).  The TPU kernel's single-resident
+// What bounds it on this card.  The dense transforms cost O(N) FLOPs per
+// point per axis: per node two streams of three axes at 8 real FLOPs per
+// complex multiply-add give 48 N^4 FLOPs, about 10 GFLOP an eval at 32^3
+// and 310 GFLOP at 64^3 (Ns = 12, 192 and 384 nodes): 4.6 ms at 64^3 on the
+// DMMA peak (67 TFLOP/s, double), 1.9 ms as 3xTF32 (3 tf32 products at 495
+// TFLOP/s).  At 64^3 in double the y and z axes take the two-factor split
+// (64 = 8 * 8, spectral_common.cuh), 16 complex multiply-adds a point and
+// axis instead of 64: the streams' plane pass drops from 206 to 51.5 GFLOP
+// an eval (3.08 to 0.77 ms at the peak), under its bytes, the 768 streams
+// written once (3.22 GB, 0.96 ms at 3.35 TB/s).  So the plane pass is bound
+// by the streams' bytes, then by the split's arithmetic; the x pass (kGain,
+// dense, 103 GFLOP, 1.54 ms) is next.  Each stream is written once after
+// its y and z axes and read once by the x axis, 2 * 2B * N^3 complex words,
+// 6.4 GB at 64^3 in double (1.9 ms).  The TPU kernel's single-resident
 // layout (~14 N^3 planes in VMEM) cannot carry over to 227 KB of shared
-// memory, and neither do its Cooley-Tukey split and lane permutations, which
-// exist for the TPU's 128-lane tiles.
+// memory, and neither do its lane permutations, which exist for the TPU's
+// 128-lane tiles; its Cooley-Tukey split carries over at 64 as above.
 //
 // What the design does about it (spectral_common.cuh holds the kernels):
 //  * Every axis transform runs on the tensor cores (DMMA in double, 3xTF32
 //    in float), the matrix resident in shared memory, tiles streamed by
 //    cp.async in a persistent loop, the node phase folded in as fragments
-//    are read.
+//    are read; the split plane block keeps its tables in registers instead.
 //  * A transform of a batch of grids is two launches: plane_dft_kernel runs
 //    y and z on blocks of x planes in shared memory, line_dft_kernel runs x.
 //    Where a plane does not fit (k1_plan), y and z are line passes too; along
@@ -259,7 +265,7 @@ cudaError_t gain_loop(const Grid& g, const typename Cplx<T>::type* fh,
 
 template <typename T>
 Grid make_grid(int nx, int ny, int nz) {
-  int plan[3];
+  int plan[4];
   bfft::k1_plan(nx, ny, nz, (int)sizeof(typename Cplx<T>::type), plan);
   return Grid{nx, ny, nz, plan[0] == 1};
 }
@@ -376,7 +382,7 @@ BFFT_ENTRY(bfft_fused_collide_f64, double, double2)
 BFFT_GAIN_ENTRY(bfft_fused_gain_f32, float, float2)
 BFFT_GAIN_ENTRY(bfft_fused_gain_f64, double, double2)
 
-// K1's shared-memory plan for a grid (bfft::k1_plan: 3 ints into out), for
+// K1's shared-memory plan for a grid (bfft::k1_plan: 4 ints into out), for
 // the wrapper's mirror to be checked against on the card.
 extern "C" int bfft_k1_plan(int nx, int ny, int nz, int is_f64, void* out) {
   bfft::k1_plan(nx, ny, nz, is_f64 ? 16 : 8, static_cast<int*>(out));

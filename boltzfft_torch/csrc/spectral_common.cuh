@@ -9,8 +9,8 @@
 // Hopper tensor cores as four real products of the re/im planes,
 // Yr = Mr Xr - Mi Xi and Yi = Mr Xi + Mi Xr (not the 3-multiply form, which
 // loses digits):
-//  * double: mma.sync m8n8k4 f64 (DMMA, 67 TFLOP/s; Hopper has no f64
-//    wgmma), accumulated in the fragment over the whole k loop;
+//  * double: mma.sync m8n8k4 f64 (DMMA; Hopper has no f64 wgmma),
+//    accumulated in the fragment over the whole k loop;
 //  * float: 3xTF32.  Each operand is split hi = tf32(a), lo = tf32(a - hi)
 //    (round to nearest, ties away) and each product is lo*hi + hi*lo + hi*hi
 //    (mma.sync m16n8k8 tf32).  The tensor core's adder truncates, and
@@ -20,9 +20,22 @@
 //    nearest) gather them into the accumulator.  Single-pass TF32 keeps
 //    about three digits and is never used, not even for
 //    fused_precision="default".
-// What bounds the transforms now: the tensor-core arithmetic, and the node
-// streams' bytes that are left (one write and one read of every stream, two
-// on the route for large planes).  What the design does about it:
+// Along the y and z axes of 64-point double planes the plane route does not
+// take the dense product: it factors the matrix as a two-stage Cooley-Tukey
+// DFT, 64 = 8 * 8, on DMMA m16n8k16 (the split, just above
+// plane_dft_kernel), 16 complex multiply-adds a point and axis instead of 64,
+// the tables taken from the entries of the matrix it is given.  Other axis
+// lengths, and float, keep the dense tile.
+// What bounds the transforms now.  The dense tiles (the x line passes, every
+// axis of other lengths): the tensor-core arithmetic, and in double the
+// m8n8k4 shape runs at most 33 TFLOP/s on an H100, half the m16n8k16 rate
+// (tools/dmma_probe.cu); then the streams' bytes that are left (one write
+// and one read of every stream, two on the route for large planes).  The
+// split plane pass: the least time is its bytes (each 64^3 stream written
+// once: 0.96 ms per 64^3 eval at 3.35 TB/s), then its arithmetic (0.77 ms
+// at the DMMA peak); measured, its in-place passes (the products with the
+// shared-memory reads and writes around them) take most of its time.
+// What the design does about it:
 //  * The matrix goes into shared memory once per block (zero-padded to a
 //    multiple of 16, pre-split for float) and the block walks many tiles
 //    in a persistent loop; tiles are double-buffered with cp.async where
@@ -42,8 +55,8 @@
 //    beta1 sum over groups (kBeta1: into the gain spectrum).
 //  * k1_plan below is the one count of their shared memory
 //    (kernels.fused_collide.plan mirrors it): the plane route where a plane
-//    block fits, else y and z as line passes (the last-pass route), and
-//    which axis fits no tile at all.
+//    block fits, else y and z as line passes (the last-pass route), which
+//    axis fits no tile at all, and whether the plane block takes the split.
 // Every output's accumulation order is fixed by the tile's k loop and the
 // node and group loops, never by the grid, the batch or the node chunk, and
 // no reduction uses float atomics: results are bitwise reproducible, a batch
@@ -88,8 +101,25 @@ constexpr int kPlaneElems = 2048;   // most padded points of a plane block
 constexpr int kMatPad = 4;          // matrix row padding (conflict-free A loads)
 constexpr int kRawPad = 4;          // plane row padding (z-pass B loads)
 constexpr int kLinePad32 = 8;       // float tile row padding (B loads)
+constexpr int kSplitN = 64;         // the axis length the split takes (y and z)
+constexpr int kSplitR = 8;          // its factors: kSplitN = kSplitR * kSplitR
+constexpr int kSplitPad = 1;        // split block row padding (column reads)
+constexpr int kSplitWarps = 8;      // warps of a split block
 
 __host__ __device__ inline int pad16(int n) { return (n + kPad - 1) / kPad * kPad; }
+
+// The split's factor for the y and z axes of a plane block: kSplitR where
+// both are kSplitN points and the type is double (csize 16), else 0 (the
+// dense tile).
+__host__ __device__ inline int plane_split(int ny, int nz, int csize) {
+  return csize == 16 && ny == kSplitN && nz == kSplitN ? kSplitR : 0;
+}
+
+// A split block: one x plane of ny rows of nz + kSplitPad complex points
+// (both passes run in place), then a unit's phase rows (its x, ny, nz).
+__host__ __device__ inline long long split_smem(int ny, int nz) {
+  return ((long long)ny * (nz + kSplitPad) + 1 + ny + nz) * 16;
+}
 
 // One (n, n) matrix, padded, 16 bytes a point: re, im planes of double, or
 // re hi, re lo, im hi, im lo planes of float (tf32 bits).
@@ -133,8 +163,10 @@ __host__ __device__ inline LinePlan line_plan(int n, int streams, int acc_bytes,
 // A plane-kernel block: the z matrix (and the y matrix unless ny == nz: the
 // DFT matrices depend only on the length), then `planes` x planes of the
 // input (rows of nz_pad + kRawPad) and of the z pass's output, then room for
-// a unit's phase rows.
+// a unit's phase rows.  A block that takes the split holds one plane
+// (split_smem) and no matrix.
 __host__ __device__ inline long long plane_smem(int nx, int ny, int nz, int csize, int planes) {
+  if (plane_split(ny, nz, csize)) return split_smem(ny, nz);
   const long long mats = mat_bytes(nz) + (ny == nz ? 0 : mat_bytes(ny));
   const int ld_raw = pad16(nz) + kRawPad;
   const int ld_mid = pad16(nz) + (csize == 8 ? kLinePad32 : 0);
@@ -144,8 +176,9 @@ __host__ __device__ inline long long plane_smem(int nx, int ny, int nz, int csiz
 
 // x planes per plane-kernel block: the largest divisor of nx whose block
 // holds at most kPlaneElems padded points and fits; 0 when one plane does
-// not fit (then y and z run as line passes).
+// not fit (then y and z run as line passes).  A split block holds one.
 __host__ __device__ inline int plane_count(int nx, int ny, int nz, int csize) {
+  if (plane_split(ny, nz, csize)) return split_smem(ny, nz) <= kSmemLimit ? 1 : 0;
   int best = 0;
   for (int p = 1; p <= nx; ++p) {
     if (nx % p) continue;
@@ -166,12 +199,14 @@ __host__ __device__ inline void plan_fit(int axis, const LinePlan& lp, int* out)
 
 // K1's plan for a grid: out[0] the route (1 plane, 2 last pass, 0 none),
 // out[1] the first axis that fits no tile (-1: none), out[2] the bytes its
-// smallest tile needs.  x runs the gain, beta1 and store passes; y and z run
-// store passes where a plane does not fit.
+// smallest tile needs, out[3] the split's factor on the plane route (0: the
+// dense tile).  x runs the gain, beta1 and store passes; y and z run store
+// passes where a plane does not fit.
 __host__ __device__ inline void k1_plan(int nx, int ny, int nz, int csize, int* out) {
   out[0] = 0;
   out[1] = -1;
   out[2] = 0;
+  out[3] = 0;
   plan_fit(0, line_plan(nx, 2, csize / 2, csize), out);
   plan_fit(0, line_plan(nx, 1, csize, csize), out);
   plan_fit(0, line_plan(nx, 1, 0, csize), out);
@@ -181,6 +216,7 @@ __host__ __device__ inline void k1_plan(int nx, int ny, int nz, int csize, int* 
     plan_fit(2, line_plan(nz, 1, 0, csize), out);
   }
   out[0] = out[1] >= 0 ? 0 : (planes ? 1 : 2);
+  if (out[0] == 1) out[3] = plane_split(ny, nz, csize);
 }
 
 // ---------------------------------------------------------------------------
@@ -213,6 +249,18 @@ __device__ __forceinline__ void mma_dmma16(double (&d)[4], const double (&a)[4],
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
       : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
+
+// The m16n8k16 shape of DMMA (sm_90): A value i at row g + 8 (i % 2),
+// column t + 4 (i / 2); B value i at row t + 4 i, column g; C as m16n8k8.
+__device__ __forceinline__ void mma_dmma16k16(double (&d)[4], const double (&a)[8],
+                                              const double (&b)[4]) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7, %8, %9, %10, %11}, {%12, %13, %14, %15}, {%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]), "d"(a[5]), "d"(a[6]),
+        "d"(a[7]), "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
 }
 
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
@@ -835,11 +883,220 @@ struct PlaneArgs {
   long long n_units;
 };
 
-template <typename T, bool kRealIn>
-__global__ void __launch_bounds__(kPlaneWarps * 32) plane_dft_kernel(const PlaneArgs<T> p) {
+// ---------------------------------------------------------------------------
+// The split: a 64-point axis as two 8-point stages on DMMA (double)
+// ---------------------------------------------------------------------------
+//
+// A DFT matrix of N = 64 points, M[k, n] = c w^(k n) (weights.build_precomp's
+// dft_pair: c = 1 forward, 1 / N inverse), factors as n = 8 n2 + n1,
+// k = k2 + 8 k1:
+//   stage 1   Y[k2, n1] = sum_n2 W1[k2, n2] x[8 n2 + n1],  W1[k2, n2] = M[k2, 8 n2] / c
+//   twiddle   T[k2, n1] = (M[k2, n1] / c) Y[k2, n1]
+//   stage 2   X[k2 + 8 k1] = sum_n1 M[8 k1, n1] T[k2, n1]
+// Every table is an entry of the matrix the kernel is given, and c = M[0, 0]
+// is a power of two, so the division is exact.  A warp transforms a pair of
+// lines in registers with mma.sync m16n8k16 (f64), the complex products
+// written as real ones of twice the depth:
+//  * stage 1, per line, one product: [Yr; Yi] = [W1r -W1i; W1i W1r]
+//    [Xr; Xi], rows k2 (then their imaginary parts), columns n1, depth n2
+//    (then again for Xi; a real line takes the m16n8k8 half).  Thread (g, t)
+//    reads x[8 t + g] and x[32 + 8 t + g] and is left holding Y[g, 2t] and
+//    Y[g, 2t + 1], re and im, which it twiddles.
+//  * stage 2, per pair, two products (the real and the imaginary output):
+//    those accumulators are stage 2's A fragment as they stand: rows g of
+//    the first line and g + 8 of the second, depth slot t <-> Re T[., 2t],
+//    t + 4 <-> Re T[., 2t + 1], t + 8 and t + 12 their imaginary parts,
+//    against B = [Re; -Im] and [Im; Re] of M[8 k1, n1] in the same slot
+//    order.  Thread (g, t) ends with X[g + 16 t] and X[g + 16 t + 8] of both
+//    lines.
+// So the stages meet in registers, not in shared memory.  The twiddle depends
+// on both k2 and n1 and is no factor of either stage's matrix: it is one
+// complex multiply per point on the FP64 pipe.  The lane's table entries (6
+// complex) stay in registers for the whole persistent loop.  Each output is
+// summed in one thread in a fixed order (stage 1's depth, then stage 2's),
+// so results stay bitwise reproducible, a batch equal to per-item calls.
+
+// The lane's fragments of the split: stage 1's A ([W1r; W1i] at depth t
+// and t + 4, then [-W1i; W1r] at t + 8 and t + 12), the twiddles of (g, 2t)
+// and (g, 2t + 1), stage 2's B for the real and the imaginary output
+// (M[8 g, 2t] and M[8 g, 2t + 1]: re, re, -im, -im and im, im, re, re).
+struct SplitFrags {
+  double a1[8];
+  double2 tw[2];
+  double b2re[4], b2im[4];
+};
+
+__device__ __forceinline__ SplitFrags split_frags(const double2* m) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const double inv_c = 1.0 / __ldg(m).x;  // 1 or N: exact
+  SplitFrags s;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const double2 w = __ldg(m + g * kSplitN + kSplitR * (t + 4 * h));
+    s.a1[2 * h] = w.x * inv_c;
+    s.a1[2 * h + 1] = w.y * inv_c;
+    s.a1[4 + 2 * h] = -(w.y * inv_c);
+    s.a1[5 + 2 * h] = w.x * inv_c;
+    const double2 v = __ldg(m + g * kSplitN + 2 * t + h);
+    s.tw[h].x = v.x * inv_c;
+    s.tw[h].y = v.y * inv_c;
+    const double2 b = __ldg(m + kSplitR * g * kSplitN + 2 * t + h);
+    s.b2re[h] = b.x;
+    s.b2re[2 + h] = -b.y;
+    s.b2im[h] = b.y;
+    s.b2im[2 + h] = b.x;
+  }
+  return s;
+}
+
+// Stage 1 and the twiddle of one line, x0 = x[8 t + g], x1 = x[32 + 8 t + g]:
+// c = T[g, 2t], T[g, 2t + 1] (re), then the same (im).
+template <bool kRealIn>
+__device__ __forceinline__ void split_stage1(const SplitFrags& s, double2 x0, double2 x1,
+                                             double (&c)[4]) {
+  c[0] = c[1] = c[2] = c[3] = 0;
+  if constexpr (kRealIn) {
+    const double a[4] = {s.a1[0], s.a1[1], s.a1[2], s.a1[3]};
+    const double b[2] = {x0.x, x1.x};
+    mma_dmma16(c, a, b);
+  } else {
+    const double b[4] = {x0.x, x1.x, x0.y, x1.y};
+    mma_dmma16k16(c, s.a1, b);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const double yr = c[h], yi = c[2 + h];
+    c[h] = s.tw[h].x * yr - s.tw[h].y * yi;
+    c[2 + h] = s.tw[h].x * yi + s.tw[h].y * yr;
+  }
+}
+
+// Lines la and lb of buf transformed in place (element e of line l at
+// buf[l * ls + e * es]): ph, if given, the phase along the lines, folded
+// into the input; fa, fb factors of the two lines' outputs (applied where
+// ph is given).  A real line is read from the .x of each element.
+template <bool kRealIn>
+__device__ __forceinline__ void split_pair(const SplitFrags& s, double2* buf, int la, int lb,
+                                           int ls, int es, const double2* ph, double2 fa,
+                                           double2 fb) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int i0 = 8 * t + g, i1 = i0 + 32;
+  double c[2][4];
+  const int lines[2] = {la, lb};
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    double2* line = buf + lines[q] * ls;
+    double2 x0, x1;
+    if constexpr (kRealIn) {
+      x0.x = reinterpret_cast<const double*>(line + i0 * es)[0];
+      x1.x = reinterpret_cast<const double*>(line + i1 * es)[0];
+      x0.y = x1.y = 0;
+    } else {
+      x0 = line[i0 * es];
+      x1 = line[i1 * es];
+      if (ph != nullptr) {
+        x0 = cmul(ph[i0], x0);
+        x1 = cmul(ph[i1], x1);
+      }
+    }
+    split_stage1<kRealIn>(s, x0, x1, c[q]);
+  }
+  const double a[8] = {c[0][0], c[1][0], c[0][1], c[1][1], c[0][2], c[1][2], c[0][3], c[1][3]};
+  double orr[4] = {0, 0, 0, 0}, oi[4] = {0, 0, 0, 0};
+  mma_dmma16k16(orr, a, s.b2re);
+  mma_dmma16k16(oi, a, s.b2im);
+  // accumulator r: line r / 2, output g + 16 t + 8 (r % 2)
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    double2 v;
+    v.x = orr[r];
+    v.y = oi[r];
+    if (ph != nullptr) v = cmul(r < 2 ? fa : fb, v);
+    buf[lines[r >> 1] * ls + (g + 16 * t + 8 * (r & 1)) * es] = v;
+  }
+}
+
+// The plane route's block with the split (ny == nz == kSplitN, double): per
+// unit (grid j, x plane x0) the plane is loaded with cp.async into rows of
+// nz + kSplitPad points (the column reads of the y pass then touch every
+// bank), z and y are transformed in place, each warp a pair of lines at a
+// time, and the plane is stored, every thread 16 consecutive bytes.  Several
+// blocks share an SM, so one block's loads and stores overlap another's
+// products.  ny == nz: the z matrix serves both axes, as on the dense tile.
+template <bool kRealIn>
+__device__ __forceinline__ void plane_split_body(const PlaneArgs<double>& p,
+                                                 unsigned char* smem) {
+  using In = typename std::conditional<kRealIn, double, double2>::type;
+  constexpr int ny = kSplitN, nz = kSplitN, ld = nz + kSplitPad, plane = ny * nz;
+  double2* buf = reinterpret_cast<double2*>(smem);
+  double2* sph = buf + ny * ld;  // the unit's phase rows: x, y, z
+  const int tid = threadIdx.x, warp = tid >> 5, nwarps = blockDim.x >> 5;
+  const long long n3 = (long long)p.nx * plane;
+  const bool phased = !kRealIn && p.pz != nullptr;
+  const SplitFrags s = split_frags(p.mz);
+  double2 one;
+  one.x = 1;
+  one.y = 0;
+
+  for (long long u = blockIdx.x; u < p.n_units; u += gridDim.x) {
+    const long long j = u / p.nx;
+    const int x0 = (int)(u - j * p.nx);
+    const In* src = reinterpret_cast<const In*>(p.in) + (j / p.in_div) * p.in_grid +
+                    (long long)x0 * plane;
+    for (int e = tid; e < plane; e += blockDim.x) {
+      const int yy = e / nz, zz = e - yy * nz;
+      cp_async<sizeof(In)>(reinterpret_cast<In*>(buf + yy * ld + zz), src + e, true);
+    }
+    cp_async_commit();
+    if (phased) {  // ax[x0] ay[y] az[z], conjugated for odd j
+      const long long prow = (j >> 1) % p.phase_rows;
+      const double sgn = (j & 1) ? -1.0 : 1.0;
+      for (int e = tid; e < 1 + ny + nz; e += blockDim.x) {
+        double2 f;
+        if (e == 0) f = p.px[prow * p.nx + x0];
+        else if (e <= ny) f = p.py[prow * ny + e - 1];
+        else f = p.pz[prow * nz + e - 1 - ny];
+        f.y *= sgn;
+        sph[e] = f;
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    // z: line y is row y; az folded into the input, ax ay into the output
+    for (int q = warp; q < ny / 2; q += nwarps) {
+      const int la = 2 * q, lb = la + 1;
+      double2 fa = one, fb = one;
+      if (phased) {
+        fa = cmul(sph[0], sph[1 + la]);
+        fb = cmul(sph[0], sph[1 + lb]);
+      }
+      split_pair<kRealIn>(s, buf, la, lb, ld, 1, phased ? sph + 1 + ny : nullptr, fa, fb);
+    }
+    __syncthreads();
+    // y: line z is column z
+    for (int q = warp; q < nz / 2; q += nwarps)
+      split_pair<false>(s, buf, 2 * q, 2 * q + 1, 1, ld, nullptr, one, one);
+    __syncthreads();
+    double2* dst = p.out + j * n3 + (long long)x0 * plane;
+    for (int e = tid; e < plane; e += blockDim.x) {
+      const int yy = e / nz, zz = e - yy * nz;
+      dst[e] = buf[yy * ld + zz];
+    }
+    __syncthreads();
+  }
+}
+
+// kSplit: the block of plane_split_body (double only); else the dense tile.
+template <typename T, bool kRealIn, bool kSplit>
+__global__ void __launch_bounds__(kSplit ? kSplitWarps * 32 : kPlaneWarps * 32, kSplit ? 2 : 1)
+    plane_dft_kernel(const PlaneArgs<T> p) {
   using C2 = typename Cplx<T>::type;
   using In = typename std::conditional<kRealIn, T, C2>::type;
   extern __shared__ __align__(16) unsigned char smem[];
+  if constexpr (kSplit) {
+    plane_split_body<kRealIn>(p, smem);
+    return;
+  }
   const int nyp = pad16(p.ny), nzp = pad16(p.nz);
   const int ld_raw = nzp + kRawPad, ld_mid = nzp + (sizeof(T) == 4 ? kLinePad32 : 0);
   const bool share = p.ny == p.nz;
@@ -983,8 +1240,14 @@ cudaError_t plane_dft(PlaneArgs<T> p, long long nbatch, cudaStream_t st) {
   const long long smem = plane_smem(p.nx, p.ny, p.nz, csize, p.planes);
   const int zgroups = (pad16(p.nz) / 16) * (p.planes * pad16(p.ny) / 16);
   const int ygroups = (pad16(p.ny) / 16) * (p.planes * pad16(p.nz) / 16);
-  const int threads = 32 * std::min(kPlaneWarps, std::max(zgroups, ygroups));
-  auto kernel = plane_dft_kernel<T, kRealIn>;
+  int threads = 32 * std::min(kPlaneWarps, std::max(zgroups, ygroups));
+  void (*kernel)(const PlaneArgs<T>) = plane_dft_kernel<T, kRealIn, false>;
+  if (plane_split(p.ny, p.nz, csize)) {
+    if constexpr (sizeof(T) == 8) {
+      kernel = plane_dft_kernel<T, kRealIn, true>;
+      threads = 32 * kSplitWarps;
+    }
+  }
   int blocks = 0;
   cudaError_t err = persistent_grid(kernel, threads, smem, p.n_units, &blocks);
   if (err != cudaSuccess) return err;

@@ -22,7 +22,9 @@ Both compute, per distribution f (Nx, Ny, Nz), with per-axis DFT matrices:
 
 The plain version runs every transform's axes in the order x, y, z; the
 kernel runs z, y, then x (fused with the group sum or the beta1 sum), on the
-tensor cores (DMMA in float64, 3xTF32 in float32).  The two agree to
+tensor cores (DMMA in float64, 3xTF32 in float32), the y and z axes of
+64-point float64 planes as a two-factor Cooley-Tukey split (64 = 8 * 8,
+``plane_split``) and every other axis as a dense product.  The two agree to
 rounding: within 1e-12 max|Q| in float64 and 1e-5 in float32 (4e-5 at 16^3,
 where the gain and loss terms cancel).
 """
@@ -49,6 +51,9 @@ _PLANE_ELEMS = 2048  # kPlaneElems: most padded points of a plane block
 _MAT_PAD = 4         # kMatPad
 _RAW_PAD = 4         # kRawPad
 _LINE_PAD32 = 8      # kLinePad32
+_SPLIT_N = 64        # kSplitN: the axis length the split takes (y and z)
+_SPLIT_R = 8         # kSplitR: its factors, 64 = 8 * 8
+_SPLIT_PAD = 1       # kSplitPad: split block row padding
 #: k1_plan's routes: 1 the plane route (y and z of a block of x planes in one
 #: launch), 2 the last-pass route (y and z as line passes), 0 none.
 ROUTES = {1: "plane", 2: "last pass"}
@@ -89,9 +94,25 @@ def line_plan(n, streams, acc_bytes, csize):
     return 0, 1, False, line_smem(n, streams, acc_bytes, csize, 16, 1, False)
 
 
+def plane_split(ny, nz, csize) -> int:
+    """The split's factor for the y and z axes of a plane block: _SPLIT_R
+    where both are _SPLIT_N points in float64 (csize 16), else 0 (the dense
+    tile)."""
+    return _SPLIT_R if csize == 16 and ny == _SPLIT_N and nz == _SPLIT_N else 0
+
+
+def split_smem(ny, nz) -> int:
+    """A split block: one x plane of ny rows of nz + _SPLIT_PAD complex
+    points (both passes in place), then a unit's phase rows (x, y, z)."""
+    return (ny * (nz + _SPLIT_PAD) + 1 + ny + nz) * 16
+
+
 def plane_smem(nx, ny, nz, csize, planes) -> int:
     """A plane-kernel block: the z matrix (and the y one unless ny == nz),
-    then ``planes`` input planes and z-pass planes, and a unit's phase rows."""
+    then ``planes`` input planes and z-pass planes, and a unit's phase rows;
+    a block that takes the split holds one plane and no matrix."""
+    if plane_split(ny, nz, csize):
+        return split_smem(ny, nz)
     mats = mat_bytes(nz) + (0 if ny == nz else mat_bytes(ny))
     ld_raw = _pad16(nz) + _RAW_PAD
     ld_mid = _pad16(nz) + (_LINE_PAD32 if csize == 8 else 0)
@@ -100,7 +121,10 @@ def plane_smem(nx, ny, nz, csize, planes) -> int:
 
 def plane_count(nx, ny, nz, csize) -> int:
     """x planes per plane block: the largest divisor of nx that holds at
-    most _PLANE_ELEMS padded points and fits; 0 if one plane does not fit."""
+    most _PLANE_ELEMS padded points and fits; 0 if one plane does not fit.
+    A split block holds one."""
+    if plane_split(ny, nz, csize):
+        return 1 if split_smem(ny, nz) <= _SMEM_LIMIT else 0
     best = 0
     for p in range(1, nx + 1):
         if nx % p:
@@ -114,11 +138,12 @@ def plane_count(nx, ny, nz, csize) -> int:
 
 
 def plan(shape, dtype: torch.dtype) -> list:
-    """``k1_plan`` of the source, 3 ints: the route (see ``ROUTES``; 0 none),
-    the first axis that fits no tile (-1: none) and the bytes its smallest
-    tile needs.  x runs the gain (2 streams, a real accumulator), beta1 (a
-    complex accumulator) and store passes; y and z run store passes where a
-    plane does not fit."""
+    """``k1_plan`` of the source, 4 ints: the route (see ``ROUTES``; 0 none),
+    the first axis that fits no tile (-1: none), the bytes its smallest tile
+    needs, and the split's factor on the plane route (0: the dense tile).  x
+    runs the gain (2 streams, a real accumulator), beta1 (a complex
+    accumulator) and store passes; y and z run store passes where a plane
+    does not fit."""
     nx, ny, nz = (int(n) for n in shape)
     csize = 16 if dtype == torch.float64 else 8
     passes = [(0, line_plan(nx, 2, csize // 2, csize)), (0, line_plan(nx, 1, csize, csize)),
@@ -128,8 +153,24 @@ def plan(shape, dtype: torch.dtype) -> list:
         passes += [(1, line_plan(ny, 1, 0, csize)), (2, line_plan(nz, 1, 0, csize))]
     for axis, (lines, _nbuf, _resident, b) in passes:
         if lines == 0:
-            return [0, axis, b]
-    return [1 if planes else 2, -1, 0]
+            return [0, axis, b, 0]
+    return [1, -1, 0, plane_split(ny, nz, csize)] if planes else [2, -1, 0, 0]
+
+
+def split_yz(shape, dtype: torch.dtype) -> str:
+    """How the kernel transforms the y and z axes of a grid: "8x8" where the
+    plane route takes the split, else "dense"."""
+    r = plan(shape, dtype)[3]
+    return f"{r}x{_SPLIT_N // r}" if r else "dense"
+
+
+def note_plan(n_batch: int, shape, dtype: torch.dtype, n_nodes: int, chunk: int) -> None:
+    """The ``k1_plan`` counter of a launch shape: nodes per chunk, chunks per
+    eval and ``split_yz``."""
+    nx, ny, nz = (int(n) for n in shape)
+    obs.note("k1_plan", f"{n_batch}x{nx}x{ny}x{nz}",
+             {"nodes_per_chunk": chunk, "chunks_per_eval": -(-n_nodes // chunk),
+              "split_yz": split_yz(shape, dtype)})
 
 
 def route(shape, dtype: torch.dtype):
@@ -144,7 +185,7 @@ def check_grid(shape, dtype: torch.dtype) -> None:
     for n in shape:
         if n % 2:
             raise ValueError(f"fused_collide: grid axes must be even, got {tuple(shape)}")
-    route_, axis, nbytes = plan(shape, dtype)
+    route_, axis, nbytes, _split = plan(shape, dtype)
     if route_ == 0:
         n = tuple(shape)[axis]
         raise ValueError(
@@ -324,8 +365,7 @@ def _fused_collide_cuda(
     csize = 16 if rd == torch.float64 else 8
     if chunk is None:
         chunk = _chunk_nodes(n_nodes, radial_group, n_batch, n3, csize, dev)
-    obs.note("k1_plan", f"{n_batch}x{nx}x{ny}x{nz}",
-             {"nodes_per_chunk": chunk, "chunks_per_eval": -(-n_nodes // chunk)})
+    note_plan(n_batch, (nx, ny, nz), rd, n_nodes, chunk)
     # the two node-stream buffers first: the caching allocator then puts the
     # small ones in free small blocks, never a piece of a freed stream
     # buffer, which would make the next call's second stream buffer a new

@@ -1,12 +1,13 @@
-"""K2 and K4: the gain spectrum Q_gain_hat by per-axis dense DFTs in one
+"""K2 and K4: the gain spectrum Q_gain_hat by per-axis DFTs in one
 hand-written CUDA entry, and its plain PyTorch version.
 
 Counterpart of ``boltzfft/pallas_kernels.py``'s ``fused_gain(scheme="ct")``
 (``_fused_gain_ct`` -> ``_fused_ct_kernel`` in gain-only mode, K2) and
 ``fused_gain(scheme="transpose")`` (``_fused_gain_kernel``, K4).  On the TPU
 the two schemes feed Mosaic's lane tiles differently; on the card both run
-the same algorithm, a dense DFT along each axis with the node phase folded
-in, which is K1's node loop.  So both wrappers call one entry,
+the same algorithm, a DFT along each axis with the node phase folded in
+(dense, or split as K1 splits 64-point y and z axes in float64), which is
+K1's node loop.  So both wrappers call one entry,
 ``bfft_fused_gain_*`` of ``csrc/fused_collide.cu``, and keep JAX's grid
 rules: ct takes any even grid, transpose cubic grids only.
 

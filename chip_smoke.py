@@ -74,7 +74,9 @@ Phases, in order; any failure raises and the script exits non-zero:
     the TG-2D step; and a ``torch.profiler`` window over TG-2D steps (device
     time by kernel family and the card's idle share); K1's bound on the
     tensor cores beside its CUDA-core bound, and its stream stage's device
-    time beside one ``torch.fft.ifftn`` over the same 2 x n_nodes grids;
+    time beside one ``torch.fft.ifftn`` over the same 2 x n_nodes grids,
+    the streams' y/z plane pass alone (dense, or the 8x8 split at 64-point
+    float64 axes) beside its dense DMMA, split and byte bounds;
     the homogeneous routes (K1, rfft + use_pallas, K2 + hook, K4) are timed
     in turns;
 12. K8 on edge operands (every chunk and slice at 127 units, K = 64,
@@ -249,6 +251,7 @@ import dataclasses
 import hashlib
 import io
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -453,6 +456,19 @@ def k3_kron_flops(shape, n_nodes, n_groups, batch=1):
     macs = (2 * n_nodes * (nx * nyz * nyz + nyz * nx * nx)
             + n_groups * (nyz * nx * nx + nx * nyz * nyz))
     return batch * 8.0 * macs
+
+
+def plane_pass_bounds(n, n_nodes, dtype):
+    """(dense ms, split ms or None, bytes ms) of K1's node-stream y/z plane
+    pass per eval at n^3: 2 B grids, 2 axes at n complex multiply-adds a
+    point as dense products, 2 sqrt(n) as the two-factor split (only where n
+    is a square), 8 FLOPs each, on the tensor cores; each stream written
+    once (its input, f_hat, stays in L2)."""
+    flops = 2 * n_nodes * 2 * n ** 3 * 8.0
+    r = math.isqrt(n)
+    t = lambda macs: 1e3 * TC_PASSES[dtype] * flops * macs / PEAK_TC[dtype]  # noqa: E731
+    csize = 16 if dtype == "float64" else 8
+    return t(n), (t(2 * r) if r * r == n else None), 1e3 * 2 * n_nodes * n ** 3 * csize / PEAK_BYTES
 
 
 def bound(flops, nbytes, dtype):
@@ -3492,8 +3508,9 @@ def main() -> int:
                 times[("k1", n, dtype, label)] = ms
                 report(f"K1 {n}^3 Ns=12 {dtype} {label}", ms)
             elem = "double" if dtype == "float64" else "float"
-            # the x pass in either matrix variant (the last template argument)
-            fams = (f"plane_dft_kernel<{elem}, false>", f"line_dft_kernel<{elem}, false, 2, 1, ")
+            # the plane pass dense or split, the x pass in either matrix
+            # variant (the last template argument of each)
+            fams = (f"plane_dft_kernel<{elem}, false, ", f"line_dft_kernel<{elem}, false, 2, 1, ")
             fam = profile_calls(lambda: k1.fused_collide(*args, **kw), fams, 3)
             x = torch.randn((2 * cfg.n_nodes, n, n, n), dtype=cfg.complex_dtype, device=dev)
             ifft_ms = statistics.median(time_ms(lambda: torch.fft.ifftn(x, dim=(-3, -2, -1)), 5, 1))
@@ -3507,6 +3524,14 @@ def main() -> int:
             print(f"[11 stream stage] K1 {n}^3 {dtype}: the node streams {said}, profiler,"
                   f" per eval; torch.fft.ifftn over the {2 * cfg.n_nodes} grids"
                   f" {ifft_ms:.4f} ms (library yardstick) | {card}")
+            dense_ms, split_ms, bytes_ms = plane_pass_bounds(n, cfg.n_nodes, dtype)
+            split_yz = k1.split_yz((n, n, n), cfg.real_dtype)
+            print(f"[11 plane pass] K1 {n}^3 {dtype}: y/z {split_yz}; the streams' plane pass"
+                  f" {'not measured' if parts is None else f'{parts[0]:.4f} ms'} against its"
+                  f" bounds: dense {TC_UNIT[dtype].split(',')[0]} {dense_ms:.4f} ms, the"
+                  f" 8x8 split's arithmetic "
+                  f"{'(no split at this length)' if split_ms is None else f'{split_ms:.4f} ms'},"
+                  f" the streams' bytes {bytes_ms:.4f} ms | {card}")
             # K2 and K4 at the same shape, on this f's spectrum
             args, kw = k24_inputs(op, cfg, pre, f)
             for key, scheme in (("k2", "ct"), ("k4", "transpose")):

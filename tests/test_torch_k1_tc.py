@@ -1,7 +1,10 @@
 """K1's axis transforms on the tensor cores (``boltzfft_torch/csrc/
 spectral_common.cuh``), checked on the CPU: a model of the float32 product,
-the shared-memory plan's mirror, and the SASS count; on a card only, the
-plan against the library's own and the tensor-core instructions.
+a model of the two-factor split of the 64-point y and z axes (the lanes'
+fragments as the kernel gathers them from the dense matrix, DMMA m16n8k8 by
+its fragment layout), the shared-memory plan's mirror, and the SASS count;
+on a card only, the plan against the library's own, the tensor-core
+instructions, and K1 and K2/K4 at 64^3 through the split.
 
 The float32 transforms run as 3xTF32: each operand is split hi = tf32(a),
 lo = tf32(a - hi) (round to nearest, ties away, 10 mantissa bits), and each
@@ -23,6 +26,7 @@ import ctypes
 import re
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -163,6 +167,190 @@ def test_tf32_rounding_is_to_nearest_ties_away():
 
 
 # --------------------------------------------------------------------------
+# the split: a 64-point y or z axis as two 8-point stages on DMMA
+# --------------------------------------------------------------------------
+
+LANE = np.arange(32)
+G, T = LANE // 4, LANE % 4  # lane = 4 g + t
+
+
+def _a_at(q):  # (row, column) of A fragment value q of every lane
+    return G + 8 * (q & 1), T + 4 * (q >> 1)
+
+
+def _b_at(q):  # (depth, column) of B fragment value q
+    return T + 4 * q, G
+
+
+def _c_at(r):  # (row, column) of accumulator r
+    return G + 8 * (r >> 1), 2 * T + (r & 1)
+
+
+def mma16(c, a, b):
+    """``mma_dmma16`` (m16n8k8, ``a`` (32, 4), ``b`` (32, 2)) or
+    ``mma_dmma16k16`` (m16n8k16, ``a`` (32, 8), ``b`` (32, 4)) over a warp,
+    ``c`` (32, 4), one row per lane, laid out as the kernel's fragments;
+    returns the accumulators plus A B (the sums in NumPy's order, which
+    differs from the tensor core's by rounding)."""
+    depth = 2 * a.shape[1]
+    A, B, C = np.zeros((16, depth)), np.zeros((depth, 8)), np.zeros((16, 8))
+    for q in range(a.shape[1]):
+        A[_a_at(q)] = a[:, q]
+    for q in range(b.shape[1]):
+        B[_b_at(q)] = b[:, q]
+    for r in range(4):
+        C[_c_at(r)] = c[:, r]
+    d = C + A @ B
+    return np.stack([d[_c_at(r)] for r in range(4)], axis=1)
+
+
+def split_frags(m):
+    """``split_frags``: each lane's entries of the dense (64, 64) complex
+    matrix ``m`` = c w^(k n): stage 1's A ([W1r; W1i] at depth t and t + 4,
+    [-W1i; W1r] at t + 8 and t + 12, W1[k2, n2] = m[k2, 8 n2] / c), the
+    twiddles m[g, 2t + h] / c, stage 2's B for the real and the imaginary
+    output (re, re, -im, -im and im, im, re, re of m[8 g, 2t + h])."""
+    inv_c = 1.0 / m[0, 0].real
+    w = [m[G, 8 * (T + 4 * h)] * inv_c for h in (0, 1)]
+    a1 = np.stack([w[0].real, w[0].imag, w[1].real, w[1].imag,
+                   -w[0].imag, w[0].real, -w[1].imag, w[1].real], axis=1)
+    tw = [m[G, 2 * T + h] * inv_c for h in (0, 1)]
+    b2 = [m[8 * G, 2 * T + h] for h in (0, 1)]
+    b2re = np.stack([b2[0].real, b2[1].real, -b2[0].imag, -b2[1].imag], axis=1)
+    b2im = np.stack([b2[0].imag, b2[1].imag, b2[0].real, b2[1].real], axis=1)
+    return a1, tw, b2re, b2im
+
+
+def split_pair(fr, xa, xb, ph=None, fa=1.0, fb=1.0, real=False):
+    """``split_pair`` on two lines of 64 complex points: stage 1 (one
+    m16n8k16, or m16n8k8 on a real line) and the twiddle per line, stage 2
+    (two m16n8k16) on the pair, outputs where the kernel stores them
+    (accumulator r: line r // 2, point g + 16 t + 8 (r % 2))."""
+    a1, tw, b2re, b2im = fr
+    i0 = 8 * T + G
+    cs = []
+    for x in (xa, xb):
+        x0, x1 = x[i0], x[i0 + 32]
+        if ph is not None:
+            x0, x1 = ph[i0] * x0, ph[i0 + 32] * x1
+        if real:
+            c = mma16(np.zeros((32, 4)), a1[:, :4], np.stack([x0.real, x1.real], axis=1))
+        else:
+            b = np.stack([x0.real, x1.real, x0.imag, x1.imag], axis=1)
+            c = mma16(np.zeros((32, 4)), a1, b)
+        t2 = [tw[h] * (c[:, h] + 1j * c[:, 2 + h]) for h in (0, 1)]
+        cs.append(np.stack([t2[0].real, t2[1].real, t2[0].imag, t2[1].imag], axis=1))
+    a = np.stack([cs[q][:, r] for r in range(4) for q in (0, 1)], axis=1)
+    o_re = mma16(np.zeros((32, 4)), a, b2re)
+    o_im = mma16(np.zeros((32, 4)), a, b2im)
+    out = np.full((2, 64), np.nan, dtype=complex)
+    for r in range(4):
+        v = o_re[:, r] + 1j * o_im[:, r]
+        if ph is not None:
+            v = (fa if r < 2 else fb) * v
+        out[r >> 1, G + 16 * T + 8 * (r & 1)] = v
+    return out[0], out[1]
+
+
+def split_plane(m, x, phases=None, real=False):
+    """``plane_split_body`` on one (64, 64) plane x[y, z]: z in place (row
+    pairs; with ``phases`` = (ax at the plane, ay, az): az folded into the
+    input, ax ay into the output), then y in place (column pairs)."""
+    fr = split_frags(m)
+    buf = x.astype(complex)
+    for q in range(32):
+        la, lb = 2 * q, 2 * q + 1
+        if phases is None:
+            buf[la], buf[lb] = split_pair(fr, buf[la], buf[lb], real=real)
+        else:
+            fx, fy, fz = phases
+            buf[la], buf[lb] = split_pair(fr, buf[la], buf[lb], fz, fx * fy[la], fx * fy[lb])
+    for q in range(32):
+        buf[:, 2 * q], buf[:, 2 * q + 1] = split_pair(fr, buf[:, 2 * q], buf[:, 2 * q + 1])
+    return buf
+
+
+def _dft_pair(n):
+    # weights.build_precomp's matrices, complex: forward, inverse
+    ph = 2.0 * np.pi * np.outer(np.arange(n), np.arange(n)) / n
+    return np.exp(-1j * ph), np.exp(1j * ph) / n
+
+
+def test_split_fragments_cover_the_mma_tiles_once():
+    for at, shape, count in ((_a_at, (16, 8), 4), (_b_at, (8, 8), 2), (_c_at, (16, 8), 4),
+                             (_a_at, (16, 16), 8), (_b_at, (16, 8), 4)):
+        hits = np.zeros(shape, dtype=int)
+        for q in range(count):
+            np.add.at(hits, at(q), 1)
+        assert (hits == 1).all()
+    # the points a thread reads (8 t + g, + 32) and stores (g + 16 t, + 8)
+    assert sorted(np.concatenate([8 * T + G, 8 * T + G + 32])) == list(range(64))
+    assert sorted(np.concatenate([G + 16 * T, G + 16 * T + 8])) == list(range(64))
+
+
+def test_split_tables_are_entries_of_the_dense_matrix():
+    # W1 and the twiddles divided by c = m[0, 0] (a power of two: exact),
+    # stage 2's table as it stands, for the forward and the inverse matrix
+    for m, c in zip(_dft_pair(64), (1.0, 1.0 / 64)):
+        a1, tw, b2re, b2im = split_frags(m)
+        w = np.exp(-2j * np.pi / 64) if c == 1.0 else np.exp(2j * np.pi / 64)
+        assert np.allclose(a1[:, 0] + 1j * a1[:, 1], w ** (8 * G * T), rtol=0, atol=1e-13)
+        assert np.array_equal(a1[:, 4], -a1[:, 1]) and np.array_equal(a1[:, 5], a1[:, 0])
+        assert np.allclose(tw[1], w ** (G * (2 * T + 1)), rtol=0, atol=1e-13)
+        assert np.allclose(b2re[:, 0] + 1j * b2im[:, 0], c * w ** (8 * G * 2 * T), rtol=0,
+                           atol=1e-13 * c)
+        assert np.array_equal(b2re[:, 2:], -b2im[:, :2]) and np.array_equal(b2im[:, 2:], b2re[:, :2])
+        assert np.array_equal(a1[:, 0] * c, m[G, 8 * T].real)  # the scale is exact
+
+
+# The dense matrices' entries are cos and sin of 2 pi k n / 64 for k n up to
+# 63^2: their arguments' rounding leaves the dense product up to ~1.6e-14 of
+# its largest value from the exact DFT, while the split's tables reach k n of
+# at most 392 and it stays within ~2e-15 of it.  So the split is held to the
+# exact DFT (np.fft) within 1e-14 and to the dense product within 4e-14.
+SPLIT_TO_EXACT, SPLIT_TO_DENSE = 1e-14, 4e-14
+
+
+def _exact(x, inverse, axis=-1):
+    return np.fft.ifft(x, axis=axis) if inverse else np.fft.fft(x, axis=axis)
+
+
+def _close(got, want, tol):
+    return np.isfinite(got).all() and np.abs(got - want).max() <= tol * np.abs(want).max()
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("real", [False, True])
+def test_split_line_pair_matches_the_dense_product(inverse, real):
+    m = _dft_pair(64)[int(inverse)]
+    rng = np.random.default_rng(20)
+    xa, xb = rng.standard_normal((2, 64)) + (0 if real else 1j * rng.standard_normal((2, 64)))
+    ya, yb = split_pair(split_frags(m), xa, xb, real=real)
+    for y, x in ((ya, xa), (yb, xb)):
+        assert _close(y, m @ x, SPLIT_TO_DENSE)
+        assert _close(y, _exact(x, inverse), SPLIT_TO_EXACT)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_split_plane_with_the_node_phase_matches_the_dense_product(inverse):
+    # a node stream's plane: az folded into z's input, ax ay into its output,
+    # then y; against the dense products of the plain chain, one plane
+    m = _dft_pair(64)[int(inverse)]
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((64, 64)) + 1j * rng.standard_normal((64, 64))
+    fx, fy, fz = (np.exp(1j * rng.uniform(0, 2 * np.pi, n)) for n in (1, 64, 64))
+    got = split_plane(m, x, (fx[0], fy, fz))
+    assert _close(got, fx[0] * (m @ (fy[:, None] * ((x * fz[None, :]) @ m.T))), SPLIT_TO_DENSE)
+    exact = fx[0] * _exact(fy[:, None] * _exact(x * fz[None, :], inverse), inverse, axis=0)
+    assert _close(got, exact, SPLIT_TO_EXACT)
+    # a real plane (f, the group sums): no phase, one stage-1 product
+    xr = rng.standard_normal((64, 64))
+    got = split_plane(m, xr, real=True)
+    assert _close(got, m @ xr @ m.T, SPLIT_TO_DENSE)
+    assert _close(got, _exact(_exact(xr, inverse), inverse, axis=0), SPLIT_TO_EXACT)
+
+
+# --------------------------------------------------------------------------
 # the shared-memory plan
 # --------------------------------------------------------------------------
 
@@ -180,28 +368,43 @@ def test_plan_constants_mirror_the_source():
     assert k1._MAT_PAD == _source_int("kMatPad")
     assert k1._RAW_PAD == _source_int("kRawPad")
     assert k1._LINE_PAD32 == _source_int("kLinePad32")
+    assert k1._SPLIT_N == _source_int("kSplitN")
+    assert k1._SPLIT_R == _source_int("kSplitR") and k1._SPLIT_R ** 2 == k1._SPLIT_N
+    assert k1._SPLIT_PAD == _source_int("kSplitPad")
     text = (CSRC / "spectral_common.cuh").read_text()
     assert "const int cand[3][2] = {{32, 2}, {16, 2}, {16, 1}};" in text
+    # the split's rule and block, as the mirror counts them
+    assert "return csize == 16 && ny == kSplitN && nz == kSplitN ? kSplitR : 0;" in text
+    assert "return ((long long)ny * (nz + kSplitPad) + 1 + ny + nz) * 16;" in text
+    assert "threads = 32 * kSplitWarps;" in text
 
 
-@pytest.mark.parametrize("shape,dtype,want", [
-    ((16, 16, 16), torch.float64, "plane"),
-    ((32, 32, 32), torch.float64, "plane"),
-    ((64, 64, 64), torch.float64, "plane"),
-    ((64, 64, 64), torch.float32, "plane"),
-    ((32, 16, 48), torch.float32, "plane"),
-    ((12, 12, 12), torch.float32, "plane"),
-    ((96, 32, 48), torch.float64, "plane"),
-    ((16, 72, 72), torch.float64, "last pass"),
-    ((80, 80, 80), torch.float64, "last pass"),
-    ((16, 96, 96), torch.float32, "last pass"),
-    ((104, 8, 104), torch.float64, "last pass"),
-    ((128, 8, 128), torch.float32, "last pass"),
-    ((104, 8, 8), torch.float64, "plane"),
+# (grid, dtype, route, the split's factor): the split takes 64-point y and z
+# axes in float64 only, whatever x is
+@pytest.mark.parametrize("shape,dtype,want,split", [
+    ((16, 16, 16), torch.float64, "plane", 0),
+    ((32, 32, 32), torch.float64, "plane", 0),
+    ((64, 64, 64), torch.float64, "plane", 8),
+    ((64, 64, 64), torch.float32, "plane", 0),
+    ((32, 16, 48), torch.float32, "plane", 0),
+    ((12, 12, 12), torch.float32, "plane", 0),
+    ((96, 32, 48), torch.float64, "plane", 0),
+    ((16, 72, 72), torch.float64, "last pass", 0),
+    ((80, 80, 80), torch.float64, "last pass", 0),
+    ((16, 96, 96), torch.float32, "last pass", 0),
+    ((104, 8, 104), torch.float64, "last pass", 0),
+    ((128, 8, 128), torch.float32, "last pass", 0),
+    ((104, 8, 8), torch.float64, "plane", 0),
+    ((8, 8, 8), torch.float64, "plane", 0),
+    ((16, 64, 64), torch.float64, "plane", 8),
+    ((96, 64, 64), torch.float64, "plane", 8),
+    ((64, 64, 32), torch.float64, "plane", 0),
+    ((64, 32, 64), torch.float64, "plane", 0),
 ])
-def test_plan_routes(shape, dtype, want):
-    assert k1.plan(shape, dtype)[1:] == [-1, 0]
+def test_plan_routes(shape, dtype, want, split):
+    assert k1.plan(shape, dtype)[1:] == [-1, 0, split]
     assert k1.route(shape, dtype) == want
+    assert k1.split_yz(shape, dtype) == ("8x8" if split else "dense")
     csize = 16 if dtype == torch.float64 else 8
     nx, ny, nz = shape
     p = k1.plane_count(nx, ny, nz, csize)
@@ -243,8 +446,8 @@ def test_every_axis_the_cuda_core_kernel_took_still_fits():
                                               ((528, 16, 16), torch.float32, 0),
                                               ((16, 16, 912), torch.float64, 2)])
 def test_check_grid_raises_where_no_tile_fits(shape, dtype, axis):
-    route_, failed, nbytes = k1.plan(shape, dtype)
-    assert route_ == 0 and failed == axis and nbytes > k1._SMEM_LIMIT
+    route_, failed, nbytes, split = k1.plan(shape, dtype)
+    assert route_ == 0 and failed == axis and nbytes > k1._SMEM_LIMIT and split == 0
     with pytest.raises(ValueError, match="shared memory"):
         k1.check_grid(shape, dtype)
 
@@ -252,9 +455,41 @@ def test_check_grid_raises_where_no_tile_fits(shape, dtype, axis):
 def test_plane_blocks_stay_under_the_point_budget():
     for n in (8, 12, 16, 24, 32, 40, 48, 64):
         for dtype in (torch.float32, torch.float64):
-            p = k1.plane_count(n, n, n, 16 if dtype == torch.float64 else 8)
+            csize = 16 if dtype == torch.float64 else 8
+            p = k1.plane_count(n, n, n, csize)
             assert p >= 1 and n % p == 0
             assert p == 1 or p * k1._pad16(n) ** 2 <= k1._PLANE_ELEMS
+            # a split block holds one plane of the padded rows, no matrix
+            if k1.plane_split(n, n, csize):
+                assert p == 1 and k1.plane_smem(n, n, n, csize, p) == k1.split_smem(n, n)
+
+
+# (n, dtype, the split's factor, the plane block's bytes): 64^3 in float64
+# takes the split (one plane of 64 rows of 65 points and the phase rows:
+# 68,624 B) in place of the dense block (the 64 x 68 matrix, the input and
+# z-pass planes: 207,872 B); float32 at 64^3, 16^3 and 8^3 keep the dense
+# block as before
+@pytest.mark.parametrize("n,dtype,split,smem", [
+    (64, torch.float64, 8, 68_624),
+    (64, torch.float32, 0, 142_848),
+    (16, torch.float64, 0, 79_616),
+    (16, torch.float32, 0, 50_560),
+    (8, torch.float64, 0, 79_360),
+    (8, torch.float32, 0, 50_432),
+])
+def test_split_block_replaces_the_dense_block_at_64(n, dtype, split, smem):
+    csize = 16 if dtype == torch.float64 else 8
+    p = k1.plane_count(n, n, n, csize)
+    assert k1.plane_split(n, n, csize) == split
+    assert k1.plane_smem(n, n, n, csize, p) == smem <= k1._SMEM_LIMIT
+    assert k1.plan((n, n, n), dtype) == [1, -1, 0, split]
+    if split:
+        assert p == 1 and smem == (n * (n + k1._SPLIT_PAD) + 1 + 2 * n) * 16
+        # three blocks share an SM's 228 KB (1 KB of it reserved per block);
+        # the dense block it replaces took one
+        assert 3 * (smem + 1024) <= 233_472
+        dense = k1.mat_bytes(n) + n * (2 * n + 4) * 16 + 3 * n * 16  # the tile it replaces
+        assert dense == 207_872 and 2 * (dense + 1024) > 233_472
 
 
 # --------------------------------------------------------------------------
@@ -307,9 +542,10 @@ def test_plan_mirror_matches_the_library(cuda_device):
     for shape in [(16, 16, 16), (32, 32, 32), (64, 64, 64), (32, 16, 48), (12, 12, 12),
                   (8, 10, 12), (96, 32, 48), (16, 72, 72), (16, 96, 96), (80, 80, 80),
                   (112, 16, 16), (128, 128, 128), (104, 8, 104), (128, 8, 128),
-                  (368, 16, 16), (528, 16, 16), (16, 16, 912)]:
+                  (368, 16, 16), (528, 16, 16), (16, 16, 912), (8, 8, 8), (16, 64, 64),
+                  (64, 64, 32)]:
         for dtype in (torch.float32, torch.float64):
-            out = (ctypes.c_int * 3)()
+            out = (ctypes.c_int * 4)()
             assert lib.bfft_k1_plan(*shape, int(dtype == torch.float64),
                                     ctypes.cast(out, ctypes.c_void_p)) == 0
             assert list(out) == k1.plan(shape, dtype), (shape, dtype)
@@ -324,3 +560,81 @@ def test_transforms_run_on_the_tensor_cores(cuda_device):
     for kernel in ("line_dft_kernel", "plane_dft_kernel"):
         assert counts[f"{kernel}<double>"]["DMMA"] > 0
         assert counts[f"{kernel}<float>"]["HMMA"] > 0
+
+
+# --------------------------------------------------------------------------
+# on the card: K1, K2 and K4 at 64^3 in float64, where y and z take the split
+# --------------------------------------------------------------------------
+
+
+def _bkw64(dev, **kw):
+    cfg = bt.CollisionConfig(nv=64, ns=12, impl="fused", **kw)
+    pre = bt.build_precomp(cfg, dev)
+    f = torch.as_tensor(bt.bkw_f(cfg.velocity_grid.r_squared(), 6.5), dtype=cfg.real_dtype,
+                        device=dev)
+    return cfg, pre, f
+
+
+@pytest.mark.cuda
+def test_k1_at_64_takes_the_split_and_matches_plain(cuda_device):
+    from boltzfft_torch import obs
+
+    cfg, pre, f = _bkw64(cuda_device)
+    fs = torch.stack([f, 0.8 * f])
+    args, kw = _k1_args(cfg, pre, fs)
+    q = k1.fused_collide(*args, **kw)
+    note = obs.summary()["counters"]["k1_plan"]["2x64x64x64"]
+    assert note["split_yz"] == "8x8" and note["chunks_per_eval"] >= 1
+    q_ref = k1.fused_collide_reference(*args, **kw)
+    assert bool(torch.isfinite(q).all())
+    assert float((q - q_ref).abs().max()) <= 1e-12 * float(q_ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_k1_at_64_batch_and_chunks_are_bitwise(cuda_device):
+    cfg, pre, f = _bkw64(cuda_device)
+    fs = torch.stack([f, 0.8 * f])
+    args, kw = _k1_args(cfg, pre, fs)
+    q = k1.fused_collide(*args, **kw)
+    assert torch.equal(q, k1.fused_collide(*args, **kw))
+    for i in (0, 1):
+        one = list(args)
+        one[5] = fs[i]
+        assert torch.equal(k1.fused_collide(*one, **kw), q[i])
+    # one radial group a chunk (32 chunks) against the whole node set
+    assert torch.equal(k1.fused_collide(*args, chunk=cfg.ns_eff, **kw), q)
+    assert torch.equal(k1.fused_collide(*args, chunk=pre.rho.shape[0], **kw), q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["ct", "transpose"])
+def test_k2_k4_at_64_match_plain(cuda_device, scheme):
+    from boltzfft_torch.kernels import fused_gain_dft as k24
+
+    cfg, pre, f = _bkw64(cuda_device, fused_scheme=scheme)
+    fh = torch.fft.fftn(torch.stack([f, 0.8 * f]).to(cfg.complex_dtype), dim=(-3, -2, -1))
+    ax, ay, az = bt_op._alpha_factors(cfg, pre, pre.rho, pre.sigma)
+    args = (pre.rho, pre.gain_w, ax, ay, az, fh, pre.dft_inv_axes(), pre.dft_fwd_axes(),
+            pre.norm_l)
+    kw = dict(length=cfg.domain_length, b_gamma=cfg.b_gamma, radial_group=cfg.ns_eff)
+    q = k24.fused_gain_dft(*args, scheme=scheme, **kw)
+    one = list(args)
+    one[5] = fh[1]
+    assert torch.equal(k24.fused_gain_dft(*one, scheme=scheme, **kw), q[1])
+    q_ref = k24.fused_gain_dft_reference(*args, **kw)
+    assert float((q - q_ref).abs().max()) <= 1e-12 * float(q_ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_maxwell_bkw_rk4_at_64_keeps_its_digits(cuda_device, capsys):
+    # 10 RK4 steps of 0.125 from t = 5.5 through K1: the time step's error
+    # against the analytic BKW f(6.75), 2.1834e-07 of max f before the split
+    from boltzfft_torch.cli import maxwell_bkw
+
+    assert maxwell_bkw.main(["--Nv", "64", "--Ns", "12", "--impl", "fused", "--steps", "10",
+                             "--device", "cuda"]) == 0
+    out = capsys.readouterr().out
+    linf = float(re.search(r"Linf error: (\S+)", out).group(1))
+    cfg = bt.CollisionConfig(nv=64, ns=12)
+    f_end = bt.bkw_f(cfg.velocity_grid.r_squared(), 6.75)
+    assert f"{linf / float(np.abs(f_end).max()):.4e}" == "2.1834e-07"

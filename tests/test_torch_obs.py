@@ -145,6 +145,20 @@ def test_evictions_are_counted(fake_graphs, observed):
     assert after["evictions"]["doubler"] - before["evictions"].get("doubler", 0) == 2
 
 
+@pytest.mark.parametrize("shape,dtype,split", [
+    ((64, 64, 64), torch.float64, "8x8"),
+    ((64, 64, 64), torch.float32, "dense"),
+    ((16, 16, 16), torch.float64, "dense"),
+    ((8, 8, 8), torch.float64, "dense"),
+])
+def test_k1_plan_note_reads_the_split(shape, dtype, split):
+    # what K1's wrapper notes per launch shape before it launches: the split
+    # of y and z where the plane route takes it (64-point axes in float64)
+    fused_collide.note_plan(2, shape, dtype, 384, 96)
+    note = obs.summary()["counters"]["k1_plan"]["2x" + "x".join(map(str, shape))]
+    assert note == {"nodes_per_chunk": 96, "chunks_per_eval": 4, "split_yz": split}
+
+
 def test_counter_view_reads_the_kernel_modules(monkeypatch):
     monkeypatch.setattr(fused_collide, "LAUNCHES", 7)
     monkeypatch.setattr(fused_collide, "REFERENCE_CALLS", 3)
