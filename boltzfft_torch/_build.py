@@ -60,8 +60,9 @@ _I = ctypes.c_int
 _D = ctypes.c_double
 #: argtypes of each entry point (the f32 and f64 ones alike).
 _ENTRY_ARGS = {
-    # 14 inputs, 5 buffers, 7 ints, 3 reals and the stream
-    "bfft_fused_collide": [_P] * 14 + [_P] * 5 + [_I] * 7 + [_D] * 3 + [_P],
+    # 14 inputs, 5 buffers, 7 ints, 3 reals, the chunk marks (obs's ring, its
+    # head, its size, the span's begin code) and the stream
+    "bfft_fused_collide": [_P] * 14 + [_P] * 5 + [_I] * 7 + [_D] * 3 + [_P, _P, _I, _I] + [_P],
     # 10 inputs, 4 buffers, 6 ints, 3 reals and the stream
     "bfft_fused_gain_kron": [_P] * 10 + [_P] * 4 + [_I] * 6 + [_D] * 3 + [_P],
     # 13 inputs, 3 buffers, 7 ints, 3 reals and the stream

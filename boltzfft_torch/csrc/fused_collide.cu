@@ -70,7 +70,9 @@
 //    them back.
 //  * Nodes go in chunks of whole radial groups, sized by the caller from the
 //    free device memory; an eval is 6 + 4 * chunks launches on the plane
-//    route (K2/K4: 1 + 4 * chunks).
+//    route (K2/K4: 1 + 4 * chunks).  With a ring given (boltzfft_torch.obs
+//    on), K1 stamps each chunk's begin and end with obs_mark.cu's mark, two
+//    more launches a chunk; without one it launches no mark.
 //  * No float atomics: each output's sums run in one thread in a fixed order
 //    (the k loop, the nodes of a group, the groups, chunk after chunk), so
 //    an eval is bitwise reproducible, a batched eval is bitwise equal to
@@ -83,11 +85,28 @@
 
 #include "spectral_common.cuh"
 
+// obs_mark.cu, linked into the same library
+extern "C" int bfft_obs_mark(void* ring, void* head, int cap, int code, void* stream);
+
 namespace {
 
 using bfft::Cplx;
 using bfft::LineArgs;
 using bfft::PlaneArgs;
+
+// The device marks of a span around each node chunk (obs_mark.cu's ring);
+// ring null: no marks.  The chunk's begin mark is `code`, its end code + 1.
+struct ChunkMarks {
+  void* ring;
+  void* head;
+  int cap;
+  int code;
+};
+
+cudaError_t chunk_mark(const ChunkMarks& mk, int end, cudaStream_t st) {
+  if (mk.ring == nullptr) return cudaSuccess;
+  return (cudaError_t)bfft_obs_mark(mk.ring, mk.head, mk.cap, mk.code + end, st);
+}
 
 // y[e, 0] = 0, y[e, 1] = beta2 * f_hat[e]
 template <typename T>
@@ -199,13 +218,14 @@ cudaError_t gain_loop(const Grid& g, const typename Cplx<T>::type* fh,
                       typename Cplx<T>::type* t1, typename Cplx<T>::type* t2,
                       typename Cplx<T>::type* y, long long y_stride, int ne,
                       int n_nodes, int gs, int chunk, double coef, double amp,
-                      double eps, cudaStream_t st) {
+                      double eps, const ChunkMarks& mk, cudaStream_t st) {
   using C2 = typename Cplx<T>::type;
   const long long n3 = g.n3();
   cudaError_t err;
   for (int n0 = 0; n0 < n_nodes; n0 += chunk) {
     const int cn = std::min(chunk, n_nodes - n0);
     const int ng = (cn + gs - 1) / gs;
+    if ((err = chunk_mark(mk, 0, st)) != cudaSuccess) return err;
     // y and z of both phased inverse streams of every node of the chunk
     C2* streams = nullptr;
     const C2* ax0 = ax + (long long)n0 * g.nx;
@@ -259,6 +279,7 @@ cudaError_t gain_loop(const Grid& g, const typename Cplx<T>::type* fh,
     q.eps = (T)eps;
     err = bfft::line_dft<T, false, 1, bfft::kBeta1>(q, ne, st);
     if (err != cudaSuccess) return err;
+    if ((err = chunk_mark(mk, 1, st)) != cudaSuccess) return err;
   }
   return cudaSuccess;
 }
@@ -285,7 +306,7 @@ int fused_collide(const T* f, const T* beta2, const T* norm_l, const T* rho,
                   typename Cplx<T>::type* t1, typename Cplx<T>::type* t2,
                   T* q, int ne, int nx, int ny, int nz, int n_nodes, int gs,
                   int chunk, double coef, double amp, double eps,
-                  cudaStream_t st) {
+                  const ChunkMarks& mk, cudaStream_t st) {
   using C2 = typename Cplx<T>::type;
   const Grid g = make_grid<T>(nx, ny, nz);
   const long long n3 = g.n3();
@@ -304,7 +325,7 @@ int fused_collide(const T* f, const T* beta2, const T* norm_l, const T* rho,
 
   err = gain_loop<T>(g, fh, norm_l, rho, gain_w, ax, ay, az, vx, vy, vz, fx, fy,
                      fz, t1, t2, y, 2 * n3, ne, n_nodes, gs, chunk, coef, amp,
-                     eps, st);
+                     eps, mk, st);
   if (err != cudaSuccess) return err;
 
   // both final inverses (gain spectrum and beta2 f_hat), then the assembly
@@ -338,7 +359,7 @@ int fused_gain(const typename Cplx<T>::type* fh, const T* norm_l,
   if (err != cudaSuccess) return err;
   return gain_loop<T>(g, fh, norm_l, rho, gain_w, ax, ay, az, vx, vy, vz, fx, fy,
                       fz, t1, t2, out, g.n3(), ne, n_nodes, gs, chunk, coef, amp,
-                      eps, st);
+                      eps, ChunkMarks{}, st);
 }
 
 }  // namespace
@@ -350,14 +371,15 @@ int fused_gain(const typename Cplx<T>::type* fh, const T* norm_l,
       const void* vx, const void* vy, const void* vz, const void* fx,          \
       const void* fy, const void* fz, void* fh, void* y, void* t1, void* t2,   \
       void* q, int ne, int nx, int ny, int nz, int n_nodes, int gs, int chunk, \
-      double coef, double amp, double eps, void* stream) {                     \
+      double coef, double amp, double eps, void* ring, void* head, int cap,    \
+      int code, void* stream) {                                                \
     return fused_collide<T>(                                                   \
         (const T*)f, (const T*)beta2, (const T*)norm_l, (const T*)rho,         \
         (const T*)gain_w, (const C2*)ax, (const C2*)ay, (const C2*)az,         \
         (const C2*)vx, (const C2*)vy, (const C2*)vz, (const C2*)fx,            \
         (const C2*)fy, (const C2*)fz, (C2*)fh, (C2*)y, (C2*)t1, (C2*)t2,       \
         (T*)q, ne, nx, ny, nz, n_nodes, gs, chunk, coef, amp, eps,             \
-        (cudaStream_t)stream);                                                 \
+        ChunkMarks{ring, head, cap, code}, (cudaStream_t)stream);              \
   }
 
 BFFT_ENTRY(bfft_fused_collide_f32, float, float2)

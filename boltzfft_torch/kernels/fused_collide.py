@@ -41,6 +41,9 @@ from .. import obs
 LAUNCHES = 0
 #: Calls of the plain PyTorch version.
 REFERENCE_CALLS = 0
+#: The free device memory :func:`_chunk_nodes` last read per (E, N^3, bytes
+#: a complex point), for the ``k1_plan`` counter.
+_SETTLED_FREE: dict = {}
 
 # Mirror of the shared-memory plan of ``csrc/spectral_common.cuh``
 # (``k1_plan``, the one count; the tests hold these constants to the source
@@ -164,13 +167,24 @@ def split_yz(shape, dtype: torch.dtype) -> str:
     return f"{r}x{_SPLIT_N // r}" if r else "dense"
 
 
+def stream_bytes(n_batch: int, n3: int, csize: int, chunk: int) -> int:
+    """Bytes of the two node-stream buffers of a launch: each holds both
+    phased streams of every node of a chunk for every distribution."""
+    return 2 * (2 * n_batch * chunk * n3) * csize
+
+
 def note_plan(n_batch: int, shape, dtype: torch.dtype, n_nodes: int, chunk: int) -> None:
     """The ``k1_plan`` counter of a launch shape: nodes per chunk, chunks per
-    eval and ``split_yz``."""
+    eval, ``split_yz``, the stream buffers' bytes and the free device memory
+    :func:`_chunk_nodes` read when it settled the chunk (None where the
+    caller gave the chunk)."""
     nx, ny, nz = (int(n) for n in shape)
+    n3, csize = nx * ny * nz, 16 if dtype == torch.float64 else 8
     obs.note("k1_plan", f"{n_batch}x{nx}x{ny}x{nz}",
              {"nodes_per_chunk": chunk, "chunks_per_eval": -(-n_nodes // chunk),
-              "split_yz": split_yz(shape, dtype)})
+              "split_yz": split_yz(shape, dtype),
+              "stream_bytes": stream_bytes(n_batch, n3, csize, chunk),
+              "free_bytes_at_settle": _SETTLED_FREE.get((n_batch, n3, csize))})
 
 
 def route(shape, dtype: torch.dtype):
@@ -308,11 +322,14 @@ def fused_collide_reference(
 def _chunk_nodes(n_nodes: int, group: int, n_batch: int, n3: int,
                 csize: int, device) -> int:
     """Nodes per kernel chunk: whole radial groups whose two stream buffers
-    (2 buffers x E x 2 streams x N^3 complex per node) fit half the free
-    device memory."""
+    (:func:`stream_bytes`) fit a third of the free device memory.  A CUDA
+    graph keeps its capture's buffers in its pool, so two graphs of the same
+    eval (a step's and the operator's own, both on this chunk) and the eager
+    warm-up before the second capture have to fit together: two thirds at
+    the peak, the rest for the states and the tables."""
     free, _total = torch.cuda.mem_get_info(device)
-    per_node = 2 * n_batch * 2 * n3 * csize
-    cap = min(n_nodes, (free // 2) // per_node)
+    _SETTLED_FREE[(n_batch, n3, csize)] = free
+    cap = min(n_nodes, (free // 3) // stream_bytes(n_batch, n3, csize, 1))
     return max(group, (cap // group) * group)
 
 
@@ -369,7 +386,7 @@ def _fused_collide_cuda(
     # the two node-stream buffers first: the caching allocator then puts the
     # small ones in free small blocks, never a piece of a freed stream
     # buffer, which would make the next call's second stream buffer a new
-    # segment (a third 18 GiB one on an RK4 step of 256 x 32^3 f64)
+    # segment (a third 12 GiB one on an RK4 step of 256 x 32^3 f64)
     t1 = torch.empty((2 * n_batch * chunk, n3), dtype=cd, device=dev)
     t2 = torch.empty_like(t1)
     fh = torch.empty((n_batch, n3), dtype=cd, device=dev)
@@ -378,6 +395,8 @@ def _fused_collide_cuda(
 
     lib = load_library()
     entry = lib.bfft_fused_collide_f64 if rd == torch.float64 else lib.bfft_fused_collide_f32
+    # obs on: the kernel marks a device span k1.chunk around each node chunk
+    marks = obs.marks("k1.chunk", fb) or (None, None, 0, 0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = entry(
@@ -385,7 +404,7 @@ def _fused_collide_cuda(
             fh.data_ptr(), y.data_ptr(), t1.data_ptr(), t2.data_ptr(), q.data_ptr(),
             n_batch, nx, ny, nz, n_nodes, radial_group, chunk,
             math.pi / (2.0 * length), 4.0 * math.pi * b_gamma,
-            float(torch.finfo(rd).eps), stream,
+            float(torch.finfo(rd).eps), *marks, stream,
         )
     if rc != 0:
         raise RuntimeError(f"fused_collide: CUDA kernel failed with cudaError {rc}")

@@ -28,10 +28,12 @@ id, ns) to a ring on the device.  Under a capture the marks become graph
 nodes, so every replay stamps its own spans with no host synchronise.  They
 are ``step`` (the unit's first and last node, opened by ``Replayed``),
 ``collide`` (every operator eval, at its entry), ``advect.<axis>`` and, on a
-mesh, its child ``halo.<axis>``.  :func:`summary` synchronises once, pairs
-the marks and reports device ms per span, self time (less the child spans),
-the gaps between one ``step`` span and the next of a unit, and marks lost to
-the ring's wrap (:data:`RING`).  A graph captured with obs on keeps its
+mesh, its child ``halo.<axis>``; and ``k1.chunk``, child of ``collide``, one
+span per node chunk of K1, whose marks the kernel's own chunk loop launches
+(:func:`marks` hands it the ring and the span's code).  :func:`summary`
+synchronises once, pairs the marks and reports device ms per span, self
+time (less the child spans), the gaps between one ``step`` span and the
+next of a unit, and marks lost to the ring's wrap (:data:`RING`).  A graph captured with obs on keeps its
 marks after :func:`disable`; one captured off has none.
 
 **Counters** are always on (they count at capture, launch-plan or build
@@ -115,8 +117,7 @@ class _Span:
             self.rf.__enter__()
         self.site = None
         if self.like is not None and self.like.is_cuda:
-            dparent = next((s.name for s in reversed(_stack) if s.site is not None), None)
-            self.site = _site(self.unit, _key(dparent, self.name))
+            self.site = _device_site(self.unit, self.name)
             _mark(self.like.device, 2 * self.site)
         _stack.append(self)
         self.t0 = time.perf_counter_ns()
@@ -178,6 +179,13 @@ def _site(unit_name: str, key: str) -> int:
     return site
 
 
+def _device_site(unit_name: str, name: str) -> int:
+    """The site of device span ``name`` opened now: its parent is the
+    innermost open span that has device marks."""
+    dparent = next((s.name for s in reversed(_stack) if s.site is not None), None)
+    return _site(unit_name, _key(dparent, name))
+
+
 def _index(device) -> int:
     return torch.cuda.current_device() if device.index is None else device.index
 
@@ -212,6 +220,22 @@ def _mark(device, code: int) -> None:
         rc = lib.bfft_obs_mark(ring.data_ptr(), head.data_ptr(), RING, code, stream)
     if rc != 0:
         raise RuntimeError(f"obs: the mark kernel failed with cudaError {rc}")
+
+
+def marks(name: str, like):
+    """``(ring, head, capacity, code)`` for a device span ``name`` whose
+    marks a kernel launches itself, on ``like``'s device, under the innermost
+    open device span: the ring's and head's addresses, the ring's size and the
+    begin mark's code (the end's is code + 1).  None while obs is off or off
+    the card: the kernel then launches no mark."""
+    if not on or not like.is_cuda:
+        return None
+    site = _device_site(_units[-1] if _units else MAIN, name)
+    index = _index(like.device)
+    if index not in _rings:
+        prepare(like.device)
+    ring, head = _rings[index]
+    return ring.data_ptr(), head.data_ptr(), RING, 2 * site
 
 
 def capture_nodes(device):

@@ -151,12 +151,41 @@ def test_evictions_are_counted(fake_graphs, observed):
     ((16, 16, 16), torch.float64, "dense"),
     ((8, 8, 8), torch.float64, "dense"),
 ])
-def test_k1_plan_note_reads_the_split(shape, dtype, split):
+def test_k1_plan_note_reads_the_split(shape, dtype, split, monkeypatch):
     # what K1's wrapper notes per launch shape before it launches: the split
-    # of y and z where the plane route takes it (64-point axes in float64)
+    # of y and z where the plane route takes it (64-point axes in float64),
+    # the stream buffers' bytes, and no free reading for a chunk it was given
+    monkeypatch.setattr(fused_collide, "_SETTLED_FREE", {})
     fused_collide.note_plan(2, shape, dtype, 384, 96)
     note = obs.summary()["counters"]["k1_plan"]["2x" + "x".join(map(str, shape))]
-    assert note == {"nodes_per_chunk": 96, "chunks_per_eval": 4, "split_yz": split}
+    csize = 16 if dtype == torch.float64 else 8
+    assert note == {"nodes_per_chunk": 96, "chunks_per_eval": 4, "split_yz": split,
+                    "stream_bytes": 2 * 2 * 2 * 96 * shape[0] ** 3 * csize,
+                    "free_bytes_at_settle": None}
+
+
+GIB = 2**30
+
+
+@pytest.mark.parametrize("n_batch,n,n_nodes,free,chunk,chunks,stream_gib", [
+    (256, 32, 192, 78 * GIB, 48, 4, 24.0),  # the ensemble, 256 x 32^3: two 12 GiB buffers
+    (256, 32, 192, 30 * GIB, 18, 11, 9.0),  # less free memory: more chunks
+    (1, 64, 384, 78 * GIB, 384, 1, 6.0),  # BKW 64^3: one chunk
+    (256, 16, 96, 78 * GIB, 96, 1, 6.0),  # TG-2D, 256 cells of 16^3: one chunk
+])
+def test_k1_plan_notes_the_settled_chunk(monkeypatch, n_batch, n, n_nodes, free, chunk, chunks,
+                                         stream_gib):
+    # the chunk settled from a free-memory reading (whole radial groups of 6
+    # nodes, both stream buffers within a third of it, so that two graphs of
+    # the eval and an eager warm-up fit), and what the counter notes of it
+    monkeypatch.setattr(fused_collide, "_SETTLED_FREE", {})
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda _dev: (free, 80 * GIB))
+    got = fused_collide._chunk_nodes(n_nodes, 6, n_batch, n**3, 16, "cuda")
+    fused_collide.note_plan(n_batch, (n, n, n), torch.float64, n_nodes, got)
+    note = obs.summary()["counters"]["k1_plan"][f"{n_batch}x{n}x{n}x{n}"]
+    assert (got, note["nodes_per_chunk"], note["chunks_per_eval"]) == (chunk, chunk, chunks)
+    assert note["stream_bytes"] == stream_gib * GIB and note["free_bytes_at_settle"] == free
+    assert 2 * note["stream_bytes"] <= 2 * free // 3
 
 
 def test_counter_view_reads_the_kernel_modules(monkeypatch):

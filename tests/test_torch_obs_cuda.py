@@ -1,7 +1,7 @@
 """``boltzfft_torch.obs`` on a card: a replayed step has the same bits with
 obs on and off, obs off adds no graph node, a device span agrees with CUDA
-events, the node counter agrees with the kept graph and its debug dump, and
-a traced step's device spans add up.
+events, the node counter agrees with the kept graph and its debug dump, a
+traced step's device spans add up, and K1's chunk spans count its chunks.
 
 No test here imports jax, so the file runs on a machine without it:
 
@@ -104,7 +104,8 @@ def test_bits_equal_with_obs_on_and_off(cuda_device):
 @pytest.mark.cuda
 def test_obs_off_adds_no_node(cuda_device):
     """Off, the step's graph has the nodes of the capture before obs; on,
-    ten more: the step's two marks and two for each of its four evals."""
+    eighteen more: the step's two marks, two for each of its four evals and
+    two for each eval's one K1 node chunk."""
     obs.disable()
     run, f0, pre, _ = _relaxation(cuda_device, nv=16)
     run.step(f0, pre)
@@ -115,7 +116,7 @@ def test_obs_off_adds_no_node(cuda_device):
         run_on, _f0, pre_on, _ = _relaxation(cuda_device, nv=16)
         run_on.step(f0, pre_on)
         on = obs.summary()["counters"]["graph_nodes"]["relaxation.step"]
-        assert on == obs.graph_nodes(_graph_of(run_on.step)) == off + 10
+        assert on == obs.graph_nodes(_graph_of(run_on.step)) == off + 18
     finally:
         obs.disable()
         obs.reset()
@@ -158,7 +159,7 @@ def test_node_counter_agrees_with_the_kept_graph(cuda_device, observed, tmp_path
     nodes = chip_smoke.graph_nodes(graph, tmp_path / "step.dot")
     assert counted == obs.graph_nodes(graph)
     assert counted == sum(nodes.get(t, 0) for t in chip_smoke.NODE_TYPES + ("unlabelled",))
-    assert nodes["kernel: obs_mark"] == 10
+    assert nodes["kernel: obs_mark"] == 18
 
 
 @pytest.mark.cuda
@@ -188,4 +189,39 @@ def test_step_spans_add_up(cuda_device, observed):
     assert 0 < dev["step"]["self_ms"] < dev["step"]["total_ms"]
     assert s["gaps"]["step_body"]["count"] == 7
     assert s["host"]["step_body"]["replay/replay.launch"]["count"] == 8
+    assert s["marks"]["lost"] == 0 and s["marks"]["unpaired"] == 0
+
+
+@pytest.mark.cuda
+def test_k1_chunk_spans_count_chunks_times_evals(cuda_device, monkeypatch):
+    """K1 in chunks of one radial group (16 to a 16^3 eval): with obs on, the
+    replayed RK4 step's ``collide/k1.chunk`` spans count chunks x evals, lie
+    inside their evals and add two nodes a chunk; off, the step's graph has
+    the nodes of the capture before obs, chunks or not."""
+    from boltzfft_torch.kernels import fused_collide as k1
+
+    monkeypatch.setattr(k1, "_chunk_nodes", lambda n_nodes, group, *a: group)
+    obs.disable()
+    run, f0, pre, _ = _relaxation(cuda_device, nv=16)
+    run.step(f0, pre)
+    s = obs.summary()
+    off = s["counters"]["graph_nodes"]["relaxation.step"]
+    chunks = s["counters"]["k1_plan"]["1x16x16x16"]["chunks_per_eval"]
+    assert chunks == 16 and off == _parent_capture_nodes(run.step.fn, f0, pre)
+    obs.enable()
+    try:
+        run_on, _f0, pre_on, _ = _relaxation(cuda_device, nv=16)
+        f, _rec = run_on.step(f0, pre_on)  # the capture
+        obs.reset()
+        for _ in range(3):
+            f, _rec = run_on.step(f, pre_on)
+        s = obs.summary()
+    finally:
+        obs.disable()
+        obs.reset()
+    dev = s["device"]["relaxation.step"]
+    assert dev["step/collide"]["count"] == 3 * 4
+    assert dev["collide/k1.chunk"]["count"] == 3 * 4 * chunks
+    assert 0 < dev["step/collide"]["self_ms"] < dev["step/collide"]["total_ms"]
+    assert s["counters"]["graph_nodes"]["relaxation.step"] == off + 10 + 2 * 4 * chunks
     assert s["marks"]["lost"] == 0 and s["marks"]["unpaired"] == 0

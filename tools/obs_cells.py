@@ -15,7 +15,9 @@ line ``{"obs": ...}``: the span and counter metrics of
 ``portbench/metrics`` (on several cards each rank's, and their mean), the
 sub-window's device time per step (window / steps) against the sum of the
 step's parts, the marks written and lost, the standalone operator's
-``collide`` span, and the step unit's counters.  ``--obs 0`` is the
+``collide`` span, K1's ``collide/k1.chunk`` spans (per chunk, and chunks
+per eval: their count over the ``collide`` spans'), and the step unit's
+counters.  ``--obs 0`` is the
 benchmark's own run, for the cost of obs: compare ``step_ms``.
 
 ``--check`` times the marks themselves: 2000 empty spans launched back to
@@ -40,7 +42,7 @@ sys.path.insert(0, str(ROOT))
 
 SPAN_METRICS = ("step_collide_ms", "step_advect_ms", "step_halo_ms", "step_self_ms",
                 "step_gap_us", "replay_launch_ms")
-COUNTER_METRICS = ("step_graph_nodes", "step_captures")
+COUNTER_METRICS = ("step_graph_nodes", "step_captures", "k1_chunks_per_eval", "k1_stream_gib")
 _STASH = {}
 
 
@@ -105,6 +107,13 @@ def _patch(on: bool) -> None:
         alone = live["device"].get("collide", {}).get("step/collide")  # its 21 replays
         s0 = ranks[0]
         unit = spans.step_unit(s0)
+
+        def k1_chunks(dev):
+            chunk, evals = dev.get("collide/k1.chunk"), dev.get("step/collide")
+            if not chunk or not evals:
+                return None
+            return {"count": chunk["count"], "ms_per_chunk": chunk["total_ms"] / chunk["count"],
+                    "max_ms": chunk["max_ms"], "chunks_per_eval": chunk["count"] / evals["count"]}
         line = {"obs": {
             "metrics": mean, "per_rank": per_rank if len(per_rank) > 1 else None,
             "window_ms_per_step": step_dev, "parts_ms_per_step": parts,
@@ -112,6 +121,8 @@ def _patch(on: bool) -> None:
             "collision_ms": run.collision_ms, "evals_per_step": run.evals_per_step,
             "collide_alone_ms": alone["total_ms"] / alone["count"] if alone else None,
             "collide_alone_count": alone["count"] if alone else None,
+            "k1_chunk": k1_chunks(s0["device"].get(unit) or {}),
+            "k1_chunk_alone": k1_chunks(live["device"].get("collide", {})),
             "marks": [s["marks"] for s in ranks], "dropped": [s["dropped"] for s in ranks],
             "unit": unit, "device": s0["device"].get(unit), "gaps": s0["gaps"].get(unit),
             "host": s0["host"].get(unit),
