@@ -175,32 +175,32 @@ def build() -> Path:
     failed = [out for rc, out, _s in results if rc != 0]
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    sass = library_sass(nvcc, tmp)
     with BUILD_LOG.open("a") as log:
-        log.write(f"# tensor-core instructions (HMMA, HGMMA, DMMA) per kernel: {tc_counts(nvcc, tmp)}\n")
+        log.write(f"# tensor-core instructions (HMMA, HGMMA, DMMA) per kernel: {count_tc(sass)}\n")
+        log.write(f"# DMMA shapes per transform instance: {dmma_shapes(sass)}\n")
     os.replace(tmp, LIB_PATH)
     _HASH_PATH.write_text(digest)
     return LIB_PATH
 
 
-#: Kernels whose tensor-core instructions ``tc_counts`` reports: the ds
+#: Kernels whose tensor-core instructions ``count_tc`` reports: the ds
 #: engine's tile kernels, and K1's (K2's, K4's, K3's x leg) axis transforms
 #: and K3's y/z GEMM, whose float and double instances are told apart.
 TC_KERNELS = ("oz_contract_kernel", "gmain3_kernel", "gmain12_kernel")
 TC_TRANSFORMS = ("line_dft_kernel", "plane_dft_kernel", "kron_gemm_kernel")
 
 
-def tc_counts(nvcc: str, lib: Path) -> dict:
-    """``count_tc`` of the library's SASS (``cuobjdump -sass``, beside nvcc):
-    the check that the exact chunk dots, K1's transforms and K3's GEMM run
-    on the tensor cores.  Empty where cuobjdump is missing or fails."""
+def library_sass(nvcc: str, lib: Path) -> str:
+    """The library's SASS (``cuobjdump -sass``, beside nvcc), for the checks
+    that the exact chunk dots, K1's transforms and K3's GEMM run on the
+    tensor cores.  Empty where cuobjdump is missing or fails."""
     tool = Path(nvcc).parent / "cuobjdump"
     if not tool.exists():
-        return {}
+        return ""
     proc = subprocess.run([str(tool), "-sass", str(lib)], stdout=subprocess.PIPE,
                           stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        return {}
-    return count_tc(proc.stdout)
+    return proc.stdout if proc.returncode == 0 else ""
 
 
 def count_tc(sass: str) -> dict:
@@ -224,6 +224,32 @@ def count_tc(sass: str) -> dict:
             m = re.search(r"\b(DMMA|HGMMA|HMMA)\b", line)
             if m:
                 counts[name][m.group(1)] += 1
+    return counts
+
+
+_INSTANCE = re.compile(r"(%s)I([df])((?:L[bi]\d+E)*)E" % "|".join(TC_TRANSFORMS))
+
+
+def dmma_shapes(sass: str) -> dict:
+    """{instance: {shape: count}} of the DMMA instructions (``DMMA.8x8x4`` is
+    m8n8k4, ``DMMA.16x8x16`` m16n8k16, ...) in ``cuobjdump -sass`` text, per
+    instance of ``TC_TRANSFORMS`` with its template arguments, e.g.
+    ``plane_dft_kernel<double,false,false>`` (kRealIn, kSplit)."""
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            m = _INSTANCE.search(line)
+            name = None
+            if m:
+                args = ["double" if m.group(2) == "d" else "float"]
+                for a in re.findall(r"L([bi])(\d+)E", m.group(3)):
+                    args.append(("false", "true")[int(a[1])] if a[0] == "b" else a[1])
+                name = f"{m.group(1)}<{','.join(args)}>"
+                counts.setdefault(name, {})
+        elif name is not None:
+            m = re.search(r"\bDMMA\.(\w+)", line)
+            if m:
+                counts[name][m.group(1)] = counts[name].get(m.group(1), 0) + 1
     return counts
 
 

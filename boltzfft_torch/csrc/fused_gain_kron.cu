@@ -33,7 +33,7 @@
 // What the design does about it:
 //  * The contraction is a complex GEMM on the tensor cores (kron_gemm_kernel),
 //    m16n8k8 tiles in both precisions: DMMA in double (sm_90's 16x8x8 shape,
-//    faster here than K1's m8n8k4), 3xTF32 in float (bfft::tf32_cmac:
+//    faster here than m8n8k4), 3xTF32 in float (bfft::tf32_cmac:
 //    each hi*hi product in a zeroed fragment of its own, only the small terms
 //    chained, because the tensor core's adder truncates), four real products
 //    per complex one.  A block of 8 warps (32 x 32 output tiles each) walks

@@ -8,9 +8,17 @@
 // with jnp.dot (boltzfft/pallas_kernels.py:548-720).  Here it runs on the
 // Hopper tensor cores as four real products of the re/im planes,
 // Yr = Mr Xr - Mi Xi and Yi = Mr Xi + Mi Xr (not the 3-multiply form, which
-// loses digits):
-//  * double: mma.sync m8n8k4 f64 (DMMA; Hopper has no f64 wgmma),
-//    accumulated in the fragment over the whole k loop;
+// loses digits).  A warp owns a 16 x 16 output tile, two 16 x 8 mma tiles,
+// and steps through the depth 8 complex points at a time:
+//  * double: mma.sync m16n8k16 f64 (DMMA; Hopper has no f64 wgmma), the
+//    complex step written as one real product of twice the depth, per
+//    output part: [Yr] += [Mr -Mi] [Xr; Xi] and [Yi] += [Mi Mr] [Xr; Xi].
+//    The two products of one accumulator are then one instruction, never
+//    two issued back to back; -Mi is negated in registers from the staged
+//    Mi plane (4 sign flips a step, where a third staged plane would cost
+//    the 64-point kGain tile its 32 lines).  A real X (Xi = 0) takes one
+//    m16n8k8 per part, Mr Xr and Mi Xr.  Accumulated in the fragment over
+//    the whole k loop;
 //  * float: 3xTF32.  Each operand is split hi = tf32(a), lo = tf32(a - hi)
 //    (round to nearest, ties away) and each product is lo*hi + hi*lo + hi*hi
 //    (mma.sync m16n8k8 tf32).  The tensor core's adder truncates, and
@@ -27,23 +35,30 @@
 // the tables taken from the entries of the matrix it is given.  Other axis
 // lengths, and float, keep the dense tile.
 // What bounds the transforms now.  The dense tiles (the x line passes, every
-// axis of other lengths): the tensor-core arithmetic, and in double the
-// m8n8k4 shape runs at most 33 TFLOP/s on an H100, half the m16n8k16 rate
-// (tools/dmma_probe.cu); then the streams' bytes that are left (one write
-// and one read of every stream, two on the route for large planes).  The
-// split plane pass: the least time is its bytes (each 64^3 stream written
-// once: 0.96 ms per 64^3 eval at 3.35 TB/s), then its arithmetic (0.77 ms
-// at the DMMA peak); measured, its in-place passes (the products with the
+// axis of other lengths): the tensor-core arithmetic, at m16n8k16's rate in
+// double (61-67 TFLOP/s on an H100 from registers, where m8n8k4 stops at
+// 33: tools/dmma_probe.cu), then the shared-memory reads that feed it, then
+// the streams' bytes that are left (one write and one read of every stream,
+// two on the route for large planes).  The split
+// plane pass: the least time is its bytes (each 64^3 stream written once:
+// 0.96 ms per 64^3 eval at 3.35 TB/s), then its arithmetic (0.77 ms at the
+// DMMA peak); measured, its in-place passes (the products with the
 // shared-memory reads and writes around them) take most of its time.
 // What the design does about it:
 //  * The matrix goes into shared memory once per block (zero-padded to a
 //    multiple of 16, pre-split for float) and the block walks many tiles
 //    in a persistent loop; tiles are double-buffered with cp.async where
-//    shared memory allows, so loads overlap the products.  Along an axis
-//    whose matrix and tile do not fit together (over 96 points), the line
-//    kernel reads its A fragments from the matrix in device memory instead
-//    (L2-resident; split per fragment in float, the same bits), with the
-//    same k loop and so the same result.
+//    shared memory allows, so loads overlap the products.  The fragments'
+//    reads are free of bank conflicts: the matrix rows are padded by
+//    kMatPad, and in double the tiles' rows by kLinePad64 (tile_pad).  The
+//    plane kernel's blocks of up to 16 warps hold a thread to 128
+//    registers, where two steps' m16n8k16 fragments spill: its double tile
+//    reads each step's fragments just before the products (kPrefetch
+//    false), the line kernel's (8 warps, 255 registers) a step ahead.
+//    Along an axis whose matrix and tile do not fit together (over 96
+//    points), the line kernel reads its A fragments from the matrix in
+//    device memory instead (L2-resident; split per fragment in float, the
+//    same bits), with the same k loop and so the same result.
 //  * The node phase costs no pass of its own on the plane route: az is
 //    folded into the z pass's B fragments, ax ay into its output (diagonal,
 //    they commute with the z transform).  A line pass that takes a phase
@@ -101,12 +116,24 @@ constexpr int kPlaneElems = 2048;   // most padded points of a plane block
 constexpr int kMatPad = 4;          // matrix row padding (conflict-free A loads)
 constexpr int kRawPad = 4;          // plane row padding (z-pass B loads)
 constexpr int kLinePad32 = 8;       // float tile row padding (B loads)
+constexpr int kLinePad64 = 2;       // double tile row padding (B loads)
 constexpr int kSplitN = 64;         // the axis length the split takes (y and z)
 constexpr int kSplitR = 8;          // its factors: kSplitN = kSplitR * kSplitR
 constexpr int kSplitPad = 1;        // split block row padding (column reads)
 constexpr int kSplitWarps = 8;      // warps of a split block
 
 __host__ __device__ inline int pad16(int n) { return (n + kPad - 1) / kPad * kPad; }
+
+// Row padding of a B operand's tile (complex points): a line tile, or the
+// plane kernel's z-pass planes.  In double one 16-byte B load of 8 lanes
+// reads depths t + 4 q (t = 0..3) at columns g (g = 0, 1); rows of a
+// multiple of 8 points put the four depths on one bank, rows padded by
+// kLinePad64 put the 8 points on distinct banks.  A line tile whose matrix
+// is not resident keeps unpadded rows, so the longest axes keep the tiles
+// they fit.
+__host__ __device__ inline int tile_pad(int csize, bool resident) {
+  return csize == 8 ? kLinePad32 : (resident ? kLinePad64 : 0);
+}
 
 // The split's factor for the y and z axes of a plane block: kSplitR where
 // both are kSplitN points and the type is double (csize 16), else 0 (the
@@ -141,7 +168,7 @@ struct LinePlan {
 __host__ __device__ inline long long line_smem(int n, int streams, int acc_bytes,
                                                int csize, int lines, int nbuf,
                                                bool resident) {
-  const int ld = lines + (csize == 8 ? kLinePad32 : 0);
+  const int ld = lines + tile_pad(csize, resident);
   return (resident ? mat_bytes(n) : 0) +
          (long long)nbuf * streams * pad16(n) * ld * csize +
          (long long)pad16(n) * lines * acc_bytes;
@@ -169,7 +196,7 @@ __host__ __device__ inline long long plane_smem(int nx, int ny, int nz, int csiz
   if (plane_split(ny, nz, csize)) return split_smem(ny, nz);
   const long long mats = mat_bytes(nz) + (ny == nz ? 0 : mat_bytes(ny));
   const int ld_raw = pad16(nz) + kRawPad;
-  const int ld_mid = pad16(nz) + (csize == 8 ? kLinePad32 : 0);
+  const int ld_mid = pad16(nz) + tile_pad(csize, true);
   return mats + (long long)planes * pad16(ny) * (ld_raw + ld_mid) * csize +
          (long long)(nx + ny + pad16(nz)) * csize;
 }
@@ -223,23 +250,12 @@ __host__ __device__ inline void k1_plan(int nx, int ny, int nz, int csize, int* 
 // Tensor-core fragments
 // ---------------------------------------------------------------------------
 
-// A warp owns 16 x 16 output tiles: 2 x 2 DMMA tiles (8 x 8) in double, 1 x 2
-// tf32 tiles (16 x 8) in float.  kAcc: accumulator values per thread and
-// tile, at rows (lane / 4) + 8 (r / 2), columns 2 (lane % 4) + r % 2.
-template <typename T> struct Tc;
-template <> struct Tc<double> {
-  static constexpr int kM = 8, kN = 8, kK = 4, kWM = 2, kWN = 2, kAcc = 2;
-};
-template <> struct Tc<float> {
+// A warp owns 16 x 16 output tiles: 1 x 2 mma tiles (16 x 8) in both
+// precisions, k steps of kK complex points.  kAcc: accumulator values per
+// thread and tile, at rows (lane / 4) + 8 (r / 2), columns 2 (lane % 4) + r % 2.
+template <typename T> struct Tc {
   static constexpr int kM = 16, kN = 8, kK = 8, kWM = 1, kWN = 2, kAcc = 4;
 };
-
-__device__ __forceinline__ void mma_dmma(double (&d)[2], double a, double b) {
-  asm(
-      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%0, %1};\n"
-      : "+d"(d[0]), "+d"(d[1])
-      : "d"(a), "d"(b));
-}
 
 // The m16n8k8 shape of DMMA (sm_90): fragments laid out as mma_tf32's.
 __device__ __forceinline__ void mma_dmma16(double (&d)[4], const double (&a)[4],
@@ -393,11 +409,15 @@ __device__ __forceinline__ typename Cplx<T>::type to_cplx(T x) {
 // shared memory, or (kGlobalA) the (n_mat, n_mat) complex matrix in device
 // memory, read per fragment (zero outside it, split in float exactly as
 // stage_matrix splits it, so both give the same bits).  The k loop runs in
-// order; the fragments of step k + 1 are read while step k multiplies.
+// order; with kPrefetch the fragments of step k + 1 are read while step k
+// multiplies, else each step's just before its products.  A
+// lane's A value q sits at row g + 8 (q % 2), depth t + 4 (q / 2) of the
+// step, its B value q of each n8 tile at depth t + 4 q, column g (lane =
+// 4 g + t): m16n8k8's layout, which m16n8k16 extends by the imaginary half.
 template <typename T, int S> struct Frags;
 template <int S> struct Frags<double, S> {
-  double ar[Tc<double>::kWM], ai[Tc<double>::kWM];
-  double2 b[S][Tc<double>::kWN];
+  double ar[4], ai[4];
+  double2 b[S][Tc<double>::kWN][2];
 };
 template <int S> struct Frags<float, S> {
   uint32_t arh[4], arl[4], aih[4], ail[4];
@@ -424,80 +444,82 @@ __device__ __forceinline__ void load_frags(const void* a_src, int n_mat, int pla
   using C2 = typename Cplx<T>::type;
   const int t = threadIdx.x & 3;
   const C2* gm = static_cast<const C2*>(a_src);
-  if constexpr (sizeof(T) == 8) {
-    const double* mr = static_cast<const double*>(a_src) + a_row * ld + t + k0;
 #pragma unroll
-    for (int a = 0; a < TC::kWM; ++a) {
-      if constexpr (kGlobalA) {
-        const C2 v = mat_at(gm, n_mat, a_row + a * TC::kM, k0 + t);
-        f.ar[a] = v.x;
-        f.ai[a] = v.y;
+  for (int q = 0; q < 4; ++q) {
+    const int off = (q & 1) * 8 * ld + (q >> 1) * 4;
+    if constexpr (kGlobalA) {
+      const C2 v = mat_at(gm, n_mat, a_row + (q & 1) * 8, k0 + t + (q >> 1) * 4);
+      if constexpr (sizeof(T) == 8) {
+        f.ar[q] = v.x;
+        f.ai[q] = v.y;
       } else {
-        f.ar[a] = mr[a * TC::kM * ld];
-        f.ai[a] = mr[plane + a * TC::kM * ld];
-      }
-    }
-#pragma unroll
-    for (int s = 0; s < S; ++s)
-#pragma unroll
-      for (int b = 0; b < TC::kWN; ++b) {
-        C2 v = to_cplx<T>(bp[s][b][k0 * sk]);
-        if (kph != nullptr) v = cmul(kph[k0 + t], v);
-        f.b[s][b] = v;
-      }
-  } else {
-    const uint32_t* mp = static_cast<const uint32_t*>(a_src) + a_row * ld + t + k0;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      if constexpr (kGlobalA) {
-        const C2 v = mat_at(gm, n_mat, a_row + (q & 1) * 8, k0 + t + (q >> 1) * 4);
         tf32_split(v.x, f.arh[q], f.arl[q]);
         tf32_split(v.y, f.aih[q], f.ail[q]);
-      } else {
-        const int off = (q & 1) * 8 * ld + (q >> 1) * 4;
-        f.arh[q] = mp[off];
-        f.arl[q] = mp[plane + off];
-        f.aih[q] = mp[2 * plane + off];
-        f.ail[q] = mp[3 * plane + off];
       }
+    } else if constexpr (sizeof(T) == 8) {
+      const double* mp = static_cast<const double*>(a_src) + a_row * ld + t + k0;
+      f.ar[q] = mp[off];
+      f.ai[q] = mp[plane + off];
+    } else {
+      const uint32_t* mp = static_cast<const uint32_t*>(a_src) + a_row * ld + t + k0;
+      f.arh[q] = mp[off];
+      f.arl[q] = mp[plane + off];
+      f.aih[q] = mp[2 * plane + off];
+      f.ail[q] = mp[3 * plane + off];
     }
-#pragma unroll
-    for (int s = 0; s < S; ++s)
-#pragma unroll
-      for (int b = 0; b < TC::kWN; ++b)
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          C2 v = to_cplx<T>(bp[s][b][(k0 + 4 * q) * sk]);
-          if (kph != nullptr) v = cmul(kph[k0 + t + 4 * q], v);
-          f.b[s][b][q] = v;
-        }
   }
+  // a real B takes no phase (no caller gives one)
+  constexpr bool kRealB = std::is_same<In, T>::value;
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+#pragma unroll
+    for (int b = 0; b < TC::kWN; ++b)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        C2 v = to_cplx<T>(bp[s][b][(k0 + 4 * q) * sk]);
+        if constexpr (!kRealB)
+          if (kph != nullptr) v = cmul(kph[k0 + t + 4 * q], v);
+        f.b[s][b][q] = v;
+      }
 }
 
-template <typename T, int S>
+// One k step of the warp's tile.  kRealB: B is real (Xi = 0).
+template <typename T, int S, bool kRealB>
 __device__ __forceinline__ void mma_frags(const Frags<T, S>& f, TileAcc<T, S>& acc) {
   using TC = Tc<T>;
   if constexpr (sizeof(T) == 8) {
-    // Mr X first on every tile, then Mi X: the two products of one
-    // accumulator are never issued back to back
+    if constexpr (kRealB) {
+      // Yr += Mr Xr, Yi += Mi Xr: m16n8k8, the A fragments as loaded
 #pragma unroll
-    for (int s = 0; s < S; ++s)
+      for (int s = 0; s < S; ++s)
 #pragma unroll
-      for (int b = 0; b < TC::kWN; ++b)
-#pragma unroll
-        for (int a = 0; a < TC::kWM; ++a) {
-          mma_dmma(acc.re[s][a][b], f.ar[a], f.b[s][b].x);
-          mma_dmma(acc.im[s][a][b], f.ar[a], f.b[s][b].y);
+        for (int b = 0; b < TC::kWN; ++b) {
+          const double x[2] = {f.b[s][b][0].x, f.b[s][b][1].x};
+          mma_dmma16(acc.re[s][0][b], f.ar, x);
+          mma_dmma16(acc.im[s][0][b], f.ai, x);
         }
+    } else {
+      // m16n8k16 on the stacked depth: slots t, t + 4 the real parts of the
+      // step's points t, t + 4, slots t + 8, t + 12 their imaginary parts;
+      // A [Mr -Mi] for Yr and [Mi Mr] for Yi, B [Xr; Xi] for both
+      double are[8], aim[8];
 #pragma unroll
-    for (int s = 0; s < S; ++s)
+      for (int q = 0; q < 4; ++q) {
+        are[q] = f.ar[q];
+        are[4 + q] = -f.ai[q];
+        aim[q] = f.ai[q];
+        aim[4 + q] = f.ar[q];
+      }
 #pragma unroll
-      for (int b = 0; b < TC::kWN; ++b)
+      for (int s = 0; s < S; ++s)
 #pragma unroll
-        for (int a = 0; a < TC::kWM; ++a) {
-          mma_dmma(acc.re[s][a][b], -f.ai[a], f.b[s][b].y);
-          mma_dmma(acc.im[s][a][b], f.ai[a], f.b[s][b].x);
+        for (int b = 0; b < TC::kWN; ++b) {
+          const double x[4] = {f.b[s][b][0].x, f.b[s][b][1].x, f.b[s][b][0].y,
+                               f.b[s][b][1].y};
+          mma_dmma16k16(acc.re[s][0][b], are, x);
+          mma_dmma16k16(acc.im[s][0][b], aim, x);
         }
+    }
   } else {
     uint32_t naih[4], nail[4];
 #pragma unroll
@@ -521,7 +543,8 @@ __device__ __forceinline__ void mma_frags(const Frags<T, S>& f, TileAcc<T, S>& a
   }
 }
 
-template <typename T, int S, typename In, bool kGlobalA = false, class BCol>
+template <typename T, int S, typename In, bool kGlobalA = false, bool kPrefetch = true,
+          class BCol>
 __device__ __forceinline__ void tile_product(const void* a_src, int n_mat, int i0,
                                              int n0, BCol bcol, int sk,
                                              TileAcc<T, S>& acc,
@@ -544,6 +567,16 @@ __device__ __forceinline__ void tile_product(const void* a_src, int n_mat, int i
   for (int s = 0; s < S; ++s)
 #pragma unroll
     for (int b = 0; b < TC::kWN; ++b) bp[s][b] = bcol(s, n0 + b * TC::kN + g) + t * sk;
+  constexpr bool kRealB = std::is_same<In, T>::value;
+  if constexpr (!kPrefetch) {
+#pragma unroll 1
+    for (int k0 = 0; k0 < np; k0 += TC::kK) {
+      Frags<T, S> f;
+      load_frags<T, S, In, kGlobalA>(a_src, n_mat, plane, a_row, ld, k0, bp, sk, kph, f);
+      mma_frags<T, S, kRealB>(f, acc);
+    }
+    return;
+  }
   // np is a multiple of 16, so of 2 kK: the steps go in pairs
   Frags<T, S> f0, f1;
   load_frags<T, S, In, kGlobalA>(a_src, n_mat, plane, a_row, ld, 0, bp, sk, kph, f0);
@@ -551,11 +584,11 @@ __device__ __forceinline__ void tile_product(const void* a_src, int n_mat, int i
   for (int k0 = 0; k0 < np; k0 += 2 * TC::kK) {
     load_frags<T, S, In, kGlobalA>(a_src, n_mat, plane, a_row, ld, k0 + TC::kK, bp, sk,
                                    kph, f1);
-    mma_frags<T, S>(f0, acc);
+    mma_frags<T, S, kRealB>(f0, acc);
     if (k0 + 2 * TC::kK < np)
       load_frags<T, S, In, kGlobalA>(a_src, n_mat, plane, a_row, ld, k0 + 2 * TC::kK, bp,
                                      sk, kph, f0);
-    mma_frags<T, S>(f1, acc);
+    mma_frags<T, S, kRealB>(f1, acc);
   }
 }
 
@@ -619,7 +652,7 @@ __global__ void __launch_bounds__(kTcWarps * 32) line_dft_kernel(const LineArgs<
   extern __shared__ __align__(16) unsigned char smem[];
   const int np = pad16(p.n);
   const int L = p.lines;
-  const int ld = L + (sizeof(T) == 4 ? kLinePad32 : 0);
+  const int ld = L + tile_pad((int)sizeof(C2), !kGlobalA);
   const long long tile_elems = (long long)np * ld;
   const long long mat_sm = kGlobalA ? 0 : mat_bytes(p.n);
   const void* a_src = kGlobalA ? static_cast<const void*>(p.mat) : smem;
@@ -1097,8 +1130,11 @@ __global__ void __launch_bounds__(kSplit ? kSplitWarps * 32 : kPlaneWarps * 32, 
     plane_split_body<kRealIn>(p, smem);
     return;
   }
+  // up to kPlaneWarps warps: 128 registers a thread, where two steps'
+  // m16n8k16 fragments spill, so the double tile loads each step's own
+  constexpr bool kPlanePrefetch = sizeof(T) == 4;
   const int nyp = pad16(p.ny), nzp = pad16(p.nz);
-  const int ld_raw = nzp + kRawPad, ld_mid = nzp + (sizeof(T) == 4 ? kLinePad32 : 0);
+  const int ld_raw = nzp + kRawPad, ld_mid = nzp + tile_pad((int)sizeof(C2), true);
   const bool share = p.ny == p.nz;
   const int P = p.planes;
   unsigned char* sm_mz = smem;
@@ -1168,8 +1204,8 @@ __global__ void __launch_bounds__(kSplit ? kSplitWarps * 32 : kPlaneWarps * 32, 
     for (int tg = warp; tg < zgroups; tg += nwarps) {
       const int i0 = (tg / zg_n) * 16, n0 = (tg % zg_n) * 16;
       TileAcc<T, 1> acc;
-      tile_product<T, 1, In>(sm_mz, p.nz, i0, n0, zcol, 1, acc,
-                             phased ? sph + P + p.ny : nullptr);
+      tile_product<T, 1, In, false, kPlanePrefetch>(sm_mz, p.nz, i0, n0, zcol, 1, acc,
+                                                    phased ? sph + P + p.ny : nullptr);
 #pragma unroll
       for (int b = 0; b < Tc<T>::kWN; ++b)
 #pragma unroll
@@ -1204,7 +1240,7 @@ __global__ void __launch_bounds__(kSplit ? kSplitWarps * 32 : kPlaneWarps * 32, 
     for (int tg = warp; tg < ygroups; tg += nwarps) {
       const int i0 = (tg / yg_n) * 16, n0 = (tg % yg_n) * 16;
       TileAcc<T, 1> acc;
-      tile_product<T, 1, C2>(sm_my, p.ny, i0, n0, ycol, ld_mid, acc);
+      tile_product<T, 1, C2, false, kPlanePrefetch>(sm_my, p.ny, i0, n0, ycol, ld_mid, acc);
 #pragma unroll
       for (int b = 0; b < Tc<T>::kWN; ++b)
 #pragma unroll

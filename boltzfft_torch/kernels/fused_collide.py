@@ -22,7 +22,7 @@ Both compute, per distribution f (Nx, Ny, Nz), with per-axis DFT matrices:
 
 The plain version runs every transform's axes in the order x, y, z; the
 kernel runs z, y, then x (fused with the group sum or the beta1 sum), on the
-tensor cores (DMMA in float64, 3xTF32 in float32), the y and z axes of
+tensor cores (DMMA m16n8k16 in float64, 3xTF32 in float32), the y and z axes of
 64-point float64 planes as a two-factor Cooley-Tukey split (64 = 8 * 8,
 ``plane_split``) and every other axis as a dense product.  The two agree to
 rounding: within 1e-12 max|Q| in float64 and 1e-5 in float32 (4e-5 at 16^3,
@@ -54,6 +54,7 @@ _PLANE_ELEMS = 2048  # kPlaneElems: most padded points of a plane block
 _MAT_PAD = 4         # kMatPad
 _RAW_PAD = 4         # kRawPad
 _LINE_PAD32 = 8      # kLinePad32
+_LINE_PAD64 = 2      # kLinePad64
 _SPLIT_N = 64        # kSplitN: the axis length the split takes (y and z)
 _SPLIT_R = 8         # kSplitR: its factors, 64 = 8 * 8
 _SPLIT_PAD = 1       # kSplitPad: split block row padding
@@ -77,10 +78,17 @@ def mat_bytes(n: int) -> int:
     return _pad16(n) * (_pad16(n) + _MAT_PAD) * 16
 
 
+def tile_pad(csize: int, resident: bool) -> int:
+    """Row padding (complex points) of a B operand's tile: _LINE_PAD32 in
+    float32, _LINE_PAD64 in float64 where the matrix is resident, else 0."""
+    return _LINE_PAD32 if csize == 8 else (_LINE_PAD64 if resident else 0)
+
+
 def line_smem(n, streams, acc_bytes, csize, lines, nbuf, resident) -> int:
     """A line-kernel block: the matrix if ``resident``, nbuf x streams tiles
-    of pad16(n) x lines complex points, an accumulator of acc_bytes a point."""
-    ld = lines + (_LINE_PAD32 if csize == 8 else 0)
+    of pad16(n) x lines complex points (rows padded by :func:`tile_pad`),
+    an accumulator of acc_bytes a point."""
+    ld = lines + tile_pad(csize, resident)
     return ((mat_bytes(n) if resident else 0) + nbuf * streams * _pad16(n) * ld * csize
             + _pad16(n) * lines * acc_bytes)
 
@@ -118,7 +126,7 @@ def plane_smem(nx, ny, nz, csize, planes) -> int:
         return split_smem(ny, nz)
     mats = mat_bytes(nz) + (0 if ny == nz else mat_bytes(ny))
     ld_raw = _pad16(nz) + _RAW_PAD
-    ld_mid = _pad16(nz) + (_LINE_PAD32 if csize == 8 else 0)
+    ld_mid = _pad16(nz) + tile_pad(csize, True)
     return mats + planes * _pad16(ny) * (ld_raw + ld_mid) * csize + (nx + ny + _pad16(nz)) * csize
 
 
@@ -167,6 +175,12 @@ def split_yz(shape, dtype: torch.dtype) -> str:
     return f"{r}x{_SPLIT_N // r}" if r else "dense"
 
 
+def dense_tile(dtype: torch.dtype) -> str:
+    """The instruction shape of the dense tile (every axis the split does not
+    take): "m16n8k16" DMMA in float64, "3xtf32" (m16n8k8 TF32) in float32."""
+    return "m16n8k16" if dtype == torch.float64 else "3xtf32"
+
+
 def stream_bytes(n_batch: int, n3: int, csize: int, chunk: int) -> int:
     """Bytes of the two node-stream buffers of a launch: each holds both
     phased streams of every node of a chunk for every distribution."""
@@ -175,14 +189,14 @@ def stream_bytes(n_batch: int, n3: int, csize: int, chunk: int) -> int:
 
 def note_plan(n_batch: int, shape, dtype: torch.dtype, n_nodes: int, chunk: int) -> None:
     """The ``k1_plan`` counter of a launch shape: nodes per chunk, chunks per
-    eval, ``split_yz``, the stream buffers' bytes and the free device memory
-    :func:`_chunk_nodes` read when it settled the chunk (None where the
-    caller gave the chunk)."""
+    eval, ``split_yz``, ``dense_tile``, the stream buffers' bytes and the
+    free device memory :func:`_chunk_nodes` read when it settled the chunk
+    (None where the caller gave the chunk)."""
     nx, ny, nz = (int(n) for n in shape)
     n3, csize = nx * ny * nz, 16 if dtype == torch.float64 else 8
     obs.note("k1_plan", f"{n_batch}x{nx}x{ny}x{nz}",
              {"nodes_per_chunk": chunk, "chunks_per_eval": -(-n_nodes // chunk),
-              "split_yz": split_yz(shape, dtype),
+              "split_yz": split_yz(shape, dtype), "dense_tile": dense_tile(dtype),
               "stream_bytes": stream_bytes(n_batch, n3, csize, chunk),
               "free_bytes_at_settle": _SETTLED_FREE.get((n_batch, n3, csize))})
 

@@ -2,9 +2,12 @@
 spectral_common.cuh``), checked on the CPU: a model of the float32 product,
 a model of the two-factor split of the 64-point y and z axes (the lanes'
 fragments as the kernel gathers them from the dense matrix, DMMA m16n8k8 by
-its fragment layout), the shared-memory plan's mirror, and the SASS count;
-on a card only, the plan against the library's own, the tensor-core
-instructions, and K1 and K2/K4 at 64^3 through the split.
+its fragment layout), a model of the float64 dense tile (the lanes' DMMA
+m16n8k16 fragments over the whole k loop), the shared-memory plan's mirror,
+and the SASS counts; on a card only, the plan against the library's own, the
+tensor-core instructions and their shapes, K1 on the dense tile at 16^3 (the
+TG-2D batch) and 32^3, its float32 bits, and K1 and K2/K4 at 64^3 through the
+split.
 
 The float32 transforms run as 3xTF32: each operand is split hi = tf32(a),
 lo = tf32(a - hi) (round to nearest, ties away, 10 mantissa bits), and each
@@ -351,6 +354,137 @@ def test_split_plane_with_the_node_phase_matches_the_dense_product(inverse):
 
 
 # --------------------------------------------------------------------------
+# the float64 dense tile: DMMA m16n8k16 on the stacked complex depth
+# --------------------------------------------------------------------------
+#
+# A warp's 16 x 16 output tile is two m16n8 tiles.  Each k step takes 8
+# complex points of the depth as one real product of depth 16 per output
+# part: A [Mr -Mi] (Yr) and [Mi Mr] (Yi), B [Xr; Xi]; a real B takes
+# m16n8k8, Mr Xr and Mi Xr.  The padded length is a multiple of 16, so the
+# steps (np / 8: 2 at 16, 6 at 48, 10 at 80) always go in pairs.
+
+
+def dense_frags(mp, i0, k0):
+    """``load_frags`` + ``mma_frags``: the lanes' A values of the step at
+    depth k0 for rows i0 of the padded matrix ``mp``: ar, ai (32, 4) as
+    loaded (value q at row g + 8 (q % 2), depth t + 4 (q / 2)), and the
+    stacked m16n8k16 operands [ar, -ai] and [ai, ar] (32, 8)."""
+    at = [(i0 + G + 8 * (q & 1), k0 + T + 4 * (q >> 1)) for q in range(4)]
+    ar = np.stack([mp[a].real for a in at], axis=1)
+    ai = np.stack([mp[a].imag for a in at], axis=1)
+    return ar, ai, np.concatenate([ar, -ai], axis=1), np.concatenate([ai, ar], axis=1)
+
+
+def dense_b(xp, k0, col):
+    """The lanes' B values of the step at depth k0, columns ``col`` (32,):
+    Xr at depths t and t + 4, then Xi at the same depths."""
+    x0, x1 = xp[k0 + T, col], xp[k0 + T + 4, col]
+    return np.stack([x0.real, x1.real, x0.imag, x1.imag], axis=1)
+
+
+def dense_product(m, x, real=False):
+    """``tile_product`` of the (n, n) complex matrix ``m`` with the (n, C)
+    columns ``x`` (C a multiple of 16), zero-padded to pad16(n), one warp
+    tile at a time, the accumulators stored where the epilogues take them
+    (accumulator r of n8 tile b: row g + 8 (r / 2), column 8 b + 2 t + r % 2)."""
+    n, cols = m.shape[0], x.shape[1]
+    npd = k1._pad16(n)
+    mp = np.zeros((npd, npd), complex)
+    mp[:n, :n] = m
+    xp = np.zeros((npd, cols), complex)
+    xp[:n] = x
+    out = np.full((npd, cols), np.nan, complex)
+    for i0 in range(0, npd, 16):
+        for n0 in range(0, cols, 16):
+            acc = np.zeros((2, 2, 32, 4))  # (n8 tile, re / im, lane, r)
+            for k0 in range(0, npd, 8):
+                ar, ai, are, aim = dense_frags(mp, i0, k0)
+                for b in (0, 1):
+                    xb = dense_b(xp, k0, n0 + 8 * b + G)
+                    if real:
+                        acc[b, 0] = mma16(acc[b, 0], ar, xb[:, :2])
+                        acc[b, 1] = mma16(acc[b, 1], ai, xb[:, :2])
+                    else:
+                        acc[b, 0] = mma16(acc[b, 0], are, xb)
+                        acc[b, 1] = mma16(acc[b, 1], aim, xb)
+            for b in (0, 1):
+                for r in range(4):
+                    out[i0 + G + 8 * (r >> 1), n0 + 8 * b + 2 * T + (r & 1)] = (
+                        acc[b, 0][:, r] + 1j * acc[b, 1][:, r])
+    return out[:n]
+
+
+def test_dense_fragments_cover_the_tile_once():
+    # the stacked A covers 16 rows x 16 slots and B 16 slots x 8 columns once
+    # (the split's test holds the layouts); each slot is one complex point of
+    # the step: slots t + 4 (q / 2) its real part, slots 8 + t + 4 (q / 2) its
+    # imaginary part, so every one of the 8 points is met once as each
+    a_pts = np.zeros((16, 8, 2), dtype=int)
+    for q in range(8):
+        row, slot = _a_at(q)
+        np.add.at(a_pts, (row, slot % 8, slot // 8), 1)
+    b_pts = np.zeros((8, 8, 2), dtype=int)
+    for q in range(4):
+        slot, col = _b_at(q)
+        np.add.at(b_pts, (slot % 8, col, slot // 8), 1)
+    assert (a_pts == 1).all() and (b_pts == 1).all()
+    # the lanes' loads: A value q (q < 4) and B value q (q < 2) of each n8
+    # tile cover the step's 16 rows x 8 points and 8 points x 16 columns once
+    hits_a = np.zeros((16, 8), dtype=int)
+    for q in range(4):
+        np.add.at(hits_a, (G + 8 * (q & 1), T + 4 * (q >> 1)), 1)
+    hits_b = np.zeros((8, 16), dtype=int)
+    for b in (0, 1):
+        for q in (0, 1):
+            np.add.at(hits_b, (T + 4 * q, 8 * b + G), 1)
+    assert (hits_a == 1).all() and (hits_b == 1).all()
+    # the two n8 tiles' accumulators cover the warp's 16 x 16 output once
+    hits_c = np.zeros((16, 16), dtype=int)
+    for b in (0, 1):
+        for r in range(4):
+            row, col = _c_at(r)
+            np.add.at(hits_c, (row, 8 * b + col), 1)
+    assert (hits_c == 1).all()
+
+
+def test_dense_stacked_planes_are_the_matrix():
+    # [Mr -Mi] and [Mi Mr] as the m16n8k16 A tile sees them, against the
+    # matrix's 16 x 8 block of the step, for every step of a 48-point inverse
+    m = _dft_pair(40)[1]
+    mp = np.zeros((48, 48), complex)
+    mp[:40, :40] = m
+    for i0 in (0, 32):
+        for k0 in range(0, 48, 8):
+            ar, ai, are, aim = dense_frags(mp, i0, k0)
+            A_re, A_im = np.zeros((16, 16)), np.zeros((16, 16))
+            for q in range(8):
+                A_re[_a_at(q)], A_im[_a_at(q)] = are[:, q], aim[:, q]
+            blk = mp[i0:i0 + 16, k0:k0 + 8]
+            assert np.array_equal(A_re, np.hstack([blk.real, -blk.imag]))
+            assert np.array_equal(A_im, np.hstack([blk.imag, blk.real]))
+            assert np.array_equal(are[:, 4:], -ai) and np.array_equal(aim[:, 4:], ar)
+
+
+# The dense matrices' own distance from the exact DFT grows with k n: up to
+# ~1.9e-14 of the largest value at 80 points.  So the model is held to the
+# matrix product within 1e-14 (it reads ~1e-15) and to np.fft within
+# SPLIT_TO_DENSE, the room this file already gives that distance.
+DENSE_TO_MATRIX = 1e-14
+
+
+@pytest.mark.parametrize("n", [12, 32, 40, 64, 80])  # padded: 16, 32, 48, 64, 80
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("real", [False, True])
+def test_dense_tile_matches_the_matrix_product(n, inverse, real):
+    m = _dft_pair(n)[int(inverse)]
+    rng = np.random.default_rng(n + 2 * inverse + real)
+    x = rng.standard_normal((n, 32)) + (0 if real else 1j * rng.standard_normal((n, 32)))
+    y = dense_product(m, x, real=real)
+    assert _close(y, m @ x, DENSE_TO_MATRIX)
+    assert _close(y, _exact(x, inverse, axis=0), SPLIT_TO_DENSE)
+
+
+# --------------------------------------------------------------------------
 # the shared-memory plan
 # --------------------------------------------------------------------------
 
@@ -368,6 +502,7 @@ def test_plan_constants_mirror_the_source():
     assert k1._MAT_PAD == _source_int("kMatPad")
     assert k1._RAW_PAD == _source_int("kRawPad")
     assert k1._LINE_PAD32 == _source_int("kLinePad32")
+    assert k1._LINE_PAD64 == _source_int("kLinePad64")
     assert k1._SPLIT_N == _source_int("kSplitN")
     assert k1._SPLIT_R == _source_int("kSplitR") and k1._SPLIT_R ** 2 == k1._SPLIT_N
     assert k1._SPLIT_PAD == _source_int("kSplitPad")
@@ -377,6 +512,10 @@ def test_plan_constants_mirror_the_source():
     assert "return csize == 16 && ny == kSplitN && nz == kSplitN ? kSplitR : 0;" in text
     assert "return ((long long)ny * (nz + kSplitPad) + 1 + ny + nz) * 16;" in text
     assert "threads = 32 * kSplitWarps;" in text
+    # the B tiles' row padding, as the mirror counts it
+    assert "return csize == 8 ? kLinePad32 : (resident ? kLinePad64 : 0);" in text
+    assert "const int ld = lines + tile_pad(csize, resident);" in text
+    assert "const int ld_mid = pad16(nz) + tile_pad(csize, true);" in text
 
 
 # (grid, dtype, route, the split's factor): the split takes 64-point y and z
@@ -468,13 +607,14 @@ def test_plane_blocks_stay_under_the_point_budget():
 # takes the split (one plane of 64 rows of 65 points and the phase rows:
 # 68,624 B) in place of the dense block (the 64 x 68 matrix, the input and
 # z-pass planes: 207,872 B); float32 at 64^3, 16^3 and 8^3 keep the dense
-# block as before
+# block as before, float64 at 16^3 and 8^3 too, with the z-pass planes' rows
+# padded by kLinePad64 (8 planes x 16 rows x 2 points x 16 B more)
 @pytest.mark.parametrize("n,dtype,split,smem", [
     (64, torch.float64, 8, 68_624),
     (64, torch.float32, 0, 142_848),
-    (16, torch.float64, 0, 79_616),
+    (16, torch.float64, 0, 83_712),
     (16, torch.float32, 0, 50_560),
-    (8, torch.float64, 0, 79_360),
+    (8, torch.float64, 0, 83_456),
     (8, torch.float32, 0, 50_432),
 ])
 def test_split_block_replaces_the_dense_block_at_64(n, dtype, split, smem):
@@ -524,6 +664,34 @@ def test_count_tc_reads_the_sass():
     }
 
 
+SASS_SHAPES = """
+        code for sm_90a
+                Function : _ZN4bfft15line_dft_kernelIdLb0ELi2ELi1ELb0EEEvNS_8LineArgsIT_EE
+        /*0100*/                   DMMA.16x8x16 R4, R8, R12, R4 ;
+        /*0110*/                   DMMA.16x8x16 R20, R24, R12, R20 ;
+                Function : _ZN4bfft16plane_dft_kernelIdLb1ELb0EEEvNS_9PlaneArgsIT_EE
+        /*0100*/                   DMMA.16x8x8 R4, R8, R10, R4 ;
+                Function : _ZN4bfft16plane_dft_kernelIfLb0ELb0EEEvNS_9PlaneArgsIT_EE
+        /*0100*/                   HMMA.1688.F32.TF32 R4, R8, R10, R4 ;
+                Function : _ZN4bfft16plane_dft_kernelIdLb0ELb0EEEvNS_9PlaneArgsIT_EE
+        /*0100*/                   DMMA.8x8x4 R4, R8, R10, R4 ;
+                Function : _ZN12_GLOBAL__N_113assemble_kernelIdEEvPKdS2_Pdx
+        /*0100*/                   DMMA.884 R4, R8, R10, R4 ;
+"""
+
+
+def test_dmma_shapes_reads_the_sass():
+    # per instance of a transform, its template arguments spelled out; other
+    # kernels are not counted
+    assert _build.dmma_shapes(SASS_SHAPES) == {
+        "line_dft_kernel<double,false,2,1,false>": {"16x8x16": 2},
+        "plane_dft_kernel<double,true,false>": {"16x8x8": 1},
+        "plane_dft_kernel<float,false,false>": {},
+        "plane_dft_kernel<double,false,false>": {"8x8x4": 1},
+    }
+    assert _build.dmma_shapes("") == {}
+
+
 # --------------------------------------------------------------------------
 # on the card
 # --------------------------------------------------------------------------
@@ -560,6 +728,77 @@ def test_transforms_run_on_the_tensor_cores(cuda_device):
     for kernel in ("line_dft_kernel", "plane_dft_kernel"):
         assert counts[f"{kernel}<double>"]["DMMA"] > 0
         assert counts[f"{kernel}<float>"]["HMMA"] > 0
+    # every double instance of K1's transforms on m16n8k16 / m16n8k8, none on
+    # m8n8k4: the dense tile's complex steps (16x8x16), a real B (16x8x8)
+    line = next(ln for ln in _build.BUILD_LOG.read_text().splitlines()
+                if ln.startswith("# DMMA shapes"))
+    shapes = ast.literal_eval(line.split(": ", 1)[1])
+    doubles = {k: v for k, v in shapes.items()
+               if k.startswith(("line_dft_kernel<double", "plane_dft_kernel<double"))}
+    assert doubles and all(sum(v.values()) > 0 and "8x8x4" not in v for v in doubles.values())
+    assert "16x8x16" in shapes["plane_dft_kernel<double,false,false>"]
+    assert "16x8x16" in shapes["line_dft_kernel<double,false,2,1,false>"]
+
+
+# --------------------------------------------------------------------------
+# on the card: K1 on the dense tile, 16^3 (the TG-2D batch) and 32^3
+# --------------------------------------------------------------------------
+
+
+def _bkw_batch(dev, n, batch, dtype="float64"):
+    """K1's arguments at n^3, Ns = 12, on ``batch`` distributions: the BKW
+    state at t = 6.5 scaled by 1 + 1e-3 i (``tools/k1_ab.py``'s inputs)."""
+    cfg = bt.CollisionConfig(nv=n, ns=12, impl="fused", dtype=dtype)
+    pre = bt.build_precomp(cfg, dev)
+    f = torch.as_tensor(bt.bkw_f(cfg.velocity_grid.r_squared(), 6.5), dtype=cfg.real_dtype,
+                        device=dev)
+    if batch > 1:
+        scale = 1.0 + 1e-3 * torch.arange(batch, dtype=cfg.real_dtype, device=dev)
+        f = scale[:, None, None, None] * f
+    args, kw = _k1_args(cfg, pre, f)
+    return cfg, pre, args, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,batch", [(16, 256), (32, 2)])
+def test_k1_dense_tile_matches_plain_bitwise_by_batch_and_chunk(cuda_device, n, batch):
+    from boltzfft_torch import obs
+
+    cfg, pre, args, kw = _bkw_batch(cuda_device, n, batch)
+    q = k1.fused_collide(*args, **kw)
+    note = obs.summary()["counters"]["k1_plan"][f"{batch}x{n}x{n}x{n}"]
+    assert note["split_yz"] == "dense" and note["dense_tile"] == "m16n8k16"
+    q_ref = k1.fused_collide_reference(*args, **kw)
+    assert bool(torch.isfinite(q).all())
+    assert float((q - q_ref).abs().max()) <= 1e-12 * float(q_ref.abs().max())
+    for i in (0, batch - 1):
+        one = list(args)
+        one[5] = args[5][i]
+        assert torch.equal(k1.fused_collide(*one, **kw), q[i])
+    # one radial group a chunk against the whole node set in one
+    assert torch.equal(k1.fused_collide(*args, chunk=cfg.ns_eff, **kw), q)
+
+
+# sha256 (16 hex digits) of K1's float32 Q on _bkw_batch's inputs, from the
+# parent of the float64 m16n8k16 tile (tools/k1_ab.py, H100): float32 keeps
+# its 3xTF32 tile bit for bit
+F32_DIGESTS = {(16, 256): "281e506410efd0ea", (32, 1): "b9b60aeb5776dfbf",
+               (64, 1): "a01d23594cebfa9b"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,batch", sorted(F32_DIGESTS))
+def test_k1_float32_keeps_its_bits(cuda_device, n, batch):
+    import hashlib
+
+    from boltzfft_torch import obs
+
+    _cfg, _pre, args, kw = _bkw_batch(cuda_device, n, batch, "float32")
+    q = k1.fused_collide(*args, **kw)
+    note = obs.summary()["counters"]["k1_plan"][f"{batch}x{n}x{n}x{n}"]
+    assert note["dense_tile"] == "3xtf32"
+    digest = hashlib.sha256(q.cpu().numpy().tobytes()).hexdigest()[:16]
+    assert digest == F32_DIGESTS[(n, batch)]
 
 
 # --------------------------------------------------------------------------
@@ -585,6 +824,7 @@ def test_k1_at_64_takes_the_split_and_matches_plain(cuda_device):
     q = k1.fused_collide(*args, **kw)
     note = obs.summary()["counters"]["k1_plan"]["2x64x64x64"]
     assert note["split_yz"] == "8x8" and note["chunks_per_eval"] >= 1
+    assert note["dense_tile"] == "m16n8k16"  # the x passes
     q_ref = k1.fused_collide_reference(*args, **kw)
     assert bool(torch.isfinite(q).all())
     assert float((q - q_ref).abs().max()) <= 1e-12 * float(q_ref.abs().max())

@@ -154,13 +154,15 @@ def test_evictions_are_counted(fake_graphs, observed):
 def test_k1_plan_note_reads_the_split(shape, dtype, split, monkeypatch):
     # what K1's wrapper notes per launch shape before it launches: the split
     # of y and z where the plane route takes it (64-point axes in float64),
+    # the dense tile's instruction shape,
     # the stream buffers' bytes, and no free reading for a chunk it was given
     monkeypatch.setattr(fused_collide, "_SETTLED_FREE", {})
     fused_collide.note_plan(2, shape, dtype, 384, 96)
     note = obs.summary()["counters"]["k1_plan"]["2x" + "x".join(map(str, shape))]
     csize = 16 if dtype == torch.float64 else 8
+    tile = "m16n8k16" if dtype == torch.float64 else "3xtf32"
     assert note == {"nodes_per_chunk": 96, "chunks_per_eval": 4, "split_yz": split,
-                    "stream_bytes": 2 * 2 * 2 * 96 * shape[0] ** 3 * csize,
+                    "dense_tile": tile, "stream_bytes": 2 * 2 * 2 * 96 * shape[0] ** 3 * csize,
                     "free_bytes_at_settle": None}
 
 

@@ -5,10 +5,12 @@ device time per eval of each of K1's kernels over ``--calls`` evals (the
 node streams' y/z plane pass among them, alone), a hash of Q's bytes, and
 the plane pass's bounds beside each other: the dense DMMA product's
 arithmetic, the two-factor split's arithmetic and the streams' bytes, with
-the eval's dense DMMA bound.  Prints one JSON line per (grid, dtype).
+the eval's dense DMMA bound and the kGain x pass's dense arithmetic.
+``--batch E`` evaluates E distributions in one launch (the TG-2D cells'
+batch: ``--grids 16 --batch 256``).  Prints one JSON line per (grid, dtype).
 
     python3 tools/k1_ab.py [--root DIR] [--label NAME] [--grids 64 32]
-        [--dtypes float64 float32] [--trials 20] [--calls 5]
+        [--dtypes float64 float32] [--batch 1] [--trials 20] [--calls 5]
 
 ``--root`` names the directory that holds the ``boltzfft_torch`` package to
 time (default: this checkout), so that two versions are timed in turns in
@@ -32,6 +34,7 @@ def main() -> int:
     ap.add_argument("--label", default="this")
     ap.add_argument("--grids", type=int, nargs="+", default=[64])
     ap.add_argument("--dtypes", nargs="+", default=["float64", "float32"])
+    ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--trials", type=int, default=20)
     ap.add_argument("--calls", type=int, default=5)
     args = ap.parse_args()
@@ -89,6 +92,9 @@ def main() -> int:
             pre = bt.build_precomp(cfg, dev)
             f = torch.as_tensor(bt.bkw_f(cfg.velocity_grid.r_squared(), 6.5),
                                 dtype=cfg.real_dtype, device=dev)
+            if args.batch > 1:  # distinct items: f scaled per item
+                scale = 1.0 + 1e-3 * torch.arange(args.batch, dtype=cfg.real_dtype, device=dev)
+                f = scale[:, None, None, None] * f
             ax, ay, az = op._alpha_factors(cfg, pre, pre.rho, pre.sigma)
             k1_args = (pre.rho, pre.gain_w, ax, ay, az, f, pre.beta2,
                        pre.dft_inv_axes(), pre.dft_fwd_axes(), pre.norm_l)
@@ -99,12 +105,14 @@ def main() -> int:
             ms = events_ms(run)
             by = device_per_eval(run)
             n_nodes = pre.rho.shape[0]
-            dense, split, nbytes = plane_pass_bounds(n, n_nodes, dtype)
+            E = args.batch
+            dense, split, nbytes = (None if v is None else E * v
+                                    for v in plane_pass_bounds(n, n_nodes, dtype))
             plane = None if by is None else {k: v for k, v in by.items() if "plane_dft_kernel" in k}
             streams = None if not plane else max(plane.values())  # the streams' pass
             plan = getattr(k1, "split_yz", None)
             line = {
-                "label": args.label, "grid": n, "dtype": dtype, "card": card,
+                "label": args.label, "grid": n, "batch": E, "dtype": dtype, "card": card,
                 "eval_ms": statistics.median(ms), "eval_ms_quartiles":
                     [round(v, 5) for v in statistics.quantiles(ms, n=4)],
                 "device_ms_per_eval": None if by is None else round(sum(by.values()), 5),
@@ -113,7 +121,9 @@ def main() -> int:
                 "plane_pass_streams_ms": None if streams is None else round(streams, 5),
                 "split_yz": plan((n, n, n), cfg.real_dtype) if plan else "dense",
                 "bounds_ms": {"eval_dense": round(1e3 * TC_PASSES[dtype] * k1_flops(
-                                  (n, n, n), n_nodes, cfg.n_gl) / PEAK_TC[dtype], 4),
+                                  (n, n, n), n_nodes, cfg.n_gl, E) / PEAK_TC[dtype], 4),
+                              "x_gain_dense": round(1e3 * TC_PASSES[dtype] * E * 2 * n_nodes
+                                                    * n ** 4 * 8.0 / PEAK_TC[dtype], 4),
                               "plane_pass_dense": round(dense, 4),
                               "plane_pass_split": None if split is None else round(split, 4),
                               "plane_pass_bytes": round(nbytes, 4)},
