@@ -383,8 +383,8 @@ def _gmain_mode(cfg: CollisionConfig, pre: DsPrecomp, cmax: int, w: int,
     kept under 12 MB: grids up to ~40^3) and the half-z stage merges too;
     above it K10, where its plan fits without cutting the slices into column
     groups (``kernels.oz_gmain12.plan``).  The K10 branch is the card's:
-    paired runs of the whole 64^3 eval (``chip_smoke.py`` phase 20)
-    put ``"12"`` ahead of the staged chain in wall and device time; at 32^3
+    paired runs of the whole 64^3 eval on an NVIDIA H100 80GB HBM3 put
+    ``"12"`` ahead of the staged chain in wall and device time; at 32^3
     K9, K10 and the staged chain tie within the host's spread, so the
     envelope stays."""
     nx, ny, nz = cfg.grid_shape

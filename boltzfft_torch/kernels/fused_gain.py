@@ -115,10 +115,10 @@ def pick_scheme(nx: int, ny: int, nz: int) -> str:
     gets K2.  Independent of the device and of ``nx``.
 
     It follows the whole Q of E BKW distributions at Ns=12 through K1
-    against the kron route (K3 plus its cuFFT finale), ``chip_smoke.py``
-    phase 4, NVIDIA H100 80GB HBM3 at 700 W, both kernels on the tensor
-    cores (K3's y/z GEMM since its redesign); the mean of two runs' medians
-    of 20 trials, in ms (f64 / f32):
+    against the kron route (K3 plus its cuFFT finale), timed with CUDA
+    events in turns on an NVIDIA H100 80GB HBM3 at 700 W, both kernels on
+    the tensor cores (K3's y/z GEMM since its redesign); the mean of two
+    runs' medians of 20 trials, in ms (f64 / f32):
 
     ====  =====  ===============  ===============
     grid  E      K1               kron route

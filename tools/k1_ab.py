@@ -20,12 +20,42 @@ one call on one card: parent, change, change, parent.
 import argparse
 import hashlib
 import json
+import math
 import statistics
 import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+# Peaks of an H100 SXM at 700 W (NVIDIA's data sheet): device memory
+# bytes/s, and the tensor cores' dense rates that K1's transforms run at:
+# DMMA in float64, TF32 in float32, where 3xTF32 does 3 products for each
+# one.
+PEAK_BYTES = 3.35e12
+PEAK_TC = {"float64": 67e12, "float32": 495e12}
+TC_PASSES = {"float64": 1, "float32": 3}
+
+
+def k1_flops(shape, n_nodes, n_groups, batch=1):
+    """K1's arithmetic: every transform is a dense DFT along one axis,
+    n3 * N_axis complex multiply-adds per axis, 8 FLOPs each; per eval the
+    forward of f, 2 streams per node, one forward per group and the 2 final
+    inverses (``csrc/fused_collide.cu``)."""
+    n3 = shape[0] * shape[1] * shape[2]
+    return batch * 8.0 * n3 * sum(shape) * (2 * n_nodes + n_groups + 3)
+
+
+def plane_pass_bounds(n, n_nodes, dtype):
+    """(dense ms, split ms or None, bytes ms) of K1's node-stream y/z plane
+    pass per eval at n^3: 2 B grids, 2 axes at n complex multiply-adds a
+    point as dense products, 2 sqrt(n) as the two-factor split (only where n
+    is a square), 8 FLOPs each, on the tensor cores; each stream written
+    once (its input, f_hat, stays in L2)."""
+    flops = 2 * n_nodes * 2 * n ** 3 * 8.0
+    r = math.isqrt(n)
+    t = lambda macs: 1e3 * TC_PASSES[dtype] * flops * macs / PEAK_TC[dtype]  # noqa: E731
+    csize = 16 if dtype == "float64" else 8
+    return t(n), (t(2 * r) if r * r == n else None), 1e3 * 2 * n_nodes * n ** 3 * csize / PEAK_BYTES
 
 
 def main() -> int:
@@ -38,9 +68,6 @@ def main() -> int:
     ap.add_argument("--trials", type=int, default=20)
     ap.add_argument("--calls", type=int, default=5)
     args = ap.parse_args()
-    sys.path.insert(0, str(ROOT))
-    from chip_smoke import PEAK_TC, TC_PASSES, k1_flops, plane_pass_bounds  # this checkout's
-
     sys.path.insert(0, args.root)
     import torch
 
